@@ -3,21 +3,33 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``retina_tpu_torch/kernels/csrc``,
+Builds the port's six CUDA kernels from ``retina_tpu_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card at the
-shapes of the main path, then drives the main path of one node agent
-(Telemetry step -> end_window -> snapshot -> host top-k) at the deployed
-agent's shapes: 3 windows x 8 steps over two 2^21-event batches of a
-1M-flow Zipf stream. The state after the run must equal the same run
-through the plain versions on the card.
+shapes of the main path, then drives the port's paths through the entry
+points a node agent calls (Telemetry step -> end_window -> snapshot ->
+host top-k), each over two 2^21-event batches of a 1M-flow Zipf stream:
 
-Comparison rules: integer state is compared exactly (the top-k winner and
-the latency slot winner are both fixed to "last row in batch order" in the
-kernels and the plain versions alike); float32 entropy counts of integer
-weights are exact below 2^24 per bucket and compared exactly there, within
-a relative 2^-22 above; derived floats (entropy bits, HLL estimates,
-EWMA state, z-scores) within a relative 1e-5, since reductions may group
-differently.
+- the main path: the deployed agent (DEPLOYED_CONFIG: conntrack on, low
+  aggregation), 3 windows x 8 steps;
+- the invertible path: INVERTIBLE_CONFIG, 1 window x 8 steps, with
+  inv_decode at the window close;
+- the earlier paths: PipelineConfig() (bench.py's production shapes:
+  conntrack on, high aggregation) and NO_CONNTRACK_CONFIG, 1 window x 8
+  steps each.
+
+Each path's launch counts are set to 0 just before it and read just after,
+and every kernel of the path must have launched. The state, step summaries,
+window outputs, snapshots and decodes after each path must equal the same
+run through the plain versions on the card.
+
+Comparison rules: integer state and outputs are compared exactly (the
+top-k winner and the latency slot winner are "last row in batch order",
+the conntrack report row is the connection's last row and a shared slot
+goes to the largest fingerprint, in the kernels and the plain versions
+alike); float32 entropy counts of integer weights are exact below 2^24
+per bucket and compared exactly there, within a relative 2^-22 above;
+derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
+a relative 1e-5, since reductions may group differently.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -26,6 +38,7 @@ no result line, if there is no card or any check fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -39,6 +52,9 @@ WINDOWS, STEPS = 3, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 OPS_PER_S = 67e12  # 32-bit non-tensor rate of the H100 SXM
 HASH_OPS = 14  # integer ops to fold one u32 column into a hash
+# now_s of the K5 check: new, within the interval, interval up, UDP
+# expiry, TCP expiry, the 16-bit wrap, and a clock 10 s back.
+CT_CLOCK = (100, 101, 131, 200, 600, 65_700, 65_690)
 
 
 class CheckFailed(AssertionError):
@@ -48,6 +64,19 @@ class CheckFailed(AssertionError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise CheckFailed(what)
+
+
+def named_leaves(obj, prefix: str = ""):
+    """(name, tensor) of every state tensor, in the reference's leaf order."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [(prefix, obj)]
+    out = []
+    if dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            out += named_leaves(getattr(obj, f.name), f"{prefix}.{f.name}".lstrip("."))
+    return out
 
 
 def main() -> int:
@@ -63,10 +92,16 @@ def main() -> int:
     from retina_tpu_torch.kernels import ops as kops
     from retina_tpu_torch.models.identity import IdentityMap
     from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
+    from retina_tpu_torch.models.pipeline import (
+        INVERTIBLE_CONFIG,
+        NO_CONNTRACK_CONFIG,
+        PipelineConfig,
+    )
+    from retina_tpu_torch.ops.conntrack import ConntrackTable
     from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
+    from retina_tpu_torch.ops.invertible import InvertibleSketch, bits, indices
     from retina_tpu_torch.parallel.telemetry import Telemetry, topk_from_snapshot
-    from retina_tpu_torch.convert import tensor_leaves
-    from retina_tpu_torch.u32 import from_numpy, to_numpy, widen
+    from retina_tpu_torch.u32 import from_numpy, narrow, to_numpy, widen
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -77,7 +112,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"kernel build: {len(libs)} kernels in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, path in libs.items():
         log = path.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
@@ -119,6 +154,18 @@ def main() -> int:
     def close_float(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
         check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6)), f"{what}: floats differ")
 
+    def equal_any(a, b, what: str) -> None:
+        """Integer and bool tensors exactly, float32 within the float rule."""
+        if isinstance(a, dict):
+            check(set(a) == set(b), f"{what}: keys differ")
+            for k in a:
+                equal_any(a[k], b[k], f"{what}.{k}")
+        elif a.dtype == torch.float32:
+            check(bool(torch.isfinite(a).all()), f"{what} finite")
+            close_float(a, b, what)
+        else:
+            equal_int(a, b, what)
+
     results = []
 
     def report(name, source, replaces, ms, plain_ms, nbytes, ops, library_ms, err):
@@ -139,8 +186,8 @@ def main() -> int:
     pair = [tel.init_state(), tel.init_state()]
     filt = IdentityMap.zeros(1 << 4, seed=99, device=dev)  # Telemetry's empty filter map
 
-    def k1(state, r):
-        return kops.step_rows(r, BATCH, 1, ident.table, ident.seed, filt.table, filt.seed,
+    def k1(state, r, n_valid=BATCH):
+        return kops.step_rows(r, n_valid, 1, ident.table, ident.seed, filt.table, filt.seed,
                               state.pod_forward, state.pod_drop, state.pod_tcpflags,
                               state.pod_dns, state.pod_retrans, state.node_counters,
                               state.totals, CFG)
@@ -155,9 +202,9 @@ def main() -> int:
     for j in range(2):
         equal_int(outs[0][j][0], outs[1][j][0], f"K1 scratch batch {j}")
         equal_int(outs[0][j][1], outs[1][j][1], f"K1 sums batch {j}")
-    for a, b, n in zip(tensor_leaves(pair[0]), tensor_leaves(pair[1]), range(10)):
-        if a.dtype == torch.int32:
-            equal_int(a, b, f"K1 state leaf {n}")
+    for a, b, n in zip(named_leaves(pair[0]), named_leaves(pair[1]), range(10)):
+        if a[1].dtype == torch.int32:
+            equal_int(a[1], b[1], f"K1 state {a[0]}")
     scratch = dict(zip(kops.SCRATCH, outs[0][0][0]))
     st = tel.init_state()
     ms = time_ms(lambda: k1(st, recs[0]))
@@ -258,6 +305,7 @@ def main() -> int:
     flat_i, vals_i = torch.cat(flat), torch.cat(vals)
     regs = torch.zeros(off, dtype=torch.int32, device=dev)
     lib_ms = time_ms(lambda: regs.scatter_reduce_(0, flat_i, vals_i, "amax"))
+    del flat, vals, flat_i, vals_i, regs
     report("hll_update", "retina_tpu_torch/kernels/csrc/hll_update.cu",
            "retina_tpu/ops/hyperloglog.py:72", ms, plain_ms, nbytes, ops, lib_ms, 0.0)
 
@@ -278,84 +326,204 @@ def main() -> int:
     wf = widen(scratch["ent_w"]).float().repeat(3)
     hist = torch.zeros(3 * k, dtype=torch.float32, device=dev)
     lib_ms = time_ms(lambda: hist.index_add_(0, idx, wf))
+    del idx, wf
     active = int((scratch["ent_w"] != 0).sum())
     report("entropy_update", "retina_tpu_torch/kernels/csrc/entropy_update.cu",
            "retina_tpu/ops/entropy.py:54", ms, plain_ms,
            BATCH * 4 * 4 + 2 * 4 * 3 * k, active * (3 * HASH_OPS + 3), lib_ms, err)
 
-    # -- main path: step -> end_window -> snapshot -> top-k, twice -----------
-    def run_main(plain: bool):
-        state = tel.init_state()
-        snaps, windows, step_s = [], [], 0.0
-        for w in range(WINDOWS):
-            for s in range(STEPS):
+    # -- K5: conntrack at 2^21 rows and 2^18 slots ------------------------
+    rng = np.random.default_rng(SEED)
+    partial = recs[1].clone()
+    n_partial = BATCH - BATCH // 8
+    partial[n_partial:] = from_numpy(
+        rng.integers(0, 1 << 32, (BATCH - n_partial, 16), dtype=np.uint64).astype(np.uint32),
+        dev)
+
+    def ct_inputs(r, n_valid=BATCH):
+        """process_lanes' arguments for one batch, from K1's lanes as the
+        step passes them (now_s goes in the middle)."""
+        sc = dict(zip(kops.SCRATCH, k1(tel.init_state(), r, n_valid)[0]))
+        head = [r[:, F.SRC_IP], r[:, F.DST_IP], r[:, F.PORTS], sc["proto"],
+                (r[:, F.META] >> 16) & 0xFF]
+        return head, [sc["bytes"], sc["mask"], sc["ent_w"]]
+
+    # Reply rows: a third of one batch flipped to the opposite direction.
+    flipped = recs[0].clone()
+    rev = flipped[::3]
+    rev[:, F.SRC_IP], rev[:, F.DST_IP] = recs[0][::3, F.DST_IP], recs[0][::3, F.SRC_IP]
+    p = recs[0][::3, F.PORTS]
+    rev[:, F.PORTS] = ((p & 0xFFFF) << 16) | ((p >> 16) & 0xFFFF)
+    batches = {1: (partial, n_partial), 3: (flipped,), 5: (flipped,)}
+    ct_calls = [(now, *ct_inputs(*batches.get(i, (recs[i % 2],))))
+                for i, now in enumerate(CT_CLOCK)]
+    tables = [ConntrackTable.zeros(CFG.conntrack_slots, seed=8, device=dev) for _ in range(2)]
+    rep_low = None
+    for now, head, tail in ct_calls:
+        out = tables[0].process_lanes(*head, now, *tail)
+        with kops.plain_versions():
+            ref = tables[1].process_lanes(*head, now, *tail)
+        equal_int(out, ref, f"K5 lanes at now={now}")
+        equal_int(tables[0].keys, tables[1].keys, f"K5 keys at now={now}")
+        equal_int(tables[0].vals, tables[1].vals, f"K5 vals at now={now}")
+        check(int(out[0].sum()) > 0, f"K5 no reports at now={now}")
+        print(f"K5 now={now}: {int(out[0].sum())} reports, {int(out[1].sum())} replies",
+              flush=True)
+        if now == 131:
+            rep_low = out[2].clone()  # flow_w of a real step at low aggregation
+    now, head, tail = ct_calls[2]
+    ms = time_ms(lambda: tables[0].process_lanes(*head, now, *tail))
+    with kops.plain_versions():
+        plain_ms = time_ms(lambda: tables[1].process_lanes(*head, now, *tail))
+    fp = widen(torch.randint(-(1 << 31), 1 << 31, (BATCH,), dtype=torch.int32, device=dev))
+    sort_ms = time_ms(lambda: torch.sort(fp, stable=True))
+    del fp
+    n_masked = int((tail[1] != 0).sum())
+    slot_bytes = 24 * CFG.conntrack_slots
+    report("conntrack", "retina_tpu_torch/kernels/csrc/conntrack.cu",
+           "retina_tpu/ops/conntrack.py:123", ms, plain_ms,
+           BATCH * (8 * 4 + 4 * 4) + 2 * slot_bytes, n_masked * (8 * HASH_OPS + 40), None, 0.0)
+    print(f"K5 note: torch.sort (stable) of {BATCH} int64 keys {sort_ms:.4f} ms, the "
+          f"reference design's sort alone", flush=True)
+
+    # -- K6: the invertible sketch at INVERTIBLE_CONFIG's shapes ----------
+    icfg = INVERTIBLE_CONFIG
+    key5 = [recs[0][:, F.SRC_IP], recs[0][:, F.DST_IP], recs[0][:, F.PORTS], scratch["proto"]]
+    for label, w in (("low", rep_low), ("high", scratch["flow_w"])):
+        invs = [InvertibleSketch.zeros(icfg.inv_depth, icfg.inv_width, 4, seed=9, device=dev)
+                for _ in range(2)]
+        for _ in range(2):
+            invs[0].update(key5, w)
+            with kops.plain_versions():
+                invs[1].update(key5, w)
+        equal_int(invs[0].planes, invs[1].planes, f"K6 planes ({label})")
+        equal_int(invs[0].weights, invs[1].weights, f"K6 weights ({label})")
+        dec = [inv.decode() for inv in invs]
+        for j in range(4):
+            equal_int(dec[0][0][j], dec[1][0][j], f"K6 decode col {j} ({label})")
+        equal_int(dec[0][1], dec[1][1], f"K6 decode weight ({label})")
+        equal_int(dec[0][2], dec[1][2], f"K6 decode ok ({label})")
+        print(f"K6 {label}: {int((w != 0).sum())} weighted rows, "
+              f"{int(dec[0][2].sum())} buckets decode", flush=True)
+    inv = InvertibleSketch.zeros(icfg.inv_depth, icfg.inv_width, 4, seed=9, device=dev)
+    ms = time_ms(lambda: inv.update(key5, rep_low))
+    with kops.plain_versions():
+        plain_ms = time_ms(lambda: inv.update(key5, rep_low))
+    d, w, nb = inv.planes.shape
+    flat_idx = (indices(d, w, 9, key5) + (torch.arange(d, device=dev) * w)[:, None]).reshape(-1)
+    rows = narrow(bits(key5, 9) * widen(rep_low)[:, None]).repeat(d, 1)
+    lib_planes = torch.zeros((d * w, nb), dtype=torch.int32, device=dev)
+    lib_ms = time_ms(lambda: lib_planes.index_add_(0, flat_idx, rows))
+    del flat_idx, rows, lib_planes
+    active = int((rep_low != 0).sum())
+    report("inv_update", "retina_tpu_torch/kernels/csrc/inv_update.cu",
+           "retina_tpu/ops/invertible.py:136", ms, plain_ms,
+           BATCH * 4 + active * 16 + 2 * 4 * d * w * (nb + 1),
+           active * ((d + 1) * 4 * HASH_OPS + d * nb), lib_ms, 0.0)
+
+    # -- the paths: step -> end_window -> snapshot (-> inv_decode) ---------
+    def run_path(t, windows, steps, plain):
+        state = t.init_state()
+        snaps, wins, decs, step_s, n_reports = [], [], [], 0.0, 0
+        for w in range(windows):
+            for s in range(steps):
                 torch.cuda.synchronize()
-                t = time.perf_counter()
+                t0 = time.perf_counter()
                 if plain:
                     with kops.plain_versions():
-                        state, summ = tel.step(state, recs[(w * STEPS + s) % 2], BATCH,
-                                               2 + w, ident)
+                        state, summ = t.step(state, recs[(w * steps + s) % 2], BATCH, 2 + w,
+                                             ident)
                 else:
-                    state, summ = tel.step(state, recs[(w * STEPS + s) % 2], BATCH,
-                                           2 + w, ident)
+                    state, summ = t.step(state, recs[(w * steps + s) % 2], BATCH, 2 + w,
+                                         ident)
                 torch.cuda.synchronize()
-                step_s += time.perf_counter() - t
+                step_s += time.perf_counter() - t0
                 check(int(summ["events"]) == BATCH, "step summary events")
-            state, out = tel.end_window(state)
-            windows.append(out)
-            snaps.append(tel.snapshot(state, 2 + w))
-        return state, snaps, windows, step_s
+                check(int(summ["ct_reports"]) == int(summ["report_mask"].sum()),
+                      "step summary ct_reports")
+                n_reports += int(summ["ct_reports"])
+                if w == 0 and s == 0:
+                    first = summ
+            if t.pipeline.config.enable_invertible:
+                decs.append(t.inv_decode(state))
+            state, out = t.end_window(state)
+            wins.append(out)
+            snaps.append(t.snapshot(state, 2 + w))
+        return dict(state=state, snaps=snaps, wins=wins, decs=decs, step_s=step_s,
+                    n_reports=n_reports, first=first)
 
-    kops.reset_launch_counts()
-    state, snaps, windows, step_s = run_main(plain=False)
-    launches = kops.launch_counts()
-    print(f"main path launches: {launches}", flush=True)
+    def compare_runs(a, b, label):
+        for (name, x), (_, y) in zip(named_leaves(a["state"]), named_leaves(b["state"])):
+            if x.dtype == torch.int32:
+                equal_int(x, y, f"{label} state {name}")
+            elif name == "entropy.counts":
+                close_counts(x, y, f"{label} entropy counts")
+            else:
+                close_float(x, y, f"{label} state {name}")
+        equal_any(a["first"], b["first"], f"{label} first step summary")
+        for w in range(len(a["wins"])):
+            equal_any(a["wins"][w], b["wins"][w], f"{label} window {w}")
+            equal_any(a["snaps"][w], b["snaps"][w], f"{label} snapshot {w}")
+        for w in range(len(a["decs"])):
+            equal_any(a["decs"][w], b["decs"][w], f"{label} inv_decode {w}")
+
+    true_keys = [
+        (int(gen.src_ip[f]), int(gen.dst_ip[f]),
+         int((gen.sport[f] << np.uint32(16)) | gen.dport[f]), int(gen.proto[f]))
+        for f in gen.true_top_k(50)
+    ]
+
+    def recall(found) -> float:
+        return sum(k in found for k in true_keys) / 50
+
+    def path(name, cfg, windows, steps, kernels):
+        t = Telemetry(cfg, device=dev)
+        kops.reset_launch_counts()
+        run = run_path(t, windows, steps, plain=False)
+        launches = kops.launch_counts()
+        print(f"{name} launches: {launches}", flush=True)
+        for k in kernels:
+            check(launches[k] > 0, f"{k} was not launched on the {name}")
+        ref = run_path(t, windows, steps, plain=True)
+        check(kops.launch_counts() == launches, f"the plain {name} run launched kernels")
+        compare_runs(run, ref, name)
+        state = run["state"]
+        fed = sum(int(host[i % 2][:, F.PACKETS].astype(np.uint64).sum())
+                  for i in range(windows * steps)) & 0xFFFFFFFF
+        check(int(to_numpy(state.totals)[0]) == fed, f"{name}: totals[0] != packets fed")
+        check(int(to_numpy(state.totals)[6]) == run["n_reports"] & 0xFFFFFFFF,
+              f"{name}: totals[6] != report rows of the summaries")
+        keys, _ = topk_from_snapshot(run["snaps"][-1], "flow_hh", 256)
+        rec = recall({tuple(int(x) for x in kk) for kk in keys})
+        n = windows * steps
+        print(f"{name}: {n} steps, {n * BATCH / run['step_s']:.0f} events/s "
+              f"({run['step_s'] / n * 1e3:.3f} ms/step; plain {ref['step_s'] / n * 1e3:.3f} "
+              f"ms/step), flow recall@50 {rec:.2f}, totals[0] {fed}, "
+              f"reports {run['n_reports']}", flush=True)
+        check(rec >= 0.8, f"{name}: flow recall@50 {rec} below 0.8")
+        return run, launches
+
+    k1_k5 = ["step_rows", "hh_update", "hll_update", "entropy_update", "conntrack"]
+    run, launches = path("main path", CFG, WINDOWS, STEPS, k1_k5)
+    cms_rows = widen(run["state"].flow_hh.cms.table).sum(dim=1) & 0xFFFFFFFF
+    ct_lo = int(to_numpy(run["state"].ct_totals)[0])
+    check(bool((cms_rows == ct_lo).all()), "main path: a flow_hh CMS row != ct_totals[0]")
     for r in results:
         r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} was not launched on the main path")
-    ref_state, ref_snaps, ref_windows, plain_s = run_main(plain=True)
-    check(kops.launch_counts() == launches, "the plain run launched kernels")
 
-    for n, (a, b) in enumerate(zip(tensor_leaves(state), tensor_leaves(ref_state))):
-        if a.dtype == torch.int32:
-            equal_int(a, b, f"main path state leaf {n}")
-        elif n == 20:  # entropy counts (reset at the last window close)
-            close_counts(a, b, "main path entropy counts")
-        else:
-            close_float(a, b, f"main path float leaf {n}")
-    for w in range(WINDOWS):
-        for key in ("entropy_bits", "zscore"):
-            close_float(windows[w][key], ref_windows[w][key], f"window {w} {key}")
-            check(bool(torch.isfinite(windows[w][key]).all()), f"window {w} {key} finite")
-        equal_int(windows[w]["anomaly"], ref_windows[w]["anomaly"], f"window {w} anomaly")
-        for key, v in snaps[w].items():
-            rv = ref_snaps[w][key]
-            if isinstance(v, dict):
-                for kk in v:
-                    equal_int(v[kk], rv[kk], f"snapshot {w} {key}.{kk}")
-            elif v.dtype == torch.float32:
-                check(bool(torch.isfinite(v).all()), f"snapshot {w} {key} finite")
-                close_float(v, rv, f"snapshot {w} {key}")
-            else:
-                equal_int(v, rv, f"snapshot {w} {key}")
+    run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
+                         k1_k5 + ["inv_update"])
+    dec = run["decs"][-1]
+    ok = dec["ok"]
+    found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
+    print(f"invertible path: {int(ok.sum())} verified buckets, {len(found)} keys, recall of "
+          f"the true top-50 {recall(found):.2f}", flush=True)
+    for r in results:
+        if r["name"] == "inv_update":
+            r["launches"] = launches["inv_update"]
 
-    fed = sum(int(host[(i % 2)][:, F.PACKETS].astype(np.uint64).sum())
-              for i in range(WINDOWS * STEPS)) & 0xFFFFFFFF
-    check(int(to_numpy(state.totals)[0]) == fed, "totals[0] != packets fed")
-    keys, _ = topk_from_snapshot(snaps[-1], "flow_hh", 256)
-    reported = {tuple(int(x) for x in kk) for kk in keys}
-    true_ids = gen.true_top_k(50)
-    hits = sum(
-        (int(gen.src_ip[f]), int(gen.dst_ip[f]),
-         int((gen.sport[f] << np.uint32(16)) | gen.dport[f]), int(gen.proto[f])) in reported
-        for f in true_ids
-    )
-    recall = hits / 50
-    n_steps = WINDOWS * STEPS
-    print(f"main path: {n_steps} steps, {n_steps * BATCH / step_s:.0f} events/s "
-          f"({step_s / n_steps * 1e3:.3f} ms/step; plain {plain_s / n_steps * 1e3:.3f} "
-          f"ms/step), flow recall@50 {recall:.2f}, totals[0] {fed}", flush=True)
-    check(recall >= 0.8, f"flow recall@50 {recall} below 0.8")
+    path("production path", PipelineConfig(), 1, STEPS, k1_k5)
+    path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS, k1_k5[:4])
 
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -7,7 +7,7 @@
 // pod join). The plain version is models/pipeline.py step_rows_plain.
 //
 // Bound on the H100: bytes. Each event reads its 64-byte record once and
-// writes the 13 u32 lanes of per-event scratch that K2-K4 read (52 bytes);
+// writes the 15 u32 lanes of per-event scratch that K2-K6 read (60 bytes);
 // the identity table (S, 2) is 512 KiB and stays in L2. Then atomics: at
 // most 2 + 2 + 8 + 2 + 1 u32 atomicAdds per event into the rectangles,
 // spread over P pods.
@@ -21,15 +21,15 @@
 // a few thousand atomics on ten hot words instead of two million. u32
 // sums wrap mod 2^32, as the reference's do, and wrapping addition does
 // not depend on the order. The scratch lanes are written column-major,
-// (13, B), so every later kernel reads them coalesced.
+// (15, B), so every later kernel reads them coalesced.
 #include "hash.cuh"
 
 namespace {
 
-// Scratch lanes; the order is SCRATCH in retina_tpu_torch/models/pipeline.py.
+// Scratch lanes; the order is SCRATCH in retina_tpu_torch/kernels/ops.py.
 enum Lane {
   kSrcPod, kDstPod, kProto, kDport, kFlowW, kSvcW, kDnsW, kEntW,
-  kMask, kIsDrop, kReason, kPodGrp, kPodMask, kLanes
+  kMask, kIsDrop, kReason, kPodGrp, kPodMask, kBytes, kIsPrio, kLanes
 };
 constexpr int kSums = 10;  // totals[0:6], node_counters (ing pkts, ing bytes, eg pkts, eg bytes)
 
@@ -91,9 +91,9 @@ __global__ void step_rows_kernel(Step s) {
     bool m = (unsigned long long)i < s.n_valid;
 
     // Horvitz-Thompson rescale of sampled rows (u32 saturating multiply).
+    const bool prio = s.prio_mask != 0u && (((src_ip & s.prio_mask) == s.prio_match) ||
+                                            ((dst_ip & s.prio_mask) == s.prio_match));
     if (s.exempt_packets > 0u) {
-      const bool prio = s.prio_mask != 0u && (((src_ip & s.prio_mask) == s.prio_match) ||
-                                              ((dst_ip & s.prio_mask) == s.prio_match));
       const bool exempt = pk >= s.exempt_packets || (tsval | tsecr) != 0u || prio;
       const uint32_t k = s.sample_k;
       if (k > 1u && !exempt) {
@@ -176,6 +176,8 @@ __global__ void step_rows_kernel(Step s) {
     o[kReason * B] = reason;
     o[kPodGrp * B] = dp < s.P - 1u ? dp : s.P - 1u;
     o[kPodMask * B] = (ingress && m) ? 1u : 0u;
+    o[kBytes * B] = m ? bytes : 0u;
+    o[kIsPrio * B] = prio ? 1u : 0u;
   }
 
   __shared__ uint32_t part[kSums][32];

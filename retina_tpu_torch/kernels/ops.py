@@ -35,10 +35,13 @@ _ARGTYPES = {
     + _COLS + [_VP, _LL, _LL, _VP],
     "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
     "entropy_update": [_VP, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
+    "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
+    + [_LL, _U32, _VP, _VP, _VP, _INT, _VP, _VP, _VP],
+    "inv_update": [_VP, _VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
 }
 
 # Kernel launches per wrapper since the last reset (a launch of hh_update
-# counts its three phases).
+# counts its three phases, one of conntrack its two).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -47,7 +50,8 @@ _fns: dict[str, ctypes._CFuncPtr] = {}
 # csrc/step_rows.cu, enum Lane).
 SCRATCH = (
     "src_pod", "dst_pod", "proto", "dport", "flow_w", "svc_w", "dns_w",
-    "ent_w", "mask", "is_drop", "reason", "pod_grp", "pod_mask",
+    "ent_w", "mask", "is_drop", "reason", "pod_grp", "pod_mask", "bytes",
+    "is_priority",
 )
 N_SUMS = 10  # totals[0:6] then node_counters (ing pkts, ing bytes, eg pkts, eg bytes)
 
@@ -148,7 +152,7 @@ def step_rows(records, n_valid, sample_k, ident_table, ident_seed,
               filt_table, filt_seed, pod_forward, pod_drop, pod_tcpflags,
               pod_dns, pod_retrans, node_counters, totals, cfg):
     """Per-event body of the step (K1): updates the rectangles, node
-    counters and totals[0:6] in place and returns (scratch (13, B) int32
+    counters and totals[0:6] in place and returns (scratch (15, B) int32
     with the lanes of SCRATCH, sums (10,) int32 of this batch).
 
     ``cfg`` is a PipelineConfig; ``filt_table`` is None when no filter map
@@ -288,4 +292,94 @@ def entropy_update(counts, seed, key_cols, weights):
     _launch(
         "entropy_update", dev, counts.data_ptr(), k, int(seed) & 0xFFFFFFFF,
         *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b,
+    )
+
+
+# ---------------------------------------------------------------------------
+# K5
+
+
+def conntrack_process(keys, vals, seed, src_ip, dst_ip, ports, proto, tcp_flags, now_s,
+                      bytes_, mask, packets, scratch):
+    """Connection tracking over one batch (K5): updates the table ``keys``
+    (S, 2) and ``vals`` (S, 4) in place and returns (4, B) int32 lanes
+    [report, is_reply, report_packets, report_bytes] in batch order.
+
+    Columns are (B,) int32 u32 lanes of any stride; ``mask`` is 0/1;
+    ``packets`` None counts one packet per row. ``scratch`` is a dict the
+    caller keeps per table: the kernel's batch-local tables are allocated
+    there once and reused."""
+    dev = keys.device
+    n_slots = keys.shape[0]
+    _pow2(n_slots, "conntrack slots")
+    _state(keys, "conntrack keys", dev, shape=(n_slots, 2))
+    _state(vals, "conntrack vals", dev, shape=(n_slots, 4))
+    b = mask.shape[0]
+    cols = [(src_ip, "src_ip"), (dst_ip, "dst_ip"), (ports, "ports"), (proto, "proto"),
+            (tcp_flags, "tcp_flags"), (bytes_, "bytes"), (mask, "mask")]
+    if packets is not None:
+        cols.append((packets, "packets"))
+    for t, name in cols:
+        _col(t, name, b, dev)
+    now = int(now_s) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.conntrack import process_plain
+
+        return process_plain(keys, vals, seed, src_ip, dst_ip, ports, proto, tcp_flags,
+                             now, bytes_, mask, packets)
+    if b > 1 << 30:
+        raise ValueError("batch too large for the 31-bit row index")
+    if vals.data_ptr() % 16:
+        raise ValueError("conntrack vals must be 16-byte aligned")
+    n_ent = 1 << max(6, (2 * b - 1).bit_length())  # a power of two >= 2B
+    if scratch.get("n_ent", 0) < n_ent or scratch["winner"].shape[0] != n_slots \
+            or scratch["winner"].device != dev:
+        scratch.clear()
+        scratch.update(
+            n_ent=n_ent,
+            key=torch.full((n_ent,), -1, dtype=torch.int64, device=dev),
+            acc=torch.zeros((n_ent, 4), dtype=torch.int32, device=dev),
+            res=torch.empty((n_ent, 6), dtype=torch.int32, device=dev),
+            winner=torch.empty((n_slots,), dtype=torch.int64, device=dev),
+        )
+    out = torch.empty((4, b), dtype=torch.int32, device=dev)
+    args = []
+    for t in (src_ip, dst_ip, ports, proto, tcp_flags, bytes_, mask):
+        args += [t.data_ptr(), t.stride(0)]
+    args += [None, 0] if packets is None else [packets.data_ptr(), packets.stride(0)]
+    _launch(
+        "conntrack", dev, keys.data_ptr(), vals.data_ptr(), n_slots,
+        int(seed) & 0xFFFFFFFF, *args, b, now, scratch["key"].data_ptr(),
+        scratch["acc"].data_ptr(), scratch["res"].data_ptr(), scratch["n_ent"],
+        scratch["winner"].data_ptr(), out.data_ptr(), n_launches=2,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K6
+
+
+def inv_update(planes, weights_table, seed, key_cols, weights):
+    """Invertible sketch update (K6) in place: bit planes (D, W, 32(C+1))
+    and bucket weights (D, W) of the C key columns; rows of weight 0 add
+    nothing."""
+    dev = planes.device
+    b = weights.shape[0]
+    _state(planes, "invertible planes", dev)
+    d, w, nb = planes.shape
+    _pow2(w, "invertible width")
+    _state(weights_table, "invertible weights", dev, shape=(d, w))
+    if nb != 32 * (len(key_cols) + 1):
+        raise ValueError(f"{nb} planes do not fit {len(key_cols)} key columns")
+    _col(weights, "weights", b, dev)
+    _key_cols(key_cols, b, dev)
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.invertible import update_plain
+
+        return update_plain(planes, weights_table, seed, key_cols, weights)
+    _launch(
+        "inv_update", dev, planes.data_ptr(), weights_table.data_ptr(), d, w,
+        int(seed) & 0xFFFFFFFF, *_col_args(key_cols), weights.data_ptr(),
+        weights.stride(0), b,
     )

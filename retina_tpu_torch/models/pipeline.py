@@ -6,14 +6,20 @@ One batch of (B, 16) event records updates every aggregator:
   decodes the records, rescales sampled rows, joins IPs to pods, filters,
   adds into the dense counter rectangles, node counters and totals, and
   writes per-event lanes (pods, weights, masks) for the sketches;
+- K5 (``ConntrackTable.process_lanes``, with ``enable_conntrack``) decides
+  the conntrack reports on K1's filtered mask and rescaled packets and
+  bytes; at ``data_aggregation_level="low"`` the reports, and not the
+  packets, drive the sketches (a few elementwise torch ops derive their
+  weights and masks from the report lanes);
 - K2 (``HeavyHitterSketch.update``) updates flow_hh, svc_hh and dns_hh;
+- K6 (``InvertibleSketch.update``, with ``enable_invertible``) the two
+  invertible sketches, priority rows to ``inv_hi`` and the rest to
+  ``inv_flow``, with flow_hh's keys and weights;
 - K3 (``HyperLogLog.update``) the three HLL banks;
 - K4 (``EntropyWindow.update``) the three entropy histograms;
 - the apiserver latency match stays in PyTorch ops (``latency_update``).
 
-State is updated in place. Conntrack (``enable_conntrack``) and the
-invertible sketches (``enable_invertible``) are not ported yet: a config
-that enables them raises NotImplementedError.
+State is updated in place.
 """
 
 from __future__ import annotations
@@ -126,17 +132,23 @@ class PipelineConfig:
             )
 
 
-# The deployed node agent's shapes with conntrack metrics off: the
-# reference's engine.pipeline_config_from(Config()) under the deployment
-# knob agent.enableConntrackMetrics=false, which also forces
-# data_aggregation_level "high". The IPs-of-interest filter is on
-# (bypass_lookup_ip_of_interest is false and pod-level metrics are on).
+# The deployed node agent: the reference's engine.pipeline_config_from(Config()).
+# Conntrack metrics on, data_aggregation_level "low" (the reports drive the
+# sketches), the IPs-of-interest filter on (bypass_lookup_ip_of_interest is
+# false and pod-level metrics are on).
 DEPLOYED_CONFIG = PipelineConfig(
     n_pods=4096, cms_depth=4, cms_width=1 << 15, topk_slots=2048,
     hll_precision=12, entropy_buckets=4096, conntrack_slots=1 << 18,
-    enable_conntrack=False, bypass_filter=False,
-    identity_implies_interest=True, data_aggregation_level="high",
+    enable_conntrack=True, bypass_filter=False,
+    identity_implies_interest=True, data_aggregation_level="low",
 )
+# The same agent under agent.enableConntrackMetrics=false, which also
+# forces data_aggregation_level "high".
+NO_CONNTRACK_CONFIG = dataclasses.replace(
+    DEPLOYED_CONFIG, enable_conntrack=False, data_aggregation_level="high")
+# The same agent with heavy_keys_source="invertible": the two invertible
+# sketches recover heavy keys without a host flow dictionary.
+INVERTIBLE_CONFIG = dataclasses.replace(DEPLOYED_CONFIG, enable_invertible=True)
 
 
 @dataclasses.dataclass
@@ -196,9 +208,8 @@ def step_rows_plain(records, n_valid, sample_k, ident_table, ident_seed,
     tcp_flags = (meta >> 16) & 0xFF
     is_ingress = ((meta >> 4) & 0xF) == DIR_INGRESS
     bytes_, packets = col(F.BYTES), col(F.PACKETS)
+    is_priority = priority_class(src_ip, dst_ip, cfg.priority_ip_mask, cfg.priority_ip_match)
     if cfg.sample_exempt_packets > 0:
-        is_priority = priority_class(src_ip, dst_ip, cfg.priority_ip_mask,
-                                     cfg.priority_ip_match)
         exempt = sample_exempt(packets, col(F.TSVAL), col(F.TSECR), is_priority,
                                cfg.sample_exempt_packets)
         packets, bytes_ = ht_rescale(packets, bytes_, exempt, sample_k)
@@ -267,7 +278,8 @@ def step_rows_plain(records, n_valid, sample_k, ident_table, ident_seed,
         torch.where(pods_known, w_pkts, 0), w_dns_req,
         torch.where(mask, packets, 0), mask.to(torch.int64),
         is_drop.to(torch.int64), reason, torch.clamp(dst_pod, max=P - 1),
-        (is_ingress & mask).to(torch.int64),
+        (is_ingress & mask).to(torch.int64), torch.where(mask, bytes_, 0),
+        is_priority.to(torch.int64),
     ])
     return narrow(scratch), narrow(sums)
 
@@ -325,16 +337,6 @@ class TelemetryPipeline:
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  device: torch.device | str | None = None):
-        if config.enable_conntrack:
-            raise NotImplementedError(
-                "enable_conntrack: ConntrackTable.process is not ported yet "
-                "(ROADMAP.md, port queue: conntrack process)"
-            )
-        if config.enable_invertible:
-            raise NotImplementedError(
-                "enable_invertible: the invertible sketch is not ported yet "
-                "(ROADMAP.md, port queue: invertible sketch)"
-            )
         self.config = config
         self.device = resolve_device(device)
 
@@ -384,9 +386,13 @@ class TelemetryPipeline:
              filter_map: IdentityMap | None = None, sample_k: int = 1,
              ) -> tuple[PipelineState, dict[str, torch.Tensor]]:
         """Process one (B, 16) int32 batch in place; rows at or past
-        ``n_valid`` are masked. Returns (state, {"events", "ct_reports"}).
-        ``now_s`` feeds conntrack, which is not ported yet."""
+        ``n_valid`` are masked; ``now_s`` (wall seconds) drives conntrack.
+        Returns (state, summary) with the reference's keys: "events" and
+        "ct_reports" (int32 scalars), "report_mask" (B,) bool,
+        "report_packets" and "report_bytes" (B,) int32 u32 lanes, zeros
+        without conntrack."""
         c = self.config
+        b = records.shape[0]
         filt = None if c.bypass_filter or filter_map is None else filter_map
         scratch, sums = kops.step_rows(
             records, n_valid, sample_k, ident.table, ident.seed,
@@ -395,22 +401,52 @@ class TelemetryPipeline:
             state.pod_retrans, state.node_counters, state.totals, c,
         )
         r = dict(zip(kops.SCRATCH, scratch))
-        src, dst = records[:, F.SRC_IP], records[:, F.DST_IP]
-        five = [src, dst, records[:, F.PORTS], r["proto"]]
-        state.flow_hh.update(five, r["flow_w"])
-        state.svc_hh.update([r["src_pod"], r["dst_pod"]], r["svc_w"])
+        src, dst, ports = records[:, F.SRC_IP], records[:, F.DST_IP], records[:, F.PORTS]
+        if c.enable_conntrack:
+            report, _, rep_pkts, rep_bytes = state.conntrack.process_lanes(
+                src, dst, ports, r["proto"], (records[:, F.META] >> 16) & 0xFF, now_s,
+                r["bytes"], r["mask"], r["ent_w"])
+        else:
+            report, rep_pkts, rep_bytes = torch.zeros((3, b), dtype=torch.int32,
+                                                      device=records.device)
+        if c.data_aggregation_level == "low":
+            # One weighted update per reporting connection, carrying its
+            # packets since its previous report.
+            flow_w, ent_w, sk_mask = rep_pkts, rep_pkts, report
+            svc_w = torch.where((r["src_pod"] != 0) & (r["dst_pod"] != 0), rep_pkts, 0)
+            pod_mask = r["pod_mask"] & report
+        else:
+            flow_w, svc_w, ent_w = r["flow_w"], r["svc_w"], r["ent_w"]
+            sk_mask, pod_mask = r["mask"], r["pod_mask"]
+        five = [src, dst, ports, r["proto"]]
+        state.flow_hh.update(five, flow_w)
+        if c.enable_invertible:
+            prio = r["is_priority"] != 0
+            state.inv_flow.update(five, torch.where(prio, 0, flow_w))
+            state.inv_hi.update(five, torch.where(prio, flow_w, 0))
+        state.svc_hh.update([r["src_pod"], r["dst_pod"]], svc_w)
         state.dns_hh.update([records[:, F.DNS_QHASH]], r["dns_w"])
-        state.hll_flows.update(five, None, r["mask"])
+        state.hll_flows.update(five, None, sk_mask)
         state.hll_src_per_reason.update([src], r["reason"], r["is_drop"])
-        state.hll_src_per_pod.update([src], r["pod_grp"], r["pod_mask"])
-        state.entropy.update([src, dst, r["dport"]], r["ent_w"])
+        state.hll_src_per_pod.update([src], r["pod_grp"], pod_mask)
+        state.entropy.update([src, dst, r["dport"]], ent_w)
         if c.enable_latency:
             latency_update(state.lat_key, state.lat_ts, state.lat_hist, records,
                            r["mask"], apiserver_ip)
-        # Without conntrack there are no reports: ct_totals and totals[6]
-        # stay as they are.
-        zero = torch.zeros((), dtype=torch.int32, device=records.device)
-        return state, {"events": sums[0], "ct_reports": zero}
+        n_reports = report.sum()
+        if c.enable_conntrack:
+            # Reported packets and bytes in two exact u32 limbs each.
+            ct = widen(state.ct_totals)
+            rp_lo, rp_hi = _sum64(rep_pkts)
+            rb_lo, rb_hi = _sum64(rep_bytes)
+            lo_p, lo_b = ct[0] + rp_lo, ct[2] + rb_lo
+            state.ct_totals.copy_(narrow(torch.stack([
+                lo_p, ct[1] + rp_hi + (lo_p >> 32), lo_b, ct[3] + rb_hi + (lo_b >> 32)])))
+            state.totals[6:7].copy_(narrow(widen(state.totals[6:7]) + n_reports))
+        return state, {
+            "events": sums[0], "ct_reports": narrow(n_reports),
+            "report_mask": report != 0, "report_packets": rep_pkts, "report_bytes": rep_bytes,
+        }
 
     def end_window(self, state: PipelineState, z_thresh: float = 4.0,
                    ) -> tuple[PipelineState, dict[str, torch.Tensor]]:

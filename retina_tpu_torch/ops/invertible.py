@@ -1,9 +1,17 @@
-"""Invertible sketch state (port of the state of retina_tpu/ops/invertible.py).
+"""Invertible sketch: recover heavy-flow keys from counter state (port of
+retina_tpu/ops/invertible.py).
 
-The pipeline state carries two invertible sketches (1-wide placeholders
-unless ``enable_invertible``), so their arrays are here with the
-reference's shapes. ``update`` and decoding are not ported yet: see
-ROADMAP.md, the invertible item of the port's queue.
+  planes  (D, W, 32(C+1)) u32  planes[d, w, b] += weight for every update
+                               whose key (C u32 columns, then a 32-bit
+                               checksum of them) has bit b set
+  weights (D, W)          u32  total update weight per bucket
+
+``update`` is K6 (``kernels/csrc/inv_update.cu``; plain version
+``update_plain``). ``decode`` and ``decode_verified`` stay torch ops: they
+are one small pass over the D·W buckets at a window close. A bucket where
+one key owns a strict majority of the weight yields that key bit by bit;
+it is accepted only if its checksum matches and it re-hashes to its own
+bucket. ``merge`` is not ported yet (ROADMAP.md, the merges item).
 """
 
 from __future__ import annotations
@@ -12,7 +20,14 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch.kernels import ops as kops
+from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
+from retina_tpu_torch.u32 import M32, narrow, widen
+
 CHECK_BITS = 32
+# Seed offset of the checksum plane: differs from every row seed, so the
+# checksum bits are independent of the bucket placement.
+CHECK_SEED = 0x1C3A9F71
 
 
 def n_planes(n_key_cols: int) -> int:
@@ -20,15 +35,49 @@ def n_planes(n_key_cols: int) -> int:
     return 32 * n_key_cols + CHECK_BITS
 
 
+def indices(depth: int, width: int, seed: int, key_cols: list[torch.Tensor]) -> torch.Tensor:
+    """(R,) key columns -> (depth, R) int64 bucket indices."""
+    dev = key_cols[0].device
+    seeds = ((torch.arange(1, depth + 1, dtype=torch.int64, device=dev) + seed) & M32
+             ).reshape(depth, 1)
+    return reduce_range(hash_cols([c[None, :] for c in key_cols], seeds), width)
+
+
+def bits(key_cols: list[torch.Tensor], seed: int) -> torch.Tensor:
+    """(R,) key columns -> (R, 32(C+1)) int64 0/1: key bits, then checksum bits."""
+    shifts = torch.arange(32, dtype=torch.int64, device=key_cols[0].device)
+    check = hash_cols(key_cols, (CHECK_SEED + seed) & M32)
+    return torch.cat([(widen(c)[:, None] >> shifts) & 1 for c in [*key_cols, check]], dim=1)
+
+
+def update_plain(planes: torch.Tensor, weights_table: torch.Tensor, seed: int,
+                 key_cols: list[torch.Tensor], weights: torch.Tensor) -> None:
+    """Plain version of K6: add ``weights`` at the keys, in place (wraps).
+    Rows of weight 0 add nothing, so they are dropped first."""
+    d, w, nb = planes.shape
+    keep = torch.nonzero(weights != 0).squeeze(1)
+    key_cols = [c[keep] for c in key_cols]
+    wts = widen(weights[keep])
+    flat = (indices(d, w, seed, key_cols)
+            + (torch.arange(d, device=planes.device) * w)[:, None]).reshape(-1)
+    vals = narrow(bits(key_cols, seed) * wts[:, None])
+    planes.view(-1, nb).index_add_(0, flat, vals.repeat(d, 1))
+    weights_table.view(-1).index_add_(0, flat, narrow(wts).repeat(d))
+
+
 @dataclasses.dataclass
 class InvertibleSketch:
-    planes: torch.Tensor  # (D, W, B) u32
+    """Bit-plane invertible sketch over C-column u32 keys."""
+
+    planes: torch.Tensor  # (D, W, 32(C+1)) u32
     weights: torch.Tensor  # (D, W) u32
     seed: int = 0
 
     @classmethod
     def zeros(cls, depth: int = 2, width: int = 1 << 12, n_key_cols: int = 4,
               seed: int = 0, device: torch.device | str = "cpu") -> "InvertibleSketch":
+        if width & (width - 1):
+            raise ValueError("width must be a power of two")
         return cls(
             planes=torch.zeros((depth, width, n_planes(n_key_cols)), dtype=torch.int32,
                                device=device),
@@ -36,8 +85,48 @@ class InvertibleSketch:
             seed=seed,
         )
 
-    def update(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InvertibleSketch.update is not ported yet (ROADMAP.md, port queue: "
-            "invertible sketch)"
-        )
+    @property
+    def n_key_cols(self) -> int:
+        return (int(self.planes.shape[2]) - CHECK_BITS) // 32
+
+    def update(self, key_cols: list[torch.Tensor], weights: torch.Tensor) -> "InvertibleSketch":
+        """Add ``weights`` (masked rows carry 0) at the keys through K6, in place."""
+        kops.inv_update(self.planes, self.weights, self.seed, key_cols, weights)
+        return self
+
+    def decode(self) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
+        """Majority key of every bucket: (key_cols [C int32 (D*W,)], weight
+        int32 (D*W,), ok bool (D*W,)). ``ok`` marks buckets whose key
+        passed the checksum and re-hashes to its own bucket."""
+        d, w, _ = self.planes.shape
+        p = widen(self.planes)
+        maj = (p > ((widen(self.weights)[:, :, None] - p) & M32)).to(torch.int64)
+        shifts = 1 << torch.arange(32, dtype=torch.int64, device=p.device)
+        words = [(maj[:, :, 32 * i: 32 * (i + 1)] * shifts).sum(dim=2).reshape(-1)
+                 for i in range(self.n_key_cols + 1)]
+        cols, check = words[:-1], words[-1]
+        check_ok = check == hash_cols(cols, (CHECK_SEED + self.seed) & M32)
+        rehash = indices(d, w, self.seed, cols)  # (d, d*w)
+        own_row = torch.arange(d, device=p.device).repeat_interleave(w)
+        own_idx = rehash[own_row, torch.arange(d * w, device=p.device)]
+        bucket_pos = torch.arange(w, device=p.device).repeat(d)
+        weight = self.weights.reshape(-1)
+        ok = (weight != 0) & check_ok & (own_idx == bucket_pos)
+        return [narrow(c) for c in cols], weight.clone(), ok
+
+    def reset(self) -> "InvertibleSketch":
+        self.planes.zero_()
+        self.weights.zero_()
+        return self
+
+
+def decode_verified(inv: InvertibleSketch, cms, min_weight: int = 0,
+                    ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Decode, then verify against a CMS over the same key columns: the
+    count is the CMS point estimate, and keys whose estimate is under
+    ``min_weight`` are rejected. Returns (key_cols, est int32 (D*W,),
+    ok (D*W,))."""
+    cols, _, ok = inv.decode()
+    est = cms.query(cols)
+    ok = ok & (est >= (int(min_weight) & M32))
+    return cols, narrow(torch.where(ok, est, 0)), ok

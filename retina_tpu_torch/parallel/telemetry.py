@@ -2,11 +2,13 @@
 
 ``Telemetry`` wraps the pipeline with the reference ShardedTelemetry's
 interface on a one-device mesh, where every collective is an identity: the
-step also counts host-side losses into totals[7], and ``snapshot`` returns
+step also counts host-side losses into totals[7] and returns the per-row
+report lanes with a leading device axis of size 1; ``snapshot`` returns
 the same keys, shapes and dtypes (u32 leaves as int32 bit patterns),
 including the leading device axis of size 1 on the gathered candidate
-tables and ``ct_totals``. State has no device axis. Multi-card sharding
-(NCCL collectives) is a later slice.
+tables and ``ct_totals``; ``inv_decode`` decodes the invertible sketches
+at a window close. State has no device axis. Multi-card sharding (NCCL
+collectives) is a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState, TelemetryPipeline
+from retina_tpu_torch.ops.invertible import decode_verified
 from retina_tpu_torch.u32 import M32, narrow, to_numpy, widen
 
 
@@ -36,7 +39,8 @@ class Telemetry:
              now_s: int, ident: IdentityMap, apiserver_ip: int = 0,
              filter_map: IdentityMap | None = None, lost: int = 0,
              sample_k: int = 1) -> tuple[PipelineState, dict[str, torch.Tensor]]:
-        """One (B, 16) batch; ``lost`` (host-side overflow) adds to totals[7]."""
+        """One (B, 16) batch; ``lost`` (host-side overflow) adds to totals[7].
+        The summary's per-row lanes carry a leading device axis of 1."""
         state, summary = self.pipeline.step(
             state, records, n_valid, now_s, ident, apiserver_ip,
             filter_map=self._no_filter if filter_map is None else filter_map,
@@ -44,6 +48,8 @@ class Telemetry:
         )
         if int(lost) & M32:
             state.totals[7:8].copy_(narrow(widen(state.totals[7:8]) + (int(lost) & M32)))
+        for key in ("report_mask", "report_packets", "report_bytes"):
+            summary[key] = summary[key][None]
         return state, summary
 
     def end_window(self, state: PipelineState, z_thresh: float = 4.0,
@@ -77,6 +83,22 @@ class Telemetry:
             "dns_hh": hh(s.dns_hh),
             "active_conns": s.conntrack.active_connections(now_s),
         }
+
+    def inv_decode(self, state: PipelineState, min_weight: int = 0) -> dict[str, torch.Tensor]:
+        """Window-close invertible decode, verified against flow_hh's CMS:
+        ``keys`` (M, C) int32, ``est`` (M,) int32, ``ok`` (M,) bool and
+        ``tier`` (M,) int32 (0 the main region, 1 the priority region),
+        M = D*W_flow + D*W_hi. Rows with ``ok`` false are noise; a key can
+        decode from up to D buckets."""
+        regions = []
+        for tier, inv in enumerate((state.inv_flow, state.inv_hi)):
+            cols, est, ok = decode_verified(inv, state.flow_hh.cms, min_weight)
+            regions.append((cols, est, ok, torch.full(est.shape, tier, dtype=torch.int32,
+                                                      device=est.device)))
+        (f_cols, *f), (h_cols, *h) = regions
+        keys = torch.stack([torch.cat([a, b]) for a, b in zip(f_cols, h_cols)], dim=1)
+        est, ok, tier = (torch.cat([a, b]) for a, b in zip(f, h))
+        return {"keys": keys, "est": est, "ok": ok, "tier": tier}
 
 
 def topk_from_snapshot(snap: dict[str, Any], name: str, k: int,

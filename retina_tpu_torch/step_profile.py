@@ -2,9 +2,9 @@
 
     python3 -m retina_tpu_torch.step_profile [--steps N]
 
-Runs the port's main path (Telemetry.step at the deployed agent's shapes,
-two 2^21-event batches of a 1M-flow Zipf stream, as chip_smoke.py) and
-reports, after a warm-up:
+Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
+agent: conntrack on, low aggregation; two 2^21-event batches of a 1M-flow
+Zipf stream, as chip_smoke.py) and reports, after a warm-up:
 
 - steady-state step throughput with no synchronisation between steps
   (the host enqueues, the card runs), from the host clock;
@@ -96,7 +96,7 @@ def main() -> int:
           f"{100 - busy_us / 1e4 / wall_p:.1f}%")
     for title, rows in (("kernels", kernels), ("torch ops", ops)):
         print(f"device time per step by {title} (ms, calls per step, name):")
-        for dev_us, count, key in rows[:16]:
+        for dev_us, count, key in rows[:24]:
             print(f"  {dev_us / 1e3 / args.steps:9.4f}  {count / args.steps:6.1f}  {key[:90]}")
 
     lat = [state.lat_key, state.lat_ts, state.lat_hist]

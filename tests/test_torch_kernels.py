@@ -13,6 +13,7 @@ one the ``gpu`` tests skip with a reason.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -29,6 +30,8 @@ from retina_tpu_torch.kernels import build
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, TelemetryPipeline
+from retina_tpu_torch.ops.conntrack import ConntrackTable
+from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.parallel.telemetry import Telemetry
 from retina_tpu_torch.u32 import from_numpy
 
@@ -38,6 +41,12 @@ CFG = PipelineConfig(
     hll_precision=10, entropy_buckets=1 << 9, conntrack_slots=1 << 8,
     latency_slots=1 << 8, enable_conntrack=False, bypass_filter=False,
 )
+# Small cuts of DEPLOYED_CONFIG and INVERTIBLE_CONFIG (conntrack on, low
+# aggregation); pods 1-15 are the priority class.
+DEPLOYED_CUT = dataclasses.replace(CFG, enable_conntrack=True, data_aggregation_level="low")
+INVERTIBLE_CUT = dataclasses.replace(
+    DEPLOYED_CUT, enable_invertible=True, inv_width=1 << 9, inv_hi_width=1 << 6,
+    priority_ip_mask=0xFFFFFFF0, priority_ip_match=pod_ip(0))
 MODULES = [
     "retina_tpu_torch", "retina_tpu_torch.convert", "retina_tpu_torch.kernels.build",
     "retina_tpu_torch.kernels.ops", "retina_tpu_torch.events.synthetic",
@@ -88,13 +97,16 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     assert TelemetryPipeline(CFG, device="cpu").device.type == "cpu"
 
 
-def _run_steps(pipe, device, n_steps=2, b=2048):
+def _run_steps(pipe, device, n_steps=2, b=2048, summaries=None):
     gen = TrafficGen(n_flows=300, n_pods=200, seed=3)
     ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 200)}, n_slots=1 << 9,
                                    device=device)
     state = pipe.init_state()
-    for _ in range(n_steps):
-        state, _ = pipe.step(state, from_numpy(gen.batch(b), device), b, 1, ident)
+    for i in range(n_steps):
+        state, summ = pipe.step(state, from_numpy(gen.batch(b), device), b - 100 * i,
+                                1 + 20 * i, ident)
+        if summaries is not None:
+            summaries.append(summ)
     return state
 
 
@@ -102,7 +114,17 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     kops.reset_launch_counts()
     state = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
-    assert int(state.totals[0]) == 2 * 2048
+    assert int(state.totals[0]) == 2 * 2048 - 100
+
+
+def test_conntrack_and_invertible_cpu_step_launches_nothing():
+    kops.reset_launch_counts()
+    summaries = []
+    state = _run_steps(TelemetryPipeline(INVERTIBLE_CUT, device="cpu"), "cpu",
+                       summaries=summaries)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+    assert int(state.totals[6]) == sum(int(s["report_mask"].sum()) for s in summaries) > 0
+    assert state.inv_flow.weights.any() and state.inv_hi.weights.any()
 
 
 def test_build_imports_without_nvcc(monkeypatch):
@@ -133,6 +155,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         kops.entropy_update(torch.zeros((1, 64), device="meta"), 0,
                             [rec[:, 2].to("meta")], w.to("meta"))
+    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=4)
+    with pytest.raises(ValueError, match="planes"):
+        kops.inv_update(inv.planes, inv.weights, 0, [rec[:, 2]], w)
+    with pytest.raises(ValueError, match="power of two"):
+        kops.inv_update(torch.zeros((2, 12, 64), dtype=torch.int32),
+                        torch.zeros((2, 12), dtype=torch.int32), 0, [rec[:, 2]], w)
+    ct = ConntrackTable.zeros(1 << 4)
+    cols = [rec[:, 2], rec[:, 3], rec[:, 4], w, w]
+    with pytest.raises(ValueError, match="shape"):
+        kops.conntrack_process(ct.keys, ct.vals, 0, *cols, 5, w, w[:10], None, ct.scratch)
+    with pytest.raises(TypeError, match="int32"):
+        kops.conntrack_process(ct.keys, ct.vals, 0, *cols, 5, w.float(), w, None, ct.scratch)
+    with pytest.raises(ValueError, match="shape"):
+        kops.conntrack_process(ct.keys[:, :1].contiguous(), ct.vals, 0, *cols, 5, w, w, None,
+                               ct.scratch)
 
 
 # -- on the card ----------------------------------------------------------------
@@ -222,13 +259,94 @@ def test_entropy_update_kernel_matches_plain(card):
 
 
 @pytest.mark.gpu
+def test_conntrack_kernel_matches_plain(card):
+    """K5 against its plain version through every branch of the decision:
+    new, interval, expiry, the 16-bit wrap and a clock 10 s back, with
+    connections sharing slots, masked and garbage rows, and one packet per
+    row where no packet lane is given."""
+    rng = np.random.default_rng(11)
+    gen = TrafficGen(n_flows=20000, n_pods=200, seed=5)
+    n = 1 << 16
+    tables = [ConntrackTable.zeros(1 << 10, seed=8, device=card) for _ in range(2)]
+    for t, now in enumerate((100, 101, 131, 200, 600, 65_700, 65_690)):
+        rec = from_numpy(gen.batch(n), card)
+        if t % 3 == 2:  # reply rows
+            rev = rec[::3]
+            rev[:, [F.SRC_IP, F.DST_IP]] = rev[:, [F.DST_IP, F.SRC_IP]]
+            p = rev[:, F.PORTS]
+            rev[:, F.PORTS] = ((p & 0xFFFF) << 16) | ((p >> 16) & 0xFFFF)
+        flags = (rec[:, F.META] >> 16) & 0xFF
+        flags[::37] = 1  # FIN
+        mask = torch.ones(n, dtype=torch.int32, device=card)
+        mask[::9] = 0
+        n_valid = n - 5000 * (t % 2)
+        mask[n_valid:] = 0
+        rec[n_valid:] = from_numpy(rng.integers(0, 1 << 32, (n - n_valid, 16),
+                                                dtype=np.uint64).astype(np.uint32), card)
+        cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS],
+                (rec[:, F.META] >> 24) & 0xFF, flags]
+        packets = None if t == 3 else rec[:, F.PACKETS]
+        before = kops.launch_counts()["conntrack"]
+        out = [tables[0].process_lanes(*cols, now, rec[:, F.BYTES], mask, packets)]
+        assert kops.launch_counts()["conntrack"] == before + 2
+        with kops.plain_versions():
+            out.append(tables[1].process_lanes(*cols, now, rec[:, F.BYTES], mask, packets))
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], out[1]), f"lanes differ at now={now}"
+        assert torch.equal(tables[0].keys, tables[1].keys), f"keys differ at now={now}"
+        assert torch.equal(tables[0].vals, tables[1].vals), f"vals differ at now={now}"
+        assert int(out[0][0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [1, 4])
+def test_inv_update_kernel_matches_plain(card, n_cols):
+    rng = np.random.default_rng(20 + n_cols)
+    n = 1 << 16
+    keys = [from_numpy(rng.integers(0, 300, n).astype(np.uint32), card) for _ in range(n_cols)]
+    w = from_numpy(rng.integers(0, 3, n).astype(np.uint32) * (rng.random(n) < 0.3), card)
+    inv = InvertibleSketch.zeros(2, 1 << 9, n_key_cols=n_cols, seed=9, device=card)
+    for _ in range(2):
+        a, b, _, _ = _pair(lambda p, wt: kops.inv_update(p, wt, 9, keys, w),
+                           inv.planes, inv.weights)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        inv.planes, inv.weights = a
+
+
+@pytest.mark.gpu
 def test_pipeline_on_card_matches_cpu(card):
     kops.reset_launch_counts()
     on_card = _run_steps(TelemetryPipeline(CFG, device=card), card)
     counts = kops.launch_counts()
-    assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2}
+    assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2,
+                      "conntrack": 0, "inv_update": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
     for x, y in zip(tensor_leaves(on_card), tensor_leaves(on_cpu)):
         assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [DEPLOYED_CUT, INVERTIBLE_CUT], ids=["deployed", "invertible"])
+def test_conntrack_pipeline_on_card_matches_cpu(card, cfg):
+    from retina_tpu_torch.convert import tensor_leaves
+
+    kops.reset_launch_counts()
+    card_sums, cpu_sums = [], []
+    on_card = _run_steps(Telemetry(cfg, device=card), card, n_steps=3, summaries=card_sums)
+    counts = kops.launch_counts()
+    assert counts["conntrack"] == 6
+    assert counts["inv_update"] == (6 if cfg.enable_invertible else 0)
+    on_cpu = _run_steps(Telemetry(cfg, device="cpu"), "cpu", n_steps=3, summaries=cpu_sums)
+    for x, y in zip(tensor_leaves(on_card), tensor_leaves(on_cpu)):
+        assert torch.equal(x.cpu(), y)
+    for a, b in zip(card_sums, cpu_sums):
+        assert set(a) == set(b)
+        for key in a:
+            assert torch.equal(a[key].cpu(), b[key]), key
+    if cfg.enable_invertible:
+        dec = [Telemetry(cfg, device=d).inv_decode(s) for d, s in ((card, on_card),
+                                                                    ("cpu", on_cpu))]
+        for key in dec[0]:
+            assert torch.equal(dec[0][key].cpu(), dec[1][key]), key

@@ -324,8 +324,13 @@ def test_active_connections_matches_reference():
     port = ConntrackTable(_t(keys), _t(vals.astype(np.uint32)))
     for now in (0, 100, 30000, 65535, 70000):
         assert int(port.active_connections(now)) == int(ref.active_connections(now))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.process()
+    # ... and after a batch through process, which is ported now.
+    cols = [_u32(rng, 200, 1 << 8) for _ in range(3)] + [np.full(200, 6, np.uint32)] * 2
+    ref, *_ = ref.process(*map(jnp.asarray, cols), jnp.uint32(120), jnp.asarray(cols[0]),
+                          jnp.ones(200, bool))
+    port, *_ = port.process(*map(_t, cols), 120, _t(cols[0]), torch.ones(200, dtype=torch.bool))
+    for now in (120, 200, 500):
+        assert int(port.active_connections(now)) == int(ref.active_connections(now))
 
 
 def test_traffic_gen_is_bit_identical_to_reference():

@@ -14,7 +14,14 @@ compares the whole state after every step, leaf by leaf:
   test_latency_rules);
 - entropy counts exactly (integer weights, every bucket far below 2^24);
 - entropy bits, z-scores and the EWMA state within rtol 1e-5 (float32
-  reductions and log2 evaluated by two libraries).
+  reductions and log2 evaluated by two libraries);
+- the step summaries exactly: events, ct_reports and the per-row report
+  mask and payloads.
+
+The configurations are small cuts of the deployed agent with conntrack
+metrics off (SMALL), of the deployed agent (conntrack on, low aggregation),
+of the invertible heavy-key agent, and of ``PipelineConfig()``
+(bench.py's production shapes: conntrack on, high aggregation).
 """
 
 from __future__ import annotations
@@ -37,7 +44,13 @@ from retina_tpu.models.pipeline import TelemetryPipeline as JPipeline
 from retina_tpu.ops.hashing_np import hash_cols_np
 from retina_tpu_torch.convert import state_to_numpy, tensor_leaves
 from retina_tpu_torch.models.identity import IdentityMap
-from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, PipelineConfig, TelemetryPipeline
+from retina_tpu_torch.models.pipeline import (
+    DEPLOYED_CONFIG,
+    INVERTIBLE_CONFIG,
+    NO_CONNTRACK_CONFIG,
+    PipelineConfig,
+    TelemetryPipeline,
+)
 from retina_tpu_torch.ops.topk import slots
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
@@ -49,6 +62,15 @@ SMALL = dict(
     conntrack_slots=1 << 8, latency_slots=1 << 6, enable_conntrack=False,
     bypass_filter=False, identity_implies_interest=True,
 )
+# Small cuts of the conntrack configurations (the conntrack table keeps 2^8
+# slots, so connections of one batch often share a slot).
+SMALL_CUTS = {
+    "deployed": dict(SMALL, enable_conntrack=True, data_aggregation_level="low"),
+    "invertible": dict(SMALL, enable_conntrack=True, data_aggregation_level="low",
+                       enable_invertible=True, inv_width=1 << 8, inv_hi_width=1 << 5,
+                       priority_ip_mask=0xFFFFFFF0, priority_ip_match=0x0A000000),
+    "production": dict(SMALL, enable_conntrack=True, bypass_filter=True, cms_depth=2),
+}
 API = 0x7F000001  # the capture's loopback address stands in for the apiserver
 PODS = {0x0A000000 + i: i for i in range(1, 48)} | {API: 5}
 
@@ -154,8 +176,25 @@ def xla_bucket(rtt):
     return np.asarray(jnp.floor(jnp.log2(jnp.asarray(rtt).astype(jnp.float32) + 1.0)))
 
 
+def compare_summaries(jsum, tsum) -> None:
+    assert int(tsum["events"]) & 0xFFFFFFFF == int(jsum["events"])
+    assert int(tsum["ct_reports"]) & 0xFFFFFFFF == int(jsum["ct_reports"])
+    assert tsum["report_mask"].dtype == torch.bool
+    np.testing.assert_array_equal(tsum["report_mask"].numpy(), np.asarray(jsum["report_mask"]))
+    for key in ("report_packets", "report_bytes"):
+        assert tsum[key].dtype == torch.int32, key
+        np.testing.assert_array_equal(to_numpy(tsum[key]), np.asarray(jsum[key]), err_msg=key)
+
+
+def clock(w, i):
+    """now_s of step i of window w: steps 1 s apart, windows 40 s apart, so
+    a run crosses the report interval and the UDP lifetime."""
+    return 100 + 40 * w + i
+
+
 def run_case(cfg_kw, batches, *, n_valid=None, sample_k=1, filter_ips=None,
-             apiserver_ip=0, ident_pods=PODS, windows=1, check_latency=False):
+             apiserver_ip=0, ident_pods=PODS, windows=1, check_latency=False,
+             now=lambda w, i: 1 + w):
     jcfg, tcfg = JConfig(**cfg_kw), PipelineConfig(**cfg_kw)
     jp, tp = JPipeline(jcfg), TelemetryPipeline(tcfg, device="cpu")
     step, end = jp.jitted_step(), jp.jitted_end_window()
@@ -171,12 +210,13 @@ def run_case(cfg_kw, batches, *, n_valid=None, sample_k=1, filter_ips=None,
         for i, rec in enumerate(batches):
             nv = len(rec) if n_valid is None else n_valid
             before = [to_numpy(t) for t in (ts.lat_key, ts.lat_ts, ts.lat_hist)]
-            js, jsum = step(js, jnp.asarray(rec), jnp.uint32(nv), jnp.uint32(1 + w), ji,
+            js, jsum = step(js, jnp.asarray(rec), jnp.uint32(nv), jnp.uint32(now(w, i)), ji,
                             jnp.uint32(apiserver_ip), jf, np.uint32(sample_k))
-            ts, tsum = tp.step(ts, from_numpy(rec, "cpu"), nv, 1 + w, ti, apiserver_ip,
+            ts, tsum = tp.step(ts, from_numpy(rec, "cpu"), nv, now(w, i), ti, apiserver_ip,
                                filter_map=tf, sample_k=sample_k)
-            assert int(tsum["events"]) & 0xFFFFFFFF == int(jsum["events"])
-            assert int(tsum["ct_reports"]) == int(jsum["ct_reports"]) == 0
+            compare_summaries(jsum, tsum)
+            if not tcfg.enable_conntrack:
+                assert int(tsum["ct_reports"]) == 0 and not tsum["report_mask"].any()
             if check_latency:
                 k, t, h = latency_model(rec, nv, *before, exact_bucket)
                 np.testing.assert_array_equal(to_numpy(ts.lat_key), k)
@@ -204,9 +244,14 @@ def traffic(seed, n_batches, n=B):
     return [gen.batch(n) for _ in range(n_batches)]
 
 
-def test_deployed_config_matches_reference_agent_config():
-    ref = pipeline_config_from(Config(enable_conntrack_metrics=False))
-    assert dataclasses.asdict(DEPLOYED_CONFIG) == dataclasses.asdict(ref)
+@pytest.mark.parametrize("port, knobs", [
+    (DEPLOYED_CONFIG, {}),
+    (NO_CONNTRACK_CONFIG, {"enable_conntrack_metrics": False}),
+    (INVERTIBLE_CONFIG, {"heavy_keys_source": "invertible"}),
+], ids=["deployed", "no_conntrack", "invertible"])
+def test_deployed_config_matches_reference_agent_config(port, knobs):
+    ref = pipeline_config_from(Config(**knobs))
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
 
 
 def test_slice_config_over_traffic_and_windows():
@@ -262,14 +307,35 @@ def test_partial_batch_masks_garbage_rows():
     run_case(SMALL, batches[:1], n_valid=0)
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="conntrack"):
-        TelemetryPipeline(PipelineConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="invertible"):
-        TelemetryPipeline(PipelineConfig(enable_conntrack=False, enable_invertible=True),
-                          device="cpu")
+def test_low_aggregation_requires_conntrack():
     with pytest.raises(ValueError, match="low requires"):
         PipelineConfig(enable_conntrack=False, data_aggregation_level="low")
+
+
+@pytest.mark.parametrize("cut", sorted(SMALL_CUTS))
+def test_conntrack_configs_over_traffic_and_windows(cut):
+    run_case(SMALL_CUTS[cut], traffic(21, 3), windows=3, now=clock)
+
+
+@pytest.mark.parametrize("cut", sorted(SMALL_CUTS))
+def test_conntrack_configs_with_filter_sampling_and_partial_batches(cut):
+    rng = np.random.default_rng(22)
+    batches = traffic(23, 3)
+    outsiders = rng.integers(0xC0000000, 0xC0000100, (B, 2)).astype(np.uint32)
+    for rec in batches:
+        rec[::3, F.SRC_IP] = outsiders[::3, 0]
+        rec[::5, F.PACKETS] = rng.integers(1, 200, len(rec[::5, F.PACKETS]))
+        rec[7::13, F.PACKETS] = 0x7FFFFFFF  # saturates under sampling
+        rec[900:] = rng.integers(0, 1 << 32, rec[900:].shape, dtype=np.uint64).astype(np.uint32)
+    filt = [int(x) for x in np.unique(outsiders[:40])]
+    run_case(SMALL_CUTS[cut], batches, n_valid=900, sample_k=4, filter_ips=filt, windows=2,
+             now=lambda w, i: 65_530 + 100 * w + 2 * i)  # across the 16-bit wrap
+
+
+def test_deployed_cut_with_real_capture_and_latency():
+    cap = JTrafficGen(mode="pcap_replay", seed=0)
+    run_case(SMALL_CUTS["deployed"], [cap.batch(B), traffic(24, 1)[0], cap.batch(B)],
+             apiserver_ip=API, windows=2, now=clock)
 
 
 def test_state_leaves_line_up_with_reference():

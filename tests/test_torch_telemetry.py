@@ -4,7 +4,8 @@ a one-device mesh, and state carried from the reference into the port (CPU).
 Snapshot rules: same keys, shapes and dtypes (the port's u32 leaves are
 int32 bit patterns, so uint32 on the reference side is int32 on the port's);
 integer values exactly; HLL estimates within rtol 1e-5 (float32 sums and
-logarithms evaluated by two libraries).
+logarithms evaluated by two libraries). The step summaries and the
+invertible decode follow the same rules.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from retina_tpu.events.synthetic import TrafficGen as JTrafficGen
 from retina_tpu.models.identity import IdentityMap as JIdentityMap
@@ -25,7 +28,7 @@ from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, TelemetryPipeline
 from retina_tpu_torch.parallel.telemetry import Telemetry, topk_from_snapshot
 from retina_tpu_torch.u32 import from_numpy, to_numpy
-from test_torch_pipeline import API, B, PODS, SMALL, compare_states, traffic
+from test_torch_pipeline import API, B, PODS, SMALL, SMALL_CUTS, clock, compare_states, traffic
 
 
 def _compare_snapshots(jsnap, tsnap):
@@ -76,6 +79,44 @@ def test_snapshot_matches_sharded_telemetry_on_one_device():
     assert int(to_numpy(ts.totals)[7]) == 7 * 3 + 7 * 1
 
 
+def _compare_dicts(jd, td):
+    """Same keys; arrays of the same shape, dtype kind and values."""
+    assert set(jd) == set(td)
+    for key, ref in jd.items():
+        ref, port = np.asarray(ref), td[key]
+        assert ref.shape == tuple(port.shape), key
+        if ref.dtype == bool:
+            assert port.dtype == torch.bool, key
+            np.testing.assert_array_equal(port.numpy(), ref, err_msg=key)
+        else:
+            assert port.dtype == torch.int32, key
+            np.testing.assert_array_equal(to_numpy(port).astype(ref.dtype), ref, err_msg=key)
+
+
+@pytest.mark.parametrize("cut", ["no_conntrack", "deployed", "invertible"])
+def test_summaries_snapshots_and_decode_match_sharded_telemetry(cut):
+    kw = SMALL if cut == "no_conntrack" else SMALL_CUTS[cut]
+    ref = ShardedTelemetry(JConfig(**kw), make_mesh(jax.devices()[:1]))
+    port = Telemetry(PipelineConfig(**kw), device="cpu")
+    js, ts = ref.init_state(), port.init_state()
+    ji = JIdentityMap.build_host(PODS, n_slots=1 << 8)
+    ti = IdentityMap.build_host(PODS, n_slots=1 << 8, device="cpu")
+    for w in range(2):
+        for i, rec in enumerate(traffic(31 + w, 3)):
+            nv = B - 50 * i
+            js, jout = ref.step(js, rec[None], np.array([nv], np.uint32), clock(w, i), ji,
+                                apiserver_ip=API)
+            ts, tout = port.step(ts, from_numpy(rec, "cpu"), nv, clock(w, i), ti,
+                                 apiserver_ip=API)
+            _compare_dicts(jout, tout)
+        if kw.get("enable_invertible"):
+            for min_weight in (0, 3):
+                _compare_dicts(ref.inv_decode(js, min_weight), port.inv_decode(ts, min_weight))
+        js, _ = ref.end_window(js)
+        ts, _ = port.end_window(ts)
+        _compare_snapshots(ref.snapshot(js, clock(w, 3)), port.snapshot(ts, clock(w, 3)))
+
+
 def test_snapshot_is_a_copy():
     port = Telemetry(PipelineConfig(**SMALL), device="cpu")
     ts = port.init_state()
@@ -105,3 +146,25 @@ def test_state_carried_from_reference_continues_identically():
         compare_states(js, ts)
     back = state_to_numpy(ts)
     assert [a.dtype for a in back] == [np.asarray(x).dtype for x in jax.tree_util.tree_leaves(js)]
+
+
+@pytest.mark.parametrize("cut", ["deployed", "invertible"])
+def test_live_conntrack_and_invertible_state_carried_mid_stream(cut):
+    jp = JPipeline(JConfig(**SMALL_CUTS[cut]))
+    tp = TelemetryPipeline(PipelineConfig(**SMALL_CUTS[cut]), device="cpu")
+    step = jp.jitted_step()
+    ji = JIdentityMap.build_host(PODS, n_slots=1 << 8)
+    batches = traffic(15, 4)
+    js = jp.init_state()
+    for i, rec in enumerate(batches[:2]):
+        js, _ = step(js, jnp.asarray(rec), jnp.uint32(B), jnp.uint32(clock(0, i)), ji,
+                     jnp.uint32(0))
+    assert int(np.asarray(js.totals)[6]) > 0 and np.asarray(js.conntrack.keys).any()
+    ts = state_from_numpy([np.asarray(x) for x in jax.tree_util.tree_leaves(js)],
+                          tp.init_state())
+    ti = state_from_numpy([np.asarray(ji.table)], IdentityMap.zeros(1 << 8, device="cpu"))
+    for i, rec in enumerate(batches[2:], start=2):
+        js, _ = step(js, jnp.asarray(rec), jnp.uint32(B), jnp.uint32(clock(0, i)), ji,
+                     jnp.uint32(0))
+        ts, _ = tp.step(ts, from_numpy(rec, "cpu"), B, clock(0, i), ti, 0)
+        compare_states(js, ts)
