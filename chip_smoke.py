@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from ``retina_tpu_torch/kernels/csrc``,
-holds each kernel against its plain PyTorch version on the card at the
-shapes of the main path, then drives the port's paths through the entry
-points a node agent calls (Telemetry step -> end_window -> snapshot ->
-host top-k), each over two 2^21-event batches of a 1M-flow Zipf stream:
+Builds the port's seven CUDA kernel sources from
+``retina_tpu_torch/kernels/csrc`` (one nvcc each, all at once) and its
+native host helpers (``retina_tpu_torch/native``, g++), holds each kernel
+against its plain PyTorch version on the card at the shapes of the main
+path, then drives the port's paths through the entry points a node agent
+calls. The step paths (Telemetry step -> end_window -> snapshot -> host
+top-k) each run over two 2^21-event batches of a 1M-flow Zipf stream:
 
 - the main path: the deployed agent (DEPLOYED_CONFIG: conntrack on, low
   aggregation), 3 windows x 8 steps;
@@ -17,10 +19,28 @@ host top-k), each over two 2^21-event batches of a 1M-flow Zipf stream:
   conntrack on, high aggregation) and NO_CONNTRACK_CONFIG, 1 window x 8
   steps each.
 
+The ingest paths feed raw blocks through SketchEngine as the feed loop
+flushes them (_build_quantum: native combine and partition; then
+_dispatch_sharded per chunk: flow dictionary, new and known wires, one
+copy a side, K7 ingest, one step a window), over three distinct quanta of
+256 x 2^13 events of the same stream, with a window closed every two:
+
+- ingest path 1: the deployed agent, Config(), the three quanta fed twice;
+  each quantum overflows the 2^18-slot dictionary, which clears, so every
+  row ships on the new side;
+- ingest path 2: bench.py's sizing (batch_capacity 2^19, 8 windows a
+  transfer, 2^21 dictionary slots), the three quanta fed twice: the later
+  quanta ship their seen descriptors on the known side, the replay all but
+  the escalated rows (over 2^10 packets or 2^22 bytes);
+- ingest path 3: heavy_keys_source="invertible" (no dictionary, the
+  packed full-row wire), two quanta, the invertible decode at each close.
+
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
 window outputs, snapshots and decodes after each path must equal the same
-run through the plain versions on the card.
+run through the plain versions on the card (an ingest path's plain run has
+an engine of its own and launches nothing), and totals[0] must equal the
+events fed.
 
 Comparison rules: integer state and outputs are compared exactly (the
 top-k winner and the latency slot winner are "last row in batch order",
@@ -38,6 +58,7 @@ no result line, if there is no card or any check fails.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -47,6 +68,7 @@ import time
 import numpy as np
 
 BATCH = 1 << 21
+QUANTUM, BLOCK = 1 << 21, 1 << 13  # a flush quantum of 256 blocks, as bench.py feeds
 N_FLOWS, N_PODS_GEN, SEED = 1_000_000, 2048, 42
 WINDOWS, STEPS = 3, 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -76,6 +98,15 @@ def named_leaves(obj, prefix: str = ""):
     if dataclasses.is_dataclass(obj):
         for f in dataclasses.fields(obj):
             out += named_leaves(getattr(obj, f.name), f"{prefix}.{f.name}".lstrip("."))
+    return out
+
+
+def named_leaves_dict(d, prefix: str = ""):
+    """(name, tensor) of every tensor in a nested dict."""
+    out = []
+    for k, v in d.items():
+        out += (named_leaves_dict(v, f"{prefix}{k}.") if isinstance(v, dict)
+                else [(f"{prefix}{k}", v)])
     return out
 
 
@@ -524,6 +555,239 @@ def main() -> int:
 
     path("production path", PipelineConfig(), 1, STEPS, k1_k5)
     path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS, k1_k5[:4])
+
+    # -- the window close and the scrape: torch ops, timed --------------------
+    # (no kernel of their own; their "plain version" is themselves). Bounds
+    # count the state they read and the copies they write.
+    t = Telemetry(INVERTIBLE_CONFIG, device=dev)
+    st = t.init_state()
+    for r in recs:
+        st, _ = t.step(st, r, BATCH, 2, ident)
+    snap = t.snapshot(st, 2)
+    snap_bytes = sum(x.numel() * x.element_size() for _, x in named_leaves_dict(snap))
+    read = [st.hll_flows.registers, st.hll_src_per_reason.registers,
+            st.hll_src_per_pod.registers, st.conntrack.vals]
+    snap_read = snap_bytes + sum(x.numel() * x.element_size() for x in read)
+    snap_ms = time_ms(lambda: t.snapshot(st, 2))
+    dec_ms = time_ms(lambda: t.inv_decode(st))
+    dec_bytes = sum(x.numel() * x.element_size() for x in (
+        st.inv_flow.planes, st.inv_flow.weights, st.inv_hi.planes, st.inv_hi.weights,
+        st.flow_hh.cms.table))
+    ent_bytes = 2 * st.entropy.counts.numel() * 4
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t.end_window(st)  # warm-up; then a window of traffic, and one timed close
+    st, _ = t.step(st, recs[0], BATCH, 3, ident)
+    torch.cuda.synchronize()
+    e0.record()
+    t.end_window(st)
+    e1.record()
+    e1.synchronize()
+    for name, ms, nbytes in (("snapshot", snap_ms, snap_read + snap_bytes),
+                             ("inv_decode", dec_ms, dec_bytes),
+                             ("end_window", e0.elapsed_time(e1), ent_bytes)):
+        print(f"torch ops {name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({nbytes} bytes)", flush=True)
+    del st, t, snap
+
+    # -- K7: the ingest kernels against their plain versions ---------------
+    from retina_tpu_torch import native
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.parallel.flowdict import flow_dict_stats
+    from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"native host helpers: built and loaded in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def k7_inputs(bucket, slots, id_bits):
+        """One flush's wires at these shapes: packed lanes with unstamped
+        rows, saturated spreads (the low word carries) and saturated MISC;
+        a new wire whose ids repeat (slot 0 too) and whose last rows are
+        padding; a v4 stream and a v3 wire of ids inside the table."""
+        packed = rng.integers(0, 1 << 32, (bucket, 12), dtype=np.uint64).astype(np.uint32)
+        packed[::5, 0] = 0
+        packed[1::5, 0] = 0xFFFFFFFF
+        packed[2::5, 7] = 0xFFFFFFFF
+        n_valid = bucket - bucket // 10
+        new = np.zeros((bucket, 13), np.uint32)
+        new[:n_valid, 1:] = packed[:n_valid]
+        new[:n_valid, 0] = rng.integers(0, min(slots, bucket // 2), n_valid)
+        new[::7, 0] = 0
+        rows = np.zeros((n_valid, 16), np.uint32)
+        rows[:, F.PACKETS] = rng.integers(0, 1 << 10, n_valid)
+        rows[:, F.BYTES] = rng.integers(0, 1 << 22, n_valid)
+        ids = rng.integers(0, slots, n_valid).astype(np.uint32)
+        dense = np.zeros(dense_words(bucket, id_bits), np.uint32)
+        dense_known_rows(rows, ids, id_bits, dense)
+        two = np.zeros((bucket, 2), np.uint32)
+        known_rows(rows, ids, np.uint32(id_bits), two[:n_valid])
+        table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
+        return {k: from_numpy(v, dev) for k, v in (
+            ("packed", packed), ("new", new), ("dense", dense), ("two", two),
+            ("table", table))} | {"ids": ids, "new_ids": new[:, 0]}
+
+    k7 = {}
+    for label, cap, bucket, slots in (("default flush", 1 << 15, 1 << 17, 1 << 18),
+                                      ("bench sizing", 1 << 19, 1 << 18, 1 << 21)):
+        id_bits = (slots - 1).bit_length()
+        n_out = -(-bucket // cap) * cap
+        x = k7_inputs(bucket, slots, id_bits)
+        for lo, hi in ((0xFFFFFF00, 7), (0, 0)):
+            out = kops.ingest_packed(x["packed"], True, lo, hi, n_out)
+            with kops.plain_versions():
+                ref = kops.ingest_packed(x["packed"], True, lo, hi, n_out)
+            equal_int(out, ref, f"K7 ingest_packed ({label}, base {lo:#x})")
+            tables = [x["table"].clone(), x["table"].clone()]
+            winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+            out = kops.ingest_new(x["new"], tables[0], winner, lo, hi, n_out)
+            with kops.plain_versions():
+                ref = kops.ingest_new(x["new"], tables[1], winner, lo, hi, n_out)
+            equal_int(out, ref, f"K7 ingest_new windows ({label})")
+            equal_int(tables[0], tables[1], f"K7 ingest_new table ({label})")
+            check(not bool(winner.any()), f"K7 ingest_new left claims ({label})")
+            for wire_name, dense in (("dense", True), ("two", False)):
+                for flag in (1, 0):
+                    out = kops.ingest_known(x[wire_name], bucket, dense, id_bits, x["table"],
+                                            flag, lo, hi, n_out)
+                    with kops.plain_versions():
+                        ref = kops.ingest_known(x[wire_name], bucket, dense, id_bits,
+                                                x["table"], flag, lo, hi, n_out)
+                    equal_int(out, ref, f"K7 ingest_known v{4 if dense else 3} ({label})")
+        print(f"K7 {label}: bucket {bucket}, {n_out // cap} windows of {cap}, {slots} slots "
+              f"(id_bits {id_bits}): kernels equal their plain versions", flush=True)
+        k7[label] = (x, n_out, slots, id_bits, bucket)
+
+    # Times at the default flush: one coalesced chunk of 2^17 rows.
+    x, n_out, slots, id_bits, bucket = k7["default flush"]
+    table = x["table"].clone()
+    winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+    new_distinct = len(np.unique(x["new_ids"]))
+    known_distinct = len(np.unique(x["ids"]))
+    row_ops = 40  # integer operations a row: decode, unpack, addressing
+    k7_runs = (
+        ("ingest_packed", "retina_tpu/engine.py:1052",
+         lambda: kops.ingest_packed(x["packed"], True, 0xFFFFFF00, 7, n_out),
+         bucket * 48 + n_out * 64, None),
+        ("ingest_new", "retina_tpu/engine.py:1205",
+         lambda: kops.ingest_new(x["new"], table, winner, 0xFFFFFF00, 7, n_out),
+         bucket * 52 + new_distinct * 48 + n_out * 64, None),
+        ("ingest_known", "retina_tpu/engine.py:1275",
+         lambda: kops.ingest_known(x["dense"], bucket, True, id_bits, x["table"], 1,
+                                   0xFFFFFF00, 7, n_out),
+         x["dense"].numel() * 4 + known_distinct * 48 + n_out * 64, "index_select"),
+    )
+    for name, replaces, fn, nbytes, lib in k7_runs:
+        ms = time_ms(fn)
+        with kops.plain_versions():
+            plain_ms = time_ms(fn)
+        lib_ms = None
+        if lib:
+            ids_dev = from_numpy(x["ids"], dev).long()
+            lib_out = torch.zeros((n_out, 16), dtype=torch.int32, device=dev)
+
+            def lib_fn():
+                lib_out[: len(x["ids"]), :12].copy_(x["table"].index_select(0, ids_dev))
+
+            lib_ms = time_ms(lib_fn)
+        report(name, "retina_tpu_torch/kernels/csrc/ingest.cu", replaces, ms, plain_ms,
+               nbytes, bucket * row_ops, lib_ms, 0.0)
+
+    # -- the ingest paths: raw blocks -> combine -> flow dictionary ->
+    # wire -> K7 -> step, through SketchEngine, as the feed loop flushes --
+    qgen = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=SEED)
+    quanta = [np.split(qgen.batch(QUANTUM), QUANTUM // BLOCK) for _ in range(3)]
+    pods = {pod_ip(i): i for i in range(1, N_PODS_GEN)}
+    print(f"ingest traffic: 3 quanta of {QUANTUM // BLOCK} x {BLOCK} events", flush=True)
+
+    def feed_run(cfg, schedule, plain):
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        wins, snaps, per_q = [], [], []
+        ctx = kops.plain_versions if plain else contextlib.nullcontext
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, blocks in enumerate(schedule):
+            before = (eng.counts.new_rows, eng.counts.known_rows, eng.counts.packed_rows)
+            with ctx():
+                eng.flush(blocks, 100 + i)
+                if i % 2 == 1 or i == len(schedule) - 1:
+                    wins.append(eng.close_window())
+                    snaps.append(eng.snapshot(100 + i))
+            after = (eng.counts.new_rows, eng.counts.known_rows, eng.counts.packed_rows)
+            per_q.append(tuple(a - b for a, b in zip(after, before)))
+        torch.cuda.synchronize()
+        return dict(eng=eng, wins=wins, snaps=snaps, per_q=per_q,
+                    wall=time.perf_counter() - t0, stages=eng.stages.seconds())
+
+    def ingest_path(name, cfg, schedule, kernels):
+        kops.reset_launch_counts()
+        run = feed_run(cfg, schedule, plain=False)
+        launches = kops.launch_counts()
+        print(f"{name} launches: {launches}", flush=True)
+        for k in kernels:
+            check(launches[k] > 0, f"{k} was not launched on the {name}")
+        ref = feed_run(cfg, schedule, plain=True)
+        check(kops.launch_counts() == launches, f"the plain {name} run launched kernels")
+        eng = run["eng"]
+        for (leaf, a), (_, b) in zip(named_leaves(eng.state), named_leaves(ref["eng"].state)):
+            if a.dtype == torch.int32:
+                equal_int(a, b, f"{name} state {leaf}")
+            elif leaf == "entropy.counts":
+                close_counts(a, b, f"{name} entropy counts")
+            else:
+                close_float(a, b, f"{name} state {leaf}")
+        for w in range(len(run["wins"])):
+            equal_any(run["wins"][w], ref["wins"][w], f"{name} window {w}")
+            equal_any(run["snaps"][w], ref["snaps"][w], f"{name} snapshot {w}")
+        fed = sum(len(b) for blocks in schedule for b in blocks)
+        check(fed == sum(int(b[:, F.PACKETS].astype(np.uint64).sum())
+                         for blocks in schedule for b in blocks), "one packet a raw event")
+        check(int(to_numpy(eng.state.totals)[0]) == fed & 0xFFFFFFFF,
+              f"{name}: totals[0] != raw events fed")
+        check(eng.counts.events == fed, f"{name}: events counted != fed")
+        st = run["stages"]
+        n_q = len(schedule)
+        card = st["copy"] + st["ingest"] + st["steps"]
+        print(f"{name}: {n_q} quanta, {fed} events in {run['wall']:.3f} s: "
+              f"{fed / run['wall']:.0f} events/s through the feed path; "
+              f"{eng.counts.steps} steps; wire {eng.counts.wire_bytes / fed:.4f} bytes/event; "
+              f"flow dict {flow_dict_stats(eng._flow_dict)}", flush=True)
+        print(f"{name}: rows per quantum (new, known, packed) {run['per_q']}", flush=True)
+        print(f"{name}: ms per quantum " + ", ".join(
+            f"{k} {st[k] / n_q * 1e3:.3f}" for k in st)
+            + f"; wall {run['wall'] / n_q * 1e3:.3f}; card span {card / run['wall']:.1%} of "
+            f"the wall (copy, ingest and steps by CUDA events)", flush=True)
+        return run, launches
+
+    # bench.py's traffic holds ~197k distinct descriptors a quantum, about
+    # half of them unseen in the previous one: the default 2^18-slot
+    # dictionary overflows and clears in every quantum, so every row ships
+    # on the new side; the known side runs at bench sizing.
+    run, launches = ingest_path("ingest path 1 (deployed agent)", Config(), quanta + quanta,
+                                ["ingest_new"])
+    check(run["eng"]._flow_dict.generation > 0, "ingest path 1: the dictionary never cleared")
+    for r in results:
+        if r["name"] == "ingest_new":
+            r["launches"] = launches["ingest_new"]
+    run, launches = ingest_path(
+        "ingest path 2 (bench sizing)",
+        Config(batch_capacity=1 << 19, feed_coalesce_windows=8, flow_dict_slots=1 << 21),
+        quanta + quanta, ["ingest_new", "ingest_known"])
+    new, known, _ = run["per_q"][-1]
+    check(new * 100 < known, "ingest path 2: the replay ships more than escalated rows new")
+    for r in results:
+        if r["name"] == "ingest_known":
+            r["launches"] = launches["ingest_known"]
+    run, launches = ingest_path("ingest path 3 (invertible)",
+                                Config(heavy_keys_source="invertible"), quanta[:2],
+                                ["ingest_packed", "inv_update"])
+    for r in results:
+        if r["name"] == "ingest_packed":
+            r["launches"] = launches["ingest_packed"]
+    dec = run["wins"][-1]["inv"]
+    print(f"ingest path 3: {int(dec['ok'].sum())} verified buckets at the close", flush=True)
 
     print(json.dumps({"kernels": results}))
     print(smi)

@@ -1,0 +1,110 @@
+"""Agent configuration (the part of retina_tpu/config.py the port reads).
+
+``Config`` holds only the fields the port's engine reads, with the
+reference's names and defaults, so ``Config()`` is the deployed node agent:
+the pipeline shapes that ``engine.pipeline_config_from`` turns into a
+``PipelineConfig``, and the feed path's knobs (batch capacity, combining,
+coalescing, transfer buckets and the wire format). The reference's layering
+(YAML file, ``RETINA_*`` environment) and its daemon, fleet, query and
+overload fields are not copied: the port has no daemon yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+AGG_LOW = "low"
+AGG_HIGH = "high"
+
+
+@dataclasses.dataclass
+class Config:
+    """The fields of the reference ``Config`` that the port's feed path reads."""
+
+    # --- the metrics the agent computes (reference-parity fields) ---
+    enable_pod_level: bool = True
+    enable_annotations: bool = False
+    enable_conntrack_metrics: bool = True
+    bypass_lookup_ip_of_interest: bool = False
+    data_aggregation_level: str = AGG_LOW
+
+    # --- the feed path ---
+    batch_capacity: int = 1 << 15  # events per device batch (one step)
+    # Host-side combining of identical descriptors before the transfer
+    # (parallel/combine.py); lossless.
+    host_combine: bool = True
+    # Threads of the native combiner; 0 = cores-1 capped at 4.
+    host_combine_threads: int = 0
+    # Windows of batch_capacity carried by one host-to-card transfer.
+    feed_coalesce_windows: int = 4
+    # Smallest transfer bucket; flushes below it take the packed wire.
+    transfer_min_bucket: int = 1 << 12
+    # The 12-lane packed wire (parallel/wire.py) instead of 16 lanes.
+    transfer_packed: bool = True
+    # The flow-descriptor dictionary wire (parallel/flowdict.py).
+    wire_flow_dict: bool = True
+    # Known rows as the dense (id_bits + 10 + 22)-bit stream (v4) instead
+    # of two u32 lanes (v3).
+    wire_dense_known: bool = True
+    # Slots of the card's descriptor table (48 B each).
+    flow_dict_slots: int = 1 << 18
+
+    # --- priority class and the invertible sketch ---
+    overload_priority_ip_mask: int = 0
+    overload_priority_ip_match: int = 0
+    # Where heavy-flow keys come from: "flowdict", "invertible" or "both".
+    heavy_keys_source: str = "flowdict"
+    invertible_depth: int = 2
+    invertible_width: int = 1 << 12
+    invertible_hi_width: int = 1 << 9
+    invertible_min_weight: int = 0
+
+    # --- pipeline shapes ---
+    n_pods: int = 1 << 12
+    cms_width: int = 1 << 15
+    cms_depth: int = 4
+    topk_slots: int = 1 << 11
+    hll_precision: int = 12
+    entropy_buckets: int = 1 << 12
+    conntrack_slots: int = 1 << 18
+    identity_slots: int = 1 << 16
+
+    def validate(self) -> None:
+        """The reference's checks on these fields."""
+        if self.data_aggregation_level not in (AGG_LOW, AGG_HIGH):
+            raise ValueError(
+                f"dataAggregationLevel must be {AGG_LOW!r} or {AGG_HIGH!r}, "
+                f"got {self.data_aggregation_level!r}"
+            )
+        for f in ("batch_capacity", "n_pods", "cms_width", "topk_slots",
+                  "entropy_buckets", "conntrack_slots", "identity_slots",
+                  "invertible_width", "invertible_hi_width"):
+            v = getattr(self, f)
+            if v <= 0 or (v & (v - 1)):
+                raise ValueError(f"{f} must be a positive power of two, got {v}")
+        if self.heavy_keys_source not in ("flowdict", "invertible", "both"):
+            raise ValueError(
+                "heavy_keys_source must be 'flowdict', 'invertible' or "
+                f"'both', got {self.heavy_keys_source!r}"
+            )
+        if self.heavy_keys_source == "both" and not (
+            self.transfer_packed and self.wire_flow_dict
+        ):
+            raise ValueError(
+                "heavy_keys_source='both' validates the invertible decode "
+                "against the flow dict, which requires transfer_packed "
+                "and wire_flow_dict"
+            )
+        if self.invertible_depth < 1:
+            raise ValueError(
+                f"invertible_depth must be >= 1, got {self.invertible_depth}"
+            )
+        if self.invertible_min_weight < 0:
+            raise ValueError(
+                f"invertible_min_weight must be >= 0, "
+                f"got {self.invertible_min_weight}"
+            )
+        for f in ("overload_priority_ip_mask", "overload_priority_ip_match"):
+            v = getattr(self, f)
+            if not (0 <= v <= 0xFFFFFFFF):
+                raise ValueError(f"{f} must fit in u32, got {v}")

@@ -38,10 +38,15 @@ _ARGTYPES = {
     "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
     + [_LL, _U32, _VP, _VP, _VP, _INT, _VP, _VP, _VP],
     "inv_update": [_VP, _VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
+    "ingest_packed": [_VP, _LL, _INT, _U32, _U32, _VP, _LL, _VP],
+    "ingest_new": [_VP, _LL, _VP, _LL, _VP, _U32, _U32, _VP, _LL, _VP],
+    "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
 }
+# The library of each C function, where it is not the function's own name.
+_LIBRARY = {"ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest"}
 
 # Kernel launches per wrapper since the last reset (a launch of hh_update
-# counts its three phases, one of conntrack its two).
+# counts its three phases, one of conntrack or ingest_new its two).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -79,7 +84,7 @@ def plain_versions() -> Iterator[None]:
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load(name), name)
+        fn = getattr(build.load(_LIBRARY.get(name, name)), name)
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -383,3 +388,116 @@ def inv_update(planes, weights_table, seed, key_cols, weights):
         int(seed) & 0xFFFFFFFF, *_col_args(key_cols), weights.data_ptr(),
         weights.stride(0), b,
     )
+
+
+# ---------------------------------------------------------------------------
+# K7
+
+
+def _wire_rows(wire: torch.Tensor, name: str, width: int, device: torch.device) -> int:
+    _state(wire, name, device)
+    if wire.dim() != 2 or wire.shape[1] != width:
+        raise ValueError(f"{name} must be (bucket, {width}), got {tuple(wire.shape)}")
+    return wire.shape[0]
+
+
+def _windows(n_out: int, bucket: int) -> None:
+    if n_out < bucket:
+        raise ValueError(f"{n_out} window rows cannot hold a bucket of {bucket}")
+
+
+def _aligned(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("wire, table and windows must be 16-byte aligned")
+
+
+def _desc_table(table: torch.Tensor, device: torch.device) -> int:
+    _state(table, "descriptor table", device)
+    if table.dim() != 2 or table.shape[1] != 12 or table.shape[0] < 1:
+        raise ValueError(f"descriptor table must be (slots, 12), got {tuple(table.shape)}")
+    if table.shape[0] > 0xFFFFFFFF:
+        raise ValueError("descriptor table too large for 32-bit ids")
+    return table.shape[0]
+
+
+def ingest_packed(wire, packed, base_lo, base_hi, n_out):
+    """The packed ingest (K7): the (bucket, 12) packed wire, unpacked with
+    the flush's base (or, with ``packed`` false, the (bucket, 16) wire
+    copied), into a new (n_out, 16) int32 buffer of step windows whose rows
+    past ``bucket`` are zero."""
+    dev = wire.device
+    bucket = _wire_rows(wire, "wire", 12 if packed else 16, dev)
+    _windows(n_out, bucket)
+    base_lo, base_hi = int(base_lo) & 0xFFFFFFFF, int(base_hi) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.parallel.wire import ingest_packed_plain
+
+        return ingest_packed_plain(wire, bool(packed), base_lo, base_hi, n_out)
+    out = torch.empty((n_out, 16), dtype=torch.int32, device=dev)
+    _aligned(wire, out)
+    _launch("ingest_packed", dev, wire.data_ptr(), bucket, int(bool(packed)), base_lo, base_hi,
+            out.data_ptr(), n_out)
+    return out
+
+
+def ingest_new(wire, table, winner, base_lo, base_hi, n_out):
+    """The new-descriptor ingest (K7): every row of the (bucket, 13) wire
+    [id | 12 packed lanes] writes its lanes into ``table`` (slots, 12) at
+    its id, in place (the last row in batch order wins a repeated id; ids
+    past the table are dropped), and the lanes unpack into a new
+    (n_out, 16) buffer of windows. ``winner`` is the caller's (slots,)
+    int32 scratch, zero between calls (the plain version does not read
+    it)."""
+    dev = wire.device
+    bucket = _wire_rows(wire, "new wire", 13, dev)
+    _windows(n_out, bucket)
+    slots = _desc_table(table, dev)
+    _state(winner, "winner scratch", dev, shape=(slots,))
+    base_lo, base_hi = int(base_lo) & 0xFFFFFFFF, int(base_hi) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.parallel.wire import ingest_new_plain
+
+        return ingest_new_plain(wire, table, base_lo, base_hi, n_out)
+    if bucket >= 0x7FFFFFFF:
+        raise ValueError("bucket too large for the 32-bit row claim")
+    out = torch.empty((n_out, 16), dtype=torch.int32, device=dev)
+    _aligned(table, out)
+    _launch("ingest_new", dev, wire.data_ptr(), bucket, table.data_ptr(), slots,
+            winner.data_ptr(), base_lo, base_hi, out.data_ptr(), n_out, n_launches=2)
+    return out
+
+
+def ingest_known(wire, bucket, dense, id_bits, table, ts_rel, base_lo, base_hi, n_out):
+    """The known-flow ingest (K7): decode (id, packets, bytes) of ``bucket``
+    rows from the v4 dense stream (``dense``; 1-D, at least
+    ``dense_words(bucket, id_bits)`` words) or the (bucket, 2) v3 wire,
+    gather each row's 12 lanes from ``table`` (ids past it read the last
+    slot), set TS_REL to ``ts_rel`` and BYTES and PACKETS to the row's,
+    and unpack into a new (n_out, 16) buffer of windows."""
+    from retina_tpu_torch.parallel.wire import dense_words
+
+    dev = wire.device
+    if not 1 <= int(id_bits) <= 32:
+        raise ValueError(f"id_bits must be in [1, 32], got {id_bits}")
+    if dense:
+        _state(wire, "known wire", dev)
+        if wire.dim() != 1 or wire.shape[0] < dense_words(bucket, id_bits):
+            raise ValueError(f"known stream must be ({dense_words(bucket, id_bits)},) words, "
+                             f"got {tuple(wire.shape)}")
+    elif _wire_rows(wire, "known wire", 2, dev) != bucket:
+        raise ValueError(f"known wire has {wire.shape[0]} rows, expected {bucket}")
+    _windows(n_out, bucket)
+    slots = _desc_table(table, dev)
+    ts_rel = int(ts_rel) & 0xFFFFFFFF
+    base_lo, base_hi = int(base_lo) & 0xFFFFFFFF, int(base_hi) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.parallel.wire import ingest_known_plain
+
+        return ingest_known_plain(wire, bucket, bool(dense), int(id_bits), table, ts_rel,
+                                  base_lo, base_hi, n_out)
+    out = torch.empty((n_out, 16), dtype=torch.int32, device=dev)
+    _aligned(table, out)
+    _launch("ingest_known", dev, wire.data_ptr(), bucket, int(bool(dense)), int(id_bits),
+            table.data_ptr(), slots, ts_rel, base_lo, base_hi, out.data_ptr(), n_out)
+    return out

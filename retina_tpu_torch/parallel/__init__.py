@@ -1,1 +1,2 @@
-"""Single-card telemetry: step, window close and the scrape snapshot."""
+"""Single-card telemetry (step, window close, snapshot) and the feed path's
+host side: combining, partitioning, the flow dictionary and the wire."""

@@ -52,7 +52,10 @@ MODULES = [
     "retina_tpu_torch.kernels.ops", "retina_tpu_torch.events.synthetic",
     "retina_tpu_torch.models.pipeline", "retina_tpu_torch.parallel.telemetry",
     "retina_tpu_torch.ops.conntrack", "retina_tpu_torch.ops.invertible",
-    "retina_tpu_torch.step_profile",
+    "retina_tpu_torch.step_profile", "retina_tpu_torch.config", "retina_tpu_torch.engine",
+    "retina_tpu_torch.native", "retina_tpu_torch.parallel.combine",
+    "retina_tpu_torch.parallel.flowdict", "retina_tpu_torch.parallel.partition",
+    "retina_tpu_torch.parallel.wire",
 ]
 
 
@@ -170,6 +173,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="shape"):
         kops.conntrack_process(ct.keys[:, :1].contiguous(), ct.vals, 0, *cols, 5, w, w, None,
                                ct.scratch)
+
+
+def test_ingest_wrappers_reject_what_the_kernels_do_not_take():
+    wire = torch.zeros((64, 12), dtype=torch.int32)
+    table = torch.zeros((16, 12), dtype=torch.int32)
+    winner = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="bucket, 16"):
+        kops.ingest_packed(wire, False, 0, 0, 64)
+    with pytest.raises(ValueError, match="cannot hold"):
+        kops.ingest_packed(wire, True, 0, 0, 32)
+    with pytest.raises(ValueError, match="bucket, 13"):
+        kops.ingest_new(wire, table, winner, 0, 0, 64)
+    with pytest.raises(ValueError, match="shape"):
+        kops.ingest_new(torch.zeros((64, 13), dtype=torch.int32), table, winner[:8], 0, 0, 64)
+    with pytest.raises(ValueError, match="slots, 12"):
+        kops.ingest_known(torch.zeros(200, dtype=torch.int32), 64, True, 4, table[:, :8].clone(), 1, 0,
+                          0, 64)
+    with pytest.raises(ValueError, match="words"):
+        kops.ingest_known(torch.zeros(10, dtype=torch.int32), 64, True, 4, table, 1, 0, 0, 64)
+    with pytest.raises(ValueError, match="id_bits"):
+        kops.ingest_known(torch.zeros((64, 2), dtype=torch.int32), 64, False, 33, table, 1, 0,
+                          0, 64)
+    with pytest.raises(ValueError, match="expected 64"):
+        kops.ingest_known(torch.zeros((60, 2), dtype=torch.int32), 64, False, 4, table, 1, 0,
+                          0, 64)
 
 
 # -- on the card ----------------------------------------------------------------
@@ -319,7 +347,8 @@ def test_pipeline_on_card_matches_cpu(card):
     on_card = _run_steps(TelemetryPipeline(CFG, device=card), card)
     counts = kops.launch_counts()
     assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2,
-                      "conntrack": 0, "inv_update": 0}
+                      "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
+                      "ingest_known": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -350,3 +379,121 @@ def test_conntrack_pipeline_on_card_matches_cpu(card, cfg):
                                                                     ("cpu", on_cpu))]
         for key in dec[0]:
             assert torch.equal(dec[0][key].cpu(), dec[1][key]), key
+
+
+def _k7_wire(rng, shape, n_valid):
+    """Random u32 wire lanes; rows past n_valid zero."""
+    w = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    w[n_valid:] = 0
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False])
+def test_ingest_packed_kernel_matches_plain(card, packed):
+    rng = np.random.default_rng(30 + packed)
+    w = _k7_wire(rng, (3000, 12 if packed else 16), 2900)
+    w[::5, 0] = 0  # TS_REL 0: unstamped
+    w[1::5, 0] = 0xFFFFFFFF  # the low word carries into the high word
+    wire = from_numpy(w, card)
+    for lo, hi in ((0xFFFFFF00, 7), (0, 0)):
+        before = kops.launch_counts()["ingest_packed"]
+        out = kops.ingest_packed(wire, packed, lo, hi, 4096)
+        assert kops.launch_counts()["ingest_packed"] == before + 1
+        with kops.plain_versions():
+            ref = kops.ingest_packed(wire, packed, lo, hi, 4096)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert not out[3000:].any()
+
+
+@pytest.mark.gpu
+def test_ingest_new_kernel_matches_plain(card):
+    """Repeated ids (escalated rows, the sentinel slot 0, padding rows):
+    the last row in batch order writes the slot, in kernel and plain alike,
+    and the claim scratch is zero again after each call."""
+    rng = np.random.default_rng(32)
+    slots = 1 << 10
+    table = from_numpy(rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64)
+                       .astype(np.uint32), card)
+    tables = [table.clone(), table.clone()]
+    winner = torch.zeros(slots, dtype=torch.int32, device=card)
+    for n_valid in (5000, 4096):
+        w = _k7_wire(rng, (4096 + 1024, 13), n_valid)
+        w[:n_valid, 0] = rng.integers(0, 300, n_valid)
+        w[::7, 0] = 0
+        w[3::97, 0] = slots + 5  # past the table: dropped
+        wire = from_numpy(w, card)
+        out = kops.ingest_new(wire, tables[0], winner, 0xFFFFF000, 3, 3 * 2048)
+        with kops.plain_versions():
+            ref = kops.ingest_new(wire, tables[1], winner, 0xFFFFF000, 3, 3 * 2048)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+        assert torch.equal(tables[0], tables[1])
+        assert not winner.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("id_bits", [1, 12, 18, 21, 32])
+def test_ingest_known_kernel_matches_plain(card, dense, id_bits):
+    from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
+
+    rng = np.random.default_rng(40 + id_bits + dense)
+    slots = min(1 << id_bits, 1 << 12)
+    bucket, n_valid = 6000, 5800
+    rows = np.zeros((n_valid, 16), np.uint32)
+    pk_bits = 10 if dense else 32 - id_bits
+    rows[:, F.PACKETS] = rng.integers(0, 1 << pk_bits, n_valid) if pk_bits else 0
+    rows[:, F.BYTES] = rng.integers(0, 1 << (22 if dense else 32), n_valid, dtype=np.uint64)
+    ids = rng.integers(0, 1 << id_bits, n_valid, dtype=np.uint64).astype(np.uint32)
+    ids[::2] %= slots  # half inside the table, the rest read its last slot
+    if dense:
+        w = np.zeros(dense_words(bucket, id_bits), np.uint32)
+        dense_known_rows(rows, ids, id_bits, w)
+    else:
+        w = np.zeros((bucket, 2), np.uint32)
+        known_rows(rows, ids, np.uint32(id_bits), w[:n_valid])
+    wire = from_numpy(w, card)
+    table = from_numpy(rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64)
+                       .astype(np.uint32), card)
+    for flag, lo, hi in ((1, 0xFFFFFFF0, 5), (0, 0, 0)):
+        out = kops.ingest_known(wire, bucket, dense, id_bits, table, flag, lo, hi, 8192)
+        with kops.plain_versions():
+            ref = kops.ingest_known(wire, bucket, dense, id_bits, table, flag, lo, hi, 8192)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["flowdict", "invertible"])
+def test_engine_on_card_matches_cpu(card, source):
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.convert import tensor_leaves
+    from retina_tpu_torch.engine import SketchEngine
+
+    # 3000 slots: the dictionary clears twice and the replay meets known rows.
+    cfg = Config(batch_capacity=1 << 11, feed_coalesce_windows=2, flow_dict_slots=3000,
+                 transfer_min_bucket=256, n_pods=256, cms_width=1 << 12, topk_slots=1 << 8,
+                 hll_precision=10, entropy_buckets=1 << 9, conntrack_slots=1 << 10,
+                 identity_slots=1 << 9, heavy_keys_source=source,
+                 invertible_width=1 << 9, invertible_hi_width=1 << 6)
+    gen = TrafficGen(n_flows=3000, n_pods=200, seed=6)
+    quanta = [[gen.batch(4096) for _ in range(2)] for _ in range(3)]
+    quanta[0][0][::40, F.PACKETS] = 3000  # escalates
+    engines = [SketchEngine(cfg, device=d) for d in (card, "cpu")]
+    kops.reset_launch_counts()
+    for eng in engines:
+        eng.update_identities({pod_ip(i): i for i in range(1, 200)})
+        for i, blocks in enumerate(quanta + quanta):
+            eng.flush(blocks, 10 + i)
+        if eng.device.type == "cuda":
+            counts = kops.launch_counts()
+    if source == "flowdict":
+        assert counts["ingest_new"] > 0 and counts["ingest_known"] > 0
+        assert engines[0]._flow_dict.generation > 0
+    else:
+        assert counts["ingest_packed"] > 0 and counts["ingest_new"] == 0
+    assert kops.launch_counts() == counts  # the CPU engine launched nothing
+    for x, y in zip(tensor_leaves(engines[0].state), tensor_leaves(engines[1].state)):
+        assert torch.equal(x.cpu(), y)
