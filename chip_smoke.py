@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's seven CUDA kernel sources from
+Builds the port's ten CUDA kernel sources from
 ``retina_tpu_torch/kernels/csrc`` (one nvcc each, all at once) and its
 native host helpers (``retina_tpu_torch/native``, g++), holds each kernel
 against its plain PyTorch version on the card at the shapes of the main
@@ -35,12 +35,24 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
 - ingest path 3: heavy_keys_source="invertible" (no dictionary, the
   packed full-row wire), two quanta, the invertible decode at each close.
 
+- the time-travel path: Config(heavy_keys_source="invertible",
+  timetravel_enabled=True) over the three quanta in turn, a window closed
+  (and its export offered to the engine's 32-slot ring) after each, 34
+  windows; then QueryService._query over the newest 1, 8 and 32 slots
+  (K8, K9 and K10);
+- the fleet path: 64 nodes (one engine, a fresh state a node) each fed one
+  TrafficGen(seed=i) batch of 2^18 events, two tenants of 32, one window
+  closed at one epoch and encoded to an RFLT frame; a FleetAggregator
+  expecting 64 nodes ingests the 64 frames plus a duplicate and a late
+  frame (both must drop), merges the epoch (K8, K9) and rolls it up (K10).
+
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
 window outputs, snapshots and decodes after each path must equal the same
 run through the plain versions on the card (an ingest path's plain run has
-an engine of its own and launches nothing), and totals[0] must equal the
-events fed.
+an engine of its own and launches nothing; the time-travel queries and the
+fleet aggregation are repeated under the plain versions and their result
+documents must be equal), and totals[0] must equal the events fed.
 
 Comparison rules: integer state and outputs are compared exactly (the
 top-k winner and the latency slot winner are "last row in batch order",
@@ -50,6 +62,11 @@ alike); float32 entropy counts of integer weights are exact below 2^24
 per bucket and compared exactly there, within a relative 2^-22 above;
 derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
+
+K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K10,
+whose kernels take microseconds, by their device time in torch.profiler
+(the summed durations of what the calls ran on the card), with the
+CUDA-event span of the same calls beside it.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -88,6 +105,29 @@ def check(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
+def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
+    """Device time of one call of ``fn`` from torch.profiler, over ``reps``
+    calls after 2 warm-ups: the summed durations of the kernels, copies and
+    fills the calls ran on the card (only the kernels whose name holds
+    ``kernel``, if given). Unlike a CUDA-event span, it holds no wait for
+    the host's launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    check(us > 0, f"the profiler saw no device time{f' in {kernel}' if kernel else ''}")
+    return us / 1e3 / reps
+
+
 def named_leaves(obj, prefix: str = ""):
     """(name, tensor) of every state tensor, in the reference's leaf order."""
     import torch
@@ -113,6 +153,7 @@ def named_leaves_dict(d, prefix: str = ""):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -476,7 +517,9 @@ def main() -> int:
                 if w == 0 and s == 0:
                     first = summ
             if t.pipeline.config.enable_invertible:
-                decs.append(t.inv_decode(state))
+                # The decode's CMS query is K10: the plain run takes its plain version.
+                with kops.plain_versions() if plain else contextlib.nullcontext():
+                    decs.append(t.inv_decode(state))
             state, out = t.end_window(state)
             wins.append(out)
             snaps.append(t.snapshot(state, 2 + w))
@@ -542,8 +585,9 @@ def main() -> int:
     for r in results:
         r["launches"] = launches[r["name"]]
 
+    # The invertible decode verifies its keys through the CMS query, K10.
     run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
-                         k1_k5 + ["inv_update"])
+                         k1_k5 + ["inv_update", "cms_query"])
     dec = run["decs"][-1]
     ok = dec["ok"]
     found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
@@ -582,8 +626,16 @@ def main() -> int:
     t.end_window(st)
     e1.record()
     e1.synchronize()
+    export_bytes = sum(x.numel() * x.element_size() for x in t.fleet_export(st).values())
+    export_ms = time_ms(lambda: t.fleet_export(st))
+    flat_ms = time_ms(lambda: t.snapshot_flat_dispatch(st, 2))
+    host_ms = time_ms(lambda: t.snapshot_host(st, 2))
     for name, ms, nbytes in (("snapshot", snap_ms, snap_read + snap_bytes),
                              ("inv_decode", dec_ms, dec_bytes),
+                             ("fleet_export", export_ms, 2 * export_bytes),
+                             ("snapshot_flat", flat_ms, snap_read + 3 * snap_bytes),
+                             ("snapshot_host (flat + readback)", host_ms,
+                              snap_read + 4 * snap_bytes),
                              ("end_window", e0.elapsed_time(e1), ent_bytes)):
         print(f"torch ops {name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({nbytes} bytes)", flush=True)
@@ -782,19 +834,317 @@ def main() -> int:
             r["launches"] = launches["ingest_known"]
     run, launches = ingest_path("ingest path 3 (invertible)",
                                 Config(heavy_keys_source="invertible"), quanta[:2],
-                                ["ingest_packed", "inv_update"])
+                                ["ingest_packed", "inv_update", "cms_query"])
     for r in results:
         if r["name"] == "ingest_packed":
             r["launches"] = launches["ingest_packed"]
     dec = run["wins"][-1]["inv"]
     print(f"ingest path 3: {int(dec['ok'].sum())} verified buckets at the close", flush=True)
 
+    timetravel_and_fleet(dev, quanta, pods, time_ms, report, results)
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
+          f"kernels line", flush=True)
     print(json.dumps({"kernels": results}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+TT_WINDOWS = 34  # windows closed on the time-travel path: the 32-slot ring evicts two
+FLEET_NODES, NODE_EVENTS, FLEET_EPOCH = 64, 1 << 18, 7
+QUERY_TOPK = 32  # k of a range query: the reference agent's default
+
+
+def same_doc(a, b, what: str) -> None:
+    """Nested dicts, lists, tuples, numpy arrays and scalars exactly equal."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"{what}: keys differ")
+        for k in a:
+            same_doc(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        check(isinstance(b, (list, tuple)) and len(a) == len(b), f"{what}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_doc(x, y, f"{what}[{i}]")
+    elif isinstance(a, np.ndarray):
+        check(isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+              and bool((a == b).all()), f"{what}: arrays differ")
+    else:
+        check(a == b, f"{what}: {a!r} != {b!r}")
+
+
+def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
+    """The time-travel path (window exports -> the engine's ring -> range
+    fold and query) and the fleet path (64 nodes' RFLT frames -> the
+    aggregator's merge -> rollup), each with kernels and under the plain
+    versions, and K8, K9 and K10 against their plain versions at the
+    paths' shapes."""
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.synthetic import TrafficGen
+    from retina_tpu_torch.fleet.aggregator import FleetAggregator
+    from retina_tpu_torch.fleet.codec import FleetSnapshot, decode_snapshot, encode_snapshot
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.timetravel.fold import (
+        fold_stacked,
+        host_arrays,
+        range_decode,
+        range_extract,
+        range_topk,
+        stack_slots,
+    )
+    from retina_tpu_torch.timetravel.query import QueryService
+    from retina_tpu_torch.u32 import from_numpy
+
+    def sync_ms(fn):
+        """(result, host ms) of one call, the card synchronised around it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- the time-travel path --------------------------------------------------
+    tcfg = Config(heavy_keys_source="invertible", timetravel_enabled=True)
+    kops.reset_launch_counts()
+    eng = SketchEngine(tcfg, device=dev)
+    eng.update_identities(pods)
+    ring = eng.timetravel_ring
+    def feed_and_close():
+        for i in range(TT_WINDOWS):
+            eng.flush(quanta[i % 3], 300 + i)
+            eng.close_window(epoch=i)
+            check(ring.drain(60.0), f"ring readback of window {i}")
+
+    _, feed_ms = sync_ms(feed_and_close)
+    st = ring.stats()
+    check((st["depth"], st["appended"], st["evicted"], ring.dropped) == (32, TT_WINDOWS, 2, 0),
+          f"time-travel ring: {st}, dropped {ring.dropped}")
+    svc = QueryService(tcfg, device=dev)
+    svc.add_ring(ring)
+    k = QUERY_TOPK
+    docs = {}
+    for n in (1, 8, 32):
+        docs[n], ms = sync_ms(lambda: svc._query(ring, TT_WINDOWS - n, TT_WINDOWS, k, "flow"))
+        print(f"time-travel query over {n} windows: {ms:.3f} ms (first call)", flush=True)
+    tt_launches = kops.launch_counts()
+    print(f"time-travel path launches: {tt_launches}", flush=True)
+    for name in ("ingest_packed", "inv_update", "fold", "topk_join", "cms_query"):
+        check(tt_launches[name] > 0, f"{name} was not launched on the time-travel path")
+    for n, doc in docs.items():
+        with kops.plain_versions():
+            ref = svc._query(ring, TT_WINDOWS - n, TT_WINDOWS, k, "flow")
+        same_doc(doc, ref, f"time-travel query over {n} windows")
+        check(doc["windows"] == n and doc["epochs"] == list(range(TT_WINDOWS - n, TT_WINDOWS)),
+              f"time-travel query over {n} windows: epochs")
+        check(len(doc["topk"]["keys"]) == k and doc["decode"]["n_keys"] > 0,
+              f"time-travel query over {n} windows: empty answer")
+        check(np.isfinite(doc["cardinality"]) and doc["cardinality"] > 0,
+              f"time-travel query over {n} windows: cardinality")
+    check(kops.launch_counts() == tt_launches, "the plain time-travel queries launched kernels")
+    print(f"time-travel path: {TT_WINDOWS} windows fed and closed in {feed_ms:.1f} ms; "
+          f"32-window cardinality {docs[32]['cardinality']:.0f}, entropy bits "
+          f"{docs[32]['entropy_bits']}, {docs[32]['decode']['n_keys']} decoded keys", flush=True)
+
+    # The 32-window query by stage (warm: a second call).
+    slots = ring.select(TT_WINDOWS - 32, TT_WINDOWS)
+    arrays32, seeds = [s[1] for s in slots], slots[0][3]
+    names = sorted(arrays32[0])
+    for attempt in ("cold", "warm"):
+        stacked32, stack_ms = sync_ms(lambda: stack_slots(arrays32, names, dev))
+        merged_dev, fold_ms = sync_ms(lambda: fold_stacked(stacked32))
+        merged, back_ms = sync_ms(lambda: host_arrays(merged_dev))
+        extras, extract_ms = sync_ms(lambda: range_extract(merged, seeds, dev))
+        dec, decode_ms = sync_ms(lambda: range_decode(merged, seeds, dev))
+        _, topk_ms = sync_ms(lambda: range_topk(merged, seeds, k=k, est=extras["flow_est"],
+                                                device=dev))
+        _, query_ms = sync_ms(lambda: svc._query(ring, TT_WINDOWS - 32, TT_WINDOWS, k, "flow"))
+    stacked_bytes = sum(x.numel() * x.element_size() for x in stacked32.values())
+    # totals are cumulative over the engine's life: the newest slot holds every
+    # event fed, and the fold their sum over the 32 slots.
+    check(int(arrays32[-1]["totals"][0]) == TT_WINDOWS * QUANTUM,
+          "newest ring slot: totals[0] != events fed")
+    check(int(merged["totals"][0]) == QUANTUM * sum(range(TT_WINDOWS - 31, TT_WINDOWS + 1))
+          % (1 << 32), "32-window fold: totals[0] != the slots' sum")
+    print(f"time-travel 32-window query (warm): {stacked_bytes} bytes stacked; stack + copy "
+          f"{stack_ms:.3f} ms, K8/K9 {fold_ms:.3f} ms, readback {back_ms:.3f} ms, extract "
+          f"{extract_ms:.3f} ms, decode {decode_ms:.3f} ms, top-k {topk_ms:.3f} ms; the whole "
+          f"query {query_ms:.3f} ms", flush=True)
+    eng.stop()
+    del eng, ring, svc
+
+    # -- the fleet path ----------------------------------------------------------------
+    fcfg = Config(heavy_keys_source="invertible", fleet_enabled=True)
+    acfg = Config(fleet_expected_nodes=FLEET_NODES)
+    kops.reset_launch_counts()
+    eng = SketchEngine(fcfg, device=dev)
+    eng.update_identities(pods)
+    frames = []
+    t0 = time.perf_counter()
+    for i in range(FLEET_NODES):
+        gen = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=i)
+        eng.state = eng.telemetry.init_state()  # a fresh node, one engine reused
+        eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 500)
+        epoch, arrays, window_s, seeds = eng.close_window(epoch=FLEET_EPOCH)["export"]
+        first_half = i < FLEET_NODES // 2
+        frames.append(encode_snapshot(FleetSnapshot(
+            node=f"node-{i:02d}", tenant="tenant-a" if first_half else "tenant-b",
+            priority=int(first_half), epoch=epoch, seq=1, window_s=window_s, seeds=seeds,
+            arrays=host_arrays(arrays))))
+    nodes_s = time.perf_counter() - t0
+    late = encode_snapshot(dataclasses.replace(decode_snapshot(frames[1]),
+                                               epoch=FLEET_EPOCH - 1))
+    print(f"fleet path: {FLEET_NODES} nodes of {NODE_EVENTS} events fed, closed and encoded in "
+          f"{nodes_s:.1f} s; frame {len(frames[0])} bytes a node", flush=True)
+
+    def aggregate():
+        agg = FleetAggregator(acfg, device=dev)
+        for f in frames[:-1]:
+            check(agg.ingest(f), "a fleet frame was refused")
+        check(not agg.ingest(frames[0]), "a duplicate frame was accepted")
+        check(agg.ingest(frames[-1]), "the quorum frame was refused")
+        check(not agg.ingest(late), "a late frame was accepted")
+        want = dict.fromkeys(agg.dropped, 0) | {"duplicate": 1, "late": 1}
+        check(agg.dropped == want, f"fleet drops {agg.dropped}")
+        check((agg.epochs_merged, agg.merge_errors, agg.invertible_decode_failed) == (1, 0, 0),
+              "fleet merge failed")
+        rollup = dict(agg.rollups[-1])
+        rollup.pop("merge_seconds")
+        return rollup
+
+    rollup, agg_cold_ms = sync_ms(aggregate)
+    fleet_launches = kops.launch_counts()
+    print(f"fleet path launches: {fleet_launches}", flush=True)
+    for name in ("ingest_packed", "inv_update", "fold", "topk_join", "cms_query"):
+        check(fleet_launches[name] > 0, f"{name} was not launched on the fleet path")
+    with kops.plain_versions():
+        ref = aggregate()
+    check(kops.launch_counts() == fleet_launches, "the plain fleet merge launched kernels")
+    same_doc(rollup, ref, "fleet rollup")
+    check(int(rollup["totals"][0]) == FLEET_NODES * NODE_EVENTS, "fleet totals[0] != events fed")
+    check(len(rollup["nodes"]) == FLEET_NODES and set(rollup["tenants"]) == {"tenant-a",
+                                                                              "tenant-b"},
+          "fleet rollup nodes or tenants")
+    check(len(rollup["top_flow"][0]) == acfg.fleet_topk_k and len(rollup["invertible"]["keys"]),
+          "fleet rollup: no heavy flows")
+    check(np.isfinite(rollup["distinct_flows"]) and rollup["distinct_flows"] > 0,
+          "fleet distinct flows")
+    _, agg_ms = sync_ms(aggregate)  # warm: the fleet-merge latency
+    print(f"fleet rollup: {len(rollup['invertible']['keys'])} decoded keys, distinct flows "
+          f"{rollup['distinct_flows']:.0f}, entropy bits {rollup['entropy_bits']}; the "
+          f"aggregation of {FLEET_NODES + 2} frames, frames in to rollup out: "
+          f"{agg_ms:.3f} ms warm ({agg_cold_ms:.3f} ms cold)", flush=True)
+
+    # The merge by stage (warm: a second pass).
+    agg = FleetAggregator(acfg, device=dev)
+    for attempt in ("cold", "warm"):
+        snaps, decode_ms = sync_ms(lambda: sorted((decode_snapshot(f) for f in frames),
+                                                  key=lambda s: s.node))
+        names = sorted(snaps[0].arrays)
+        stacked64, stack_ms = sync_ms(lambda: stack_slots([s.arrays for s in snaps], names, dev))
+        merged64, merge_ms = sync_ms(lambda: fold_stacked(stacked64))
+        _, rollup_ms = sync_ms(lambda: agg._rollup(FLEET_EPOCH, snaps, merged64, snaps[0].seeds))
+    stacked_bytes = sum(x.numel() * x.element_size() for x in stacked64.values())
+    print(f"fleet merge of {FLEET_NODES} frames (warm): decode {decode_ms:.3f} ms, stack + copy "
+          f"{stack_ms:.3f} ms ({stacked_bytes} bytes), merge kernels {merge_ms:.3f} ms, rollup "
+          f"{rollup_ms:.3f} ms", flush=True)
+
+    # -- K8, K9, K10 against their plain versions, timed --------------------------------
+    def fold_ops(stacked):
+        return [(n, x, "max_u32" if n.startswith("hll_") else
+                 "sum_f32" if x.dtype == torch.float32 else "sum_u32")
+                for n, x in stacked.items() if not n.endswith(("_keys", "_counts"))]
+
+    for label, stacked, n_slots, launches in (
+            (f"fold ({len(arrays32)} ring slots)", stacked32, len(arrays32), tt_launches["fold"]),
+            (f"fold ({FLEET_NODES} nodes)", stacked64, FLEET_NODES, fleet_launches["fold"])):
+        ops = fold_ops(stacked)
+        for n, x, op in ops:
+            out = kops.fold(x, op)
+            with kops.plain_versions():
+                want = kops.fold(x, op)
+            torch.cuda.synchronize()
+            equal_bits = torch.equal(out.view(torch.int32), want.view(torch.int32))
+            check(equal_bits, f"K8 {label} {n}: kernel != plain")
+        def kernel():
+            return [kops.fold(x, op) for _, x, op in ops]
+
+        def library():
+            return [torch.amax(x, 0) if op == "max_u32" else torch.sum(x, 0, dtype=x.dtype)
+                    for _, x, op in ops]
+
+        ms = device_ms(kernel, kernel="fold_kernel")
+        with kops.plain_versions():
+            plain_ms = device_ms(kernel)
+            plain_span = time_ms(kernel)
+        lib_ms = device_ms(library)
+        n_elems = sum(x[0].numel() for _, x, _ in ops)
+        report(label, "retina_tpu_torch/kernels/csrc/fold.cu",
+               "retina_tpu/timetravel/fold.py:102" if stacked is stacked32
+               else "retina_tpu/fleet/aggregator.py:328",
+               ms, plain_ms, 4 * n_elems * (n_slots + 1), n_elems * n_slots, lib_ms, 0.0)
+        results[-1]["launches"] = launches
+        print(f"{label}: device time of the {len(ops)} launches; CUDA-event span of the "
+              f"{len(ops)} wrapper calls {time_ms(kernel):.4f} ms, plain {plain_span:.4f}, "
+              f"library {time_ms(library):.4f}", flush=True)
+
+    keys, counts = stacked64["flow_keys"], stacked64["flow_counts"]
+    out = kops.topk_join(keys, counts)
+    with kops.plain_versions():
+        want = kops.topk_join(keys, counts)
+    torch.cuda.synchronize()
+    check(torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]), "K9: kernel != plain")
+    def join():
+        return kops.topk_join(keys, counts)
+
+    ms = device_ms(join, kernel="join_kernel")
+    with kops.plain_versions():
+        plain_ms = device_ms(join)
+        plain_span = time_ms(join)
+    n, s, c = keys.shape
+    report("topk_join", "retina_tpu_torch/kernels/csrc/topk_join.cu",
+           "retina_tpu/ops/topk.py:107", ms, plain_ms, 4 * s * (c + 1) * (n + 1),
+           n * s * (c + 1), None, 0.0)
+    results[-1]["launches"] = fleet_launches["topk_join"]
+    print(f"topk_join: CUDA-event span of a call {time_ms(join):.4f} ms, plain "
+          f"{plain_span:.4f}", flush=True)
+
+    cand = [sn.arrays["flow_keys"][sn.arrays["flow_counts"] > 0] for sn in snaps]
+    union = from_numpy(np.unique(np.concatenate(cand), axis=0), dev)
+    cols = [union[:, j] for j in range(union.shape[1])]
+    table, seed = merged64["flow_cms"], snaps[0].seeds["flow"]
+    out = kops.cms_query(table, seed, cols)
+    with kops.plain_versions():
+        want = kops.cms_query(table, seed, cols)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), "K10: kernel != plain")
+    def query():
+        return kops.cms_query(table, seed, cols)
+
+    ms = device_ms(query, kernel="query_kernel")
+    with kops.plain_versions():
+        plain_ms = device_ms(query)
+        plain_span = time_ms(query)
+    from retina_tpu_torch.ops.countmin import indices
+
+    idx = indices(table, seed, cols)
+    gather_ms = device_ms(lambda: torch.gather(table, 1, idx).amin(dim=0))
+    (r, c), (d, w) = union.shape, table.shape
+    # The key columns and the answers cross HBM once; the table at most once
+    # (a 512 KiB table stays in L2 while its rows are gathered).
+    report("cms_query", "retina_tpu_torch/kernels/csrc/cms_query.cu",
+           "retina_tpu/timetravel/fold.py:163", ms, plain_ms,
+           r * c * 4 + min(d * w, r * d) * 4 + r * 4, r * d * c * HASH_OPS, None, 0.0)
+    results[-1]["launches"] = fleet_launches["cms_query"]
+    print(f"cms_query: CUDA-event span of a call {time_ms(query):.4f} ms, plain "
+          f"{plain_span:.4f}", flush=True)
+    print(f"K10 note: {r} candidate rows of {FLEET_NODES} nodes; torch.gather + amin on "
+          f"indices computed beforehand, device time {gather_ms:.4f} ms (two calls)",
+          flush=True)
 
 
 if __name__ == "__main__":

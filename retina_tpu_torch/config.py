@@ -1,12 +1,13 @@
 """Agent configuration (the part of retina_tpu/config.py the port reads).
 
-``Config`` holds only the fields the port's engine reads, with the
-reference's names and defaults, so ``Config()`` is the deployed node agent:
-the pipeline shapes that ``engine.pipeline_config_from`` turns into a
-``PipelineConfig``, and the feed path's knobs (batch capacity, combining,
-coalescing, transfer buckets and the wire format). The reference's layering
-(YAML file, ``RETINA_*`` environment) and its daemon, fleet, query and
-overload fields are not copied: the port has no daemon yet.
+``Config`` holds only the fields the port reads, with the reference's
+names, defaults and checks, so ``Config()`` is the deployed node agent: the
+pipeline shapes that ``engine.pipeline_config_from`` turns into a
+``PipelineConfig``, the feed path's knobs (batch capacity, combining,
+coalescing, transfer buckets and the wire format), the window, and the
+time-travel ring and fleet rollup tier. The reference's layering (YAML
+file, ``RETINA_*`` environment) and its daemon, transport and overload
+fields are not copied: the port has no daemon yet.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class Config:
 
     # --- the feed path ---
     batch_capacity: int = 1 << 15  # events per device batch (one step)
+    window_seconds: float = 1.0  # entropy/anomaly window; fleet epochs are its multiples
     # Host-side combining of identical descriptors before the transfer
     # (parallel/combine.py); lossless.
     host_combine: bool = True
@@ -68,6 +70,27 @@ class Config:
     entropy_buckets: int = 1 << 12
     conntrack_slots: int = 1 << 18
     identity_slots: int = 1 << 16
+
+    # --- the fleet rollup tier (fleet/) ---
+    # Node side: the window close exports the sketches for the fleet.
+    fleet_enabled: bool = False
+    # Close an epoch once this many nodes reported; 0 = on the timeout only.
+    fleet_expected_nodes: int = 0
+    # Epoch close deadline after the first arrival.
+    fleet_straggler_timeout_s: float = 2.0
+    # Open epochs buffered before the oldest is force-closed.
+    fleet_epoch_history: int = 8
+    # Merge quorum-closed epochs on the poll thread instead of in ingest.
+    fleet_merge_async: bool = False
+    fleet_topk_k: int = 32  # cluster-wide heavy-hitter series cap
+    fleet_service_top: int = 16  # per-service cardinality series cap
+    fleet_tenant_series_max: int = 64  # per-tenant series cap
+    fleet_max_tenants: int = 16  # tenants per epoch; lowest priority shed first
+
+    # --- the time-travel ring (timetravel/) ---
+    # Keep the last N window-close exports in a ring for range queries.
+    timetravel_enabled: bool = False
+    timetravel_ring_windows: int = 32  # ring capacity (slots)
 
     def validate(self) -> None:
         """The reference's checks on these fields."""
@@ -108,3 +131,15 @@ class Config:
             v = getattr(self, f)
             if not (0 <= v <= 0xFFFFFFFF):
                 raise ValueError(f"{f} must fit in u32, got {v}")
+        if self.fleet_straggler_timeout_s <= 0:
+            raise ValueError(
+                f"fleet_straggler_timeout_s must be > 0, "
+                f"got {self.fleet_straggler_timeout_s}"
+            )
+        for f in ("fleet_epoch_history", "fleet_topk_k", "fleet_service_top",
+                  "fleet_tenant_series_max", "timetravel_ring_windows"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
+        for f in ("fleet_expected_nodes", "fleet_max_tenants"):
+            if getattr(self, f) < 0:
+                raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")

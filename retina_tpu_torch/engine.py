@@ -23,8 +23,14 @@ feed path, synchronously:
 5. ``Telemetry.step`` per window; host losses fold into the first step
    of the flush only.
 
-``close_window`` and ``snapshot`` read the state. The method names are the
-reference's, so each has its counterpart there. Left out, for later
+``close_window`` closes the window in the reference's order: with the
+time-travel ring or the fleet tier on, it first copies the window's
+sketches (``Telemetry.fleet_export``) and offers them to the engine's
+``SnapshotRing`` (``timetravel_ring``) and, with ``fleet_enabled``, returns
+them for the caller to encode; then the invertible decode; then
+``end_window``. ``snapshot`` reads the state back in one copy
+(``Telemetry.snapshot_host``). The method names are the reference's, so
+each has its counterpart there. Left out, for later
 slices: the threads (feed loop, feed pool, dispatch worker, device proxy),
 the supervisor, metrics, the flight recorder, AOT caches, checkpoints, the
 harvest lane and overload control (the sampler stays at NOMINAL: k = 1, no
@@ -45,6 +51,7 @@ import torch
 from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.config import Config
 from retina_tpu_torch.events.schema import F
+from retina_tpu_torch.fleet.shipper import window_epoch
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.identity import HostIdentityTable, IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState
@@ -60,6 +67,7 @@ from retina_tpu_torch.parallel.wire import (
     dense_words,
     pack_records,
 )
+from retina_tpu_torch.timetravel.ring import SnapshotRing
 
 
 def pipeline_config_from(cfg: Config) -> PipelineConfig:
@@ -191,6 +199,21 @@ class SketchEngine:
         self.lost_table_entries = {"identity": 0, "filter": 0}
         self.stages = FeedStages(self.device)
         self.counts = FeedCounts()
+        self._tt_ring: SnapshotRing | None = None
+        if cfg.timetravel_enabled:
+            self._tt_ring = SnapshotRing(cfg.timetravel_ring_windows, name="engine")
+            self._tt_ring.start()
+
+    @property
+    def timetravel_ring(self) -> SnapshotRing | None:
+        """The ring of this engine's window-close exports (None unless
+        ``timetravel_enabled``)."""
+        return self._tt_ring
+
+    def stop(self) -> None:
+        """Stop the ring's readback thread."""
+        if self._tt_ring is not None:
+            self._tt_ring.stop()
 
     # -- identity / filter wiring ---------------------------------------
     def update_identities(self, ip_to_index: dict[int, int]) -> None:
@@ -446,10 +469,23 @@ class SketchEngine:
         self.counts.events += n_raw
 
     # -- window close and scrape ------------------------------------------
-    def close_window(self, z_thresh: float = 4.0) -> dict[str, torch.Tensor]:
+    def close_window(self, z_thresh: float = 4.0, epoch: int | None = None) -> dict:
         """Close the entropy window: ``end_window``'s outputs, and with the
-        invertible sketch its verified decode under ``"inv"``."""
+        invertible sketch its verified decode under ``"inv"``. With the
+        ring or the fleet tier on, the window's export (copies taken before
+        ``end_window``) goes to the ring and, with ``fleet_enabled``, under
+        ``"export"`` as ``(epoch, arrays, window_s, seeds)``; ``epoch``
+        defaults to ``window_epoch(window_seconds)``."""
         out: dict = {}
+        cfg = self.cfg
+        if cfg.timetravel_enabled or cfg.fleet_enabled:
+            export = self.telemetry.fleet_export(self.state)
+            seeds = self.telemetry.fleet_seeds(self.state)
+            epoch = window_epoch(cfg.window_seconds) if epoch is None else int(epoch)
+            if self._tt_ring is not None:
+                self._tt_ring.offer(epoch, export, cfg.window_seconds, seeds)
+            if cfg.fleet_enabled:
+                out["export"] = (epoch, export, cfg.window_seconds, seeds)
         if self.pcfg.enable_invertible:
             out["inv"] = self.telemetry.inv_decode(self.state, self.cfg.invertible_min_weight)
         self.state, win = self.telemetry.end_window(self.state, z_thresh)
@@ -457,5 +493,6 @@ class SketchEngine:
         return out
 
     def snapshot(self, now_s: int) -> dict:
-        """The scrape-time readout of the current state (copies)."""
-        return self.telemetry.snapshot(self.state, now_s)
+        """The scrape-time readout of the current state, read back to the
+        host in one copy (CPU tensors)."""
+        return self.telemetry.snapshot_host(self.state, now_s)

@@ -13,6 +13,9 @@ against its plain version on the card, and launches nothing.
 
 State tensors are int32 holding u32 bit patterns (float32 for the entropy
 histogram); the kernels read them as ``uint32_t*``.
+
+A wrapper whose kernel would have no element to work on (an empty fold,
+join or query) returns its empty result without a launch.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ _ARGTYPES = {
     "ingest_packed": [_VP, _LL, _INT, _U32, _U32, _VP, _LL, _VP],
     "ingest_new": [_VP, _LL, _VP, _LL, _VP, _U32, _U32, _VP, _LL, _VP],
     "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
+    "fold": [_VP, _LL, _LL, _INT, _VP],
+    "topk_join": [_VP, _VP, _LL, _LL, _INT, _VP, _VP],
+    "cms_query": [_VP, _INT, _INT, _U32] + _COLS + [_LL, _VP],
 }
 # The library of each C function, where it is not the function's own name.
 _LIBRARY = {"ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest"}
@@ -500,4 +506,84 @@ def ingest_known(wire, bucket, dense, id_bits, table, ts_rel, base_lo, base_hi, 
     _aligned(table, out)
     _launch("ingest_known", dev, wire.data_ptr(), bucket, int(bool(dense)), int(id_bits),
             table.data_ptr(), slots, ts_rel, base_lo, base_hi, out.data_ptr(), n_out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K8, K9, K10: the folds of the catalog and the Count-Min query
+
+# Reductions of K8 (csrc/fold.cu): the enum Op there.
+FOLD_OPS = {"sum_u32": 0, "sum_f32": 1, "max_u32": 2}
+
+
+def fold(stacked, op):
+    """The N-way fold (K8) of one stacked array: (N, *shape) -> a new
+    (*shape) tensor, by ``op`` "sum_u32" (wrapping), "sum_f32" (slot by
+    slot, in slot order) or "max_u32". u32 arrays are int32 bit patterns,
+    the f32 sum takes float32."""
+    dev = stacked.device
+    if op not in FOLD_OPS:
+        raise ValueError(f"fold op must be one of {sorted(FOLD_OPS)}, got {op!r}")
+    _state(stacked, "stacked array", dev,
+           dtype=torch.float32 if op == "sum_f32" else torch.int32)
+    if stacked.dim() < 1 or stacked.shape[0] < 1:
+        raise ValueError(f"a fold needs at least one slot, got shape {tuple(stacked.shape)}")
+    if not _on_card(dev):
+        from retina_tpu_torch.timetravel.fold import fold_plain
+
+        return fold_plain(stacked, op)
+    n = stacked[0].numel()
+    out = torch.empty(stacked.shape[1:], dtype=stacked.dtype, device=dev)
+    if n:
+        _launch("fold", dev, stacked.data_ptr(), stacked.shape[0], n, FOLD_OPS[op],
+                out.data_ptr())
+    return out
+
+
+def topk_join(keys, counts):
+    """The N-way candidate-table join (K9): per slot the greatest (count,
+    key row) under the unsigned lexicographic order of TopKTable.merge.
+    ``keys`` (N, S, C) and ``counts`` (N, S) -> new (S, C) and (S,)."""
+    dev = keys.device
+    _state(keys, "candidate keys", dev)
+    if keys.dim() != 3 or keys.shape[0] < 1:
+        raise ValueError(f"candidate keys must be (N >= 1, S, C), got {tuple(keys.shape)}")
+    n, s, c = keys.shape
+    _state(counts, "candidate counts", dev, shape=(n, s))
+    if not 1 <= c <= 0x7FFFFFFF:
+        raise ValueError(f"candidate keys need at least one column, got {c}")
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.topk import topk_join_plain
+
+        return topk_join_plain(keys, counts)
+    out_keys = torch.empty((s, c), dtype=torch.int32, device=dev)
+    out_counts = torch.empty((s,), dtype=torch.int32, device=dev)
+    if s:
+        _launch("topk_join", dev, keys.data_ptr(), counts.data_ptr(), n, s, c,
+                out_keys.data_ptr(), out_counts.data_ptr())
+    return out_keys, out_counts
+
+
+def cms_query(table, seed, key_cols):
+    """The Count-Min point query (K10): (R,) int32 u32 estimates, the
+    minimum over the depth rows of the table at the keys' columns."""
+    dev = table.device
+    _state(table, "cms table", dev)
+    if table.dim() != 2:
+        raise ValueError(f"cms table must be (depth, width), got {tuple(table.shape)}")
+    d, w = table.shape
+    _pow2(w, "cms width")
+    if not key_cols:
+        raise ValueError("1 to 4 key columns, got 0")
+    r = key_cols[0].shape[0] if key_cols[0].dim() == 1 else -1
+    _key_cols(key_cols, r, dev)
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.countmin import query_plain
+        from retina_tpu_torch.u32 import narrow
+
+        return narrow(query_plain(table, seed, key_cols))
+    out = torch.empty((r,), dtype=torch.int32, device=dev)
+    if r:
+        _launch("cms_query", dev, table.data_ptr(), d, w, int(seed) & 0xFFFFFFFF,
+                *_col_args(key_cols), r, out.data_ptr())
     return out

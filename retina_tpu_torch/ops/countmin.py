@@ -1,9 +1,12 @@
 """Count-Min sketch (port of retina_tpu/ops/countmin.py).
 
-State is a (depth, width) int32 table of u32 counts. ``update`` and
-``query`` here are plain PyTorch: they are the Count-Min half of the plain
-version of K2 (``kernels/csrc/hh_update.cu``), which the pipeline reaches
-through ``HeavyHitterSketch.update``.
+State is a (depth, width) int32 table of u32 counts. ``update_plain`` and
+``query_plain`` are the Count-Min half of the plain version of K2
+(``kernels/csrc/hh_update.cu``), which the pipeline reaches through
+``HeavyHitterSketch.update``. ``CountMinSketch.query`` goes through K10
+(``kernels/csrc/cms_query.cu``), whose plain version is ``query_plain``.
+``merge`` is the reference's elementwise add (wrapping), in torch ops; the
+N-way fold of many tables is K8 (``timetravel/fold.py``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.u32 import M32, narrow, widen
 
@@ -69,7 +73,14 @@ class CountMinSketch:
         return self
 
     def query(self, key_cols: list[torch.Tensor]) -> torch.Tensor:
-        return query_plain(self.table, self.seed, key_cols)
+        """(B,) int64 point estimates of (B,) integer key columns (u32
+        values), through K10, which reads int32 bit patterns."""
+        cols = [c if c.dtype == torch.int32 else narrow(c) for c in key_cols]
+        return widen(kops.cms_query(self.table, self.seed, cols))
+
+    def merge(self, other: "CountMinSketch") -> "CountMinSketch":
+        """Elementwise add (u32, wrapping): a new sketch."""
+        return dataclasses.replace(self, table=self.table + other.table)
 
     def reset(self) -> "CountMinSketch":
         self.table.zero_()

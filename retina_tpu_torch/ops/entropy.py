@@ -4,8 +4,9 @@
 window. Its ``update`` takes one key column per group and fills every group
 in one pass through K4 (``kernels/csrc/entropy_update.cu``): it is the
 reference's per-group ``update`` calls of the pipeline step (src IP into
-group 0, dst IP into 1, dst port into 2) made at once. ``AnomalyEWMA`` keeps
-the per-group EWMA baseline and flags z-score outliers.
+group 0, dst IP into 1, dst port into 2) made at once. ``merge`` adds two
+windows' histograms (torch ops). ``AnomalyEWMA`` keeps the per-group EWMA
+baseline and flags z-score outliers.
 """
 
 from __future__ import annotations
@@ -58,6 +59,10 @@ class EntropyWindow:
         p = self.counts / torch.clamp(n, min=1.0)
         terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)), 0.0)
         return -terms.sum(dim=1)
+
+    def merge(self, other: "EntropyWindow") -> "EntropyWindow":
+        """Elementwise float32 add: a new window."""
+        return dataclasses.replace(self, counts=self.counts + other.counts)
 
     def reset(self) -> "EntropyWindow":
         self.counts.zero_()

@@ -2,6 +2,7 @@
 
 A (G, 2^p) u32 bank holds G independent sketches. ``update`` goes through
 K3 (``kernels/csrc/hll_update.cu``); ``update_plain`` is its plain version.
+``merge`` is the reference's elementwise u32 max, in torch ops.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ import torch
 
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
-from retina_tpu_torch.u32 import M32, widen
+from retina_tpu_torch.u32 import M32, narrow, widen
 
 
 def _alpha(m: int) -> float:
@@ -83,6 +84,11 @@ class HyperLogLog:
         lc = m * torch.log(m / torch.clamp(zeros, min=1e-9))
         use_lc = (raw <= 2.5 * m) & (zeros > 0)
         return torch.where(use_lc, lc, raw)
+
+    def merge(self, other: "HyperLogLog") -> "HyperLogLog":
+        """Register-wise u32 max: a new bank."""
+        return dataclasses.replace(
+            self, registers=narrow(torch.maximum(widen(self.registers), widen(other.registers))))
 
     def reset(self) -> "HyperLogLog":
         self.registers.zero_()

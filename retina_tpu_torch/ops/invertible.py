@@ -11,7 +11,8 @@ retina_tpu/ops/invertible.py).
 are one small pass over the D·W buckets at a window close. A bucket where
 one key owns a strict majority of the weight yields that key bit by bit;
 it is accepted only if its checksum matches and it re-hashes to its own
-bucket. ``merge`` is not ported yet (ROADMAP.md, the merges item).
+bucket. ``merge`` adds two sketches of one seed (torch ops, wrapping);
+``decode_verified`` counts through the CMS query, K10.
 """
 
 from __future__ import annotations
@@ -113,6 +114,13 @@ class InvertibleSketch:
         weight = self.weights.reshape(-1)
         ok = (weight != 0) & check_ok & (own_idx == bucket_pos)
         return [narrow(c) for c in cols], weight.clone(), ok
+
+    def merge(self, other: "InvertibleSketch") -> "InvertibleSketch":
+        """Elementwise add (u32, wrapping) of two sketches of one seed."""
+        if self.seed != other.seed:
+            raise ValueError(f"invertible seed mismatch: {self.seed} != {other.seed}")
+        return dataclasses.replace(self, planes=self.planes + other.planes,
+                                   weights=self.weights + other.weights)
 
     def reset(self) -> "InvertibleSketch":
         self.planes.zero_()

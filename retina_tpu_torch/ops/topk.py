@@ -9,6 +9,14 @@ Where several rows win one slot (equal estimates), the reference leaves the
 winner unspecified. The port fixes one rule, in the kernel and in the plain
 version alike: **the last winning row in batch order writes the slot**.
 Any winner is a valid candidate of equal count.
+
+``TopKTable.merge`` is the reference's join: per slot the greater (count,
+key row) pair, compared as u32, count first, then the key columns in
+order. The port holds u32 as int32 bit patterns, so every compare widens
+to int64 first; a signed compare would flip keys with the top bit set.
+The order is total, so N tables chained pairwise give the per-slot
+maximum over N: ``topk_join_plain`` chains the merges, and K9
+(``kernels/csrc/topk_join.cu``) takes the maximum in one pass.
 """
 
 from __future__ import annotations
@@ -56,6 +64,30 @@ def hh_update_plain(cms_table: torch.Tensor, cms_seed: int, key_rows: torch.Tens
     table_update_plain(key_rows, counts, table_seed, key_cols, est)
 
 
+def _take_other(counts_a: torch.Tensor, keys_a: torch.Tensor, counts_b: torch.Tensor,
+                keys_b: torch.Tensor) -> torch.Tensor:
+    """(S,) bool: slot s takes b's (count, key row), the greater under the
+    unsigned lexicographic order of the reference's merge."""
+    a_c, b_c = widen(counts_a), widen(counts_b)
+    ka, kb = widen(keys_a), widen(keys_b)
+    diff = ka != kb
+    first = diff.to(torch.int32).argmax(dim=1, keepdim=True)  # first differing column
+    b_key_greater = diff.any(dim=1) & (kb.gather(1, first)[:, 0] > ka.gather(1, first)[:, 0])
+    return (b_c > a_c) | ((b_c == a_c) & b_key_greater)
+
+
+def topk_join_plain(keys: torch.Tensor, counts: torch.Tensor,
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K9: (N, S, C) keys and (N, S) counts joined by the
+    reference's pairwise merge, chained over the N tables in order."""
+    out_keys, out_counts = keys[0].clone(), counts[0].clone()
+    for k in range(1, keys.shape[0]):
+        take = _take_other(out_counts, out_keys, counts[k], keys[k])
+        out_keys = torch.where(take[:, None], keys[k], out_keys)
+        out_counts = torch.where(take, counts[k], out_counts)
+    return out_keys, out_counts
+
+
 @dataclasses.dataclass
 class TopKTable:
     """Candidate table: (S, C) key rows + (S,) estimated counts, u32."""
@@ -92,6 +124,18 @@ class TopKTable:
         sel = counts[order] > 0
         return keys[order][sel], counts[order][sel]
 
+    def merge(self, other: "TopKTable") -> "TopKTable":
+        """The join of two tables of one seed: per slot the greater (count,
+        key row) under the unsigned order (see the module docstring)."""
+        if self.seed != other.seed:
+            raise ValueError(f"TopKTable seed mismatch: {self.seed} != {other.seed}")
+        take = _take_other(self.counts, self.key_rows, other.counts, other.key_rows)
+        return dataclasses.replace(
+            self,
+            key_rows=torch.where(take[:, None], other.key_rows, self.key_rows),
+            counts=torch.where(take, other.counts, self.counts),
+        )
+
     def reset(self) -> "TopKTable":
         self.key_rows.zero_()
         self.counts.zero_()
@@ -119,6 +163,11 @@ class HeavyHitterSketch:
         kops.hh_update(self.cms.table, self.cms.seed, self.table.key_rows,
                        self.table.counts, self.table.seed, key_cols, weights)
         return self
+
+    def merge(self, other: "HeavyHitterSketch") -> "HeavyHitterSketch":
+        """CMS tables add; candidate tables join."""
+        return HeavyHitterSketch(cms=self.cms.merge(other.cms),
+                                 table=self.table.merge(other.table))
 
     def reset(self) -> "HeavyHitterSketch":
         self.cms.reset()

@@ -7,8 +7,11 @@ report lanes with a leading device axis of size 1; ``snapshot`` returns
 the same keys, shapes and dtypes (u32 leaves as int32 bit patterns),
 including the leading device axis of size 1 on the gathered candidate
 tables and ``ct_totals``; ``inv_decode`` decodes the invertible sketches
-at a window close. State has no device axis. Multi-card sharding (NCCL
-collectives) is a later slice.
+at a window close. ``fleet_export`` copies the window's sketches in the
+fleet array catalog (``fleet/codec.py``) and ``snapshot_host`` reads the
+snapshot back in one copy (``snapshot_flat_dispatch`` / ``_finish``).
+State has no device axis. Multi-card sharding (NCCL collectives) is a
+later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +25,9 @@ from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState, TelemetryPipeline
 from retina_tpu_torch.ops.invertible import decode_verified
 from retina_tpu_torch.u32 import M32, narrow, to_numpy, widen
+
+# (key path, shape, dtype) of each leaf of a flat snapshot, in buffer order.
+FlatLayout = list[tuple[tuple, tuple, torch.dtype]]
 
 
 class Telemetry:
@@ -84,6 +90,81 @@ class Telemetry:
             "active_conns": s.conntrack.active_connections(now_s),
         }
 
+    def fleet_export(self, state: PipelineState) -> dict[str, torch.Tensor]:
+        """The window's sketches for the fleet tier and the time-travel
+        ring, named by the fleet array catalog, as copies on the card: the
+        window close that follows zeroes the entropy histograms in place,
+        so the export must not alias the state. At D=1 the reference's
+        psum, pmax and candidate-table fold are the identity."""
+        s = state
+        out: dict[str, torch.Tensor] = {}
+        for fam, hh in (("flow", s.flow_hh), ("svc", s.svc_hh), ("dns", s.dns_hh)):
+            out[f"{fam}_cms"] = hh.cms.table.clone()
+            out[f"{fam}_keys"] = hh.table.key_rows.clone()
+            out[f"{fam}_counts"] = hh.table.counts.clone()
+        out["hll_flows"] = s.hll_flows.registers.clone()
+        out["hll_src_per_pod"] = s.hll_src_per_pod.registers.clone()
+        out["entropy"] = s.entropy.counts.clone()
+        out["totals"] = s.totals.clone()
+        if self.pipeline.config.enable_invertible:
+            out["inv_flow_planes"] = s.inv_flow.planes.clone()
+            out["inv_flow_weights"] = s.inv_flow.weights.clone()
+            out["inv_hi_planes"] = s.inv_hi.planes.clone()
+            out["inv_hi_weights"] = s.inv_hi.weights.clone()
+        return out
+
+    @staticmethod
+    def fleet_seeds(state: PipelineState) -> dict[str, int]:
+        """Per-family sketch hash seeds, shipped in every frame so that the
+        aggregator refuses cross-seed merges."""
+        return {
+            "flow": int(state.flow_hh.cms.seed),
+            "svc": int(state.svc_hh.cms.seed),
+            "dns": int(state.dns_hh.cms.seed),
+            "hll_flows": int(state.hll_flows.seed),
+            "hll_src_per_pod": int(state.hll_src_per_pod.seed),
+            "entropy": int(state.entropy.seed),
+            "inv_flow": int(state.inv_flow.seed),
+            "inv_hi": int(state.inv_hi.seed),
+        }
+
+    def snapshot_flat_dispatch(self, state: PipelineState,
+                               now_s: int) -> tuple[torch.Tensor, FlatLayout]:
+        """The snapshot as one flat int32 buffer on the card: every leaf
+        (int32 or float32), in the reference's leaf order (sorted keys,
+        depth first), bitcast to int32 and flattened; and the leaf layout
+        that ``snapshot_flat_finish`` needs to cut it up again."""
+        leaves = _sorted_leaves(self.snapshot(state, now_s))
+        layout = [(path, tuple(t.shape), t.dtype) for path, t in leaves]
+        return torch.cat([t.reshape(-1).view(torch.int32) for _, t in leaves]), layout
+
+    @staticmethod
+    def snapshot_flat_finish(flat: torch.Tensor | np.ndarray,
+                             layout: FlatLayout) -> dict[str, Any]:
+        """A flat snapshot buffer (on the card or read back) and its layout
+        -> the snapshot dict of CPU tensors, with ``snapshot``'s keys, shapes
+        and dtypes."""
+        if isinstance(flat, np.ndarray):
+            flat = torch.from_numpy(np.ascontiguousarray(flat).view(np.int32))
+        else:
+            flat = flat.cpu()
+        out: dict[str, Any] = {}
+        off = 0
+        for path, shape, dtype in layout:
+            n = int(np.prod(shape)) if shape else 1
+            chunk = flat[off: off + n].view(dtype).reshape(shape)
+            off += n
+            node = out
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = chunk
+        return out
+
+    def snapshot_host(self, state: PipelineState, now_s: int) -> dict[str, Any]:
+        """The snapshot read back to the host in one copy (CPU tensors)."""
+        flat, layout = self.snapshot_flat_dispatch(state, now_s)
+        return self.snapshot_flat_finish(flat.cpu(), layout)
+
     def inv_decode(self, state: PipelineState, min_weight: int = 0) -> dict[str, torch.Tensor]:
         """Window-close invertible decode, verified against flow_hh's CMS:
         ``keys`` (M, C) int32, ``est`` (M,) int32, ``ok`` (M,) bool and
@@ -99,6 +180,15 @@ class Telemetry:
         keys = torch.stack([torch.cat([a, b]) for a, b in zip(f_cols, h_cols)], dim=1)
         est, ok, tier = (torch.cat([a, b]) for a, b in zip(f, h))
         return {"keys": keys, "est": est, "ok": ok, "tier": tier}
+
+
+def _sorted_leaves(d: dict, prefix: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
+    """(key path, tensor) of a nested dict, keys sorted at every level."""
+    out = []
+    for k in sorted(d):
+        v = d[k]
+        out += _sorted_leaves(v, prefix + (k,)) if isinstance(v, dict) else [(prefix + (k,), v)]
+    return out
 
 
 def topk_from_snapshot(snap: dict[str, Any], name: str, k: int,

@@ -32,6 +32,9 @@ from retina_tpu_torch.engine import FeedStages, SketchEngine, pipeline_config_fr
 from retina_tpu_torch.events.schema import F
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, INVERTIBLE_CONFIG
+from retina_tpu_torch.ops.countmin import CountMinSketch
+from retina_tpu_torch.ops.topk import slots as topk_slots
+from retina_tpu_torch.timetravel.fold import host_arrays
 from retina_tpu_torch.u32 import to_numpy
 from test_torch_pipeline import PODS, compare_states
 
@@ -120,6 +123,51 @@ def test_invertible_takes_the_packed_wire():
     out = eng.close_window()
     assert {"inv", "entropy_bits", "anomaly", "zscore"} <= set(out)
     assert out["inv"]["ok"].any()
+
+
+@pytest.mark.parametrize("source", ["flowdict", "invertible"])
+def test_close_window_exports_to_the_ring_and_the_caller_like_reference(source):
+    """The export close_window takes before end_window equals the reference
+    engine's fleet_export for the same records (candidate key rows under
+    the tie rule of compare_states), goes to the ring unchanged, and comes
+    back under "export" with the epoch, window and seeds."""
+    jcfg, cfg = _configs(heavy_keys_source=source)
+    jeng = JEngine(jcfg, devices=[jax.devices("cpu")[0]])
+    eng = SketchEngine(dataclasses.replace(cfg, timetravel_enabled=True, fleet_enabled=True,
+                                           timetravel_ring_windows=2), device="cpu")
+    jeng.update_identities(PODS)
+    eng.update_identities(PODS)
+    for w in range(3):
+        _feed(jeng, eng, [escalating(20 + 2 * w), escalating(21 + 2 * w)], now0=100 + 10 * w)
+        want = {k: np.asarray(v) for k, v in jeng.sharded.fleet_export(jeng.state).items()}
+        jseeds = jeng.sharded.fleet_seeds(jeng.state)
+        out = eng.close_window(epoch=50 + w)
+        jeng.state, _ = jeng.sharded.end_window(jeng.state)
+        epoch, arrays, window_s, seeds = out["export"]
+        assert (epoch, window_s, seeds) == (50 + w, 1.0, jseeds)
+        assert ("inv" in out) == (source == "invertible")
+        got = host_arrays(arrays)
+        assert set(got) == set(want)
+        for name, ref in want.items():
+            assert got[name].dtype == ref.dtype and got[name].shape == ref.shape, name
+            if not name.endswith("_keys"):
+                np.testing.assert_array_equal(got[name], ref, err_msg=name)
+                continue
+            fam = name[: -len("_keys")]
+            diff = np.nonzero((got[name] != ref).any(axis=1))[0]
+            rows = torch.from_numpy(got[name][diff].astype(np.int64))
+            cols = [rows[:, c] for c in range(rows.shape[1])]
+            seed = seeds[fam]
+            np.testing.assert_array_equal(topk_slots(len(ref), seed, cols).numpy(), diff)
+            cms = CountMinSketch(torch.from_numpy(got[f"{fam}_cms"].view(np.int32)), seed)
+            np.testing.assert_array_equal(cms.query(cols).numpy(), got[f"{fam}_counts"][diff])
+        assert eng.timetravel_ring.drain(5.0)
+        (_, ring_arrays, _, _), = eng.timetravel_ring.select(50 + w, 51 + w)
+        for name in got:
+            np.testing.assert_array_equal(ring_arrays[name], got[name], err_msg=name)
+    stats = eng.timetravel_ring.stats()
+    assert (stats["depth"], stats["appended"], stats["evicted"]) == (2, 3, 1)
+    eng.stop()
 
 
 def test_small_flush_takes_the_packed_wire_and_leaves_the_dictionary():

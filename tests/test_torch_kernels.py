@@ -55,7 +55,10 @@ MODULES = [
     "retina_tpu_torch.step_profile", "retina_tpu_torch.config", "retina_tpu_torch.engine",
     "retina_tpu_torch.native", "retina_tpu_torch.parallel.combine",
     "retina_tpu_torch.parallel.flowdict", "retina_tpu_torch.parallel.partition",
-    "retina_tpu_torch.parallel.wire",
+    "retina_tpu_torch.parallel.wire", "retina_tpu_torch.fleet.codec",
+    "retina_tpu_torch.fleet._msgpack", "retina_tpu_torch.fleet.aggregator",
+    "retina_tpu_torch.fleet.shipper", "retina_tpu_torch.timetravel.ring",
+    "retina_tpu_torch.timetravel.fold", "retina_tpu_torch.timetravel.query",
 ]
 
 
@@ -68,6 +71,7 @@ def test_port_imports_without_jax_or_reference():
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'retina_tpu' or m.startswith('retina_tpu.')]\n"
         "assert not bad, bad\n"
@@ -198,6 +202,39 @@ def test_ingest_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="expected 64"):
         kops.ingest_known(torch.zeros((60, 2), dtype=torch.int32), 64, False, 4, table, 1, 0,
                           0, 64)
+
+
+def test_fold_join_and_query_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="fold op"):
+        kops.fold(x, "mean")
+    with pytest.raises(TypeError, match="float32"):
+        kops.fold(x, "sum_f32")
+    with pytest.raises(TypeError, match="int32"):
+        kops.fold(x.float(), "max_u32")
+    with pytest.raises(ValueError, match="at least one slot"):
+        kops.fold(x[:0], "sum_u32")
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.fold(x.t(), "sum_u32")
+    keys = torch.zeros((3, 16, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        kops.topk_join(keys, torch.zeros((3, 8), dtype=torch.int32))
+    with pytest.raises(ValueError, match="N >= 1"):
+        kops.topk_join(keys[0], torch.zeros((16,), dtype=torch.int32))
+    table = torch.zeros((4, 64), dtype=torch.int32)
+    col = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(ValueError, match="power of two"):
+        kops.cms_query(torch.zeros((4, 48), dtype=torch.int32), 0, [col])
+    with pytest.raises(ValueError, match="key column"):
+        kops.cms_query(table, 0, [])
+    with pytest.raises(ValueError, match="shape"):
+        kops.cms_query(table, 0, [col, col[:5]])
+    with pytest.raises(TypeError, match="int32"):
+        kops.cms_query(table, 0, [col.long()])
+    kops.reset_launch_counts()
+    assert kops.cms_query(table, 0, [col[:0]]).shape == (0,)
+    assert kops.fold(torch.zeros((3, 0), dtype=torch.int32), "sum_u32").shape == (0,)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
 
 
 # -- on the card ----------------------------------------------------------------
@@ -348,7 +385,7 @@ def test_pipeline_on_card_matches_cpu(card):
     counts = kops.launch_counts()
     assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
-                      "ingest_known": 0}
+                      "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -497,3 +534,70 @@ def test_engine_on_card_matches_cpu(card, source):
     assert kops.launch_counts() == counts  # the CPU engine launched nothing
     for x, y in zip(tensor_leaves(engines[0].state), tensor_leaves(engines[1].state)):
         assert torch.equal(x.cpu(), y)
+
+
+def _stack(rng, shape, high=1 << 32):
+    return rng.integers(0, high, shape, dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slots", [1, 2, 7, 64])
+def test_fold_kernel_matches_plain(card, n_slots):
+    rng = np.random.default_rng(50 + n_slots)
+    u = from_numpy(_stack(rng, (n_slots, 3, 1000)), card)  # sums wrap mod 2^32
+    hll = from_numpy(_stack(rng, (n_slots, 64, 65), high=34), card)
+    hll[:, 0, :5] = -1  # 0xFFFFFFFF: the max is unsigned
+    # float32 entropy counts with integer values both below and above 2^24,
+    # so the order of the adds shows above it.
+    ent = torch.from_numpy(rng.integers(0, 1 << 26, (n_slots, 3, 4096)).astype(np.float32))
+    ent = ent.to(card)
+    for x, op in ((u, "sum_u32"), (hll, "max_u32"), (ent, "sum_f32")):
+        before = kops.launch_counts()["fold"]
+        out = kops.fold(x, op)
+        assert kops.launch_counts()["fold"] == before + 1
+        with kops.plain_versions():
+            ref = kops.fold(x, op)
+        torch.cuda.synchronize()
+        assert out.dtype == x.dtype and out.shape == x.shape[1:]
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), op
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tables", [1, 3, 64])
+def test_topk_join_kernel_matches_chained_merges(card, n_tables):
+    rng = np.random.default_rng(60 + n_tables)
+    s, c = 512, 4
+    keys = _stack(rng, (n_tables, s, c))
+    counts = _stack(rng, (n_tables, s), high=6)  # many equal counts
+    counts[:, :32] = 0  # empty slots: zero counts and zero keys
+    keys[:, :32] = 0
+    keys[:, 32:128] = keys[0, 32:128]  # equal keys: the tie reaches the last column
+    keys[1:, 64:96, 3] ^= np.uint32(1 << 31)  # keys that differ only in a top bit
+    keys[:, 96:128, 0] = np.uint32(0x80000000)
+    k, n = from_numpy(keys, card), from_numpy(counts, card)
+    before = kops.launch_counts()["topk_join"]
+    out = kops.topk_join(k, n)
+    assert kops.launch_counts()["topk_join"] == before + 1
+    with kops.plain_versions():
+        ref = kops.topk_join(k, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [1, 2, 4])
+def test_cms_query_kernel_matches_plain(card, n_cols):
+    from retina_tpu_torch.ops.countmin import CountMinSketch
+
+    rng = np.random.default_rng(70 + n_cols)
+    cms = CountMinSketch(from_numpy(_stack(rng, (4, 1 << 12)), card), seed=3)
+    rows = from_numpy(_stack(rng, (5000, 4)), card)  # strided columns
+    cols = [rows[:, j] for j in range(n_cols)]
+    before = kops.launch_counts()["cms_query"]
+    out = kops.cms_query(cms.table, cms.seed, cols)
+    assert kops.launch_counts()["cms_query"] == before + 1
+    with kops.plain_versions():
+        ref = kops.cms_query(cms.table, cms.seed, cols)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(cms.query(cols), ref.to(torch.int64) & 0xFFFFFFFF)

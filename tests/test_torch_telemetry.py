@@ -168,3 +168,39 @@ def test_live_conntrack_and_invertible_state_carried_mid_stream(cut):
                      jnp.uint32(0))
         ts, _ = tp.step(ts, from_numpy(rec, "cpu"), B, clock(0, i), ti, 0)
         compare_states(js, ts)
+
+
+@pytest.mark.parametrize("cut", ["deployed", "invertible"])
+def test_fleet_export_seeds_and_snapshot_host_match_sharded_telemetry(cut):
+    """State stepped by the reference is carried into the port (convert.py);
+    the export, the seeds and the one-copy snapshot then equal the
+    reference's exactly (HLL estimates within rtol 1e-5)."""
+    kw = SMALL_CUTS[cut]
+    ref = ShardedTelemetry(JConfig(**kw), make_mesh(jax.devices()[:1]))
+    port = Telemetry(PipelineConfig(**kw), device="cpu")
+    js = ref.init_state()
+    ji = JIdentityMap.build_host(PODS, n_slots=1 << 8)
+    for i, rec in enumerate(traffic(41, 3)):
+        js, _ = ref.step(js, rec[None], np.array([B], np.uint32), clock(0, i), ji,
+                         apiserver_ip=API)
+    ts = state_from_numpy([np.asarray(x)[0] for x in jax.tree_util.tree_leaves(js)],
+                          port.init_state())
+    want, got = ref.fleet_export(js), port.fleet_export(ts)
+    assert set(got) == set(want)  # the catalog names
+    for name, r in want.items():
+        r = np.asarray(r)
+        a = to_numpy(got[name])
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        np.testing.assert_array_equal(a, r, err_msg=name)
+    assert ("inv_flow_planes" in got) == (cut == "invertible")
+    assert port.fleet_seeds(ts) == ref.fleet_seeds(js)
+    now = clock(0, 3)
+    _compare_snapshots(ref.snapshot_host(js, now), port.snapshot_host(ts, now))
+    flat, layout = port.snapshot_flat_dispatch(ts, now)
+    assert flat.dtype == torch.int32 and flat.dim() == 1
+    _compare_snapshots(ref.snapshot_host(js, now),
+                       port.snapshot_flat_finish(flat.numpy().view(np.uint32), layout))
+    # The export is a copy: the window close that follows does not reach it.
+    entropy = got["entropy"].clone()
+    port.end_window(ts)
+    assert torch.equal(got["entropy"], entropy) and float(ts.entropy.counts.sum()) == 0.0
