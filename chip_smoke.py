@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernel sources from
+Builds the port's eleven CUDA kernel sources from
 ``retina_tpu_torch/kernels/csrc`` (one nvcc each, all at once) and its
 native host helpers (``retina_tpu_torch/native``, g++), holds each kernel
 against its plain PyTorch version on the card at the shapes of the main
@@ -45,6 +45,21 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
   closed at one epoch and encoded to an RFLT frame; a FleetAggregator
   expecting 64 nodes ingests the 64 frames plus a duplicate and a late
   frame (both must drop), merges the epoch (K8, K9) and rolls it up (K10).
+- the detection path: the closed loop of the reference daemon on
+  Config(heavy_keys_source="invertible", timetravel_enabled=True), wired
+  as the reference daemon wires it with its detectors and autocapture on:
+  the engine's record tap feeds the detector bank (K11-K13 at each window
+  close), whose winner and the engine's entropy anomaly flags notify
+  AutoCapture, which range-queries
+  the ring around the window (K8-K10), attributes sources by the invertible
+  decode and writes a replay capture of only the attributed hosts. 24
+  windows of 2^16 bench events, one quantum each, with a port sweep, a DNS
+  tunnel and the DDoS burst at windows 12, 16 and 20: no benign window may
+  fire, each attack window must fire its detector (the DDoS: synflood or
+  the entropy flags), each must be captured, every artifact must hold only
+  rows to or from attributed hosts, and the plain run must fire, hook and
+  attribute alike. The DDoS's decode recall and the tap's share of a
+  bench-scale quantum are printed as findings.
 
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
@@ -63,10 +78,13 @@ per bucket and compared exactly there, within a relative 2^-22 above;
 derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
 
-K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K10,
+K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K13,
 whose kernels take microseconds, by their device time in torch.profiler
 (the summed durations of what the calls ran on the card), with the
-CUDA-event span of the same calls beside it.
+CUDA-event span of the same calls beside it. K11-K13 are held against their
+plain versions at the tap's largest shapes (2^16 flow keys, and a padded
+2^6), estimates and entropy within a relative 1e-5, K13 bit for bit. The
+pairwise merges are timed by device time beside their bounds.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -80,6 +98,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tarfile
 import time
 
 import numpy as np
@@ -639,6 +658,26 @@ def main() -> int:
                              ("end_window", e0.elapsed_time(e1), ent_bytes)):
         print(f"torch ops {name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({nbytes} bytes)", flush=True)
+    # The pairwise merges (torch ops), each of this state with itself: device
+    # time; the bound reads both inputs and writes the result once from HBM,
+    # but the timed calls find the inputs (at most 5.3 MB) in the 50 MB L2.
+    def nbytes_of(*ts):
+        return sum(x.numel() * x.element_size() for x in ts)
+
+    for name, sk, leaves in (
+            ("cms.merge (flow_hh)", st.flow_hh.cms, [st.flow_hh.cms.table]),
+            ("topk.merge (flow_hh)", st.flow_hh.table,
+             [st.flow_hh.table.counts, st.flow_hh.table.key_rows]),
+            ("hh.merge (flow_hh)", st.flow_hh,
+             [st.flow_hh.cms.table, st.flow_hh.table.counts, st.flow_hh.table.key_rows]),
+            ("hll.merge (hll_flows)", st.hll_flows, [st.hll_flows.registers]),
+            ("entropy.merge", st.entropy, [st.entropy.counts]),
+            ("inv.merge (inv_flow)", st.inv_flow, [st.inv_flow.planes, st.inv_flow.weights])):
+        ms = device_ms(lambda sk=sk: sk.merge(sk))
+        nbytes = 3 * nbytes_of(*leaves)
+        print(f"torch ops {name}: device time {ms:.4f} ms, bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} bytes; warm in L2)",
+              flush=True)
     del st, t, snap
 
     # -- K7: the ingest kernels against their plain versions ---------------
@@ -842,6 +881,7 @@ def main() -> int:
     print(f"ingest path 3: {int(dec['ok'].sum())} verified buckets at the close", flush=True)
 
     timetravel_and_fleet(dev, quanta, pods, time_ms, report, results)
+    detection_loop(dev, quanta, pods, time_ms, report, results)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -856,6 +896,13 @@ def main() -> int:
 TT_WINDOWS = 34  # windows closed on the time-travel path: the 32-slot ring evicts two
 FLEET_NODES, NODE_EVENTS, FLEET_EPOCH = 64, 1 << 18, 7
 QUERY_TOPK = 32  # k of a range query: the reference agent's default
+# Every kernel an invertible engine launches when it is fed, closes windows
+# and answers range queries: the step (K1-K6), the packed wire's ingest (K7;
+# there is no flow dictionary, so no ingest_new/ingest_known) and the fold,
+# join and Count-Min query (K8-K10).
+INVERTIBLE_ENGINE_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update",
+                             "conntrack", "inv_update", "ingest_packed", "fold", "topk_join",
+                             "cms_query")
 
 
 def same_doc(a, b, what: str) -> None:
@@ -933,7 +980,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         print(f"time-travel query over {n} windows: {ms:.3f} ms (first call)", flush=True)
     tt_launches = kops.launch_counts()
     print(f"time-travel path launches: {tt_launches}", flush=True)
-    for name in ("ingest_packed", "inv_update", "fold", "topk_join", "cms_query"):
+    for name in INVERTIBLE_ENGINE_KERNELS:
         check(tt_launches[name] > 0, f"{name} was not launched on the time-travel path")
     for n, doc in docs.items():
         with kops.plain_versions():
@@ -1019,7 +1066,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     rollup, agg_cold_ms = sync_ms(aggregate)
     fleet_launches = kops.launch_counts()
     print(f"fleet path launches: {fleet_launches}", flush=True)
-    for name in ("ingest_packed", "inv_update", "fold", "topk_join", "cms_query"):
+    for name in INVERTIBLE_ENGINE_KERNELS:
         check(fleet_launches[name] > 0, f"{name} was not launched on the fleet path")
     with kops.plain_versions():
         ref = aggregate()
@@ -1145,6 +1192,346 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     print(f"K10 note: {r} candidate rows of {FLEET_NODES} nodes; torch.gather + amin on "
           f"indices computed beforehand, device time {gather_ms:.4f} ms (two calls)",
           flush=True)
+
+
+
+DET_WINDOW = 1 << 16  # benign events a window on the detection path: the tap's cap
+DET_BENIGN0, DET_AFTER = 12, 3  # benign windows before the attacks and after each
+DET_ATTACKS = (  # (detector expected to win, TrafficGen attack method, events, its options)
+    ("portscan", "portscan_batch", 1 << 15, {"n_scanners": 4, "n_ports": 24}),
+    ("dnstunnel", "tunnel_batch", 1 << 15, {"n_clients": 48}),
+    ("synflood", "ddos_batch", 98_304, {"n_sources": 48}),  # the dryrun's burst
+)
+# Every kernel the detection path launches: those of the time-travel and
+# fleet paths and the bank's (K11-K13).
+DETECTION_KERNELS = INVERTIBLE_ENGINE_KERNELS + ("portscan_score", "dnstunnel_score",
+                                                 "synflood_score")
+CAPTURE_ATTACK_ROWS = 768  # attack rows in each block of the live stream a capture reads
+ATTACK_NET = {"portscan": 0xC9, "dnstunnel": 0xCA, "synflood": 0xC0}  # the attack sources' /8
+
+
+def detection_schedule(gen):
+    """The detection path's traffic, drawn from ``gen`` in order: DET_BENIGN0
+    benign windows, then each attack of DET_ATTACKS appended to a benign
+    window's events and followed by DET_AFTER benign windows. Returns
+    (windows, attack_at, attack_rows): each window as record blocks of at
+    most about BLOCK rows, each attack window's (detector, method, options)
+    and its attack rows."""
+    windows, attack_at, attack_rows = [], {}, {}
+    for _ in range(DET_BENIGN0):
+        windows.append([gen.batch(DET_WINDOW)])
+    for name, method, n, kw in DET_ATTACKS:
+        e = len(windows)
+        attack_at[e] = (name, method, kw)
+        benign = gen.batch(DET_WINDOW)
+        attack_rows[e] = getattr(gen, method)(n, **kw)
+        windows.append([benign, attack_rows[e]])
+        for _ in range(DET_AFTER):
+            windows.append([gen.batch(DET_WINDOW)])
+    windows = [[b for blk in w for b in np.array_split(blk, max(1, len(blk) // BLOCK))]
+               for w in windows]
+    return windows, attack_at, attack_rows
+
+
+def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
+    """The detection path: K11-K13 against their plain versions at the
+    tap's largest shapes, then the closed loop at the deployed width (the
+    engine's record tap -> the detector bank -> arbitration -> AutoCapture
+    -> range decode -> a replay capture of the attributed hosts) with
+    kernels and under the plain versions, and the tap's share of a
+    bench-scale quantum."""
+    import tempfile
+
+    import torch
+
+    from retina_tpu_torch.capture.manager import CaptureManager
+    from retina_tpu_torch.capture.providers import ReplayProvider
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.detect import build_default_bank, features, programs
+    from retina_tpu_torch.detect.base import MAX_WINDOW_RECORDS
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import F, u32_to_ip
+    from retina_tpu_torch.events.synthetic import TrafficGen, preset_params
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.combine import combine_blocks
+    from retina_tpu_torch.sources.pcapdecode import _decode_pcap_numpy
+    from retina_tpu_torch.timetravel.autocapture import AutoCapture
+    from retina_tpu_torch.timetravel.query import QueryService
+    from retina_tpu_torch.u32 import from_numpy
+
+    t_phase = time.perf_counter()
+
+    def bench_gen(seed=SEED, **kw):
+        return TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=seed, **kw)
+
+    # -- K11, K12, K13 at the tap's largest shapes -----------------------------
+    scan = bench_gen(**preset_params("portscan"))
+    k11_in = {}
+    for label, n in (("P = 2^16", DET_WINDOW), ("P = 2^6, padded", 40)):
+        keys, w = features.padded_flow_keys(scan.batch(n))
+        k11_in[label] = (from_numpy(keys, dev), from_numpy(w, dev))
+    hist = from_numpy(features.qname_length_hist(
+        bench_gen(**preset_params("dns_flood")).batch(DET_WINDOW)), dev)
+    lanes = from_numpy(features.tcpflag_lanes(
+        bench_gen(**preset_params("syn_storm")).batch(DET_WINDOW)), dev)
+    errs = {}
+    for label, (keys, w) in k11_in.items():
+        out = programs.portscan_program(keys, w)
+        with kops.plain_versions():
+            ref = programs.portscan_program(keys, w)
+        check(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)), f"K11 ({label}): kernel != plain")
+        errs["portscan_score"] = max(errs.get("portscan_score", 0.0),
+                                     float((out - ref).abs().max()))
+        print(f"K11 {label}: estimates max {float(out.max()):.3f} (kernel), "
+              f"{float(ref.max()):.3f} (plain)", flush=True)
+    out = programs.dnstunnel_program(hist)
+    with kops.plain_versions():
+        ref = programs.dnstunnel_program(hist)
+    check(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)), "K12: kernel != plain")
+    errs["dnstunnel_score"] = float((out - ref).abs().max())
+    print(f"K12 dns_flood histogram: {out.tolist()} (kernel), {ref.tolist()} (plain)", flush=True)
+    out = programs.synflood_program(lanes)
+    with kops.plain_versions():
+        ref = programs.synflood_program(lanes)
+    check(bool(torch.equal(out, ref)), "K13: kernel != plain (must be bit-equal)")
+    errs["synflood_score"] = 0.0
+    print(f"K13 syn_storm lanes: {out.tolist()}", flush=True)
+
+    keys, w = k11_in["P = 2^16"]
+    p_rows = keys.shape[0]
+    p = hist / hist.sum()
+    for name, fn, kernel, nbytes, ops, lib in (
+            ("portscan_score", lambda: programs.portscan_program(keys, w), "portscan_kernel",
+             p_rows * 20 + programs.PORTSCAN_GROUPS * 4, p_rows * (HASH_OPS + 12), None),
+            ("dnstunnel_score", lambda: programs.dnstunnel_program(hist), "dnstunnel_kernel",
+             hist.numel() * 4 + 8, hist.numel() * 6,
+             lambda: torch.special.entr(p).sum()),
+            ("synflood_score", lambda: programs.synflood_program(lanes), "synflood_kernel",
+             9 * 4 + 3 * 4, 4, None)):
+        ms = device_ms(fn, kernel=kernel)
+        with kops.plain_versions():
+            plain_ms = device_ms(fn)
+        lib_ms = device_ms(lib) if lib else None
+        report(name, "retina_tpu_torch/kernels/csrc/detect.cu",
+               {"portscan_score": "retina_tpu/detect/programs.py:51",
+                "dnstunnel_score": "retina_tpu/detect/programs.py:78",
+                "synflood_score": "retina_tpu/detect/programs.py:100"}[name],
+               ms, plain_ms, nbytes, ops, lib_ms, errs[name])
+        print(f"{name}: CUDA-event span of a call {time_ms(fn):.4f} ms", flush=True)
+    print("K11 library: none (no PyTorch call computes a grouped HLL); K12 library: "
+          "torch.special.entr + sum on p computed beforehand, two calls", flush=True)
+
+    # -- the closed loop at the deployed width -------------------------------------------
+    windows, attack_at, attack_rows = detection_schedule(bench_gen())
+    n_events = sum(len(b) for w in windows for b in w)
+    print(f"detection path traffic: {len(windows)} windows, {n_events} events, attacks at "
+          f"{ {e: a[0] for e, a in attack_at.items()} }", flush=True)
+
+    def loop_run(plain: bool) -> dict:
+        out_dir = tempfile.mkdtemp(prefix="retina-autocapture-")
+        cfg = Config(heavy_keys_source="invertible", timetravel_enabled=True,
+                     autocapture_cooldown_s=0, autocapture_duration_s=1,
+                     autocapture_output_dir=out_dir)
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        qs = QueryService(cfg, device=dev)
+        qs.add_ring(eng.timetravel_ring)
+        cgen = bench_gen(seed=SEED + 1)
+        live = {"attack": None}
+
+        def capture_source():
+            """The live record stream during a capture: background and the
+            attack still in flight."""
+            return np.concatenate([cgen.batch(256), live["attack"](cgen)])
+
+        ac = AutoCapture(cfg, qs, manager=CaptureManager(ReplayProvider(source=capture_source)))
+        notified = {}
+        notify = ac.notify
+
+        def timed_notify(epoch, dims):
+            ok = notify(epoch, dims)
+            if ok:
+                notified.setdefault(epoch, time.perf_counter())
+            return ok
+
+        ac.notify = timed_notify
+        ac.start()
+        bank = build_default_bank(cfg, sink=ac.notify, device=dev)
+        close = bank._close
+        t = {"tap": 0.0, "close": [], "scores": []}
+
+        def timed_close(epoch, now_s):
+            t0 = time.perf_counter()
+            got = close(epoch, now_s)
+            t["close"].append(time.perf_counter() - t0)
+            t["scores"].append(dict(bank.detector_score))
+            return got
+
+        bank._close = timed_close
+        cur = [0]
+        hooks, fired = [], []
+
+        def tap(records, now_s):
+            t0 = time.perf_counter()
+            fired.extend(bank.observe(cur[0], records, now_s=float(now_s)))
+            t["tap"] += time.perf_counter() - t0
+
+        def anomaly(epoch, dims):
+            hooks.append((epoch, tuple(dims)))
+            ac.notify(epoch, dims)
+
+        eng.record_hook, eng.anomaly_hook = tap, anomaly
+        done_at = {}
+
+        def settle(epoch):
+            """Wait until every queued capture has finished."""
+            deadline = time.perf_counter() + 120.0
+            while time.perf_counter() < deadline:
+                with ac._lock:
+                    idle = ac._q.empty() and ac.autocapture_triggered == (
+                        ac.autocapture_completed + ac.autocapture_failed
+                        + ac.autocapture_suppressed["no_keys"])
+                if idle:
+                    break
+                time.sleep(0.005)
+            check(idle, f"detection path: captures of epoch {epoch} did not finish")
+            done_at[epoch] = time.perf_counter()
+
+        ctx = kops.plain_versions() if plain else contextlib.nullcontext()
+        kops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            for i, blocks in enumerate(windows):
+                cur[0] = i
+                if i in attack_at:
+                    _, method, kw = attack_at[i]
+                    live["attack"] = lambda g, m=method, kw=kw: getattr(g, m)(
+                        CAPTURE_ATTACK_ROWS, **kw)
+                eng.flush(blocks, 1000 + i)
+                eng.close_window(epoch=i)
+                check(eng.timetravel_ring.drain(60.0), f"ring readback of window {i}")
+                if i - 1 in attack_at:  # the lookahead window landed: let the captures run
+                    settle(i - 1)
+            fired.extend(bank.flush(now_s=time.time()))
+            settle(len(windows))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kops.launch_counts()
+        ac.stop()
+        eng.stop()
+        return dict(eng=eng, qs=qs, ac=ac, bank=bank, fired=fired, hooks=hooks, t=t,
+                    wall=wall, launches=launches, notified=notified, done_at=done_at,
+                    stages=eng.stages.seconds())
+
+    run = loop_run(plain=False)
+    det_launches = run["launches"]
+    print(f"detection path launches: {det_launches}", flush=True)
+    for name in DETECTION_KERNELS:
+        check(det_launches[name] > 0, f"{name} was not launched on the detection path")
+    ref = loop_run(plain=True)
+    check(all(v == 0 for v in ref["launches"].values()),
+          f"the plain detection run launched kernels: {ref['launches']}")
+
+    for r in (run, ref):
+        fired = [(d.detector, d.epoch) for d in r["fired"]]
+        hook_epochs = sorted({e for e, _ in r["hooks"]})
+        check(set(e for _, e in fired) | set(hook_epochs) <= set(attack_at),
+              f"detection path: a benign window fired: {fired}, hooks {r['hooks']}")
+        for e, (name, _, _) in attack_at.items():
+            got = [d for d, fe in fired if fe == e]
+            ok = got == [name] or (name == "synflood" and not got and e in hook_epochs)
+            check(ok, f"detection path: window {e} ({name} attack) fired {got}")
+        caps = r["ac"].captures
+        check(r["ac"].autocapture_failed == 0 and {c["epoch"] for c in caps} == set(attack_at),
+              f"detection path: captures {[c['epoch'] for c in caps]}, "
+              f"failed {r['ac'].autocapture_failed}")
+    print("detection path firings (detector, epoch, score, z): "
+          + ", ".join(f"({d.detector}, {d.epoch}, {d.score:.4f}, {d.zscore:.1f})"
+                      for d in run["fired"])
+          + f"; entropy anomaly hooks {run['hooks']}", flush=True)
+    same_doc([(d.detector, d.epoch, d.dims) for d in run["fired"]],
+             [(d.detector, d.epoch, d.dims) for d in ref["fired"]], "detection path firings")
+    same_doc(run["hooks"], ref["hooks"], "detection path anomaly hooks")
+    for a, b in zip(run["fired"], ref["fired"]):
+        check(abs(a.score - b.score) <= 1e-5 * abs(b.score), "detection path firing scores")
+    check(len(run["t"]["scores"]) == len(ref["t"]["scores"]), "detection path closes")
+    for a, b in zip(run["t"]["scores"], ref["t"]["scores"]):
+        check(set(a) == set(b) and all(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]) for k in a),
+              f"detection path window scores: {a} != {b}")
+
+    def sources(r):
+        return {c["epoch"]: c["sources"] for c in r["ac"].captures}
+
+    same_doc(sources(run), sources(ref), "detection path capture sources")
+
+    # Each capture's artifact, read back: rows to or from attributed hosts only.
+    ddos_e = next(e for e, a in attack_at.items() if a[0] == "synflood")
+    for c in run["ac"].captures:
+        with tarfile.open(c["artifacts"][0]) as tf:
+            member = next(m for m in tf.getmembers() if m.name.endswith(".pcap"))
+            rows = _decode_pcap_numpy(tf.extractfile(member).read()).records
+        hosts = {ip for ip, _ in c["sources"]}
+        only = bool(len(rows)) and all(u32_to_ip(int(s)) in hosts or u32_to_ip(int(d)) in hosts
+                                       for s, d in zip(rows[:, F.SRC_IP], rows[:, F.DST_IP]))
+        check(only, f"capture of epoch {c['epoch']}: rows outside the attributed hosts")
+        net = ATTACK_NET[attack_at[c["epoch"]][0]]
+        n_atk = int(((rows[:, F.SRC_IP] >> np.uint32(24)) == net).sum())
+        print(f"capture of epoch {c['epoch']} ({c['dims']}): {c['attributed_keys']} decoded keys, "
+              f"{len(hosts)} attributed hosts, {len(rows)} rows, {n_atk} attack rows, "
+              f"{c['artifact_bytes']} bytes; query and decode {c['query_seconds'] * 1e3:.1f} ms, "
+              f"capture {c['capture_seconds'] * 1e3:.1f} ms", flush=True)
+
+    # Attribution of the DDoS: its keys in the engine's key layout (src, dst,
+    # ports, proto) and its 48 sources, against the range decode over the
+    # capture's span [W - 2, W + 2).
+    atk = attack_rows[ddos_e]
+    atk_keys = {(int(r[F.SRC_IP]), int(r[F.DST_IP]), int(r[F.PORTS]), 6) for r in atk}
+    atk_srcs = set(int(s) for s in atk[:, F.SRC_IP])
+    dec = run["qs"].query_range("engine", ddos_e - 2, ddos_e + 2)["decode"]
+    dec_keys = {tuple(int(x) for x in k) for k in dec["keys"]}
+    dec_srcs = set(int(s) for s in dec["sources"][0])
+    print(f"DDoS attribution (finding, no gate): {len(atk_keys)} attack keys, "
+          f"{len(dec_keys)} decoded keys, key recall {len(atk_keys & dec_keys) / len(atk_keys):.4f}; "
+          f"{len(atk_srcs)} attack sources, source recall "
+          f"{len(atk_srcs & dec_srcs) / len(atk_srcs):.4f}", flush=True)
+    for net_name, net in ATTACK_NET.items():
+        srcs = [i for i, s in enumerate(dec["sources"][0]) if int(s) >> 24 == net]
+        print(f"  {net_name} sources among the DDoS span's {len(dec['sources'][0])} decoded "
+              f"sources: {len(srcs)}, first at rank {srcs[0] if srcs else None}", flush=True)
+
+    for label, r in (("kernels", run), ("plain versions", ref)):
+        st, n_q = r["stages"], len(windows)
+        lat = {e: (r["done_at"][e] - r["notified"][e]) * 1e3 for e in attack_at
+               if e in r["notified"] and e in r["done_at"]}
+        print(f"detection path ({label}): {n_q} quanta, {n_events} events in {r['wall']:.3f} s; "
+              f"per quantum: tap {(r['t']['tap'] - sum(r['t']['close'])) / n_q * 1e3:.3f} ms, "
+              f"combine {st['combine'] / n_q * 1e3:.3f} ms; bank close "
+              f"{np.mean(r['t']['close']) * 1e3:.3f} ms mean over {len(r['t']['close'])} closes; "
+              f"notify to last capture done per attack (ms) {lat}; busy drops "
+              f"{r['ac'].autocapture_suppressed['busy']}", flush=True)
+    judged = len(run["t"]["close"])
+    for r in results:
+        if r["name"] in ("portscan_score", "dnstunnel_score", "synflood_score"):
+            r["launches"] = det_launches[r["name"]]
+            print(f"{r['name']}: {det_launches[r['name']]} launches over {judged} window "
+                  f"closes", flush=True)
+
+    # -- finding: how much of a bench quantum the tap sees ------------------------------
+    sweep = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=SEED + 2).portscan_batch(
+        1 << 15, n_scanners=4, n_ports=24)
+    rows = combine_blocks(list(quanta[0]) + [sweep])
+    kept = min(len(rows), MAX_WINDOW_RECORDS)
+    bank = build_default_bank(Config(), device=dev)
+    bank.observe(0, rows, now_s=0.0)
+    fires = [d.detector for d in bank.flush(now_s=1.0)]
+    in_cap = int((rows[:kept, F.SRC_IP] >> 24 == 0xC9).sum())
+    print(f"tap finding (no gate): a {QUANTUM}-event quantum of path 1's traffic with a "
+          f"{len(sweep)}-probe sweep appended combines to {len(rows)} rows; the tap keeps "
+          f"{kept} ({kept / len(rows):.1%}), {in_cap} of them sweep rows; the bank fires "
+          f"{fires or 'nothing'} (portscan score {bank.detector_score.get('portscan')})",
+          flush=True)
+    print(f"detection phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

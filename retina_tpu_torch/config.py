@@ -5,9 +5,10 @@ names, defaults and checks, so ``Config()`` is the deployed node agent: the
 pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
 coalescing, transfer buckets and the wire format), the window, and the
-time-travel ring and fleet rollup tier. The reference's layering (YAML
-file, ``RETINA_*`` environment) and its daemon, transport and overload
-fields are not copied: the port has no daemon yet.
+time-travel ring and fleet rollup tier, the detector bank and the
+closed-loop capture. The reference's layering
+(YAML file, ``RETINA_*`` environment) and its daemon, transport and
+overload fields are not copied: the port has no daemon yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ class Config:
     enable_conntrack_metrics: bool = True
     bypass_lookup_ip_of_interest: bool = False
     data_aggregation_level: str = AGG_LOW
+
+    node_name: str = ""
 
     # --- the feed path ---
     batch_capacity: int = 1 << 15  # events per device batch (one step)
@@ -92,6 +95,26 @@ class Config:
     timetravel_enabled: bool = False
     timetravel_ring_windows: int = 32  # ring capacity (slots)
 
+    # --- closed-loop capture (timetravel/autocapture.py) ---
+    # On a detection, range-query the ring around the burst window W,
+    # attribute sources by the invertible decode and capture only them.
+    autocapture_cooldown_s: float = 60.0  # min spacing between captures
+    # Query range around W: [W - lookback, W + lookahead].
+    autocapture_lookback_windows: int = 2
+    autocapture_lookahead_windows: int = 1
+    autocapture_max_sources: int = 8  # top attributed src IPs captured
+    autocapture_duration_s: float = 2.0  # capture recording window
+    autocapture_max_size_mb: int = 8  # evidence bound
+    # Artifact directory (capture host_path output).
+    autocapture_output_dir: str = "/tmp/retina-autocapture"
+
+    # --- the detector bank (detect/) ---
+    # Derived detectors over the engine's record tap; the window's winner
+    # feeds the same AutoCapture sink as the entropy anomaly flags.
+    detector_cooldown_s: float = 60.0  # per-detector min firing spacing
+    detector_z_thresh: float = 8.0  # adaptive (EWMA z-flag) threshold
+    detector_min_windows: int = 3  # EWMA warmup before z-flags count
+
     def validate(self) -> None:
         """The reference's checks on these fields."""
         if self.data_aggregation_level not in (AGG_LOW, AGG_HIGH):
@@ -143,3 +166,16 @@ class Config:
         for f in ("fleet_expected_nodes", "fleet_max_tenants"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
+        for f in ("autocapture_max_sources", "autocapture_max_size_mb",
+                  "detector_min_windows"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
+        for f in ("autocapture_cooldown_s", "autocapture_lookback_windows",
+                  "autocapture_lookahead_windows", "detector_cooldown_s"):
+            if getattr(self, f) < 0:
+                raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
+        if self.detector_z_thresh <= 0:
+            raise ValueError(f"detector_z_thresh must be > 0, got {self.detector_z_thresh}")
+        if self.autocapture_duration_s <= 0:
+            raise ValueError(
+                f"autocapture_duration_s must be > 0, got {self.autocapture_duration_s}")

@@ -1,0 +1,236 @@
+"""Detector registry and window-aligned detector bank (port of
+retina_tpu/detect/base.py).
+
+A ``Detector`` accumulates host features for the current window
+(``add_records``), scores the closed window through its program on the
+bank's device, and judges the score two ways: against an absolute floor
+(``fire_thresh``), and by an ``AnomalyEWMA`` z-flag past ``z_thresh``,
+floored by ``min_score``.
+
+The ``DetectorBank`` closes a window when the epoch rolls over, applies
+each detector's cooldown, arbitrates simultaneous firings by priority (the
+capture queue is one deep, so one detection a window reaches the sink),
+and hands the winner to the sink (``AutoCapture.notify``). The
+reference's Prometheus series are plain counters on the bank, under the
+reference's names.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import logging
+import threading
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from retina_tpu_torch._device import resolve_device
+from retina_tpu_torch.ops.entropy import AnomalyEWMA
+
+_log = logging.getLogger("retina_tpu_torch.detect")
+
+# Records accumulated per window at most (the record tap's memory bound).
+MAX_WINDOW_RECORDS = 1 << 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Detection:
+    """One accepted firing, in AutoCapture.notify terms."""
+
+    detector: str
+    epoch: int
+    score: float
+    zscore: float
+    dims: tuple[str, ...]
+    priority: int
+
+
+class Detector:
+    """Base class; subclasses are registered with ``@register``."""
+
+    name = "base"
+    priority = 0  # higher wins same-window arbitration
+    dims: tuple[str, ...] = ("src_ip",)  # capture-pivot dimensions
+    fire_thresh = float("inf")  # absolute firing floor
+    min_score = 0.0  # adaptive (z-path) firing floor
+
+    def __init__(self, z_thresh: float = 8.0, min_windows: int = 3, cooldown_s: float = 60.0,
+                 device: torch.device | str | None = None) -> None:
+        self.z_thresh = float(z_thresh)
+        self.min_windows = int(min_windows)
+        self.cooldown_s = float(cooldown_s)
+        self.device = resolve_device(device)
+        self._ewma = AnomalyEWMA.zeros(1, device=self.device)
+        self.last_score = 0.0
+        self.last_z = 0.0
+        self.begin_window()
+
+    # -- per-window feature accumulation (host, record tap) ---------------
+    def begin_window(self) -> None:
+        raise NotImplementedError
+
+    def add_records(self, rec: np.ndarray, extras: Optional[dict] = None) -> None:
+        raise NotImplementedError
+
+    def score(self) -> float | None:
+        """Score the accumulated window; None = not enough signal to judge
+        (the EWMA baseline does not advance on such windows)."""
+        raise NotImplementedError
+
+    # -- judgment ------------------------------------------------------------
+    def judge(self, epoch: int) -> Detection | None:
+        s = self.score()
+        if s is None:
+            return None
+        self._ewma, flags, z = self._ewma.observe(
+            torch.tensor([s], dtype=torch.float32, device=self.device),
+            z_thresh=self.z_thresh, min_windows=self.min_windows)
+        self.last_score = float(s)
+        self.last_z = float(z[0])
+        fired = s >= self.fire_thresh or (bool(flags[0]) and s >= self.min_score)
+        if not fired:
+            return None
+        return Detection(detector=self.name, epoch=int(epoch), score=self.last_score,
+                         zscore=self.last_z, dims=self.dims, priority=self.priority)
+
+
+# -- registry ----------------------------------------------------------------
+
+_REGISTRY: dict[str, type] = {}
+
+
+def register(cls: type) -> type:
+    """Class decorator: add a Detector subclass to the inventory.
+    Re-registering a class is idempotent; two classes claiming one name
+    raise."""
+    prev = _REGISTRY.get(cls.name)
+    if prev is not None and prev is not cls:
+        raise ValueError(f"detector {cls.name!r} registered twice: "
+                         f"{prev.__qualname__} and {cls.__qualname__}")
+    _REGISTRY[cls.name] = cls
+    return cls
+
+
+def registered() -> dict[str, type]:
+    """The full inventory (the builtin detectors imported first)."""
+    from retina_tpu_torch.detect import detectors  # noqa: F401
+
+    return dict(_REGISTRY)
+
+
+# -- the bank ------------------------------------------------------------------
+
+
+class DetectorBank:
+    """Window-aligned evaluation of many detectors toward one sink.
+
+    Counters, as the reference's series: ``detector_score`` and
+    ``detector_zscore`` (last value per detector), ``detector_fired``
+    (per detector), ``detector_suppressed`` (per (detector, reason):
+    "disabled", "cooldown", "arbitration") and ``detector_last_epoch``
+    (per detector)."""
+
+    def __init__(self, detectors: list[Detector],
+                 sink: Optional[Callable[[int, list[str]], Any]] = None,
+                 enabled: bool = True) -> None:
+        self.detectors = list(detectors)
+        self.sink = sink
+        self.enabled = enabled
+        self._epoch: int | None = None
+        self._window_rows = 0
+        self._last_fire: dict[str, float] = {}
+        self._lock = threading.Lock()
+        self.fired: list[Detection] = []  # last accepted firings
+        self.detector_score: dict[str, float] = {}
+        self.detector_zscore: dict[str, float] = {}
+        self.detector_fired: collections.Counter = collections.Counter()
+        self.detector_suppressed: collections.Counter = collections.Counter()
+        self.detector_last_epoch: dict[str, int] = {}
+
+    def observe(self, epoch: int, records: np.ndarray | None, extras: Optional[dict] = None,
+                now_s: float | None = None) -> list[Detection]:
+        """Feed one record block for window ``epoch``. Rolling to a new
+        epoch closes the previous window (score, judge, arbitrate);
+        returns the detections accepted for the closed window."""
+        with self._lock:
+            out: list[Detection] = []
+            if self._epoch is not None and epoch != self._epoch:
+                out = self._close(self._epoch, now_s)
+            if self._epoch != epoch:
+                self._epoch = int(epoch)
+                self._window_rows = 0
+                for d in self.detectors:
+                    d.begin_window()
+            if records is not None and len(records):
+                room = MAX_WINDOW_RECORDS - self._window_rows
+                if room > 0:
+                    block = records[:room]
+                    self._window_rows += len(block)
+                    for d in self.detectors:
+                        d.add_records(block, extras)
+            return out
+
+    def flush(self, now_s: float | None = None) -> list[Detection]:
+        """Close the window in progress without starting a new one."""
+        with self._lock:
+            if self._epoch is None:
+                return []
+            out = self._close(self._epoch, now_s)
+            self._epoch = None
+            return out
+
+    def _close(self, epoch: int, now_s: float | None) -> list[Detection]:
+        """Judge, cool down, arbitrate and sink one window (under _lock)."""
+        now = float(now_s) if now_s is not None else time.time()
+        cands: list[Detection] = []
+        for d in self.detectors:
+            try:
+                det = d.judge(epoch)
+            except Exception:
+                _log.exception("detector %s failed", d.name)
+                continue
+            self.detector_score[d.name] = d.last_score
+            self.detector_zscore[d.name] = d.last_z
+            if det is None:
+                continue
+            if not self.enabled:
+                self.detector_suppressed[(d.name, "disabled")] += 1
+                continue
+            last = self._last_fire.get(d.name)
+            if last is not None and (now - last) < d.cooldown_s:
+                self.detector_suppressed[(d.name, "cooldown")] += 1
+                continue
+            cands.append(det)
+        if not cands:
+            return []
+        cands.sort(key=lambda c: -c.priority)
+        winner = cands[0]
+        for c in cands[1:]:
+            self.detector_suppressed[(c.detector, "arbitration")] += 1
+        self._last_fire[winner.detector] = now
+        self.detector_fired[winner.detector] += 1
+        self.detector_last_epoch[winner.detector] = winner.epoch
+        self.fired.append(winner)
+        del self.fired[:-16]
+        if self.sink is not None:
+            try:
+                self.sink(winner.epoch, list(winner.dims))
+            except Exception:
+                _log.exception("detector sink failed")
+        return [winner]
+
+
+def build_default_bank(cfg=None, sink: Optional[Callable[[int, list[str]], Any]] = None,
+                       device: torch.device | str | None = None) -> DetectorBank:
+    """Every registered detector at the config's judgment knobs, on
+    ``device`` (the card unless the caller names another)."""
+    z = float(getattr(cfg, "detector_z_thresh", 8.0))
+    mw = int(getattr(cfg, "detector_min_windows", 3))
+    cd = float(getattr(cfg, "detector_cooldown_s", 60.0))
+    dev = resolve_device(device)
+    dets = [cls(z_thresh=z, min_windows=mw, cooldown_s=cd, device=dev)
+            for _, cls in sorted(registered().items())]
+    return DetectorBank(dets, sink=sink)

@@ -28,7 +28,15 @@ time-travel ring or the fleet tier on, it first copies the window's
 sketches (``Telemetry.fleet_export``) and offers them to the engine's
 ``SnapshotRing`` (``timetravel_ring``) and, with ``fleet_enabled``, returns
 them for the caller to encode; then the invertible decode; then
-``end_window``. ``snapshot`` reads the state back in one copy
+``end_window``, whose anomaly flags go to ``anomaly_hook``.
+
+The two hooks of the reference engine close the detection loop:
+``record_hook(records, now_s)`` sees every block ``_dispatch`` steps and
+every quantum's post-combine rows in ``_build_quantum``, before
+partitioning (the detector bank's tap); ``anomaly_hook(epoch, dims)``
+gets the flagged entropy dims at each close (``AutoCapture.notify``). A
+hook that raises is counted in ``errors`` under its name and never
+propagates. ``snapshot`` reads the state back in one copy
 (``Telemetry.snapshot_host``). The method names are the reference's, so
 each has its counterpart there. Left out, for later
 slices: the threads (feed loop, feed pool, dispatch worker, device proxy),
@@ -42,8 +50,9 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import logging
 import time
-from typing import Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -68,6 +77,11 @@ from retina_tpu_torch.parallel.wire import (
     pack_records,
 )
 from retina_tpu_torch.timetravel.ring import SnapshotRing
+
+_log = logging.getLogger("retina_tpu_torch.engine")
+
+# The entropy groups of end_window's anomaly flags, in order.
+ANOMALY_DIMS = ("src_ip", "dst_ip", "dst_port")
 
 
 def pipeline_config_from(cfg: Config) -> PipelineConfig:
@@ -199,6 +213,11 @@ class SketchEngine:
         self.lost_table_entries = {"identity": 0, "filter": 0}
         self.stages = FeedStages(self.device)
         self.counts = FeedCounts()
+        # The detection loop's hooks (see the module docstring) and the
+        # failures they raised, by hook.
+        self.record_hook: Callable[[np.ndarray, int], Any] | None = None
+        self.anomaly_hook: Callable[[int, list[str]], Any] | None = None
+        self.errors: collections.Counter = collections.Counter()
         self._tt_ring: SnapshotRing | None = None
         if cfg.timetravel_enabled:
             self._tt_ring = SnapshotRing(cfg.timetravel_ring_windows, name="engine")
@@ -254,7 +273,19 @@ class SketchEngine:
         ``step_records`` does."""
         self._dispatch(records, now_s or int(time.time()))
 
+    def _call_hook(self, name: str, *args) -> None:
+        """Call a hook; a failure is logged and counted, never raised."""
+        hook = getattr(self, name)
+        if hook is None:
+            return
+        try:
+            hook(*args)
+        except Exception:
+            self.errors[name] += 1
+            _log.exception("%s failed", name)
+
     def _dispatch(self, records: np.ndarray, now_s: int) -> None:
+        self._call_hook("record_hook", records, now_s)
         with self.stages("partition"):
             sb = partition_events(records, 1, self.cfg.batch_capacity,
                                   min_bucket=self.cfg.transfer_min_bucket)
@@ -280,6 +311,7 @@ class SketchEngine:
                 all_rec = blocks[0]
             else:
                 all_rec = np.concatenate(blocks, axis=0)
+        self._call_hook("record_hook", all_rec, now_s)
         items: list[tuple] = []
         with self.stages("partition"):
             for off in range(0, len(all_rec), coal):
@@ -474,14 +506,16 @@ class SketchEngine:
         invertible sketch its verified decode under ``"inv"``. With the
         ring or the fleet tier on, the window's export (copies taken before
         ``end_window``) goes to the ring and, with ``fleet_enabled``, under
-        ``"export"`` as ``(epoch, arrays, window_s, seeds)``; ``epoch``
-        defaults to ``window_epoch(window_seconds)``."""
+        ``"export"`` as ``(epoch, arrays, window_s, seeds)``. ``epoch``
+        defaults to ``window_epoch(window_seconds)``, the wall clock's
+        window; ``anomaly_hook`` gets the same epoch (the reference passes
+        the wall clock's)."""
         out: dict = {}
         cfg = self.cfg
+        epoch = window_epoch(cfg.window_seconds) if epoch is None else int(epoch)
         if cfg.timetravel_enabled or cfg.fleet_enabled:
             export = self.telemetry.fleet_export(self.state)
             seeds = self.telemetry.fleet_seeds(self.state)
-            epoch = window_epoch(cfg.window_seconds) if epoch is None else int(epoch)
             if self._tt_ring is not None:
                 self._tt_ring.offer(epoch, export, cfg.window_seconds, seeds)
             if cfg.fleet_enabled:
@@ -490,6 +524,11 @@ class SketchEngine:
             out["inv"] = self.telemetry.inv_decode(self.state, self.cfg.invertible_min_weight)
         self.state, win = self.telemetry.end_window(self.state, z_thresh)
         out.update(win)
+        if self.anomaly_hook is not None:
+            flags = win["anomaly"].tolist()
+            flagged = [d for d, f in zip(ANOMALY_DIMS, flags) if f]
+            if flagged:
+                self._call_hook("anomaly_hook", epoch, flagged)
         return out
 
     def snapshot(self, now_s: int) -> dict:

@@ -88,3 +88,8 @@ TCP_ACK = 1 << 4
 TCP_URG = 1 << 5
 TCP_ECE = 1 << 6
 TCP_CWR = 1 << 7
+
+
+def u32_to_ip(v: int) -> str:
+    """Dotted quad of a u32 IPv4 address."""
+    return f"{(v >> 24) & 0xFF}.{(v >> 16) & 0xFF}.{(v >> 8) & 0xFF}.{v & 0xFF}"

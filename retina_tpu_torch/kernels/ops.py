@@ -29,6 +29,7 @@ import torch
 from retina_tpu_torch.kernels import build
 
 _VP, _LL, _U32, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_int
+_FLT = ctypes.c_float
 _COLS = [_VP, _LL] * 4 + [_INT]
 
 _ARGTYPES = {
@@ -47,9 +48,14 @@ _ARGTYPES = {
     "fold": [_VP, _LL, _LL, _INT, _VP],
     "topk_join": [_VP, _VP, _LL, _LL, _INT, _VP, _VP],
     "cms_query": [_VP, _INT, _INT, _U32] + _COLS + [_LL, _VP],
+    "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _VP],
+    "dnstunnel_score": [_VP, _INT, _VP],
+    "synflood_score": [_VP, _VP],
 }
 # The library of each C function, where it is not the function's own name.
-_LIBRARY = {"ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest"}
+_LIBRARY = {"ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
+            "portscan_score": "detect", "dnstunnel_score": "detect",
+            "synflood_score": "detect"}
 
 # Kernel launches per wrapper since the last reset (a launch of hh_update
 # counts its three phases, one of conntrack or ingest_new its two).
@@ -586,4 +592,70 @@ def cms_query(table, seed, key_cols):
     if r:
         _launch("cms_query", dev, table.data_ptr(), d, w, int(seed) & 0xFFFFFFFF,
                 *_col_args(key_cols), r, out.data_ptr())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K11, K12, K13: the detector programs
+
+SHARED_BYTES = 48 * 1024  # K11's registers stay in static-limit shared memory
+
+
+def portscan_score(keys, weights, groups, precision, seed):
+    """The portscan program (K11): (P, 4) int32 flow keys [src, dst, proto,
+    dst port] and (P,) float32 weights -> (groups,) float32 HLL estimates
+    of the distinct dst ports of the keys of weight > 0 in each source
+    hash-group, group = (src * 2654435761) mod groups in u32."""
+    dev = keys.device
+    _state(keys, "flow keys", dev)
+    if keys.dim() != 2 or keys.shape[1] != 4:
+        raise ValueError(f"flow keys must be (P, 4), got {tuple(keys.shape)}")
+    n = keys.shape[0]
+    _state(weights, "weights", dev, dtype=torch.float32, shape=(n,))
+    if not 4 <= int(precision) <= 16:
+        raise ValueError(f"precision must be in [4, 16], got {precision}")
+    if groups < 1 or groups * 4 << int(precision) > SHARED_BYTES:
+        raise ValueError(f"{groups} groups of 2^{precision} registers do not fit "
+                         f"{SHARED_BYTES} bytes of shared memory")
+    if not _on_card(dev):
+        from retina_tpu_torch.detect.programs import portscan_plain
+
+        return portscan_plain(keys, weights, groups, precision, seed)
+    from retina_tpu_torch.ops.hyperloglog import _alpha
+
+    m = 1 << int(precision)
+    out = torch.empty((groups,), dtype=torch.float32, device=dev)
+    _launch("portscan_score", dev, keys.data_ptr(), weights.data_ptr(), n, groups,
+            int(precision), (0xC0FFEE + int(seed)) & 0xFFFFFFFF, _alpha(m) * m * m,
+            out.data_ptr())
+    return out
+
+
+def dnstunnel_score(hist):
+    """The dnstunnel program (K12): a (1, nbins) float32 qname-length
+    histogram -> (2,) float32 [entropy bits, total]."""
+    dev = hist.device
+    _state(hist, "histogram", dev, dtype=torch.float32)
+    if hist.dim() != 2 or hist.shape[0] != 1 or not 1 <= hist.shape[1] <= 0x7FFFFFFF:
+        raise ValueError(f"histogram must be (1, nbins), got {tuple(hist.shape)}")
+    if not _on_card(dev):
+        from retina_tpu_torch.detect.programs import dnstunnel_plain
+
+        return dnstunnel_plain(hist)
+    out = torch.empty((2,), dtype=torch.float32, device=dev)
+    _launch("dnstunnel_score", dev, hist.data_ptr(), hist.shape[1], out.data_ptr())
+    return out
+
+
+def synflood_score(lanes):
+    """The synflood program (K13): (9,) float32 tcpflag lanes -> (3,)
+    float32 [syn / max(ack, 1), syn / max(total, 1), syn]."""
+    dev = lanes.device
+    _state(lanes, "tcpflag lanes", dev, dtype=torch.float32, shape=(9,))
+    if not _on_card(dev):
+        from retina_tpu_torch.detect.programs import synflood_plain
+
+        return synflood_plain(lanes)
+    out = torch.empty((3,), dtype=torch.float32, device=dev)
+    _launch("synflood_score", dev, lanes.data_ptr(), out.data_ptr())
     return out

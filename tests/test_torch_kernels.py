@@ -59,6 +59,12 @@ MODULES = [
     "retina_tpu_torch.fleet._msgpack", "retina_tpu_torch.fleet.aggregator",
     "retina_tpu_torch.fleet.shipper", "retina_tpu_torch.timetravel.ring",
     "retina_tpu_torch.timetravel.fold", "retina_tpu_torch.timetravel.query",
+    "retina_tpu_torch.timetravel.autocapture", "retina_tpu_torch.detect",
+    "retina_tpu_torch.detect.programs", "retina_tpu_torch.detect.features",
+    "retina_tpu_torch.detect.base", "retina_tpu_torch.detect.detectors",
+    "retina_tpu_torch.capture.translator", "retina_tpu_torch.capture.outputs",
+    "retina_tpu_torch.capture.providers", "retina_tpu_torch.capture.manager",
+    "retina_tpu_torch.sources.pcapdecode",
 ]
 
 
@@ -237,6 +243,32 @@ def test_fold_join_and_query_wrappers_reject_what_the_kernels_do_not_take():
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
 
 
+def test_detector_wrappers_reject_what_the_kernels_do_not_take():
+    keys = torch.zeros((64, 4), dtype=torch.int32)
+    w = torch.ones(64)
+    with pytest.raises(ValueError, match="P, 4"):
+        kops.portscan_score(keys[:, :3].contiguous(), w, 32, 8, 0)
+    with pytest.raises(TypeError, match="float32"):
+        kops.portscan_score(keys, w.to(torch.int32), 32, 8, 0)
+    with pytest.raises(ValueError, match="shape"):
+        kops.portscan_score(keys, w[:10], 32, 8, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.portscan_score(keys, w, 64, 8, 0)  # 64 KB of registers
+    with pytest.raises(ValueError, match="precision"):
+        kops.portscan_score(keys, w, 32, 2, 0)
+    with pytest.raises(ValueError, match="1, nbins"):
+        kops.dnstunnel_score(torch.zeros(64))
+    with pytest.raises(TypeError, match="float32"):
+        kops.dnstunnel_score(torch.zeros((1, 64), dtype=torch.float64))
+    with pytest.raises(ValueError, match="shape"):
+        kops.synflood_score(torch.zeros(8))
+    kops.reset_launch_counts()
+    assert kops.portscan_score(keys, w, 32, 8, 0).shape == (32,)
+    assert kops.dnstunnel_score(torch.zeros((1, 64))).shape == (2,)
+    assert kops.synflood_score(torch.zeros(9)).shape == (3,)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -385,7 +417,8 @@ def test_pipeline_on_card_matches_cpu(card):
     counts = kops.launch_counts()
     assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
-                      "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0}
+                      "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
+                      "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -601,3 +634,65 @@ def test_cms_query_kernel_matches_plain(card, n_cols):
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert torch.equal(cms.query(cols), ref.to(torch.int64) & 0xFFFFFFFF)
+
+
+def _portscan_keys(p: int, seed: int):
+    """The tap's keys of a portscan-regime window of bench traffic, padded
+    to P rows, with sources that have the top bit set."""
+    from retina_tpu_torch.detect.features import padded_flow_keys
+
+    gen = TrafficGen(n_flows=100_000, n_pods=2048, mode="portscan", seed=seed)
+    return padded_flow_keys(gen.batch(p - p // 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1 << 6, 1 << 12, 1 << 16])
+def test_detect_portscan_kernel_matches_plain(card, p):
+    from retina_tpu_torch.detect import programs
+
+    keys, w = _portscan_keys(p, 80 + p.bit_length())
+    k, wt = from_numpy(keys, card), from_numpy(w, card)
+    before = kops.launch_counts()["portscan_score"]
+    out = programs.portscan_program(k, wt)
+    assert kops.launch_counts()["portscan_score"] == before + 1
+    with kops.plain_versions():
+        ref = programs.portscan_program(k, wt)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (programs.PORTSCAN_GROUPS,)
+    assert torch.allclose(out, ref, rtol=1e-5, atol=0)
+    assert float(out.max()) >= 12.0  # the sweep is seen
+
+
+@pytest.mark.gpu
+def test_detect_dnstunnel_kernel_matches_plain(card):
+    from retina_tpu_torch.detect import features, programs
+
+    gen = TrafficGen(n_flows=100_000, n_pods=2048, mode="dns_flood", dns_fraction=0.8,
+                     zipf_a=1.5, seed=81)
+    for hist in (features.qname_length_hist(gen.batch(1 << 16)), np.zeros((1, 64), np.float32)):
+        h = from_numpy(hist, card)
+        before = kops.launch_counts()["dnstunnel_score"]
+        out = programs.dnstunnel_program(h)
+        assert kops.launch_counts()["dnstunnel_score"] == before + 1
+        with kops.plain_versions():
+            ref = programs.dnstunnel_program(h)
+        torch.cuda.synchronize()
+        assert torch.allclose(out, ref, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.gpu
+def test_detect_synflood_kernel_is_exact(card):
+    from retina_tpu_torch.detect import features, programs
+
+    gen = TrafficGen(n_flows=100_000, n_pods=2048, mode="syn_storm", zipf_a=1.05,
+                     drop_fraction=0.15, seed=82)
+    for lanes in (features.tcpflag_lanes(gen.batch(1 << 16)), np.zeros(9, np.float32),
+                  np.array([0, 7, 0, 0, 3, 0, 0, 0, 11], np.float32)):
+        x = from_numpy(lanes, card)
+        before = kops.launch_counts()["synflood_score"]
+        out = programs.synflood_program(x)
+        assert kops.launch_counts()["synflood_score"] == before + 1
+        with kops.plain_versions():
+            ref = programs.synflood_program(x)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
