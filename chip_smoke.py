@@ -60,6 +60,19 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
   rows to or from attributed hosts, and the plain run must fire, hook and
   attribute alike. The DDoS's decode recall and the tap's share of a
   bench-scale quantum are printed as findings.
+- row 12, ``cms.update_jit``, which lies on no path: its kernel
+  (``cms_update``, K2's add phase alone) against its plain version at the
+  deployed CMS shape (depth 4, width 2^15) over a 2^21-row batch.
+- the runtime path: ``SketchEngine.start(stop)`` on its own thread, the
+  deployed ``Config()`` fed by producer threads through ``engine.sink``
+  for 8 windows with a pause in the middle, so a close is idle; the feed
+  loop, the feed workers (1, then the auto count), the dispatch thread,
+  the device proxy on its own CUDA stream, the close lane and the harvest
+  lane; then a short run with ``heavy_keys_source="both"`` (K6, K10, the
+  ground truth) and a short one with the overload controller held in
+  SAMPLING. Each run's dispatch thread's log is replayed synchronously
+  under the plain versions, and the run must equal its replay (see
+  ``runtime_lanes``).
 
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
@@ -129,7 +142,10 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
     calls after 2 warm-ups: the summed durations of the kernels, copies and
     fills the calls ran on the card (only the kernels whose name holds
     ``kernel``, if given). Unlike a CUDA-event span, it holds no wait for
-    the host's launches."""
+    the host's launches. A trace that holds no device activity (the
+    profiler has returned such traces, up to three in a row, on the chip
+    machine) is taken again with twice the calls, at most eight times in
+    all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,12 +153,19 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+    for attempt in range(8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and (kernel is None or kernel in e.key))
+        if us > 0:
+            break
+        print(f"device_ms: trace {attempt + 1} of {reps} calls held no device time; "
+              "tracing again", flush=True)
+        reps *= 2
+        time.sleep(0.1)
     check(us > 0, f"the profiler saw no device time{f' in {kernel}' if kernel else ''}")
     return us / 1e3 / reps
 
@@ -251,6 +274,8 @@ def main() -> int:
             check(set(a) == set(b), f"{what}: keys differ")
             for k in a:
                 equal_any(a[k], b[k], f"{what}.{k}")
+        elif isinstance(a, int):
+            check(a == b, f"{what}: {a} != {b}")
         elif a.dtype == torch.float32:
             check(bool(torch.isfinite(a).all()), f"{what} finite")
             close_float(a, b, what)
@@ -658,6 +683,22 @@ def main() -> int:
                              ("end_window", e0.elapsed_time(e1), ent_bytes)):
         print(f"torch ops {name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({nbytes} bytes)", flush=True)
+    # The two allocations (rows 7 and 8): a state of the invertible engine,
+    # and the deployed descriptor table with K7's claim scratch; each writes
+    # its zeros once.
+    from retina_tpu_torch.config import Config as _Config
+    from retina_tpu_torch.parallel.wire import PACKED_FIELDS
+
+    slots = _Config().flow_dict_slots
+    state_bytes = sum(x.numel() * x.element_size() for _, x in named_leaves(st))
+    for name, fn, nbytes in (
+            ("init_state (INVERTIBLE_CONFIG)", t.init_state, state_bytes),
+            ("desc_table (2^18 slots)", lambda: (
+                torch.zeros((slots, PACKED_FIELDS), dtype=torch.int32, device=dev),
+                torch.zeros((slots,), dtype=torch.int32, device=dev)),
+             slots * (PACKED_FIELDS + 1) * 4)):
+        print(f"allocation {name}: {time_ms(fn):.4f} ms, bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes)", flush=True)
     # The pairwise merges (torch ops), each of this state with itself: device
     # time; the bound reads both inputs and writes the result once from HBM,
     # but the timed calls find the inputs (at most 5.3 MB) in the 50 MB L2.
@@ -805,7 +846,7 @@ def main() -> int:
                 eng.flush(blocks, 100 + i)
                 if i % 2 == 1 or i == len(schedule) - 1:
                     wins.append(eng.close_window())
-                    snaps.append(eng.snapshot(100 + i))
+                    snaps.append(eng.snapshot(max_age_s=0, now_s=100 + i))
             after = (eng.counts.new_rows, eng.counts.known_rows, eng.counts.packed_rows)
             per_q.append(tuple(a - b for a, b in zip(after, before)))
         torch.cuda.synchronize()
@@ -882,6 +923,8 @@ def main() -> int:
 
     timetravel_and_fleet(dev, quanta, pods, time_ms, report, results)
     detection_loop(dev, quanta, pods, time_ms, report, results)
+    cms_update_phase(dev, host[0], time_ms, report, results, equal_int)
+    runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -1034,7 +1077,8 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     t0 = time.perf_counter()
     for i in range(FLEET_NODES):
         gen = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=i)
-        eng.state = eng.telemetry.init_state()  # a fresh node, one engine reused
+        # A fresh node, one engine reused; made on the engine's stream.
+        eng.state = eng._proxy.run(eng.telemetry.init_state)
         eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 500)
         epoch, arrays, window_s, seeds = eng.close_window(epoch=FLEET_EPOCH)["export"]
         first_half = i < FLEET_NODES // 2
@@ -1532,6 +1576,399 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
           f"{fires or 'nothing'} (portscan score {bank.detector_score.get('portscan')})",
           flush=True)
     print(f"detection phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+def cms_update_phase(dev, batch, time_ms, report, results, equal_int) -> None:
+    """Row 12, ``cms.update_jit``, which lies on no path: its kernel
+    (``cms_update``, K2's add phase alone) against its plain version at the
+    deployed CMS shape (depth 4, width 2^15) over one 2^21-row batch, keyed
+    by the 5-tuple and weighted by the packet lane with every eighth row
+    masked (weight 0). Its launches are this phase's own."""
+    import torch
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
+    from retina_tpu_torch.ops.countmin import CountMinSketch, cms_update_jit, indices
+    from retina_tpu_torch.u32 import from_numpy, widen
+
+    rec = from_numpy(batch, dev)
+    cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS],
+            ((rec[:, F.META] >> 24) & 0xFF).contiguous()]
+    w = rec[:, F.PACKETS].clone()
+    w[::8] = 0
+    d, wd = CFG.cms_depth, CFG.cms_width
+    kops.reset_launch_counts()
+    sk = cms_update_jit(CountMinSketch.zeros(d, wd, seed=3, device=dev), cols, w)
+    launches = kops.launch_counts()["cms_update"]
+    check(launches == 1, f"cms_update launched {launches} times for one update")
+    with kops.plain_versions():
+        ref = cms_update_jit(CountMinSketch.zeros(d, wd, seed=3, device=dev), cols, w)
+    check(kops.launch_counts()["cms_update"] == launches, "the plain cms_update launched")
+    equal_int(sk.table, ref.table, "row 12 cms_update table")
+    total = int(widen(w).sum()) & 0xFFFFFFFF
+    check(bool(((widen(sk.table).sum(dim=1) & 0xFFFFFFFF) == total).all()),
+          "row 12: a CMS row does not sum to the weight added")
+    ms = time_ms(lambda: cms_update_jit(sk, cols, w))
+    with kops.plain_versions():
+        plain_ms = time_ms(lambda: cms_update_jit(ref, cols, w))
+    flat = (indices(sk.table, sk.seed, cols) + (torch.arange(d, device=dev) * wd)[:, None]
+            ).reshape(-1)
+    wts = w.expand(d, -1).reshape(-1)
+    lib_table = torch.zeros(d * wd, dtype=torch.int32, device=dev)
+    lib_ms = time_ms(lambda: lib_table.index_add_(0, flat, wts))
+    del flat, wts, lib_table
+    n, active = len(batch), int((w != 0).sum())
+    report("cms_update", "retina_tpu_torch/kernels/csrc/hh_update.cu",
+           "retina_tpu/ops/countmin.py:122", ms, plain_ms,
+           # Every weight is read; a row of weight 0 returns before its keys.
+           n * 4 + active * 4 * len(cols) + 2 * 4 * d * wd,
+           active * (d * len(cols) * HASH_OPS + d),
+           lib_ms, 0.0)
+    results[-1]["launches"] = launches
+
+
+RT_WINDOWS = 8  # windows of producer traffic in each full runtime run
+RT_SHORT = 3  # windows of the "both" and overload runs
+RT_PRODUCERS = 2
+RT_IDLE_WINDOWS = 2.2  # the pause after the backlog drained: a whole tick interval idle
+RT_NOW = 4_000_000_000 // 2  # now_s of the final snapshots compared
+
+
+def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any) -> None:
+    """The runtime path: ``SketchEngine.start(stop)`` on its own thread
+    with the deployed ``Config()`` (window_seconds 1.0), fed by producer
+    threads that write the ingest quanta's 2^13-event blocks of the 1M-flow
+    Zipf stream into ``engine.sink`` as fast as it takes them, for 8
+    windows, pausing in the middle until the backlog has drained and then
+    2.2 windows more, so a close is idle. The feed
+    loop, the feed workers (1: inline through the TransferMux; then the
+    auto count), the dispatch thread, the device proxy on its CUDA stream,
+    the close lane and the harvest lane all run. The overload controller is
+    off in these runs, so every accepted event is stepped; a fourth run
+    turns it on.
+
+    In every run the dispatch thread's batches (with now_s and n_raw) and
+    its closes are logged as issued, and replayed synchronously through a second engine
+    under the plain versions: state, every step summary, every published
+    window and the final snapshot must be equal (the comparison rules of
+    the module docstring). totals[0] must equal the events the sink
+    accepted less the pool's drops, and the dispatch thread drop nothing;
+    the idle close must publish a zero window and run no export, ring
+    offer or end_window; the harvest must publish in close order;
+    ``top_flows`` must equal ``topk_from_snapshot`` of the same snapshot;
+    K1-K5 and K7's new side must launch. A third, short run with
+    ``heavy_keys_source="both"`` and the ring must launch K6 and K10 and
+    score the decode against ``_hk_account``'s ground truth. A fourth holds
+    the controller in SAMPLING by an injected signal: k reaches every
+    batch, the step rescales the kept non-exempt weight by k exactly,
+    exempt rows are kept whole, and the estimate is within the
+    Horvitz-Thompson rule of ``runtime/overload.py``."""
+    import os
+    import threading
+
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.telemetry import topk_from_snapshot
+    from retina_tpu_torch.runtime import overload as ov
+    from retina_tpu_torch.u32 import to_numpy
+
+    t_phase = time.perf_counter()
+    blocks = [b for q in quanta for b in q]
+    print(f"runtime path: os.cpu_count() {os.cpu_count()}; {len(blocks)} blocks of {BLOCK} "
+          f"events cycled by {RT_PRODUCERS} producers", flush=True)
+
+    def instrument(eng, log, published, summaries):
+        """Log the dispatch thread's batches and closes as issued, the step
+        summaries, and each published window with its close's number."""
+        dispatch, close = eng._dispatch_sharded, eng._submit_close_window
+
+        def logged_dispatch(sb, now_s, n_raw, sync=True):
+            log.append(("step", sb, now_s, n_raw))
+            dispatch(sb, now_s, n_raw, sync)
+
+        def logged_close():
+            deferred = eng.windows["deferred"]
+            close()
+            if eng.windows["deferred"] == deferred:
+                log.append(("window",))
+
+        eng._dispatch_sharded, eng._submit_close_window = logged_dispatch, logged_close
+        annotate, publish, step = (eng.overload.window_annotation, eng._publish_window,
+                                   eng.telemetry.step)
+        n_closes = [0]
+
+        def numbered_annotation():
+            meta = annotate()
+            meta["close_seq"] = n_closes[0]
+            n_closes[0] += 1
+            return meta
+
+        def logged_publish(win, meta=None):
+            published.append((win, meta))
+            publish(win, meta)
+
+        def logged_step(*args, **kwargs):
+            state, summ = step(*args, **kwargs)
+            summaries.append(summ)
+            return state, summ
+
+        eng.overload.window_annotation = numbered_annotation
+        eng._publish_window = logged_publish
+        eng.telemetry.step = logged_step
+
+    def lanes_run(label, cfg, windows, idle_at=None, inject=None, sample_log=None):
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        log, published, summaries = [], [], []
+        instrument(eng, log, published, summaries)
+        if inject is not None:
+            eng.overload._signals = lambda: {"injected": inject}
+            check(eng.overload.tick(now=time.monotonic()) == ov.SAMPLING,
+                  f"{label}: the injected signal did not reach SAMPLING")
+        if sample_log is not None:
+            sample = eng.overload.sample_rows
+
+            def logged_sample(rec):
+                kept, k = sample(rec)
+                ex_in = rec[ov.row_tiers(rec, cfg) > ov.TIER_BACKGROUND]
+                ex_out = kept[ov.row_tiers(kept, cfg) > ov.TIER_BACKGROUND]
+                sample_log.append((int(rec[:, F.PACKETS].sum()),
+                                   ex_in.shape == ex_out.shape and bool((ex_in == ex_out).all())))
+                return kept, k
+
+            eng.overload.sample_rows = logged_sample
+        w = cfg.window_seconds
+        accepted, offered = [0] * RT_PRODUCERS, [0] * RT_PRODUCERS
+        go, done = threading.Event(), threading.Event()
+        go.set()
+
+        def produce(p):
+            i = p
+            while not done.is_set():
+                if not go.is_set():
+                    go.wait(0.01)
+                    continue
+                b = blocks[i % len(blocks)]
+                i += RT_PRODUCERS
+                got = eng.sink.write_records(b, "gen")
+                accepted[p] += got
+                offered[p] += len(b)
+                if not got:
+                    time.sleep(0.001)  # a full sink: yield, do not spin
+
+        kops.reset_launch_counts()
+        stop = threading.Event()
+        lanes = threading.Thread(target=eng.start, args=(stop,), name="lanes", daemon=True)
+        producers = [threading.Thread(target=produce, args=(p,), daemon=True)
+                     for p in range(RT_PRODUCERS)]
+        torch.cuda.synchronize()
+        t_start = time.perf_counter()
+        lanes.start()
+        for t in producers:
+            t.start()
+        idle_s = 0.0  # the part of the pause after the backlog drained
+        if idle_at:
+            time.sleep(idle_at * w)
+            go.clear()
+            t_pause = time.perf_counter()
+            # Once every accepted event is stepped (or dropped by the pool),
+            # two ticks with nothing new: the close between them is idle.
+            deadline = time.monotonic() + 60
+            while (not eng.sink.q.empty() or eng.counts.events + eng.lost_events["handoff"]
+                   < sum(accepted)) and time.monotonic() < deadline:
+                time.sleep(0.005)
+            drain_s = time.perf_counter() - t_pause
+            time.sleep(RT_IDLE_WINDOWS * w)
+            idle_s = time.perf_counter() - t_pause - drain_s
+            go.set()
+            time.sleep((windows - idle_at) * w)
+            print(f"{label}: the backlog drained {drain_s:.3f} s into the pause", flush=True)
+        else:
+            time.sleep(windows * w)
+        done.set()
+        for t in producers:
+            t.join(30)
+        drain_end = time.monotonic() + 30
+        while not eng.sink.q.empty() and time.monotonic() < drain_end:
+            time.sleep(0.005)
+        time.sleep(1.5 * w)  # the last fed window closes
+        stop.set()
+        lanes.join(120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        check(not lanes.is_alive() and not any(t.is_alive() for t in producers),
+              f"{label}: a thread did not stop")
+        launches = kops.launch_counts()
+        eng.stop()
+        fs = eng.feed_stats()
+        acc, off = sum(accepted), sum(offered)
+        pool_drops = fs.get("dropped_events", 0)
+        st = eng.stages.seconds()
+        card = st["copy"] + st["ingest"] + st["steps"]
+        active = wall - idle_s
+        print(f"{label}: {fs['mode']} feed, {fs['workers']} workers; {eng.counts.events} events "
+              f"stepped in {wall:.3f} s ({active:.3f} s without the idle pause): "
+              f"{eng.counts.events / active:.0f} events/s; card span (copy, ingest, steps by "
+              f"CUDA events) {card:.3f} s = {card / active:.1%} of the active wall; sink took "
+              f"{acc} of {off} offered (dropped {off - acc}); pool dropped {pool_drops}; "
+              f"lost {fs['lost_events']}; windows {fs['windows']}; steps {eng.counts.steps}",
+              flush=True)
+        print(f"{label}: lane seconds {({k: round(v, 3) for k, v in fs['lane_s'].items()})}; "
+              f"stages {({k: round(v, 3) for k, v in st.items()})}; per worker busy "
+              f"{[round(x['busy_s'], 3) for x in fs['per_worker']]}; overload "
+              f"{fs['overload']['state']}; launches {launches}", flush=True)
+        check(eng.errors == {}, f"{label}: errors {dict(eng.errors)}")
+        check(not eng.lost_events.get("dispatch") and not eng.lost_events.get("device"),
+              f"{label}: the dispatch thread lost events {dict(eng.lost_events)}")
+        check(eng.counts.events == acc - pool_drops,
+              f"{label}: {eng.counts.events} events stepped, {acc} accepted, {pool_drops} "
+              f"dropped by the pool")
+        check(eng.windows["closed"] == eng.windows["end_window"] + eng.windows["idle"],
+              f"{label}: closes {dict(eng.windows)}")
+        check([m["close_seq"] for _, m in published] == list(range(eng.windows["closed"])),
+              f"{label}: the harvest did not publish in close order")
+        for win, meta in published:
+            if meta["events"] == 0:
+                check(all(not np.asarray(win[k]).any() for k in ("entropy_bits", "anomaly",
+                                                                  "zscore")),
+                      f"{label}: an idle close published a non-zero window")
+        return dict(eng=eng, log=log, published=published, summaries=summaries,
+                    launches=launches, accepted=acc, pool_drops=pool_drops)
+
+    def replay(label, cfg, run, inject=None, feed_side=()):
+        """The run's log, synchronously, under the plain versions. With
+        ``inject`` the replay's controller holds the run's state; the
+        annotation keys in ``feed_side`` are the sampler's accounting,
+        which runs before the log and so is not replayed."""
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        if inject is not None:
+            eng.overload._signals = lambda: {"injected": inject}
+            check(eng.overload.tick(now=time.monotonic()) == ov.SAMPLING,
+                  f"{label}: the replay's controller did not reach SAMPLING")
+        log, published, summaries = [], [], []
+        instrument(eng, log, published, summaries)
+        launches = kops.launch_counts()
+        t0 = time.perf_counter()
+        with kops.plain_versions():
+            for entry in run["log"]:
+                if entry[0] == "step":
+                    eng._dispatch_sharded(*entry[1:])
+                else:
+                    eng._close_window()
+            eng._harvest_window(timeout=60)
+            snap = eng.snapshot(max_age_s=0, now_s=RT_NOW)
+        check(kops.launch_counts() == launches, f"the plain replay of {label} launched kernels")
+        a, b = run["eng"], eng
+        for (leaf, x), (_, y) in zip(named_leaves(a.state), named_leaves(b.state)):
+            if x.dtype == torch.int32:
+                equal_int(x, y, f"{label} state {leaf}")
+            elif leaf == "entropy.counts":
+                close_counts(x, y, f"{label} entropy counts")
+            else:
+                close_float(x, y, f"{label} state {leaf}")
+        check(len(run["summaries"]) == len(summaries),
+              f"{label}: {len(run['summaries'])} steps, the replay {len(summaries)}")
+        for i, (x, y) in enumerate(zip(run["summaries"], summaries)):
+            equal_any(x, y, f"{label} step summary {i}")
+        check(len(run["published"]) == len(published), f"{label}: windows published differ")
+        for i, ((wx, mx), (wy, my)) in enumerate(zip(run["published"], published)):
+            equal_any({k: torch.from_numpy(np.asarray(wx[k])) for k in ("entropy_bits", "anomaly",
+                                                                         "zscore")},
+                      {k: torch.from_numpy(np.asarray(wy[k])) for k in ("entropy_bits", "anomaly",
+                                                                         "zscore")},
+                      f"{label} window {i}")
+            skip = ("inv_decode",) + tuple(feed_side)
+            check({k: v for k, v in mx.items() if k not in skip}
+                  == {k: v for k, v in my.items() if k not in skip},
+                  f"{label} window {i} annotation")
+        equal_any(run["eng"].snapshot(max_age_s=0, now_s=RT_NOW), snap, f"{label} snapshot")
+        if a._hk_counts is not None:
+            # The ground truth and the last window's decode (K6 and K10 on
+            # the lanes); the scores depend on when the harvest ran.
+            check(a._hk_counts == b._hk_counts, f"{label}: _hk_account's ground truth differs")
+            ra, rb = a.invertible_report(), b.invertible_report()
+            check(ra.keys() == rb.keys() and all(np.array_equal(ra[k], rb[k]) for k in ra),
+                  f"{label}: the invertible report differs")
+        eng.stop()
+        print(f"{label}: the plain replay of {len(run['log'])} dispatches and closes "
+              f"({time.perf_counter() - t0:.1f} s) equals the run: state, "
+              f"{len(summaries)} step summaries, {len(published)} windows, the snapshot",
+              flush=True)
+
+    k1_k5 = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack")
+    for label, workers in (("runtime run 1 (inline)", 1), ("runtime run 2 (auto workers)", 0)):
+        cfg = Config(window_seconds=1.0, feed_workers=workers, overload_enabled=False)
+        run = lanes_run(label, cfg, RT_WINDOWS, idle_at=RT_WINDOWS // 2)
+        eng = run["eng"]
+        if workers == 0:
+            check(eng.feed_stats()["workers"] == eng._resolve_feed_workers() > 1,
+                  f"{label}: the auto count did not start a pool")
+        for k in k1_k5 + ("ingest_new",):
+            check(run["launches"][k] > 0, f"{k} was not launched on {label}")
+        check(eng.windows["idle"] >= 1 and eng.windows["exports"] == 0,
+              f"{label}: closes {dict(eng.windows)}")
+        fed = (run["accepted"] - run["pool_drops"]) & 0xFFFFFFFF
+        check(int(to_numpy(eng.state.totals)[0]) == fed,
+              f"{label}: totals[0] != the events accepted")
+        snap = eng.snapshot(max_age_s=0)
+        keys, counts = eng.top_flows(20)
+        check(eng.snapshot() is snap, f"{label}: the scrape missed its cache")
+        want_keys, want_counts = topk_from_snapshot(snap, "flow_hh", 20)
+        check(np.array_equal(keys, want_keys) and np.array_equal(counts, want_counts),
+              f"{label}: top_flows != topk_from_snapshot")
+        print(f"{label}: conntrack_gc {eng.conntrack_gc()}; top flow count {int(counts[0])}",
+              flush=True)
+        replay(label, cfg, run)
+        del run, eng, snap
+
+    cfg = Config(window_seconds=1.0, heavy_keys_source="both", timetravel_enabled=True,
+                 overload_enabled=False)
+    run = lanes_run("runtime run 3 (heavy keys both)", cfg, RT_SHORT)
+    eng = run["eng"]
+    for k in k1_k5 + ("inv_update", "cms_query"):
+        check(run["launches"][k] > 0, f"{k} was not launched on runtime run 3")
+    check(eng.timetravel_ring.stats()["appended"] == eng.windows["end_window"]
+          == eng.windows["exports"] > 0, f"runtime run 3: ring {eng.timetravel_ring.stats()} "
+          f"closes {dict(eng.windows)}")
+    check("recall" in eng.invertible_scores, "runtime run 3: the decode was not scored")
+    print(f"runtime run 3: the decode against _hk_account's {len(eng._hk_counts)} keys "
+          f"{eng.invertible_scores}; ring {eng.timetravel_ring.stats()}", flush=True)
+    replay("runtime run 3", cfg, run)
+    del run, eng
+
+    sample_log: list = []
+    cfg = Config(window_seconds=1.0)
+    run = lanes_run("runtime run 4 (overload: SAMPLING injected)", cfg, RT_SHORT,
+                    inject=0.8, sample_log=sample_log)
+    eng, k = run["eng"], cfg.overload_sample_k
+    steps = [e[1] for e in run["log"] if e[0] == "step"]
+    check(bool(steps) and all(sb.sample_k == k for sb in steps),
+          "runtime run 4: sample_k did not reach every batch")
+    kept = np.concatenate([sb.records[0, : int(sb.n_valid[0])] for sb in steps])
+    exempt = ov.row_tiers(kept, cfg) > ov.TIER_BACKGROUND
+    pk = kept[:, F.PACKETS].astype(np.int64)
+    est = int(pk[exempt].sum()) + k * int(pk[~exempt].sum())
+    check(int(to_numpy(eng.state.totals)[0]) == est & 0xFFFFFFFF,
+          "runtime run 4: the step did not rescale the kept rows by k")
+    check(all(ok for _, ok in sample_log), "runtime run 4: an exempt row was sampled")
+    offered = sum(n for n, _ in sample_log)
+    check(offered == run["accepted"] - run["pool_drops"],
+          "runtime run 4: the sampler saw other events than were accepted")
+    sd = float(np.sqrt((k - 1) * k * float((pk[~exempt] ** 2).sum())))
+    check(abs(est - offered) <= 4 * sd, f"runtime run 4: estimate {est} vs {offered} offered")
+    print(f"runtime run 4: k {k}; {offered} events offered to the sampler, {int(pk.sum())} kept "
+          f"({int(pk[exempt].sum())} exempt); estimate {est} ({(est - offered) / offered:+.5%}, "
+          f"{abs(est - offered) / max(sd, 1):.2f} sd); controller "
+          f"{eng.overload_stats()['counters']}", flush=True)
+    replay("runtime run 4", cfg, run, inject=0.8,
+           feed_side=("sampled_fraction", "events_sampled", "priority_exempt_events"))
+    del run, eng
+    print(f"runtime phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

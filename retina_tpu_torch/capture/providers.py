@@ -3,14 +3,16 @@ retina_tpu/capture/providers.py).
 
 ``ReplayProvider`` captures from a record stream by re-encoding a window
 of its records as packets into a synthesized pcap: the faithful capture
-when the agent's packets never touch this host's NICs. Its ``source=``
-path pulls blocks from a callable; its ``engine=`` path reads the engine's
-feed-loop observers, which the port does not have yet, and raises.
+when the agent's packets never touch this host's NICs. Its ``engine=``
+path watches the engine's feed loop through an observer
+(``SketchEngine.add_observer``) for up to ``duration_s``; its ``source=``
+path pulls blocks from a callable.
 """
 
 from __future__ import annotations
 
 import re
+import threading
 import time
 from typing import Callable
 
@@ -43,10 +45,25 @@ class ReplayProvider:
         records: list[np.ndarray] = []
         max_events = max_size_mb * 1024 * 1024 // 80
         if self._engine is not None:
-            raise CaptureError(
-                "ReplayProvider(engine=...) reads the engine's feed-loop observers, "
-                "which retina_tpu_torch does not have yet; pass source=")
-        if self._source is not None:
+            done, closed = threading.Event(), threading.Event()
+            lock = threading.Lock()
+
+            def obs(rec: np.ndarray, plugin: str) -> None:
+                with lock:
+                    if closed.is_set():
+                        return
+                    if sum(len(r) for r in records) < max_events:
+                        records.append(rec.copy())
+                    else:
+                        done.set()
+
+            self._engine.add_observer(obs)
+            done.wait(duration_s)
+            # Observers are append-only, as the reference's: this one goes
+            # inert when the window ends.
+            with lock:
+                closed.set()
+        elif self._source is not None:
             t_end = time.monotonic() + min(duration_s, 5)
             while time.monotonic() < t_end and sum(len(r) for r in records) < max_events:
                 records.append(self._source())

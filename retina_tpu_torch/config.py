@@ -6,9 +6,11 @@ pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
 coalescing, transfer buckets and the wire format), the window, and the
 time-travel ring and fleet rollup tier, the detector bank and the
-closed-loop capture. The reference's layering
-(YAML file, ``RETINA_*`` environment) and its daemon, transport and
-overload fields are not copied: the port has no daemon yet.
+closed-loop capture, and the runtime lanes (the feed loop's flush policy,
+the feed workers, the dispatch pipeline's depth, the harvest bound and the
+overload controller). The reference's layering (YAML file, ``RETINA_*``
+environment) and its daemon, transport, supervisor-restart and checkpoint
+fields are not copied: the port has no daemon yet.
 """
 
 from __future__ import annotations
@@ -40,6 +42,21 @@ class Config:
     host_combine: bool = True
     # Threads of the native combiner; 0 = cores-1 capped at 4.
     host_combine_threads: int = 0
+    # The feed loop flushes its staged blocks at this age while no
+    # dispatch is in flight (latency), and at flush_max_age_s however busy
+    # the card is; or as soon as flush_max_events raw events are staged.
+    flush_interval_s: float = 0.05
+    flush_max_age_s: float = 0.4
+    flush_max_events: int = 1 << 21
+    # Dispatches in flight on the device proxy (the dispatch thread packs
+    # batch N+1 while N crosses); 0 = synchronous dispatch on the feed
+    # loop's thread, with no dispatch thread and no feed workers.
+    feed_pipeline_depth: int = 3
+    # Feed workers that combine and partition in parallel; 0 = cores-1
+    # capped at 4, <= 1 the inline feed. Raw sink blocks a worker stages
+    # before the distributor drops (and counts) a block.
+    feed_workers: int = 0
+    feed_staging_blocks: int = 1024
     # Windows of batch_capacity carried by one host-to-card transfer.
     feed_coalesce_windows: int = 4
     # Smallest transfer bucket; flushes below it take the packed wire.
@@ -53,6 +70,31 @@ class Config:
     wire_dense_known: bool = True
     # Slots of the card's descriptor table (48 B each).
     flow_dict_slots: int = 1 << 18
+
+    # --- the runtime lanes ---
+    # The bound on draining the harvest at shutdown.
+    harvest_timeout_s: float = 30.0
+
+    # --- adaptive overload control (runtime/overload.py) ---
+    overload_enabled: bool = True
+    overload_tick_s: float = 0.1  # the controller's cadence
+    # 1-in-k sampling of non-exempt combined rows in SAMPLING and above;
+    # the step rescales the survivors by k (Horvitz-Thompson).
+    overload_sample_k: int = 8
+    # Rows of at least this many packets are heavy-hitter candidates,
+    # never sampled and never rescaled.
+    overload_exempt_packets: int = 64
+    # Hysteresis on the [0, 1] pressure: immediate escalation at enter,
+    # shed and degrade; one level down per dwell_s at or below exit.
+    overload_enter_pressure: float = 0.75
+    overload_exit_pressure: float = 0.45
+    overload_shed_pressure: float = 0.90
+    overload_degrade_pressure: float = 0.98
+    overload_dwell_s: float = 2.0
+    overload_shed_escalate_s: float = 1.0  # SHEDDING widens a stage per this
+    overload_shed_order: list[str] = dataclasses.field(
+        default_factory=lambda: ["dns", "conntrack", "labels"]
+    )
 
     # --- priority class and the invertible sketch ---
     overload_priority_ip_mask: int = 0
@@ -150,6 +192,30 @@ class Config:
                 f"invertible_min_weight must be >= 0, "
                 f"got {self.invertible_min_weight}"
             )
+        if self.harvest_timeout_s <= 0:
+            raise ValueError(f"harvest_timeout_s must be > 0, got {self.harvest_timeout_s}")
+        if self.overload_sample_k < 1:
+            raise ValueError(f"overload_sample_k must be >= 1, got {self.overload_sample_k}")
+        if self.overload_exempt_packets < 0:
+            raise ValueError(
+                f"overload_exempt_packets must be >= 0, got {self.overload_exempt_packets}")
+        thresholds = (
+            self.overload_exit_pressure, self.overload_enter_pressure,
+            self.overload_shed_pressure, self.overload_degrade_pressure,
+        )
+        if not all(0.0 < t <= 1.0 for t in thresholds) or any(
+            a >= b for a, b in zip(thresholds, thresholds[1:])
+        ):
+            raise ValueError(
+                "overload thresholds must satisfy 0 < exit < enter < "
+                f"shed < degrade <= 1, got {thresholds}"
+            )
+        for f in ("overload_tick_s", "overload_dwell_s", "overload_shed_escalate_s"):
+            if getattr(self, f) <= 0:
+                raise ValueError(f"{f} must be > 0, got {getattr(self, f)}")
+        from retina_tpu_torch.runtime.overload import validate_shed_order
+
+        validate_shed_order(self.overload_shed_order)
         for f in ("overload_priority_ip_mask", "overload_priority_ip_match"):
             v = getattr(self, f)
             if not (0 <= v <= 0xFFFFFFFF):

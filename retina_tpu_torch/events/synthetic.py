@@ -10,8 +10,9 @@ with attributable ground truth. The random draws are made in the
 reference's order, so every batch is bit-identical to the reference
 generator's for the same seed.
 
-``mode="pcap_replay"`` serves the banked captures through the native pcap
-decoder, which the port does not have yet: it raises.
+``mode="pcap_replay"`` serves the banked captures
+(``tests/fixtures/real/*.pcap``, or ``pcap_paths``) as looping,
+timestamp-rebased passes (``sources/pcapreplay.py``).
 """
 
 from __future__ import annotations
@@ -94,14 +95,14 @@ class TrafficGen:
     dns_fraction: float = 0.01
     mode: str = "mix"  # batch-shaping regime (MODES)
     seed: int = 0
+    # pcap_replay inputs; empty = the repo's banked fixtures.
+    pcap_paths: tuple[str, ...] = ()
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"TrafficGen mode must be one of {MODES}, got {self.mode!r}")
         if self.mode == "pcap_replay":
-            raise NotImplementedError(
-                "TrafficGen mode 'pcap_replay' needs the native pcap decoder, "
-                "which retina_tpu_torch does not have yet")
+            self._init_replay()
         rng = np.random.default_rng(self.seed)
         n = self.n_flows
         self.src_pod = rng.integers(1, self.n_pods, n).astype(np.uint32)
@@ -121,8 +122,51 @@ class TrafficGen:
         self._counts = np.zeros(n, np.int64)
         self._now_ns = 1_700_000_000 * 1_000_000_000
 
+    # -- pcap replay (mode="pcap_replay") ------------------------------
+    def _init_replay(self) -> None:
+        """Decode the captures once; batches then come from looping,
+        timestamp-rebased passes."""
+        import pathlib
+
+        from retina_tpu_torch.sources.pcapreplay import PcapReplaySource, safe_decode_bytes
+
+        paths = [pathlib.Path(p) for p in self.pcap_paths]
+        if not paths:
+            fixture_dir = pathlib.Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "real"
+            paths = sorted(fixture_dir.glob("*.pcap"))
+        blocks = []
+        for p in paths:
+            dec = safe_decode_bytes(p.read_bytes())
+            if len(dec.result.records):
+                blocks.append(dec.result.records)
+        if not blocks:
+            raise ValueError("pcap_replay: no decodable records in "
+                             + (", ".join(str(p) for p in paths) or "<no files>"))
+        self._replay_src = PcapReplaySource(np.concatenate(blocks))
+        self._replay_blocks = self._replay_src.blocks()
+        self._replay_buf = np.zeros((0, NUM_FIELDS), np.uint32)
+        self._replay_pos = 0
+
+    def _replay_batch(self, n_events: int) -> np.ndarray:
+        out = []
+        have = 0
+        while have < n_events:
+            if self._replay_pos >= len(self._replay_buf):
+                blk = next(self._replay_blocks, None)
+                if blk is None:  # pass done: the next, rebased pass
+                    self._replay_blocks = self._replay_src.blocks()
+                    blk = next(self._replay_blocks)
+                self._replay_buf, self._replay_pos = blk, 0
+            take = min(n_events - have, len(self._replay_buf) - self._replay_pos)
+            out.append(self._replay_buf[self._replay_pos: self._replay_pos + take])
+            self._replay_pos += take
+            have += take
+        return np.concatenate(out).astype(np.uint32)
+
     def batch(self, n_events: int) -> np.ndarray:
         """Generate (n_events, NUM_FIELDS) uint32 records."""
+        if self.mode == "pcap_replay":
+            return self._replay_batch(n_events)
         rng = self._rng
         fid = rng.choice(self.n_flows, n_events, p=self.flow_probs)
         np.add.at(self._counts, fid, 1)

@@ -28,6 +28,11 @@
 // estimate is rewritten too, as in the reference (est == new count). Only
 // one thread writes a slot's key row, so a row is never torn between two
 // tied keys.
+//
+// cms_update (row 12, retina_tpu/ops/countmin.py:122 cms.update_jit) is
+// phase (a)'s Count-Min half alone: the same per-row adds, with no
+// candidate table. Bound: bytes, B * (4C + 4) of keys and weights plus the
+// (d, w) table read and written once; its atomics meet the same hot words.
 #include "hash.cuh"
 
 namespace {
@@ -48,21 +53,31 @@ struct HH {
   uint32_t table_seed;
 };
 
+// Row i's weight into all d CMS rows at its hashed columns.
+__device__ __forceinline__ void cms_add_row(const HH& a, long long i) {
+  const uint32_t w = a.w[i * a.ws];
+  if (w == 0u) return;
+  uint32_t key[rt::kMaxCols];
+  rt::load_keys(a.keys, i, key);
+  for (int d = 0; d < a.depth; ++d) {
+    const uint32_t col = rt::hash_keys(key, a.keys.n, (uint32_t)(d + 1) + a.cms_seed) & a.wmask;
+    atomicAdd(a.cms + (size_t)d * (a.wmask + 1u) + col, w);
+  }
+}
+
 __global__ void hh_add(HH a) {
   const long long span = a.n > a.n_slots ? a.n : a.n_slots;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < span;
        i += (long long)gridDim.x * blockDim.x) {
     if (i < a.n_slots) a.packed[i] = (unsigned long long)a.counts[i] << 32;
-    if (i >= a.n) continue;
-    const uint32_t w = a.w[i * a.ws];
-    if (w == 0u) continue;
-    uint32_t key[rt::kMaxCols];
-    rt::load_keys(a.keys, i, key);
-    for (int d = 0; d < a.depth; ++d) {
-      const uint32_t col = rt::hash_keys(key, a.keys.n, (uint32_t)(d + 1) + a.cms_seed) & a.wmask;
-      atomicAdd(a.cms + (size_t)d * (a.wmask + 1u) + col, w);
-    }
+    if (i < a.n) cms_add_row(a, i);
   }
+}
+
+__global__ void cms_add(HH a) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < a.n;
+       i += (long long)gridDim.x * blockDim.x)
+    cms_add_row(a, i);
 }
 
 __global__ void hh_offer(HH a) {
@@ -128,5 +143,23 @@ extern "C" int hh_update(void* cms, int depth, int width, unsigned int cms_seed,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   hh_write<<<rt::grid_for(n_slots, threads), threads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cms_update(void* cms, int depth, int width, unsigned int cms_seed,
+                          const void* k0, long long s0, const void* k1, long long s1,
+                          const void* k2, long long s2, const void* k3, long long s3, int n_cols,
+                          const void* w, long long ws, long long n, void* stream) {
+  HH a = {};
+  a.cms = static_cast<uint32_t*>(cms);
+  a.keys = rt::make_cols(k0, s0, k1, s1, k2, s2, k3, s3, n_cols);
+  a.w = static_cast<const uint32_t*>(w);
+  a.ws = ws;
+  a.n = n;
+  a.depth = depth;
+  a.wmask = (uint32_t)width - 1u;
+  a.cms_seed = cms_seed;
+  const int threads = 256;
+  cms_add<<<rt::grid_for(n, threads), threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

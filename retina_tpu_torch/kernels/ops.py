@@ -37,6 +37,7 @@ _ARGTYPES = {
     + [_VP] * 9 + [_INT] * 5 + [_U32] * 3 + [_VP],
     "hh_update": [_VP, _INT, _INT, _U32, _VP, _VP, _INT, _U32, _VP]
     + _COLS + [_VP, _LL, _LL, _VP],
+    "cms_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
     "entropy_update": [_VP, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
@@ -53,7 +54,7 @@ _ARGTYPES = {
     "synflood_score": [_VP, _VP],
 }
 # The library of each C function, where it is not the function's own name.
-_LIBRARY = {"ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
+_LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
             "portscan_score": "detect", "dnstunnel_score": "detect",
             "synflood_score": "detect"}
 
@@ -255,6 +256,28 @@ def hh_update(cms_table, cms_seed, key_rows, counts, table_seed, key_cols, weigh
         packed.data_ptr(), *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b,
         n_launches=3,
     )
+
+
+def cms_update(table, seed, key_cols, weights):
+    """The Count-Min update alone (row 12, ``cms.update_jit``) in place:
+    add each row's u32 weight (masked rows carry 0) at its hashed column of
+    every depth row; K2's add phase without the candidate table."""
+    dev = table.device
+    _state(table, "cms table", dev)
+    if table.dim() != 2:
+        raise ValueError(f"cms table must be (depth, width), got {tuple(table.shape)}")
+    d, w = table.shape
+    _pow2(w, "cms width")
+    b = weights.shape[0]
+    _col(weights, "weights", b, dev)
+    _key_cols(key_cols, b, dev)
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.countmin import update_plain
+
+        return update_plain(table, seed, key_cols, weights)
+    if b:
+        _launch("cms_update", dev, table.data_ptr(), d, w, int(seed) & 0xFFFFFFFF,
+                *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b)
 
 
 # ---------------------------------------------------------------------------

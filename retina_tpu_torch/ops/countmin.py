@@ -4,7 +4,11 @@ State is a (depth, width) int32 table of u32 counts. ``update_plain`` and
 ``query_plain`` are the Count-Min half of the plain version of K2
 (``kernels/csrc/hh_update.cu``), which the pipeline reaches through
 ``HeavyHitterSketch.update``. ``CountMinSketch.query`` goes through K10
-(``kernels/csrc/cms_query.cu``), whose plain version is ``query_plain``.
+(``kernels/csrc/cms_query.cu``), whose plain version is ``query_plain``;
+``CountMinSketch.update`` and ``cms_update_jit`` (row 12 of the device
+programs, the reference's standalone jitted update) through K2's add phase
+alone (``cms_update`` in ``kernels/csrc/hh_update.cu``), whose plain
+version is ``update_plain``.
 ``merge`` is the reference's elementwise add (wrapping), in torch ops; the
 N-way fold of many tables is K8 (``timetravel/fold.py``).
 """
@@ -68,8 +72,9 @@ class CountMinSketch:
         return int(self.table.shape[1])
 
     def update(self, key_cols: list[torch.Tensor], weights: torch.Tensor) -> "CountMinSketch":
-        """Add ``weights`` (masked rows carry 0) at the keys, in place."""
-        update_plain(self.table, self.seed, key_cols, weights)
+        """Add u32 ``weights`` (masked rows carry 0) at the (B,) key columns
+        (int32 bit patterns), in place."""
+        kops.cms_update(self.table, self.seed, key_cols, weights)
         return self
 
     def query(self, key_cols: list[torch.Tensor]) -> torch.Tensor:
@@ -89,3 +94,10 @@ class CountMinSketch:
     def total(self) -> torch.Tensor:
         """Total inserted weight mod 2^32 (row 0 sum)."""
         return widen(self.table[0]).sum() & M32
+
+
+def cms_update_jit(sketch: CountMinSketch, key_cols: list[torch.Tensor],
+                   weights: torch.Tensor) -> CountMinSketch:
+    """The standalone update (the reference's jit donates the old table; the
+    port updates it in place) through ``cms_update``."""
+    return sketch.update(key_cols, weights)

@@ -1,0 +1,2 @@
+"""The agent's runtime (port of part of retina_tpu/runtime/): the overload
+controller (``overload.py``)."""

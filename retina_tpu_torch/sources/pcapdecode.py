@@ -2,10 +2,11 @@
 retina_tpu/sources/pcapdecode.py).
 
 ``synthesize_pcap`` builds real pcap bytes from packet specs (the replay
-capture's artifact); ``_decode_pcap_numpy``, the reference's vectorized
-numpy decoder, reads one back into event records: one sequential pass
-finds each packet's offset, then every header field of all packets is
-gathered with numpy. The native decoder and the live sources are not
+capture's artifact); ``decode_pcap_bytes`` reads one back into event
+records through ``_decode_pcap_numpy``, the reference's vectorized numpy
+decoder (its fallback when the native one is not built): one sequential
+pass finds each packet's offset, then every header field of all packets
+is gathered with numpy. The native decoder and the live sources are not
 ported yet.
 """
 
@@ -50,6 +51,13 @@ class PcapDecodeResult:
     dns_names: dict[int, str]  # qname hash -> name (host string table)
     n_packets_total: int  # all packets in the capture
     n_decoded: int  # IPv4 TCP/UDP packets decoded
+
+
+def decode_pcap_bytes(data: bytes, obs_point: int = OP_FROM_NETWORK,
+                      parse_dns: bool = True) -> PcapDecodeResult:
+    """Decode a pcap byte string into event records (the numpy decoder,
+    which the reference holds bit-identical to its native one)."""
+    return _decode_pcap_numpy(data, obs_point, parse_dns)
 
 
 def _find_offsets(data: bytes, ns: bool, swap: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -9,8 +9,10 @@ host numpy, so a run of slots is a valid ``RangeFold.fold`` operand and a
 slot is RFLT-encodable as it is.
 
 ``offer`` runs at the window close and never blocks: it enqueues the
-export (tensors on the card, copies taken before ``end_window``) and
-returns; a worker thread copies it to the host and appends it. A full
+export (tensors on the card, copies taken before ``end_window``, or a
+``HostCopy`` of them still landing from the card's stream) and returns; a
+worker thread copies it to the host (or waits for the copy) and appends
+it. A full
 queue drops the slot and counts it in ``dropped``. A producer that holds
 host arrays appends them with ``append_host``. The oldest slot is evicted
 on append once the ring is full.
@@ -31,6 +33,7 @@ from typing import Any
 import numpy as np
 
 from retina_tpu_torch.u32 import to_numpy
+from retina_tpu_torch.utils.device_proxy import HostCopy
 
 
 class SnapshotRing:
@@ -119,6 +122,8 @@ class SnapshotRing:
                         self._drop()
                     return
                 epoch, arrays, window_s, seeds = item
+                if isinstance(arrays, HostCopy):
+                    arrays = arrays.result()
                 host = {k: v if isinstance(v, np.ndarray) else to_numpy(v)
                         for k, v in arrays.items()}
                 self.append_host(epoch, host, window_s, seeds)

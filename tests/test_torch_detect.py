@@ -78,6 +78,7 @@ from retina_tpu_torch.timetravel.query import QueryService
 from retina_tpu_torch.timetravel.ring import SnapshotRing
 from retina_tpu_torch.u32 import from_numpy
 from test_torch_engine import SMALL
+from test_torch_wire import reference_native  # noqa: F401 (a fixture)
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "fixtures" / "real"
 EPOCH0 = 1000
@@ -102,8 +103,9 @@ def test_presets_and_modes_are_the_references():
         preset_params("nope")
     with pytest.raises(ValueError, match="mode"):
         TrafficGen(mode="nope")
-    with pytest.raises(NotImplementedError, match="pcap decoder"):
-        TrafficGen(mode="pcap_replay")
+    assert len(TrafficGen(mode="pcap_replay").batch(16)) == 16  # the banked captures
+    with pytest.raises(ValueError, match="no decodable records"):
+        TrafficGen(mode="pcap_replay", pcap_paths=("/dev/null",))
 
 
 @pytest.mark.parametrize("preset", SYNTHETIC)
@@ -472,6 +474,7 @@ def _engines(**kw):
     return JEngine(jcfg, devices=[jax.devices("cpu")[0]]), SketchEngine(cfg, device="cpu")
 
 
+@pytest.mark.usefixtures("reference_native")
 @pytest.mark.parametrize("source", ["flowdict", "invertible"])
 def test_record_hook_sees_the_references_rows(source):
     jeng, eng = _engines(heavy_keys_source=source)
@@ -591,8 +594,19 @@ def test_replay_provider_writes_the_references_pcap(tmp_path):
                           (JReplayProvider(source=lambda: block), tmp_path / "ref.pcap")):
         provider.capture(str(out), filter_expr=filt, duration_s=1, max_size_mb=1)
     assert (tmp_path / "port.pcap").read_bytes() == (tmp_path / "ref.pcap").read_bytes()
-    with pytest.raises(CaptureError, match="observers"):
-        ReplayProvider(engine=object()).capture(str(tmp_path / "x.pcap"))
+
+    class Engine:
+        """An engine whose feed loop hands the observer three blocks at once;
+        the third passes the 1 MB bound and ends the capture."""
+
+        def add_observer(self, fn, name=""):
+            for _ in range(3):
+                fn(block, "gen")
+
+    for provider, out in ((ReplayProvider(engine=Engine()), tmp_path / "port_eng.pcap"),
+                          (JReplayProvider(engine=Engine()), tmp_path / "ref_eng.pcap")):
+        provider.capture(str(out), filter_expr=filt, duration_s=5, max_size_mb=1)
+    assert (tmp_path / "port_eng.pcap").read_bytes() == (tmp_path / "ref_eng.pcap").read_bytes()
     with pytest.raises(CaptureError, match="no events"):
         ReplayProvider().capture(str(tmp_path / "x.pcap"))
 

@@ -37,6 +37,7 @@ from retina_tpu_torch.ops.topk import slots as topk_slots
 from retina_tpu_torch.timetravel.fold import host_arrays
 from retina_tpu_torch.u32 import to_numpy
 from test_torch_pipeline import PODS, compare_states
+from test_torch_wire import reference_native  # noqa: F401 (a fixture)
 
 SMALL = dict(
     batch_capacity=1 << 10, n_pods=64, cms_width=1 << 10, cms_depth=4, topk_slots=1 << 6,
@@ -180,6 +181,7 @@ def test_small_flush_takes_the_packed_wire_and_leaves_the_dictionary():
     assert eng._flow_dict.generation == entries[1] and len(eng._flow_dict) >= entries[0]
 
 
+@pytest.mark.usefixtures("reference_native")
 def test_build_quantum_and_flush_match_reference():
     """The feed loop's flush: combine + chunk + partition, then dispatch
     each chunk (2 windows a chunk here, so a quantum spans several)."""
@@ -316,6 +318,11 @@ def test_default_config_is_the_deployed_agent():
     ("data_aggregation_level", "medium"), ("batch_capacity", 1000),
     ("flow_dict_slots", 1 << 18), ("heavy_keys_source", "dict"),
     ("invertible_width", 3000), ("invertible_depth", 0), ("overload_priority_ip_mask", -1),
+    ("overload_sample_k", 0), ("overload_exempt_packets", -1),
+    ("overload_enter_pressure", 0.3), ("overload_degrade_pressure", 1.5),
+    ("overload_dwell_s", 0.0), ("overload_shed_order", ["dns", "bogus"]),
+    ("overload_shed_order", ["labels"]), ("harvest_timeout_s", 0.0),
+    ("overload_tick_s", 0.0), ("feed_workers", 4),
 ])
 def test_validate_agrees_with_reference(field, value):
     ref, cfg = JConfig(), Config()

@@ -64,7 +64,12 @@ MODULES = [
     "retina_tpu_torch.detect.base", "retina_tpu_torch.detect.detectors",
     "retina_tpu_torch.capture.translator", "retina_tpu_torch.capture.outputs",
     "retina_tpu_torch.capture.providers", "retina_tpu_torch.capture.manager",
-    "retina_tpu_torch.sources.pcapdecode",
+    "retina_tpu_torch.sources.pcapdecode", "retina_tpu_torch.sources.pcapreplay",
+    "retina_tpu_torch.runtime", "retina_tpu_torch.runtime.overload",
+    "retina_tpu_torch.plugins",
+    "retina_tpu_torch.plugins.api", "retina_tpu_torch.parallel.feed",
+    "retina_tpu_torch.utils", "retina_tpu_torch.utils.device_proxy",
+    "retina_tpu_torch.ops.countmin",
 ]
 
 
@@ -415,7 +420,8 @@ def test_pipeline_on_card_matches_cpu(card):
     kops.reset_launch_counts()
     on_card = _run_steps(TelemetryPipeline(CFG, device=card), card)
     counts = kops.launch_counts()
-    assert counts == {"step_rows": 2, "hh_update": 18, "hll_update": 6, "entropy_update": 2,
+    assert counts == {"step_rows": 2, "hh_update": 18, "cms_update": 0, "hll_update": 6,
+                      "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
                       "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0}
@@ -634,6 +640,34 @@ def test_cms_query_kernel_matches_plain(card, n_cols):
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert torch.equal(cms.query(cols), ref.to(torch.int64) & 0xFFFFFFFF)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [1, 4])
+def test_cms_update_kernel_matches_plain(card, n_cols):
+    """Row 12 at the deployed CMS shape (depth 4, width 2^15), with masked
+    rows (weight 0), repeated keys and weights that wrap the u32 counters."""
+    from retina_tpu_torch.ops.countmin import CountMinSketch, cms_update_jit
+
+    rng = np.random.default_rng(75 + n_cols)
+    n = 1 << 16
+    rows = _stack(rng, (n, 4))
+    rows[n // 2:] = rows[: n // 2]
+    w = rng.integers(0, 9, n).astype(np.uint32)
+    w[rng.random(n) < 0.25] = 0
+    w[:8] = 0xFFFFFFF0
+    cols = [from_numpy(rows, card)[:, j] for j in range(n_cols)]  # strided columns
+    wt = from_numpy(w, card)
+    start = _stack(rng, (4, 1 << 15))
+    sk = CountMinSketch(from_numpy(start, card), seed=5)
+    ref = CountMinSketch(from_numpy(start, card), seed=5)
+    before = kops.launch_counts()["cms_update"]
+    assert cms_update_jit(sk, cols, wt) is sk
+    assert kops.launch_counts()["cms_update"] == before + 1
+    with kops.plain_versions():
+        cms_update_jit(ref, cols, wt)
+    torch.cuda.synchronize()
+    assert torch.equal(sk.table, ref.table)
 
 
 def _portscan_keys(p: int, seed: int):

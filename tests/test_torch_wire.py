@@ -17,6 +17,8 @@
 
 from __future__ import annotations
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +42,29 @@ from retina_tpu_torch.parallel import combine, flowdict, partition, wire
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
 ID_BITS = (1, 12, 18, 21, 32)
+NATIVE_WAIT_S = 120.0  # bound on waiting out another worker's build of the reference library
+
+
+@pytest.fixture
+def reference_native():
+    """The reference's native library, loaded: the comparisons below are of
+    its row order. The reference builds it at first use with ``make`` into
+    one fixed path, and a worker that loses a concurrent build to another
+    test process latches ``_build_failed`` and falls back to the numpy
+    combine for its whole life, which sorts its rows. Clear that latch and
+    retry until the other build has finished; fail if it never loads."""
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    while True:
+        with jnative._lock:
+            jnative._build_failed = False
+        if jnative.get_lib() is not None:
+            return jnative
+        if time.monotonic() > deadline:
+            pytest.fail(f"the reference's native library did not load in {NATIVE_WAIT_S} s")
+        time.sleep(0.5)
+
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def random_records(rng, n: int) -> np.ndarray:
