@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's eleven CUDA kernel sources from
+Builds the port's thirteen CUDA kernel sources from
 ``retina_tpu_torch/kernels/csrc`` (one nvcc each, all at once) and its
 native host helpers (``retina_tpu_torch/native``, g++), holds each kernel
 against its plain PyTorch version on the card at the shapes of the main
@@ -18,6 +18,15 @@ top-k) each run over two 2^21-event batches of a 1M-flow Zipf stream:
 - the earlier paths: PipelineConfig() (bench.py's production shapes:
   conntrack on, high aggregation) and NO_CONNTRACK_CONFIG, 1 window x 8
   steps each.
+
+Before the paths, K14 (the apiserver latency match) runs against its plain
+version over 4 consecutive 2^21-event batches of that stream with one row
+in 64 turned into apiserver probes (the latency table carried over), then
+over three batches of the in-repo captures (``TrafficGen(mode=
+"pcap_replay")``, the apiserver at their loopback address); after the
+invertible path, K15 (the invertible decode) against its plain version on
+that path's state and on a sketch whose buckets weigh 2^31 and more, and
+on the time-travel path on the 32-window fold's span-summed planes.
 
 The ingest paths feed raw blocks through SketchEngine as the feed loop
 flushes them (_build_quantum: native combine and partition; then
@@ -66,7 +75,7 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
 - the runtime path: ``SketchEngine.start(stop)`` on its own thread, the
   deployed ``Config()`` fed by producer threads through ``engine.sink``
   for 8 windows with a pause in the middle, so a close is idle; the feed
-  loop, the feed workers (1, then the auto count), the dispatch thread,
+  loop, the feed workers (1, 2, then the auto count), the dispatch thread,
   the device proxy on its own CUDA stream, the close lane and the harvest
   lane; then a short run with ``heavy_keys_source="both"`` (K6, K10, the
   ground truth) and a short one with the overload controller held in
@@ -91,13 +100,14 @@ per bucket and compared exactly there, within a relative 2^-22 above;
 derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
 
-K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K13,
-whose kernels take microseconds, by their device time in torch.profiler
-(the summed durations of what the calls ran on the card), with the
-CUDA-event span of the same calls beside it. K11-K13 are held against their
-plain versions at the tap's largest shapes (2^16 flow keys, and a padded
-2^6), estimates and entropy within a relative 1e-5, K13 bit for bit. The
-pairwise merges are timed by device time beside their bounds.
+K1-K7 and K14 are timed by CUDA events around 10 calls after 2 warm-ups;
+K8-K13 and K15, whose kernels take microseconds, by their device time in
+torch.profiler (the summed durations of what the calls ran on the card),
+with the CUDA-event span of the same calls beside it. K11-K13 are held
+against their plain versions at the tap's largest shapes (2^16 flow keys,
+and a padded 2^6), estimates and entropy within a relative 1e-5, K13 bit
+for bit. The pairwise merges are timed by device time beside their
+bounds.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -537,6 +547,12 @@ def main() -> int:
            BATCH * 4 + active * 16 + 2 * 4 * d * w * (nb + 1),
            active * ((d + 1) * 4 * HASH_OPS + d * nb), lib_ms, 0.0)
 
+    # -- K14: the latency match over probe batches and the captures ------
+    def k1_mask(r, n_valid=BATCH):
+        return k1(tel.init_state(), r, n_valid)[0][kops.SCRATCH.index("mask")]
+
+    latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int)
+
     # -- the paths: step -> end_window -> snapshot (-> inv_decode) ---------
     def run_path(t, windows, steps, plain):
         state = t.init_state()
@@ -621,7 +637,8 @@ def main() -> int:
         check(rec >= 0.8, f"{name}: flow recall@50 {rec} below 0.8")
         return run, launches
 
-    k1_k5 = ["step_rows", "hh_update", "hll_update", "entropy_update", "conntrack"]
+    k1_k5 = ["step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+             "latency_update"]
     run, launches = path("main path", CFG, WINDOWS, STEPS, k1_k5)
     cms_rows = widen(run["state"].flow_hh.cms.table).sum(dim=1) & 0xFFFFFFFF
     ct_lo = int(to_numpy(run["state"].ct_totals)[0])
@@ -631,7 +648,7 @@ def main() -> int:
 
     # The invertible decode verifies its keys through the CMS query, K10.
     run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
-                         k1_k5 + ["inv_update", "cms_query"])
+                         k1_k5 + ["inv_update", "cms_query", "inv_decode"])
     dec = run["decs"][-1]
     ok = dec["ok"]
     found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
@@ -640,9 +657,12 @@ def main() -> int:
     for r in results:
         if r["name"] == "inv_update":
             r["launches"] = launches["inv_update"]
+    inv_decode_phase(dev, run["state"], time_ms, report, equal_int)
+    results[-1]["launches"] = launches["inv_decode"]
 
     path("production path", PipelineConfig(), 1, STEPS, k1_k5)
-    path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS, k1_k5[:4])
+    path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS,
+         [k for k in k1_k5 if k != "conntrack"])
 
     # -- the window close and the scrape: torch ops, timed --------------------
     # (no kernel of their own; their "plain version" is themselves). Bounds
@@ -675,7 +695,8 @@ def main() -> int:
     flat_ms = time_ms(lambda: t.snapshot_flat_dispatch(st, 2))
     host_ms = time_ms(lambda: t.snapshot_host(st, 2))
     for name, ms, nbytes in (("snapshot", snap_ms, snap_read + snap_bytes),
-                             ("inv_decode", dec_ms, dec_bytes),
+                             ("inv_decode (K15 and K10 a region, torch glue)", dec_ms,
+                              dec_bytes),
                              ("fleet_export", export_ms, 2 * export_bytes),
                              ("snapshot_flat", flat_ms, snap_read + 3 * snap_bytes),
                              ("snapshot_host (flat + readback)", host_ms,
@@ -914,7 +935,7 @@ def main() -> int:
             r["launches"] = launches["ingest_known"]
     run, launches = ingest_path("ingest path 3 (invertible)",
                                 Config(heavy_keys_source="invertible"), quanta[:2],
-                                ["ingest_packed", "inv_update", "cms_query"])
+                                ["ingest_packed", "inv_update", "cms_query", "inv_decode"])
     for r in results:
         if r["name"] == "ingest_packed":
             r["launches"] = launches["ingest_packed"]
@@ -936,16 +957,177 @@ def main() -> int:
     return 0
 
 
+LAT_API = 0x7F000001  # the latency phase's apiserver: the captures' loopback address
+LAT_BATCHES = 4  # consecutive 2^21-row probe batches; the latency table carries over
+LAT_EVERY = 64  # one row in LAT_EVERY a probe
+LAT_CAPTURE_ROWS = 1 << 16  # rows of each batch of the in-repo captures
+# RTTs of the probes (ms): every bucket, the 2^13 and 2^15 edges, 0xFFFFFFFF.
+LAT_RTTS = (0, 1, 2, 5, 9, 20, 40, 100, 200, 500, 1000, 3000, 5000, 8191, 8192, 16383, 32767,
+            40000, 1 << 20, 0xFFFFFFFF)
+
+
+def latency_probes(batch, rng, prev):
+    """A copy of ``batch`` whose rows 0, LAT_EVERY, 2 LAT_EVERY, ... are
+    apiserver probes: the first half sends to LAT_API, the second half
+    replies from it. Sends repeat TSvals (the last one of a slot wins) and
+    collide in the 4096 slots; a reply answers a send of its own batch or,
+    for a third of them, of the ``prev`` batch's (TSvals, send times), at
+    an RTT of LAT_RTTS; one in seven replies twice. Returns the rows and
+    this batch's (TSvals, send times)."""
+    from retina_tpu_torch.events.schema import F
+
+    rec = batch.copy()
+    idx = np.arange(0, len(rec), LAT_EVERY)
+    half = len(idx) // 2
+    send, reply = idx[:half], idx[half: 2 * half]
+    tsv = rng.integers(1, 1 << 31, half).astype(np.uint32)
+    tsv[1::5] = tsv[0::5][: len(tsv[1::5])]
+    t_send = rng.integers(1 << 21, 1 << 30, half).astype(np.int64)
+    reply_tsv, reply_t = tsv.copy(), t_send.copy()
+    if prev is not None:
+        reply_tsv[1::3], reply_t[1::3] = prev[0][1::3], prev[1][1::3]
+    reply_tsv[2::7], reply_t[2::7] = reply_tsv[0::7][: len(reply_tsv[2::7])], \
+        reply_t[0::7][: len(reply_t[2::7])]
+    rtts = np.array(LAT_RTTS, np.int64)
+    reply_ms = (reply_t + rtts[np.arange(half) % len(rtts)]) & 0xFFFFFFFF
+    for rows, ms in ((send, t_send), (reply, reply_ms)):
+        ns = ms << 20
+        rec[rows, F.TS_LO] = (ns & 0xFFFFFFFF).astype(np.uint32)
+        rec[rows, F.TS_HI] = (ns >> 32).astype(np.uint32)
+    rec[send, F.DST_IP], rec[send, F.TSVAL] = LAT_API, tsv
+    rec[reply, F.SRC_IP], rec[reply, F.TSECR] = LAT_API, reply_tsv
+    return rec, (tsv, t_send)
+
+
+def latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int) -> None:
+    """K14 against its plain version: LAT_BATCHES consecutive 2^21-row
+    batches of the bench traffic with probes (the mask lane K1 gives each,
+    one batch partial), then three batches of the in-repo captures through
+    ``TrafficGen(mode="pcap_replay")`` (every row in the mask: loopback TCP
+    carries TSval and TSecr, and each row is a send and a reply), the
+    latency state carried through all of them. The state must be equal
+    after every batch and the histogram count matches. Timed on the main
+    path's batch (no probe, the apiserver at 0) and on a probe batch."""
+    import torch
+
+    from retina_tpu_torch.events.synthetic import TrafficGen
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
+    from retina_tpu_torch.models.pipeline import latency_update_plain
+    from retina_tpu_torch.u32 import from_numpy
+
+    rng = np.random.default_rng(SEED + 14)
+    n_slots, n_buckets = CFG.latency_slots, CFG.latency_buckets
+    states = [[torch.zeros(n, dtype=torch.int32, device=dev)
+               for n in (n_slots, n_slots, n_buckets)] for _ in range(2)]
+    names = ("lat_key", "lat_ts", "lat_hist")
+
+    def both(rec, mask, label):
+        before = int(states[0][2].sum())
+        kops.latency_update(*states[0], rec, mask, LAT_API)
+        latency_update_plain(*states[1], rec, mask, LAT_API)
+        torch.cuda.synchronize()
+        for name, a, b in zip(names, *states):
+            equal_int(a, b, f"K14 {name} after {label}")
+        print(f"K14 {label}: {int(mask.sum())} rows in the mask, "
+              f"{int(states[0][2].sum()) - before} matches", flush=True)
+
+    prev, probe = None, None
+    for i in range(LAT_BATCHES):
+        rows, prev = latency_probes(host[i % 2], rng, prev)
+        rec = from_numpy(rows, dev)
+        mask = k1_mask(rec, BATCH - BATCH // 8 if i == 2 else BATCH)
+        both(rec, mask, f"probe batch {i}")
+        probe = (rec, mask)
+    check(int(states[0][2].sum()) > 0, "K14: no probe matched")
+    cap = TrafficGen(mode="pcap_replay", seed=0)
+    before = int(states[0][2].sum())
+    for i in range(3):
+        rec = from_numpy(cap.batch(LAT_CAPTURE_ROWS), dev)
+        both(rec, torch.ones(LAT_CAPTURE_ROWS, dtype=torch.int32, device=dev),
+             f"capture batch {i}")
+    check(int(states[0][2].sum()) > before, "K14: no capture row matched")
+    print(f"K14 histogram {states[0][2].tolist()}", flush=True)
+
+    main_mask = k1_mask(recs[0])
+    st = [t.clone() for t in states[0]]
+    ms = time_ms(lambda: kops.latency_update(*st, recs[0], main_mask, 0))
+    plain_ms = time_ms(lambda: latency_update_plain(*st, recs[0], main_mask, 0))
+    probe_ms = time_ms(lambda: kops.latency_update(*st, *probe, LAT_API))
+    probe_plain_ms = time_ms(lambda: latency_update_plain(*st, *probe, LAT_API))
+    print(f"K14 on a probe batch ({BATCH // LAT_EVERY} probes): kernel {probe_ms:.4f} ms, plain "
+          f"{probe_plain_ms:.4f} ms", flush=True)
+    # Each masked row's lanes 2, 3, 10 and 11 lie in both 32-byte sectors of
+    # its 64-byte record; every row's mask lane; the slots read and written.
+    n_masked = int((main_mask != 0).sum())
+    report("latency_update", "retina_tpu_torch/kernels/csrc/latency.cu",
+           "retina_tpu/models/pipeline.py:565", ms, plain_ms,
+           n_masked * 64 + BATCH * 4 + 2 * 4 * (2 * n_slots + n_buckets), BATCH * 8, None, 0.0)
+
+
+def inv_decode_phase(dev, state, time_ms, report, equal_int) -> None:
+    """K15 against its plain version on the invertible path's state after
+    its window (both regions) and on a constructed sketch whose buckets
+    weigh 2^31 and more; timed on the inv_flow region by device time. (The
+    span-summed fold is checked on the time-travel path.)"""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_plain
+    from retina_tpu_torch.u32 import from_numpy
+
+    def same(inv, label):
+        cols, ok = kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        ref_cols, ref_ok = decode_plain(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        torch.cuda.synchronize()
+        equal_int(cols, ref_cols, f"K15 key words ({label})")
+        equal_int(ok, ref_ok, f"K15 ok ({label})")
+        print(f"K15 {label}: {int(ok.sum())} of {ok.numel()} buckets decode", flush=True)
+        return int(ok.sum())
+
+    same(state.inv_flow, "invertible path, inv_flow")
+    same(state.inv_hi, "invertible path, inv_hi")
+    rng = np.random.default_rng(SEED + 15)
+    big = InvertibleSketch.zeros(2, 1 << 12, n_key_cols=4, seed=9, device=dev)
+    keys = from_numpy(rng.integers(0, 1 << 32, (1 << 16, 4), dtype=np.uint64)
+                      .astype(np.uint32), dev)
+    w = from_numpy(rng.integers(1, 1 << 12, 1 << 16).astype(np.uint32), dev)
+    w[:512] = -0x40000000  # 0xC0000000: heavy keys past 2^31
+    big.update([keys[:, j] for j in range(4)], w)
+    check(bool((big.weights.view(torch.int32) < 0).any()), "K15: no bucket weighs 2^31")
+    check(same(big, "buckets of 2^31 and more") > 0, "K15: the heavy keys did not decode")
+
+    # A call's device time is microseconds, below the wrapper's host time:
+    # timed, as K8-K13, by device time in torch.profiler.
+    inv = state.inv_flow
+
+    def k15():
+        return kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+
+    def plain():
+        return decode_plain(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+
+    ms = device_ms(k15, kernel="decode_kernel")
+    plain_ms = device_ms(plain)
+    print(f"inv_decode: CUDA-event span of a call {time_ms(k15):.4f} ms, plain "
+          f"{time_ms(plain):.4f} ms", flush=True)
+    d, w_, nb = inv.planes.shape
+    report("inv_decode", "retina_tpu_torch/kernels/csrc/inv_decode.cu",
+           "retina_tpu/ops/invertible.py:167", ms, plain_ms,
+           4 * d * w_ * (nb + 1) + d * w_ * (4 * inv.n_key_cols + 1),
+           d * w_ * (nb * 2 + (inv.n_key_cols + 1) * HASH_OPS), None, 0.0)
+
+
 TT_WINDOWS = 34  # windows closed on the time-travel path: the 32-slot ring evicts two
 FLEET_NODES, NODE_EVENTS, FLEET_EPOCH = 64, 1 << 18, 7
 QUERY_TOPK = 32  # k of a range query: the reference agent's default
 # Every kernel an invertible engine launches when it is fed, closes windows
-# and answers range queries: the step (K1-K6), the packed wire's ingest (K7;
-# there is no flow dictionary, so no ingest_new/ingest_known) and the fold,
-# join and Count-Min query (K8-K10).
+# and answers range queries: the step (K1-K6, K14), the packed wire's ingest
+# (K7; there is no flow dictionary, so no ingest_new/ingest_known), the
+# decode (K15) and the fold, join and Count-Min query (K8-K10).
 INVERTIBLE_ENGINE_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update",
-                             "conntrack", "inv_update", "ingest_packed", "fold", "topk_join",
-                             "cms_query")
+                             "conntrack", "inv_update", "latency_update", "ingest_packed",
+                             "fold", "topk_join", "cms_query", "inv_decode")
 
 
 def same_doc(a, b, what: str) -> None:
@@ -1053,6 +1235,20 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         _, topk_ms = sync_ms(lambda: range_topk(merged, seeds, k=k, est=extras["flow_est"],
                                                 device=dev))
         _, query_ms = sync_ms(lambda: svc._query(ring, TT_WINDOWS - 32, TT_WINDOWS, k, "flow"))
+    # K15 on the span-summed planes of the 32-window fold.
+    from retina_tpu_torch.ops.invertible import decode_plain
+
+    for region in ("inv_flow", "inv_hi"):
+        planes = from_numpy(merged[f"{region}_planes"], dev)
+        weights = from_numpy(merged[f"{region}_weights"], dev)
+        n_cols = planes.shape[2] // 32 - 1
+        cols, ok = kops.inv_decode(planes, weights, seeds[region], n_cols)
+        ref_cols, ref_ok = decode_plain(planes, weights, seeds[region] & 0xFFFFFFFF, n_cols)
+        torch.cuda.synchronize()
+        check(torch.equal(cols, ref_cols) and torch.equal(ok, ref_ok),
+              f"K15 != plain on the 32-window fold's {region}")
+        print(f"K15 on the 32-window fold's {region}: {int(ok.sum())} buckets decode, heaviest "
+              f"bucket {int(merged[f'{region}_weights'].max())}", flush=True)
     stacked_bytes = sum(x.numel() * x.element_size() for x in stacked32.values())
     # totals are cumulative over the engine's life: the newest slot holds every
     # event fed, and the fold their sum over the 32 slots.
@@ -1060,6 +1256,13 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
           "newest ring slot: totals[0] != events fed")
     check(int(merged["totals"][0]) == QUANTUM * sum(range(TT_WINDOWS - 31, TT_WINDOWS + 1))
           % (1 << 32), "32-window fold: totals[0] != the slots' sum")
+    # Row 11g, the span's estimates besides the CMS query: the folded HLL
+    # registers and entropy counts read once; the few floats out are noise.
+    est_bytes = merged["hll_flows"].nbytes + merged["entropy"].nbytes
+    print(f"row 11g (cardinality and entropy bits of the span): bound "
+          f"{est_bytes / HBM_BYTES_PER_S * 1e3:.7f} ms ({est_bytes} bytes: hll_flows "
+          f"{merged['hll_flows'].shape} u32 and entropy {merged['entropy'].shape} f32 read "
+          f"once)", flush=True)
     print(f"time-travel 32-window query (warm): {stacked_bytes} bytes stacked; stack + copy "
           f"{stack_ms:.3f} ms, K8/K9 {fold_ms:.3f} ms, readback {back_ms:.3f} ms, extract "
           f"{extract_ms:.3f} ms, decode {decode_ms:.3f} ms, top-k {topk_ms:.3f} ms; the whole "
@@ -1641,11 +1844,12 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
     Zipf stream into ``engine.sink`` as fast as it takes them, for 8
     windows, pausing in the middle until the backlog has drained and then
     2.2 windows more, so a close is idle. The feed
-    loop, the feed workers (1: inline through the TransferMux; then the
-    auto count), the dispatch thread, the device proxy on its CUDA stream,
-    the close lane and the harvest lane all run. The overload controller is
-    off in these runs, so every accepted event is stepped; a fourth run
-    turns it on.
+    loop, the feed workers (1: inline through the TransferMux; then 2;
+    then the auto count), the dispatch thread, the device proxy on its CUDA
+    stream, the close lane and the harvest lane all run; each run prints
+    the proxy's busy time and the kernel launches a step. The overload
+    controller is off in these runs, so every accepted event is stepped; a
+    fourth run turns it on.
 
     In every run the dispatch thread's batches (with now_s and n_raw) and
     its closes are logged as issued, and replayed synchronously through a second engine
@@ -1817,6 +2021,10 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
               f"{acc} of {off} offered (dropped {off - acc}); pool dropped {pool_drops}; "
               f"lost {fs['lost_events']}; windows {fs['windows']}; steps {eng.counts.steps}",
               flush=True)
+        steps = max(eng.counts.steps, 1)
+        print(f"{label}: the proxy busy {fs['lane_s'].get('proxy', 0.0) / steps * 1e3:.3f} ms a "
+              f"step; {sum(launches.values()) / steps:.2f} kernel launches a step by the "
+              f"wrappers' counts ({eng.counts.steps} steps)", flush=True)
         print(f"{label}: lane seconds {({k: round(v, 3) for k, v in fs['lane_s'].items()})}; "
               f"stages {({k: round(v, 3) for k, v in st.items()})}; per worker busy "
               f"{[round(x['busy_s'], 3) for x in fs['per_worker']]}; overload "
@@ -1900,8 +2108,10 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
               f"{len(summaries)} step summaries, {len(published)} windows, the snapshot",
               flush=True)
 
-    k1_k5 = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack")
-    for label, workers in (("runtime run 1 (inline)", 1), ("runtime run 2 (auto workers)", 0)):
+    k1_k5 = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+             "latency_update")
+    for label, workers in (("runtime run 1 (inline)", 1), ("runtime run 1b (2 workers)", 2),
+                           ("runtime run 2 (auto workers)", 0)):
         cfg = Config(window_seconds=1.0, feed_workers=workers, overload_enabled=False)
         run = lanes_run(label, cfg, RT_WINDOWS, idle_at=RT_WINDOWS // 2)
         eng = run["eng"]
@@ -1930,7 +2140,7 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
                  overload_enabled=False)
     run = lanes_run("runtime run 3 (heavy keys both)", cfg, RT_SHORT)
     eng = run["eng"]
-    for k in k1_k5 + ("inv_update", "cms_query"):
+    for k in k1_k5 + ("inv_update", "cms_query", "inv_decode"):
         check(run["launches"][k] > 0, f"{k} was not launched on runtime run 3")
     check(eng.timetravel_ring.stats()["appended"] == eng.windows["end_window"]
           == eng.windows["exports"] > 0, f"runtime run 3: ring {eng.timetravel_ring.stats()} "

@@ -52,14 +52,17 @@ _ARGTYPES = {
     "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _VP],
     "dnstunnel_score": [_VP, _INT, _VP],
     "synflood_score": [_VP, _VP],
+    "latency_update": [_VP, _LL, _VP, _LL, _U32, _VP, _VP, _VP, _VP, _INT, _VP, _INT],
+    "inv_decode": [_VP, _VP, _LL, _INT, _INT, _U32, _VP, _VP],
 }
 # The library of each C function, where it is not the function's own name.
 _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
             "portscan_score": "detect", "dnstunnel_score": "detect",
-            "synflood_score": "detect"}
+            "synflood_score": "detect", "latency_update": "latency"}
 
 # Kernel launches per wrapper since the last reset (a launch of hh_update
-# counts its three phases, one of conntrack or ingest_new its two).
+# counts its three phases, one of conntrack, ingest_new or latency_update
+# its two).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -682,3 +685,94 @@ def synflood_score(lanes):
     out = torch.empty((3,), dtype=torch.float32, device=dev)
     _launch("synflood_score", dev, lanes.data_ptr(), out.data_ptr())
     return out
+
+
+# ---------------------------------------------------------------------------
+# K14: the apiserver latency match
+
+LATENCY_MAX_SLOTS = 1 << 15  # the slots and the histogram live in shared memory
+LATENCY_MAX_BUCKETS = 64
+# Per (device, stream): K14's probe list and its count, which the kernel
+# leaves at 0. One stream orders its steps, so they can share them.
+_latency_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _latency_lists(dev: torch.device, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(dev).cuda_stream)
+    got = _latency_scratch.get(key)
+    if got is None or got[1].shape[0] < b:
+        count = got[0] if got is not None else torch.zeros(1, dtype=torch.int32, device=dev)
+        got = _latency_scratch[key] = (count, torch.empty((max(b, 1 << 16), 4),
+                                                          dtype=torch.int32, device=dev))
+    return got
+
+
+def latency_update(lat_key, lat_ts, lat_hist, records, mask, apiserver_ip):
+    """The apiserver latency match (K14) in place: rows of ``records``
+    (B, 16) whose ``mask`` lane (K1's) is set write their send fingerprints
+    into ``lat_key``/``lat_ts`` (L,) and count matched replies' RTTs into
+    ``lat_hist`` (H,) (see models/pipeline.py latency_update_plain)."""
+    dev = records.device
+    if records.dim() != 2 or records.shape[1] != 16:
+        raise ValueError(f"records must be (B, 16), got {tuple(records.shape)}")
+    _state(records, "records", dev)
+    b = records.shape[0]
+    n_slots, n_buckets = lat_key.shape[0], lat_hist.shape[0]
+    _pow2(n_slots, "latency slots")
+    _state(lat_key, "lat_key", dev, shape=(n_slots,))
+    _state(lat_ts, "lat_ts", dev, shape=(n_slots,))
+    _state(lat_hist, "lat_hist", dev, shape=(n_buckets,))
+    _col(mask, "mask", b, dev)
+    api = int(apiserver_ip) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.models.pipeline import latency_update_plain
+
+        return latency_update_plain(lat_key, lat_ts, lat_hist, records, mask, api)
+    if n_slots > LATENCY_MAX_SLOTS or not 1 <= n_buckets <= LATENCY_MAX_BUCKETS:
+        raise ValueError(f"{n_slots} latency slots and {n_buckets} buckets do not fit the "
+                         f"kernel (at most {LATENCY_MAX_SLOTS} and {LATENCY_MAX_BUCKETS})")
+    if b >= 1 << 30:
+        raise ValueError("batch too large for the 30-bit row index")
+    if records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned")
+    if not b:
+        return None
+    count, entries = _latency_lists(dev, b)
+    _launch("latency_update", dev, records.data_ptr(), b, mask.data_ptr(), mask.stride(0), api,
+            count.data_ptr(), entries.data_ptr(), lat_key.data_ptr(), lat_ts.data_ptr(),
+            n_slots, lat_hist.data_ptr(), n_buckets, n_launches=2)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# K15: the invertible decode
+
+
+def inv_decode(planes, weights, seed, n_key_cols):
+    """The invertible decode (K15) of bit planes (D, W, 32(C+1)) and bucket
+    weights (D, W): (cols (C, D*W) int32 key words, ok (D*W,) bool) where
+    ``ok`` marks buckets of weight != 0 whose majority key passed its
+    checksum and re-hashes to its own bucket."""
+    dev = planes.device
+    _state(planes, "invertible planes", dev)
+    if planes.dim() != 3:
+        raise ValueError(f"invertible planes must be (D, W, planes), got {tuple(planes.shape)}")
+    d, w, nb = planes.shape
+    _pow2(w, "invertible width")
+    if not 1 <= int(n_key_cols) <= 4:
+        raise ValueError(f"1 to 4 key columns, got {n_key_cols}")
+    if nb != 32 * (int(n_key_cols) + 1):
+        raise ValueError(f"{nb} planes do not fit {n_key_cols} key columns")
+    _state(weights, "invertible weights", dev, shape=(d, w))
+    seed = int(seed) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.invertible import decode_plain
+
+        return decode_plain(planes, weights, seed, int(n_key_cols))
+    cols = torch.empty((int(n_key_cols), d * w), dtype=torch.int32, device=dev)
+    ok = torch.empty((d * w,), dtype=torch.bool, device=dev)
+    if d * w:
+        _launch("inv_decode", dev, planes.data_ptr(), weights.data_ptr(), d * w, w,
+                int(n_key_cols), seed, cols.data_ptr(), ok.data_ptr())
+    return cols, ok

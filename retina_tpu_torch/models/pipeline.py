@@ -17,7 +17,9 @@ One batch of (B, 16) event records updates every aggregator:
   ``inv_flow``, with flow_hh's keys and weights;
 - K3 (``HyperLogLog.update``) the three HLL banks;
 - K4 (``EntropyWindow.update``) the three entropy histograms;
-- the apiserver latency match stays in PyTorch ops (``latency_update``).
+- K14 (``kernels/csrc/latency.cu``, plain version ``latency_update_plain``)
+  the apiserver latency match: sends write their fingerprints into the
+  latency slots, replies that match count their RTT bucket.
 
 State is updated in place.
 """
@@ -284,10 +286,11 @@ def step_rows_plain(records, n_valid, sample_k, ident_table, ident_seed,
     return narrow(scratch), narrow(sums)
 
 
-def latency_update(lat_key: torch.Tensor, lat_ts: torch.Tensor, lat_hist: torch.Tensor,
-                   records: torch.Tensor, mask: torch.Tensor, apiserver_ip: int) -> None:
-    """apiserver latency (reference pipeline.py:568-600), in place: match
-    the TSval of packets to the apiserver with the TSecr of its replies.
+def latency_update_plain(lat_key: torch.Tensor, lat_ts: torch.Tensor, lat_hist: torch.Tensor,
+                         records: torch.Tensor, mask: torch.Tensor, apiserver_ip: int) -> None:
+    """Plain version of K14, the apiserver latency (reference
+    pipeline.py:565-596), in place: match the TSval of packets to the
+    apiserver with the TSecr of its replies.
 
     Two rules differ from the reference, which leaves the first unspecified
     and computes the second in float32 with XLA's log2:
@@ -431,8 +434,8 @@ class TelemetryPipeline:
         state.hll_src_per_pod.update([src], r["pod_grp"], pod_mask)
         state.entropy.update([src, dst, r["dport"]], ent_w)
         if c.enable_latency:
-            latency_update(state.lat_key, state.lat_ts, state.lat_hist, records,
-                           r["mask"], apiserver_ip)
+            kops.latency_update(state.lat_key, state.lat_ts, state.lat_hist, records,
+                                r["mask"], apiserver_ip)
         n_reports = report.sum()
         if c.enable_conntrack:
             # Reported packets and bytes in two exact u32 limbs each.

@@ -7,11 +7,12 @@ retina_tpu/ops/invertible.py).
   weights (D, W)          u32  total update weight per bucket
 
 ``update`` is K6 (``kernels/csrc/inv_update.cu``; plain version
-``update_plain``). ``decode`` and ``decode_verified`` stay torch ops: they
-are one small pass over the D·W buckets at a window close. A bucket where
-one key owns a strict majority of the weight yields that key bit by bit;
-it is accepted only if its checksum matches and it re-hashes to its own
-bucket. ``merge`` adds two sketches of one seed (torch ops, wrapping);
+``update_plain``). ``decode`` is K15 (``kernels/csrc/inv_decode.cu``; plain
+version ``decode_plain``): one pass over the D·W buckets at a window close
+or a range query. A bucket where one key owns a strict majority of the
+weight yields that key bit by bit (majorities compared as u32); it is
+accepted only if its checksum matches and it re-hashes to its own bucket.
+``merge`` adds two sketches of one seed (torch ops, wrapping);
 ``decode_verified`` counts through the CMS query, K10.
 """
 
@@ -66,6 +67,26 @@ def update_plain(planes: torch.Tensor, weights_table: torch.Tensor, seed: int,
     weights_table.view(-1).index_add_(0, flat, narrow(wts).repeat(d))
 
 
+def decode_plain(planes: torch.Tensor, weights: torch.Tensor, seed: int,
+                 n_key_cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K15: the majority key of every bucket as (cols
+    (C, D*W) int32, ok bool (D*W,)); see kernels.ops.inv_decode."""
+    d, w, _ = planes.shape
+    p = widen(planes)
+    maj = (p > ((widen(weights)[:, :, None] - p) & M32)).to(torch.int64)
+    shifts = 1 << torch.arange(32, dtype=torch.int64, device=p.device)
+    words = [(maj[:, :, 32 * i: 32 * (i + 1)] * shifts).sum(dim=2).reshape(-1)
+             for i in range(n_key_cols + 1)]
+    cols, check = words[:-1], words[-1]
+    check_ok = check == hash_cols(cols, (CHECK_SEED + seed) & M32)
+    rehash = indices(d, w, seed, cols)  # (d, d*w)
+    own_row = torch.arange(d, device=p.device).repeat_interleave(w)
+    own_idx = rehash[own_row, torch.arange(d * w, device=p.device)]
+    bucket_pos = torch.arange(w, device=p.device).repeat(d)
+    ok = (weights.reshape(-1) != 0) & check_ok & (own_idx == bucket_pos)
+    return narrow(torch.stack(cols)), ok
+
+
 @dataclasses.dataclass
 class InvertibleSketch:
     """Bit-plane invertible sketch over C-column u32 keys."""
@@ -98,22 +119,9 @@ class InvertibleSketch:
     def decode(self) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
         """Majority key of every bucket: (key_cols [C int32 (D*W,)], weight
         int32 (D*W,), ok bool (D*W,)). ``ok`` marks buckets whose key
-        passed the checksum and re-hashes to its own bucket."""
-        d, w, _ = self.planes.shape
-        p = widen(self.planes)
-        maj = (p > ((widen(self.weights)[:, :, None] - p) & M32)).to(torch.int64)
-        shifts = 1 << torch.arange(32, dtype=torch.int64, device=p.device)
-        words = [(maj[:, :, 32 * i: 32 * (i + 1)] * shifts).sum(dim=2).reshape(-1)
-                 for i in range(self.n_key_cols + 1)]
-        cols, check = words[:-1], words[-1]
-        check_ok = check == hash_cols(cols, (CHECK_SEED + self.seed) & M32)
-        rehash = indices(d, w, self.seed, cols)  # (d, d*w)
-        own_row = torch.arange(d, device=p.device).repeat_interleave(w)
-        own_idx = rehash[own_row, torch.arange(d * w, device=p.device)]
-        bucket_pos = torch.arange(w, device=p.device).repeat(d)
-        weight = self.weights.reshape(-1)
-        ok = (weight != 0) & check_ok & (own_idx == bucket_pos)
-        return [narrow(c) for c in cols], weight.clone(), ok
+        passed the checksum and re-hashes to its own bucket (K15)."""
+        cols, ok = kops.inv_decode(self.planes, self.weights, self.seed, self.n_key_cols)
+        return list(cols), self.weights.reshape(-1).clone(), ok
 
     def merge(self, other: "InvertibleSketch") -> "InvertibleSketch":
         """Elementwise add (u32, wrapping) of two sketches of one seed."""

@@ -11,9 +11,10 @@ Zipf stream, as chip_smoke.py) and reports, after a warm-up:
   (the host enqueues, the card runs), from the host clock;
 - the device time of each kernel and torch op over the profiled steps,
   from torch.profiler, with the device's busy and idle share of the
-  wall time;
-- the time of the apiserver latency match alone (torch ops), from CUDA
-  events.
+  wall time, and the launches a step (the kernels, copies and fills the
+  profiler saw on the card, divided by the steps);
+- the time of the apiserver latency match alone, its kernel K14 and its
+  plain version (torch ops), from CUDA events.
 
 With ``--feed`` it profiles the feed path instead: ``SketchEngine.flush``
 at ``Config()`` (the deployed agent) over quanta of 256 blocks of 2^13
@@ -122,7 +123,8 @@ def main() -> int:
         return 2
     from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
     from retina_tpu_torch.models.identity import IdentityMap
-    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, latency_update
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG
     from retina_tpu_torch.parallel.telemetry import Telemetry
     from retina_tpu_torch.u32 import from_numpy
 
@@ -163,9 +165,11 @@ def main() -> int:
         wall_p = time.perf_counter() - t
     kernels, ops = device_rows(prof)
     busy_us = sum(r[0] for r in kernels)
+    launches = sum(r[1] for r in kernels) / args.steps
     print(f"profiled: {args.steps} steps in {wall_p * 1e3:.3f} ms wall; device busy "
           f"{busy_us / 1e3:.3f} ms ({busy_us / 1e4 / wall_p:.1f}%), idle "
-          f"{100 - busy_us / 1e4 / wall_p:.1f}%")
+          f"{100 - busy_us / 1e4 / wall_p:.1f}%; {launches:.1f} launches a step on the card "
+          f"(kernels, copies and fills)")
     for title, rows in (("kernels", kernels), ("torch ops", ops)):
         print(f"device time per step by {title} (ms, calls per step, name):")
         for dev_us, count, key in rows[:24]:
@@ -173,20 +177,31 @@ def main() -> int:
 
     lat = [state.lat_key, state.lat_ts, state.lat_hist]
     mask = torch.ones(BATCH, dtype=torch.int32, device=dev)
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(2):
-        latency_update(*lat, recs[0], mask, 0)
-    e0.record()
-    for _ in range(10):
-        latency_update(*lat, recs[0], mask, 0)
-    e1.record()
-    e1.synchronize()
-    print(f"latency match alone (torch ops): {e0.elapsed_time(e1) / 10:.4f} ms")
+
+    def latency_ms() -> float:
+        for _ in range(2):
+            kops.latency_update(*lat, recs[0], mask, 0)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(10):
+            kops.latency_update(*lat, recs[0], mask, 0)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / 10
+
+    k14_ms = latency_ms()
+    with kops.plain_versions():
+        plain_ms = latency_ms()
+    print(f"latency match alone: K14 {k14_ms:.4f} ms, plain version (torch ops) "
+          f"{plain_ms:.4f} ms")
 
     print(json.dumps({
         "ms_per_step": wall / args.steps * 1e3,
         "events_per_s": args.steps * BATCH / wall,
         "device_busy_share": busy_us / 1e6 / wall_p,
+        "launches_per_step": launches,
+        "latency_ms": k14_ms,
+        "latency_plain_ms": plain_ms,
         "device": torch.cuda.get_device_name(0),
     }))
     return 0

@@ -3,6 +3,10 @@
 ``update`` must give the same planes and bucket weights exactly (u32 sums
 wrap); ``decode`` the same decoded columns, weights and ``ok`` flags, and
 ``decode_verified`` the same estimates and ``ok`` flags, all exactly.
+``decode_plain`` (K15's plain version) is held to the reference's decode
+where a signed or careless majority would differ: bucket weights of 2^31
+and more, ties (p == w - p is no majority), key words with the top bit set,
+one and four key columns, and an empty sketch.
 """
 
 from __future__ import annotations
@@ -10,12 +14,14 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from retina_tpu.ops.countmin import CountMinSketch as JCMS
 from retina_tpu.ops.invertible import InvertibleSketch as JInv
 from retina_tpu.ops.invertible import decode_verified as jdecode_verified
 from retina_tpu_torch.ops.countmin import CountMinSketch
-from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_verified
+from retina_tpu_torch.kernels import ops as kops
+from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_plain, decode_verified
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
 
@@ -76,3 +82,91 @@ def test_empty_sketch_decodes_nothing_and_reset_clears():
     assert port.decode()[2].any()
     port.reset()
     assert not port.decode()[2].any() and not port.planes.any()
+
+
+def _edge_arrays(case, n_cols, rng):
+    """(planes, weights, keys, key weights) of one edge case; keys and key
+    weights are None where the arrays are built directly."""
+    depth, width = 2, 1 << 6
+    if case == "empty":
+        return (np.zeros((depth, width, 32 * (n_cols + 1)), np.uint32),
+                np.zeros((depth, width), np.uint32), None, None)
+    if case == "tie":
+        # Every bucket weight even; a third of the planes exactly half of it,
+        # the rest on either side.
+        w = rng.integers(1, 1 << 31, (depth, width), dtype=np.uint64) * 2
+        frac = rng.choice([0.5, 0.25, 0.75], (depth, width, 32 * (n_cols + 1)))
+        planes = (w[:, :, None] * frac).astype(np.uint64)
+        return planes.astype(np.uint32), w.astype(np.uint32), None, None
+    keys = _keys(rng, 120, n_cols)
+    if case == "top_bit":
+        keys |= np.uint32(0x80000000)
+        wts = np.concatenate([np.full(20, 50, np.uint32), np.ones(100, np.uint32)])
+    else:  # "heavy_2_31": heavy keys whose buckets carry 2^31 and more
+        wts = np.concatenate([np.full(20, 0xC0000000, np.uint32),
+                              rng.integers(1, 1 << 20, 100).astype(np.uint32)])
+    return None, None, keys, wts
+
+
+@pytest.mark.parametrize("n_cols", [1, 4])
+@pytest.mark.parametrize("case", ["heavy_2_31", "tie", "top_bit", "empty"])
+def test_decode_plain_matches_reference_at_the_edges(case, n_cols):
+    rng = np.random.default_rng(11 + n_cols)
+    planes, weights, keys, wts = _edge_arrays(case, n_cols, rng)
+    if keys is None:
+        ref = JInv(planes=jnp.asarray(planes), weights=jnp.asarray(weights), seed=5)
+        port = InvertibleSketch(planes=from_numpy(planes, "cpu"),
+                                weights=from_numpy(weights, "cpu"), seed=5)
+        keys = _keys(rng, 50, n_cols)
+        wts = rng.integers(1, 100, 50).astype(np.uint32)
+    else:
+        ref, port = _pair(2, 1 << 6, n_cols, 5, [keys], [wts])
+    if case == "heavy_2_31":
+        assert (to_numpy(port.weights) >= 1 << 31).any()
+    jcols, jweight, jok = ref.decode()
+    kops.reset_launch_counts()
+    cols, ok = decode_plain(port.planes, port.weights, port.seed, n_cols)
+    assert cols.shape == (n_cols, port.weights.numel()) and cols.dtype == torch.int32
+    for j, t in zip(jcols, cols):
+        np.testing.assert_array_equal(to_numpy(t), np.asarray(j))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+    # The wrapper on CPU tensors is the plain version, and decode returns it.
+    dcols, dweight, dok = port.decode()
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+    for a, b in zip(dcols, cols):
+        assert torch.equal(a, b)
+    assert torch.equal(dok, ok)
+    np.testing.assert_array_equal(to_numpy(dweight), np.asarray(jweight))
+    assert dweight.data_ptr() != port.weights.data_ptr()
+    if case == "empty":
+        assert not ok.any() and not cols.any()
+    elif case != "tie":
+        assert ok.any()
+    jcms = JCMS.zeros(depth=4, width=1 << 10, seed=2).update(
+        [jnp.asarray(keys[:, i]) for i in range(n_cols)], jnp.asarray(wts))
+    cms = CountMinSketch.zeros(depth=4, width=1 << 10, seed=2, device="cpu").update(
+        [from_numpy(keys[:, i], "cpu") for i in range(n_cols)], from_numpy(wts, "cpu"))
+    for min_weight in (0, 1 << 31):
+        _, jest, jok = jdecode_verified(ref, jcms, min_weight=min_weight)
+        _, est, ok = decode_verified(port, cms, min_weight=min_weight)
+        np.testing.assert_array_equal(to_numpy(est), np.asarray(jest))
+        np.testing.assert_array_equal(ok.numpy(), np.asarray(jok))
+
+
+def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
+    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=2)
+    with pytest.raises(ValueError, match="planes do not fit"):
+        kops.inv_decode(inv.planes, inv.weights, 0, 3)
+    with pytest.raises(ValueError, match="1 to 4"):
+        kops.inv_decode(torch.zeros((2, 16, 32 * 6), dtype=torch.int32), inv.weights, 0, 5)
+    with pytest.raises(ValueError, match="power of two"):
+        kops.inv_decode(torch.zeros((2, 12, 96), dtype=torch.int32),
+                        torch.zeros((2, 12), dtype=torch.int32), 0, 2)
+    with pytest.raises(ValueError, match="shape"):
+        kops.inv_decode(inv.planes, inv.weights[:1].clone(), 0, 2)
+    with pytest.raises(TypeError, match="int32"):
+        kops.inv_decode(inv.planes.long(), inv.weights, 0, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.inv_decode(inv.planes.transpose(0, 1), inv.weights, 0, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kops.inv_decode(inv.planes.to("meta"), inv.weights.to("meta"), 0, 2)

@@ -424,7 +424,8 @@ def test_pipeline_on_card_matches_cpu(card):
                       "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
-                      "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0}
+                      "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0,
+                      "latency_update": 4, "inv_decode": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -451,8 +452,10 @@ def test_conntrack_pipeline_on_card_matches_cpu(card, cfg):
         for key in a:
             assert torch.equal(a[key].cpu(), b[key]), key
     if cfg.enable_invertible:
+        before = kops.launch_counts()["inv_decode"]
         dec = [Telemetry(cfg, device=d).inv_decode(s) for d, s in ((card, on_card),
                                                                     ("cpu", on_cpu))]
+        assert kops.launch_counts()["inv_decode"] == before + 2  # two regions on the card
         for key in dec[0]:
             assert torch.equal(dec[0][key].cpu(), dec[1][key]), key
 
@@ -730,3 +733,120 @@ def test_detect_synflood_kernel_is_exact(card):
             ref = programs.synflood_program(x)
         torch.cuda.synchronize()
         assert torch.equal(out, ref)
+
+
+API = 0x7F000001
+
+
+def _latency_records(rng, n, api, prev=None, every=8):
+    """(n, 16) rows of TrafficGen traffic with one row in ``every`` turned
+    into an apiserver send (the first half of them) or reply (the second):
+    RTTs in every bucket, the 2^13 and 2^15 edges and 0xFFFFFFFF, repeated
+    TSvals (the last send wins), replies twice, and, given the ``prev``
+    batch's (TSvals, send times), replies to its sends. Returns the rows
+    and this batch's (TSvals, send times)."""
+    rec = TrafficGen(n_flows=5000, n_pods=200, seed=int(rng.integers(1 << 16))).batch(n)
+    idx = np.arange(0, n, every)
+    half = len(idx) // 2
+    send, reply = idx[:half], idx[half: 2 * half]
+    rtts = np.array([0, 1, 2, 7, 100, 8191, 8192, 32767, 40000, 1 << 20, 0xFFFFFFFF], np.int64)
+    tsv = rng.integers(1, 1 << 31, half).astype(np.uint32)
+    tsv[1::5] = tsv[0::5][: len(tsv[1::5])]
+    t_send = rng.integers(1 << 21, 1 << 30, half).astype(np.int64)
+    reply_tsv, reply_t = tsv.copy(), t_send.copy()
+    if prev is not None:
+        reply_tsv[1::3], reply_t[1::3] = prev[0][1::3], prev[1][1::3]
+    reply_tsv[2::7] = reply_tsv[0::7][: len(reply_tsv[2::7])]  # the same reply twice
+    reply_t[2::7] = reply_t[0::7][: len(reply_t[2::7])]
+    reply_ms = (reply_t + rtts[np.arange(half) % len(rtts)]) & 0xFFFFFFFF
+    for rows, ms in ((send, t_send), (reply, reply_ms)):
+        ns = ms << 20
+        rec[rows, F.TS_LO] = (ns & 0xFFFFFFFF).astype(np.uint32)
+        rec[rows, F.TS_HI] = (ns >> 32).astype(np.uint32)
+    rec[send, F.DST_IP] = api
+    rec[send, F.TSVAL] = tsv
+    rec[reply, F.SRC_IP] = api
+    rec[reply, F.TSECR] = reply_tsv
+    return rec, (tsv, t_send)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slots", [1 << 6, 1 << 12])
+@pytest.mark.parametrize("api", [API, 0])
+def test_latency_kernel_matches_plain(card, n_slots, api):
+    """K14 over three consecutive batches (the table carries over), with a
+    mask that drops rows and a partial batch, at a heavily colliding and at
+    the deployed slot count."""
+    rng = np.random.default_rng(90 + n_slots.bit_length() + api % 7)
+    n = 1 << 16
+    state = [torch.zeros(k, dtype=torch.int32, device=card) for k in (n_slots, n_slots, 16)]
+    prev = None
+    for t in range(3):
+        rows, prev = _latency_records(rng, n, api, prev)
+        rec = from_numpy(rows, card)
+        mask = (torch.arange(n, device=card) < n - 3000 * t).to(torch.int32)
+        mask[5::13] = 0
+        a, b, _, _ = _pair(lambda *s: kops.latency_update(*s, rec, mask, api), *state)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        state = a
+    assert int(state[2].sum()) > 0 and int(state[2][15]) > 0
+
+
+@pytest.mark.gpu
+def test_latency_kernel_at_the_step_launches_twice_and_no_plain_op(card):
+    from retina_tpu_torch.models import pipeline as tpipeline
+
+    rng = np.random.default_rng(95)
+    rec = from_numpy(_latency_records(rng, 1 << 12, API)[0], card)
+    mask = torch.ones(1 << 12, dtype=torch.int32, device=card)
+    state = [torch.zeros(k, dtype=torch.int32, device=card) for k in (1 << 8, 1 << 8, 16)]
+    plain, called = tpipeline.latency_update_plain, []
+    tpipeline.latency_update_plain = lambda *a: called.append(a)
+    try:
+        before = kops.launch_counts()["latency_update"]
+        kops.latency_update(*state, rec, mask, API)
+        assert kops.launch_counts()["latency_update"] == before + 2 and not called
+    finally:
+        tpipeline.latency_update_plain = plain
+    torch.cuda.synchronize()
+    assert int(state[2].sum()) > 0
+
+
+def _decode_inputs(rng, n_cols, width, heavy_weight):
+    """A sketch of heavy keys (some with the top bit set) over light noise,
+    as planes and weights on the CPU."""
+    inv = InvertibleSketch.zeros(2, width, n_key_cols=n_cols, seed=9, device="cpu")
+    keys = rng.integers(0, 1 << 32, (4000, n_cols), dtype=np.uint64).astype(np.uint32)
+    keys[:40, 0] |= np.uint32(0x80000000)
+    w = rng.integers(1, 4, 4000).astype(np.uint32)
+    w[:200] = heavy_weight
+    inv.update([from_numpy(keys[:, j], "cpu") for j in range(n_cols)], from_numpy(w, "cpu"))
+    return inv.planes, inv.weights
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [1, 4])
+@pytest.mark.parametrize("heavy_weight", [60, 0xC0000000])
+def test_inv_decode_kernel_matches_plain(card, n_cols, heavy_weight):
+    """K15 at INVERTIBLE_CONFIG's inv_flow width, with bucket weights past
+    2^31 (a signed majority would flip), an exact tie and an empty sketch."""
+    rng = np.random.default_rng(100 + n_cols)
+    planes, weights = _decode_inputs(rng, n_cols, 1 << 12, heavy_weight)
+    tie_w = torch.full_like(weights[:, :8], 1 << 20)
+    cases = [(planes, weights),
+             (torch.where(torch.from_numpy(rng.random(planes.shape) < 0.3), 1 << 19, planes),
+              weights.clone()),
+             (torch.zeros_like(planes), torch.zeros_like(weights))]
+    cases[1][1][:, :8] = tie_w  # p == w - p in the ties' planes
+    for p, w in cases:
+        pc, wc = p.contiguous().to(card), w.contiguous().to(card)
+        before = kops.launch_counts()["inv_decode"]
+        cols, ok = kops.inv_decode(pc, wc, 9, n_cols)
+        assert kops.launch_counts()["inv_decode"] == before + 1
+        with kops.plain_versions():
+            ref_cols, ref_ok = kops.inv_decode(pc, wc, 9, n_cols)
+        torch.cuda.synchronize()
+        assert cols.shape == ref_cols.shape == (n_cols, wc.numel())
+        assert torch.equal(cols, ref_cols) and torch.equal(ok, ref_ok)
+    assert bool(kops.inv_decode(planes.to(card), weights.to(card), 9, n_cols)[1].any())

@@ -146,14 +146,20 @@ def latency_batch(rng, n=B) -> np.ndarray:
     return rec
 
 
-def latency_model(rec, n_valid, lat_key, lat_ts, lat_hist, log2_bucket):
-    """Numpy model of the latency rule over one batch (all rows interesting)."""
+def latency_model(rec, n_valid, lat_key, lat_ts, lat_hist, log2_bucket, api=API, pods=None):
+    """Numpy model of the latency rule over one batch: every row inside
+    ``n_valid`` takes part, or, given ``pods``, those whose source or
+    destination is one of them."""
     L, H = len(lat_key), len(lat_hist)
     key, ts, hist = lat_key.copy(), lat_ts.copy(), lat_hist.copy()
     r = rec[:n_valid]
+    m = np.ones(len(r), bool)
+    if pods is not None:
+        ips = np.array(sorted(pods), np.uint32)
+        m = np.isin(r[:, F.SRC_IP], ips) | np.isin(r[:, F.DST_IP], ips)
     ts_ms = ((r[:, F.TS_HI] << np.uint32(12)) | (r[:, F.TS_LO] >> np.uint32(20))).astype(np.uint32)
-    out = (r[:, F.DST_IP] == API) & (r[:, F.TSVAL] > 0)
-    inn = (r[:, F.SRC_IP] == API) & (r[:, F.TSECR] > 0)
+    out = m & (r[:, F.DST_IP] == np.uint32(api)) & (r[:, F.TSVAL] > 0)
+    inn = m & (r[:, F.SRC_IP] == np.uint32(api)) & (r[:, F.TSECR] > 0)
     k_out = hash_cols_np([r[:, F.DST_IP], r[:, F.TSVAL]], np.uint32(0x1A7))
     k_in = hash_cols_np([r[:, F.SRC_IP], r[:, F.TSECR]], np.uint32(0x1A7))
     for i in np.nonzero(out)[0]:
