@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's thirteen CUDA kernel sources from
+Builds the port's fifteen CUDA kernel sources from
 ``retina_tpu_torch/kernels/csrc`` (one nvcc each, all at once) and its
 native host helpers (``retina_tpu_torch/native``, g++), holds each kernel
 against its plain PyTorch version on the card at the shapes of the main
@@ -82,6 +82,20 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
   SAMPLING. Each run's dispatch thread's log is replayed synchronously
   under the plain versions, and the run must equal its replay (see
   ``runtime_lanes``).
+- the scrape path: the node agent's scrape surface wired as the reference
+  daemon wires it (``Config()`` with its time-travel ring, the identity
+  cache with 2047 pods, ``MetricsModule`` with the default metric set, the
+  conntrack plugin's gauges, the HTTP ``Server`` on 127.0.0.1 and
+  ``QueryService`` behind ``/timetravel/query``): 8 windows of one bench
+  quantum each, closed through the close and harvest lanes (K16), then
+  scraped twice over HTTP (the snapshot's estimates and live count: K17);
+  each exposition must equal the plain versions' of the same state, and
+  each close ``end_window_plain`` on the state saved before it; then
+  ``GET /timetravel/query?last=1``, ``8`` and ``32`` (the range extract:
+  K16's read-only entry and K17), each equal to the plain route's
+  document. It prints the GET time and its split into snapshot, publish
+  and render, the exposition's size and the queries' latency (see
+  ``scrape_surface``).
 
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
@@ -101,7 +115,7 @@ derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
 
 K1-K7 and K14 are timed by CUDA events around 10 calls after 2 warm-ups;
-K8-K13 and K15, whose kernels take microseconds, by their device time in
+K8-K13 and K15-K17, whose kernels take microseconds, by their device time in
 torch.profiler (the summed durations of what the calls ran on the card),
 with the CUDA-event span of the same calls beside it. K11-K13 are held
 against their plain versions at the tap's largest shapes (2^16 flow keys,
@@ -576,13 +590,14 @@ def main() -> int:
                 n_reports += int(summ["ct_reports"])
                 if w == 0 and s == 0:
                     first = summ
-            if t.pipeline.config.enable_invertible:
-                # The decode's CMS query is K10: the plain run takes its plain version.
-                with kops.plain_versions() if plain else contextlib.nullcontext():
+            # The decode (K15, K10), the close (K16) and the snapshot (K17):
+            # the plain run takes their plain versions.
+            with kops.plain_versions() if plain else contextlib.nullcontext():
+                if t.pipeline.config.enable_invertible:
                     decs.append(t.inv_decode(state))
-            state, out = t.end_window(state)
-            wins.append(out)
-            snaps.append(t.snapshot(state, 2 + w))
+                state, out = t.end_window(state)
+                wins.append(out)
+                snaps.append(t.snapshot(state, 2 + w))
         return dict(state=state, snaps=snaps, wins=wins, decs=decs, step_s=step_s,
                     n_reports=n_reports, first=first)
 
@@ -639,7 +654,9 @@ def main() -> int:
 
     k1_k5 = ["step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
              "latency_update"]
-    run, launches = path("main path", CFG, WINDOWS, STEPS, k1_k5)
+    # Every path that closes a window and takes a snapshot: K16 and K17.
+    close_snap = ["window_close", "hll_estimate", "ct_active"]
+    run, launches = path("main path", CFG, WINDOWS, STEPS, k1_k5 + close_snap)
     cms_rows = widen(run["state"].flow_hh.cms.table).sum(dim=1) & 0xFFFFFFFF
     ct_lo = int(to_numpy(run["state"].ct_totals)[0])
     check(bool((cms_rows == ct_lo).all()), "main path: a flow_hh CMS row != ct_totals[0]")
@@ -648,7 +665,7 @@ def main() -> int:
 
     # The invertible decode verifies its keys through the CMS query, K10.
     run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
-                         k1_k5 + ["inv_update", "cms_query", "inv_decode"])
+                         k1_k5 + close_snap + ["inv_update", "cms_query", "inv_decode"])
     dec = run["decs"][-1]
     ok = dec["ok"]
     found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
@@ -660,12 +677,14 @@ def main() -> int:
     inv_decode_phase(dev, run["state"], time_ms, report, equal_int)
     results[-1]["launches"] = launches["inv_decode"]
 
-    path("production path", PipelineConfig(), 1, STEPS, k1_k5)
+    path("production path", PipelineConfig(), 1, STEPS, k1_k5 + close_snap)
     path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS,
-         [k for k in k1_k5 if k != "conntrack"])
+         [k for k in k1_k5 if k != "conntrack"] + close_snap)
 
-    # -- the window close and the scrape: torch ops, timed --------------------
-    # (no kernel of their own; their "plain version" is themselves). Bounds
+    # -- the window close and the scrape, timed -------------------------------
+    # end_window is K16 and the snapshot's estimates and live count K17, each
+    # beside its plain version; the rest (inv_decode's glue, the export, the
+    # flat snapshot) is torch ops, whose "plain version" is themselves. Bounds
     # count the state they read and the copies they write.
     t = Telemetry(INVERTIBLE_CONFIG, device=dev)
     st = t.init_state()
@@ -677,32 +696,50 @@ def main() -> int:
             st.hll_src_per_pod.registers, st.conntrack.vals]
     snap_read = snap_bytes + sum(x.numel() * x.element_size() for x in read)
     snap_ms = time_ms(lambda: t.snapshot(st, 2))
+
+    def plain_snapshot():
+        with kops.plain_versions():
+            t.snapshot(st, 2)
+
+    snap_plain_ms = time_ms(plain_snapshot)
     dec_ms = time_ms(lambda: t.inv_decode(st))
     dec_bytes = sum(x.numel() * x.element_size() for x in (
         st.inv_flow.planes, st.inv_flow.weights, st.inv_hi.planes, st.inv_hi.weights,
         st.flow_hh.cms.table))
     ent_bytes = 2 * st.entropy.counts.numel() * 4
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t.end_window(st)  # warm-up; then a window of traffic, and one timed close
-    st, _ = t.step(st, recs[0], BATCH, 3, ident)
-    torch.cuda.synchronize()
-    e0.record()
-    t.end_window(st)
-    e1.record()
-    e1.synchronize()
+    def one_close(plain: bool) -> float:
+        """ms of one close (CUDA events) after a window of traffic."""
+        nonlocal st
+        st, _ = t.step(st, recs[0], BATCH, 3, ident)
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with kops.plain_versions() if plain else contextlib.nullcontext():
+            e0.record()
+            t.end_window(st)
+            e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    t.end_window(st)  # warm-up of both routes
+    with kops.plain_versions():
+        t.end_window(st)
+    close_ms = [one_close(False), one_close(True), one_close(True), one_close(False)]
+    print(f"end_window (K16, one launch) {close_ms[0]:.4f}, {close_ms[3]:.4f} ms; plain (torch "
+          f"ops) {close_ms[1]:.4f}, {close_ms[2]:.4f} ms; snapshot (K17 and the clones) "
+          f"{snap_ms:.4f} ms, plain {snap_plain_ms:.4f} ms", flush=True)
     export_bytes = sum(x.numel() * x.element_size() for x in t.fleet_export(st).values())
     export_ms = time_ms(lambda: t.fleet_export(st))
     flat_ms = time_ms(lambda: t.snapshot_flat_dispatch(st, 2))
     host_ms = time_ms(lambda: t.snapshot_host(st, 2))
-    for name, ms, nbytes in (("snapshot", snap_ms, snap_read + snap_bytes),
+    for name, ms, nbytes in (("snapshot (K17 and clones)", snap_ms, snap_read + snap_bytes),
                              ("inv_decode (K15 and K10 a region, torch glue)", dec_ms,
                               dec_bytes),
                              ("fleet_export", export_ms, 2 * export_bytes),
                              ("snapshot_flat", flat_ms, snap_read + 3 * snap_bytes),
                              ("snapshot_host (flat + readback)", host_ms,
                               snap_read + 4 * snap_bytes),
-                             ("end_window", e0.elapsed_time(e1), ent_bytes)):
-        print(f"torch ops {name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                             ("end_window (K16)", close_ms[0], ent_bytes)):
+        print(f"{name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({nbytes} bytes)", flush=True)
     # The two allocations (rows 7 and 8): a state of the invertible engine,
     # and the deployed descriptor table with K7's claim scratch; each writes
@@ -919,7 +956,7 @@ def main() -> int:
     # dictionary overflows and clears in every quantum, so every row ships
     # on the new side; the known side runs at bench sizing.
     run, launches = ingest_path("ingest path 1 (deployed agent)", Config(), quanta + quanta,
-                                ["ingest_new"])
+                                ["ingest_new"] + close_snap)
     check(run["eng"]._flow_dict.generation > 0, "ingest path 1: the dictionary never cleared")
     for r in results:
         if r["name"] == "ingest_new":
@@ -927,7 +964,7 @@ def main() -> int:
     run, launches = ingest_path(
         "ingest path 2 (bench sizing)",
         Config(batch_capacity=1 << 19, feed_coalesce_windows=8, flow_dict_slots=1 << 21),
-        quanta + quanta, ["ingest_new", "ingest_known"])
+        quanta + quanta, ["ingest_new", "ingest_known"] + close_snap)
     new, known, _ = run["per_q"][-1]
     check(new * 100 < known, "ingest path 2: the replay ships more than escalated rows new")
     for r in results:
@@ -935,7 +972,8 @@ def main() -> int:
             r["launches"] = launches["ingest_known"]
     run, launches = ingest_path("ingest path 3 (invertible)",
                                 Config(heavy_keys_source="invertible"), quanta[:2],
-                                ["ingest_packed", "inv_update", "cms_query", "inv_decode"])
+                                ["ingest_packed", "inv_update", "cms_query", "inv_decode"]
+                                + close_snap)
     for r in results:
         if r["name"] == "ingest_packed":
             r["launches"] = launches["ingest_packed"]
@@ -946,6 +984,7 @@ def main() -> int:
     detection_loop(dev, quanta, pods, time_ms, report, results)
     cms_update_phase(dev, host[0], time_ms, report, results, equal_int)
     runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
+    scrape_surface(dev, quanta, time_ms, report, results)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -1124,14 +1163,21 @@ QUERY_TOPK = 32  # k of a range query: the reference agent's default
 # Every kernel an invertible engine launches when it is fed, closes windows
 # and answers range queries: the step (K1-K6, K14), the packed wire's ingest
 # (K7; there is no flow dictionary, so no ingest_new/ingest_known), the
-# decode (K15) and the fold, join and Count-Min query (K8-K10).
+# decode (K15), the fold, join and Count-Min query (K8-K10) and the window
+# close (K16).
 INVERTIBLE_ENGINE_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update",
                              "conntrack", "inv_update", "latency_update", "ingest_packed",
-                             "fold", "topk_join", "cms_query", "inv_decode")
+                             "fold", "topk_join", "cms_query", "inv_decode", "window_close")
+# What a range query's extract and a fleet rollup add: the span's entropy
+# bits (K16's read-only entry) and HLL estimates (K17).
+EXTRACT_KERNELS = ("entropy_bits", "hll_estimate")
 
 
 def same_doc(a, b, what: str) -> None:
-    """Nested dicts, lists, tuples, numpy arrays and scalars exactly equal."""
+    """Nested dicts, lists, tuples, numpy arrays and scalars equal: integers,
+    strings and integer arrays exactly; floats (the HLL estimates and entropy
+    bits, which K16 and K17 sum in another order than torch) within a
+    relative 1e-5."""
     if isinstance(a, dict):
         check(isinstance(b, dict) and set(a) == set(b), f"{what}: keys differ")
         for k in a:
@@ -1141,8 +1187,14 @@ def same_doc(a, b, what: str) -> None:
         for i, (x, y) in enumerate(zip(a, b)):
             same_doc(x, y, f"{what}[{i}]")
     elif isinstance(a, np.ndarray):
-        check(isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
-              and bool((a == b).all()), f"{what}: arrays differ")
+        check(isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape,
+              f"{what}: arrays differ in type or shape")
+        if a.dtype.kind == "f":
+            check(bool(np.allclose(a, b, rtol=1e-5, atol=0)), f"{what}: floats differ")
+        else:
+            check(bool((a == b).all()), f"{what}: arrays differ")
+    elif isinstance(a, (float, np.floating)) or isinstance(b, (float, np.floating)):
+        check(abs(a - b) <= 1e-5 * abs(b), f"{what}: {a!r} != {b!r}")
     else:
         check(a == b, f"{what}: {a!r} != {b!r}")
 
@@ -1205,7 +1257,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         print(f"time-travel query over {n} windows: {ms:.3f} ms (first call)", flush=True)
     tt_launches = kops.launch_counts()
     print(f"time-travel path launches: {tt_launches}", flush=True)
-    for name in INVERTIBLE_ENGINE_KERNELS:
+    for name in INVERTIBLE_ENGINE_KERNELS + EXTRACT_KERNELS:
         check(tt_launches[name] > 0, f"{name} was not launched on the time-travel path")
     for n, doc in docs.items():
         with kops.plain_versions():
@@ -1313,7 +1365,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     rollup, agg_cold_ms = sync_ms(aggregate)
     fleet_launches = kops.launch_counts()
     print(f"fleet path launches: {fleet_launches}", flush=True)
-    for name in INVERTIBLE_ENGINE_KERNELS:
+    for name in INVERTIBLE_ENGINE_KERNELS + EXTRACT_KERNELS:
         check(fleet_launches[name] > 0, f"{name} was not launched on the fleet path")
     with kops.plain_versions():
         ref = aggregate()
@@ -2118,7 +2170,7 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
         if workers == 0:
             check(eng.feed_stats()["workers"] == eng._resolve_feed_workers() > 1,
                   f"{label}: the auto count did not start a pool")
-        for k in k1_k5 + ("ingest_new",):
+        for k in k1_k5 + ("ingest_new", "window_close"):
             check(run["launches"][k] > 0, f"{k} was not launched on {label}")
         check(eng.windows["idle"] >= 1 and eng.windows["exports"] == 0,
               f"{label}: closes {dict(eng.windows)}")
@@ -2140,7 +2192,7 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
                  overload_enabled=False)
     run = lanes_run("runtime run 3 (heavy keys both)", cfg, RT_SHORT)
     eng = run["eng"]
-    for k in k1_k5 + ("inv_update", "cms_query", "inv_decode"):
+    for k in k1_k5 + ("inv_update", "cms_query", "inv_decode", "window_close"):
         check(run["launches"][k] > 0, f"{k} was not launched on runtime run 3")
     check(eng.timetravel_ring.stats()["appended"] == eng.windows["end_window"]
           == eng.windows["exports"] > 0, f"runtime run 3: ring {eng.timetravel_ring.stats()} "
@@ -2179,6 +2231,378 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
            feed_side=("sampled_fraction", "events_sampled", "priority_exempt_events"))
     del run, eng
     print(f"runtime phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+SCRAPE_WINDOWS = 8  # windows fed and closed on the scrape path, two GETs after each
+SCRAPE_PODS = 2047  # pods in the identity cache: every pod index of the bench traffic
+# now_s of the scrape path's first window: 4 s before a 16-bit boundary of the
+# clock, so the conntrack table's seen16 stamps and the snapshots' idle
+# times cross the wrap between its fourth and fifth windows.
+SCRAPE_T0 = (1 << 16) * 26_000 - 4
+SCRAPE_QUERIES = (1, 8, 32)  # GET /timetravel/query?last=N
+
+
+def exposition_samples(text: str) -> dict[str, float]:
+    """{series (the sample line without its value): value} of an exposition;
+    a series written twice keeps its last value."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def scrape_surface(dev, quanta, time_ms, report, results) -> None:
+    """The scrape surface of the node agent, wired as the reference daemon
+    wires it: the engine (``Config()`` with its time-travel ring) closing
+    windows through its close and harvest lanes (K16, whose entropy and
+    anomaly series the harvest publishes), the identity cache with 2047
+    pods, ``MetricsModule`` with ``MetricsConfiguration.default()``
+    reading the snapshot (K17) into the advanced registry, the conntrack
+    plugin's live-connection gauge, the HTTP ``Server`` on 127.0.0.1 with
+    its render cache, and ``QueryService`` on the engine's ring behind
+    ``/timetravel/query`` (the range extract: K16's read-only entry and
+    K17).
+
+    Each of 8 windows is fed one bench quantum and closed, then scraped
+    twice over HTTP; the scraped exposition must equal the one the same
+    engine state gives through the plain versions (the snapshot taken
+    under ``plain_versions()`` and published by a second module into an
+    exporter of its own): the advanced series and the live-connection
+    gauge value for value, estimates within a relative 1e-5, the rest
+    exactly, with no series on one side only and no metric object whose
+    publish failed on either; the window's close must equal ``end_window_plain`` on the
+    state saved before it (bits and z within a relative 1e-5, the flags
+    exactly away from the threshold), as must the entropy, anomaly and
+    z-score series. Then three range queries over HTTP, each equal to the
+    plain route's document. K16 and K17 are then held against their plain
+    versions on the path's state (the live count at clocks across the
+    16-bit wrap) and timed with the L2 cache flushed before each call, as a
+    scrape or a close finds the state after a step."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from retina_tpu_torch.common import RetinaEndpoint
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.controllers.cache import Cache
+    from retina_tpu_torch.crd.types import MetricsConfiguration
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import u32_to_ip
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.exporter import Exporter, get_exporter
+    from retina_tpu_torch.fleet.shipper import window_epoch
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.metrics import initialize_metrics
+    from retina_tpu_torch.models.pipeline import EWMA_MIN_WINDOWS, end_window_plain
+    from retina_tpu_torch.module.metrics_module import MetricsModule
+    from retina_tpu_torch.plugins.conntrack_gc import ConntrackPlugin
+    from retina_tpu_torch.server import Server
+    from retina_tpu_torch.timetravel.query import QueryService
+    from retina_tpu_torch.utils import metric_names as mn
+
+    # Families the plain comparison holds within a relative 1e-5 (HLL
+    # estimates, entropy bits and z-scores); every other sample exactly.
+    float_families = (mn.DISTINCT_SRC_PER_POD, mn.DISTINCT_FLOWS, mn.ENTROPY_BITS,
+                      mn.ANOMALY_ZSCORE)
+    t_phase = time.perf_counter()
+    cfg = Config(timetravel_enabled=True)
+    eng = SketchEngine(cfg, device=dev)
+    cache = Cache()
+    for i in range(1, SCRAPE_PODS + 1):
+        idx = cache.update_endpoint(RetinaEndpoint(
+            name=f"pod-{i}", namespace=f"ns-{i % 16}", ips=(u32_to_ip(pod_ip(i)),),
+            owner_refs=(("ReplicaSet", f"rs-{i % 97}"),) if i % 3 else ()))
+        check(idx == i, f"scrape path: pod {i} got cache index {idx}")
+    eng.update_identities({ip: i for i, ip in ((i, pod_ip(i)) for i in range(1, SCRAPE_PODS + 1))})
+    ex = get_exporter()
+    initialize_metrics(ex)
+    mod = MetricsModule(cfg, eng, cache, exporter=ex)
+    mod.reconcile(MetricsConfiguration.default())
+    ct_plugin = ConntrackPlugin(cfg)
+    ct_plugin.attach_engine(eng)
+    srv = Server("127.0.0.1:0", exporter=ex, metrics_cache_ttl_s=cfg.metrics_cache_ttl_s)
+    qs = QueryService(cfg, overload=eng.overload, device=dev)
+    qs.add_ring(eng.timetravel_ring)
+    qs.attach(srv)
+    srv.start()
+
+    class Frozen:
+        """The engine as the plain module sees it: one snapshot."""
+
+        def __init__(self, snap):
+            self.snap, self.overload = snap, eng.overload
+
+        def snapshot(self, max_age_s: float = 0.5):
+            return self.snap
+
+        def shed_active(self, stage: str) -> bool:
+            return False
+
+    pex = Exporter()
+    pmod = MetricsModule(cfg, Frozen(None), cache, exporter=pex)
+    pmod.reconcile(MetricsConfiguration.default())
+
+    def get(path: str) -> tuple[bytes, float]:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}", timeout=60) as r:
+            check(r.status == 200, f"GET {path}: {r.status}")
+            body = r.read()
+        return body, (time.perf_counter() - t0) * 1e3
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timings = {"GET (first)": [], "GET (fresh)": [], "snapshot": [], "publish": [],
+               "render": []}
+    n_bytes = n_samples = 0
+    saved = None
+    kops.reset_launch_counts()
+    epoch = window_epoch(cfg.window_seconds)
+    try:
+        for w in range(SCRAPE_WINDOWS):
+            now = SCRAPE_T0 + w
+            eng.flush(quanta[w % 3], now)
+            # One close an epoch of the wall clock: the ring keys its slots
+            # by the epoch at the close.
+            while window_epoch(cfg.window_seconds) == epoch:
+                time.sleep(0.01)
+            epoch = window_epoch(cfg.window_seconds)
+            a = eng.state.anomaly
+            saved = [x.clone() for x in (eng.state.entropy.counts, a.mean, a.var, a.n_obs)]
+            eng._close_window()
+            eng._harvest_window(timeout=60)
+            check(eng.windows["end_window"] == w + 1, f"scrape path: closes {dict(eng.windows)}")
+            win = eng.last_window
+            bits, flags, z = end_window_plain(*(x.clone() for x in saved), a.alpha, 4.0,
+                                              EWMA_MIN_WINDOWS)
+            bits, flags, z = (x.cpu().numpy() for x in (bits, flags, z))
+            check(bool(np.allclose(win["entropy_bits"], bits, rtol=1e-5, atol=0)),
+                  f"scrape window {w}: K16 bits {win['entropy_bits']} != plain {bits}")
+            check(bool(np.allclose(win["zscore"], z, rtol=1e-5, atol=1e-4)),
+                  f"scrape window {w}: K16 z {win['zscore']} != plain {z}")
+            away = np.abs(np.abs(z) - 4.0) > 1e-3
+            check(bool((win["anomaly"].astype(bool) == flags)[away].all()),
+                  f"scrape window {w}: K16 flags {win['anomaly']} != plain {flags}")
+            # The scrape: the snapshot (K17), the publication, the conntrack
+            # gauge, the render; then two GETs, the second until it carries
+            # this window's exposition (the first may be the render cache's).
+            snap, ms = synced(lambda: eng.snapshot(max_age_s=0, now_s=now))
+            timings["snapshot"].append(ms)
+            t0 = time.perf_counter()
+            mod.publish_once()
+            timings["publish"].append((time.perf_counter() - t0) * 1e3)
+            stats = ct_plugin.gc_once()
+            t0 = time.perf_counter()
+            want = ex.gather_text()
+            timings["render"].append((time.perf_counter() - t0) * 1e3)
+            _, ms = get("/metrics")
+            timings["GET (first)"].append(ms)
+            deadline = time.monotonic() + 30
+            while True:
+                body, ms = get("/metrics")
+                if body == want or time.monotonic() > deadline:
+                    break
+                time.sleep(0.02)
+            check(body == want, f"scrape window {w}: /metrics never served the exposition")
+            timings["GET (fresh)"].append(ms)
+            n_bytes, got = len(body), exposition_samples(body.decode())
+            n_samples = len(got)
+            # The same state through the plain versions.
+            with kops.plain_versions():
+                psnap = eng.snapshot(max_age_s=0, now_s=now)
+            pmod.engine.snap = psnap
+            pmod.publish_once()
+            check(mod.publish_failures == pmod.publish_failures == 0,
+                  f"scrape window {w}: {mod.publish_failures} metric objects failed to "
+                  f"publish, {pmod.publish_failures} on the plain side")
+            plain_text = pex.gather_text().decode()
+            plain = exposition_samples(plain_text)
+            check(len(plain) > 4 * SCRAPE_PODS, f"scrape window {w}: {len(plain)} plain samples")
+            # The plain exporter holds the metric objects' families only: the
+            # scrape holds exactly its series of those families.
+            families = {line.split()[2] for line in plain_text.splitlines()
+                        if line.startswith("# TYPE ")}
+            extra = {x for x in got if x.split("{")[0] in families} - plain.keys()
+            check(not extra, f"scrape window {w}: {len(extra)} series not in the plain "
+                  f"exposition, e.g. {sorted(extra)[:3]}")
+            for series, value in plain.items():
+                check(series in got, f"scrape window {w}: {series} not scraped")
+                if series.startswith(float_families):
+                    check(abs(got[series] - value) <= 1e-5 * abs(value),
+                          f"scrape window {w}: {series} {got[series]} != plain {value}")
+                else:
+                    check(got[series] == value,
+                          f"scrape window {w}: {series} {got[series]} != plain {value}")
+            active = int(psnap["active_conns"])
+            check(stats["active"] == active and got[mn.ACTIVE_CONNECTIONS] == active > 0,
+                f"scrape window {w}: active connections {stats['active']} != plain {active}")
+            for i, dim in enumerate(("src_ip", "dst_ip", "dst_port")):
+                lbl = f'{{dimension="{dim}"}}'
+                check(abs(got[mn.ENTROPY_BITS + lbl] - bits[i]) <= 1e-5 * abs(bits[i]),
+                      f"scrape window {w}: entropy series {dim}")
+                check(got[mn.ANOMALY_FLAG + lbl] == float(win["anomaly"][i]),
+                      f"scrape window {w}: anomaly series {dim}")
+        check(eng.timetravel_ring.drain(60.0), "scrape path: the ring's readback")
+        docs, query_ms = {}, {}
+        for n in SCRAPE_QUERIES:
+            body, query_ms[n] = get(f"/timetravel/query?last={n}")
+            docs[n] = json.loads(body)
+        _, cached_ms = get(f"/timetravel/query?last={SCRAPE_QUERIES[-1]}")
+        launches = kops.launch_counts()
+    finally:
+        srv.stop()
+    print(f"scrape path launches: {launches}", flush=True)
+    for name in ("window_close", "hll_estimate", "ct_active", "entropy_bits", "step_rows",
+                 "ingest_new", "fold", "cms_query"):
+        check(launches[name] > 0, f"{name} was not launched on the scrape path")
+    ring = eng.timetravel_ring
+    _, newest = ring.span()
+    for n, doc in docs.items():
+        e0, e1 = newest - n + 1, newest + 1
+        with kops.plain_versions():
+            ref = qs._query(ring, e0, e1, cfg.timetravel_query_topk, "flow")
+        same_doc(doc, json.loads(json.dumps(ref, default=str)), f"/timetravel/query?last={n}")
+        # A window that took longer than the clock's window leaves an epoch
+        # without a slot, so last=N selects the slots in its N epochs.
+        check(doc["windows"] == len(ring.select(e0, e1)) > 0 and doc["cardinality"] > 0
+              and len(doc["topk"]["keys"]) == cfg.timetravel_query_topk,
+              f"/timetravel/query?last={n}: {doc['windows']} windows")
+    check(docs[SCRAPE_QUERIES[-1]]["windows"] == SCRAPE_WINDOWS,
+          f"/timetravel/query?last=32 holds {docs[SCRAPE_QUERIES[-1]]['windows']} windows")
+    med = {k: float(np.median(v)) for k, v in timings.items()}
+    print(f"scrape path: {SCRAPE_WINDOWS} windows, {SCRAPE_PODS} pods; GET /metrics median of "
+          f"{SCRAPE_WINDOWS}: {med['GET (first)']:.3f} ms (the first GET after the close, "
+          f"from the render cache), {med['GET (fresh)']:.3f} ms (the GET that served the "
+          f"window's exposition); a fresh scrape split: snapshot (K17, the clones, one copy) "
+          f"{med['snapshot']:.3f} ms, publish {med['publish']:.3f} ms, render "
+          f"{med['render']:.3f} ms; exposition {n_bytes} bytes, {n_samples} samples",
+          flush=True)
+    print("scrape path: /timetravel/query latency (first call, the fold) "
+          + ", ".join(f"last={n} ({docs[n]['windows']} windows) {query_ms[n]:.3f} ms"
+                      for n in SCRAPE_QUERIES)
+          + f"; a cached repeat {cached_ms:.3f} ms; cardinality over 32 "
+          f"{docs[32]['cardinality']:.0f}", flush=True)
+
+    # -- K16 and K17 against their plain versions on the path's state, timed --
+    counts, mean, var, n_obs = saved
+    g, k = counts.shape
+
+    def max_err(x, y):
+        return float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+
+    # The state is cold when a close or a scrape reads it after a step: each
+    # timed call first writes a buffer larger than the 50 MB L2. The filter
+    # on the kernel's name leaves that fill out of the time.
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+
+    def cold_ms(name, fn, kernel):
+        """Median of 3 profiler windows of 50 calls, each call after the flush."""
+        runs = [device_ms(fn, reps=50, kernel=kernel) for _ in range(3)]
+        print(f"{name}: {', '.join(f'{r:.6f}' for r in runs)} ms a call, L2 flushed "
+              "(3 windows of 50)", flush=True)
+        return float(np.median(runs))
+
+    c = counts.clone()
+    ewma = [t.clone() for t in (mean, var, n_obs)]
+    out = kops.window_close(c, *ewma, eng.state.anomaly.alpha, 4.0, EWMA_MIN_WINDOWS)
+    c_ref, ewma_ref = counts.clone(), [t.clone() for t in (mean, var, n_obs)]
+    with kops.plain_versions():
+        ref = kops.window_close(c_ref, *ewma_ref, eng.state.anomaly.alpha, 4.0, EWMA_MIN_WINDOWS)
+    torch.cuda.synchronize()
+    close_err = max_err(out[0], ref[0])
+    check(close_err <= 1e-5 * float(ref[0].abs().max()), "K16 window_close: bits differ")
+    check(bool(torch.allclose(out[2], ref[2], rtol=1e-5, atol=1e-4)), "K16 window_close: z")
+    check(torch.equal(ewma[2], ewma_ref[2]) and not c.any(), "K16 window_close: n_obs, reset")
+    bits_out = kops.entropy_bits(counts)
+    with kops.plain_versions():
+        bits_ref = kops.entropy_bits(counts)
+    bits_err = max_err(bits_out, bits_ref)
+    check(bool(torch.allclose(bits_out, bits_ref, rtol=1e-5, atol=0)), "K16 entropy_bits")
+
+    def close_once(plain: bool):
+        c.copy_(counts)
+        if not plain:
+            l2.zero_()
+        with kops.plain_versions() if plain else contextlib.nullcontext():
+            kops.window_close(c, *ewma, eng.state.anomaly.alpha, 4.0, EWMA_MIN_WINDOWS)
+
+    close_ms = cold_ms("window_close", lambda: close_once(False), "window_close_kernel")
+    close_plain_ms = time_ms(lambda: close_once(True))
+    bits_ms = cold_ms("entropy_bits", lambda: (l2.zero_(), kops.entropy_bits(counts)),
+                      "window_close_kernel")
+
+    def plain_bits():
+        with kops.plain_versions():
+            kops.entropy_bits(counts)
+
+    bits_plain_ms = time_ms(plain_bits)
+    ent = g * k * 4
+    report("window_close", "retina_tpu_torch/kernels/csrc/window_close.cu",
+           "retina_tpu/models/pipeline.py:664", close_ms, close_plain_ms,
+           2 * ent + 2 * 3 * g * 4 + g * 9, 4 * g * k, None, close_err)
+    results[-1]["launches"] = launches["window_close"]
+    report("entropy_bits", "retina_tpu_torch/kernels/csrc/window_close.cu",
+           "retina_tpu/ops/entropy.py:71", bits_ms, bits_plain_ms, ent + g * 4, 4 * g * k,
+           None, bits_err)
+    results[-1]["launches"] = launches["entropy_bits"]
+
+    st = eng.state
+    banks = [st.hll_flows.registers, st.hll_src_per_reason.registers,
+             st.hll_src_per_pod.registers]
+    est_err = 0.0
+    for regs in banks:
+        got = kops.hll_estimate(regs)
+        with kops.plain_versions():
+            want = kops.hll_estimate(regs)
+        torch.cuda.synchronize()
+        check(bool(torch.allclose(got, want, rtol=1e-5, atol=0)),
+              f"K17 hll_estimate on a {tuple(regs.shape)} bank")
+        est_err = max(est_err, max_err(got, want))
+    est_ms = cold_ms("hll_estimate", lambda: [(l2.zero_(), kops.hll_estimate(r)) for r in banks],
+                     "hll_")
+
+    def plain_est():
+        with kops.plain_versions():
+            for r in banks:
+                kops.hll_estimate(r)
+
+    est_plain_ms = time_ms(plain_est)
+    reg_bytes = sum(r.numel() * 4 for r in banks)
+    report("hll_estimate", "retina_tpu_torch/kernels/csrc/snapshot_readout.cu",
+           "retina_tpu/ops/hyperloglog.py:108 (under parallel/telemetry.py:493)", est_ms,
+           est_plain_ms, reg_bytes + sum(r.shape[0] * 4 for r in banks), 3 * reg_bytes // 4,
+           None, est_err)
+    results[-1]["launches"] = launches["hll_estimate"]
+    ct = st.conntrack
+    last = SCRAPE_T0 + SCRAPE_WINDOWS - 1
+    for now in (last, last + 30, last + 400, SCRAPE_T0 - 200, (1 << 32) - 1):
+        got = kops.ct_active(ct.keys, ct.vals, now)
+        with kops.plain_versions():
+            want = kops.ct_active(ct.keys, ct.vals, now)
+        torch.cuda.synchronize()
+        check(int(got) == int(want), f"K17 ct_active at now {now}: {int(got)} != {int(want)}")
+    check(int(kops.ct_active(ct.keys, ct.vals, last)) > 0, "K17 ct_active: no live connection")
+    ct_ms = cold_ms("ct_active", lambda: (l2.zero_(), kops.ct_active(ct.keys, ct.vals, last)),
+                    "ct_active")
+
+    def plain_ct():
+        with kops.plain_versions():
+            kops.ct_active(ct.keys, ct.vals, last)
+
+    ct_plain_ms = time_ms(plain_ct)
+    report("ct_active", "retina_tpu_torch/kernels/csrc/snapshot_readout.cu",
+           "retina_tpu/ops/conntrack.py:286 (under parallel/telemetry.py:493)", ct_ms,
+           ct_plain_ms, ct.n_slots * 12 + 4, 8 * ct.n_slots, None, 0.0)
+    results[-1]["launches"] = launches["ct_active"]
+    eng.stop()
+    print(f"scrape phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

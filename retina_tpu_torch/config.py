@@ -5,10 +5,10 @@ names, defaults and checks, so ``Config()`` is the deployed node agent: the
 pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
 coalescing, transfer buckets and the wire format), the window, and the
-time-travel ring and fleet rollup tier, the detector bank and the
-closed-loop capture, and the runtime lanes (the feed loop's flush policy,
-the feed workers, the dispatch pipeline's depth, the harvest bound and the
-overload controller). The reference's layering (YAML file, ``RETINA_*``
+time-travel ring and its query route, the fleet rollup tier, the detector
+bank and the closed-loop capture, the /metrics render cache, and the
+runtime lanes (the feed loop's flush policy, the feed workers, the dispatch
+pipeline's depth, the harvest bound and the overload controller). The reference's layering (YAML file, ``RETINA_*``
 environment) and its daemon, transport, supervisor-restart and checkpoint
 fields are not copied: the port has no daemon yet.
 """
@@ -26,6 +26,9 @@ class Config:
     """The fields of the reference ``Config`` that the port's feed path reads."""
 
     # --- the metrics the agent computes (reference-parity fields) ---
+    # /metrics render cache TTL (gauges change only at the publish
+    # cadence); 0 renders every scrape.
+    metrics_cache_ttl_s: float = 0.5
     enable_pod_level: bool = True
     enable_annotations: bool = False
     enable_conntrack_metrics: bool = True
@@ -136,6 +139,11 @@ class Config:
     # Keep the last N window-close exports in a ring for range queries.
     timetravel_enabled: bool = False
     timetravel_ring_windows: int = 32  # ring capacity (slots)
+    # Range-query result cache TTL: at most one fold runs at a time and the
+    # rest are served from the cache; under SHEDDING any cached result
+    # serves.
+    timetravel_query_cache_ttl_s: float = 1.0
+    timetravel_query_topk: int = 32  # default k for /timetravel/query
 
     # --- closed-loop capture (timetravel/autocapture.py) ---
     # On a detection, range-query the ring around the burst window W,
@@ -226,7 +234,8 @@ class Config:
                 f"got {self.fleet_straggler_timeout_s}"
             )
         for f in ("fleet_epoch_history", "fleet_topk_k", "fleet_service_top",
-                  "fleet_tenant_series_max", "timetravel_ring_windows"):
+                  "fleet_tenant_series_max", "timetravel_ring_windows",
+                  "timetravel_query_topk"):
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
         for f in ("fleet_expected_nodes", "fleet_max_tenants"):
@@ -237,7 +246,8 @@ class Config:
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
         for f in ("autocapture_cooldown_s", "autocapture_lookback_windows",
-                  "autocapture_lookahead_windows", "detector_cooldown_s"):
+                  "autocapture_lookahead_windows", "detector_cooldown_s",
+                  "timetravel_query_cache_ttl_s"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
         if self.detector_z_thresh <= 0:

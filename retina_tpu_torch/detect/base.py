@@ -11,8 +11,9 @@ The ``DetectorBank`` closes a window when the epoch rolls over, applies
 each detector's cooldown, arbitrates simultaneous firings by priority (the
 capture queue is one deep, so one detection a window reaches the sink),
 and hands the winner to the sink (``AutoCapture.notify``). The
-reference's Prometheus series are plain counters on the bank, under the
-reference's names.
+reference's Prometheus series are set through ``metrics.get_metrics()`` as
+the reference sets them, and kept besides as plain counters on the bank,
+under the reference's names.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from retina_tpu_torch._device import resolve_device
+from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.ops.entropy import AnomalyEWMA
 
 _log = logging.getLogger("retina_tpu_torch.detect")
@@ -185,6 +187,7 @@ class DetectorBank:
     def _close(self, epoch: int, now_s: float | None) -> list[Detection]:
         """Judge, cool down, arbitrate and sink one window (under _lock)."""
         now = float(now_s) if now_s is not None else time.time()
+        m = get_metrics()
         cands: list[Detection] = []
         for d in self.detectors:
             try:
@@ -194,14 +197,16 @@ class DetectorBank:
                 continue
             self.detector_score[d.name] = d.last_score
             self.detector_zscore[d.name] = d.last_z
+            m.detector_score.labels(detector=d.name).set(d.last_score)
+            m.detector_zscore.labels(detector=d.name).set(d.last_z)
             if det is None:
                 continue
             if not self.enabled:
-                self.detector_suppressed[(d.name, "disabled")] += 1
+                self._suppress(m, d.name, "disabled")
                 continue
             last = self._last_fire.get(d.name)
             if last is not None and (now - last) < d.cooldown_s:
-                self.detector_suppressed[(d.name, "cooldown")] += 1
+                self._suppress(m, d.name, "cooldown")
                 continue
             cands.append(det)
         if not cands:
@@ -209,10 +214,12 @@ class DetectorBank:
         cands.sort(key=lambda c: -c.priority)
         winner = cands[0]
         for c in cands[1:]:
-            self.detector_suppressed[(c.detector, "arbitration")] += 1
+            self._suppress(m, c.detector, "arbitration")
         self._last_fire[winner.detector] = now
         self.detector_fired[winner.detector] += 1
         self.detector_last_epoch[winner.detector] = winner.epoch
+        m.detector_fired.labels(detector=winner.detector).inc()
+        m.detector_last_epoch.labels(detector=winner.detector).set(winner.epoch)
         self.fired.append(winner)
         del self.fired[:-16]
         if self.sink is not None:
@@ -221,6 +228,11 @@ class DetectorBank:
             except Exception:
                 _log.exception("detector sink failed")
         return [winner]
+
+
+    def _suppress(self, m, name: str, reason: str) -> None:
+        self.detector_suppressed[(name, reason)] += 1
+        m.detector_suppressed.labels(detector=name, reason=reason).inc()
 
 
 def build_default_bank(cfg=None, sink: Optional[Callable[[int, list[str]], Any]] = None,

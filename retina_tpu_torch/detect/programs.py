@@ -15,9 +15,9 @@ from __future__ import annotations
 import torch
 
 from retina_tpu_torch.kernels import ops as kops
-from retina_tpu_torch.ops.entropy import EntropyWindow
+from retina_tpu_torch.ops.entropy import entropy_bits_plain
 from retina_tpu_torch.ops.hashing import _mul32
-from retina_tpu_torch.ops.hyperloglog import HyperLogLog, update_plain
+from retina_tpu_torch.ops.hyperloglog import HyperLogLog, estimate_plain, update_plain
 from retina_tpu_torch.u32 import narrow, widen
 
 # Portscan: sources fold into this many hash-groups, each an HLL of the
@@ -29,7 +29,6 @@ GROUP_MUL = 2654435761  # the multiplicative source hash
 
 # DNS tunneling: qname lengths bucketed 0..63.
 DNSTUNNEL_BINS = 64
-DNSTUNNEL_SEED = 0xD25
 
 # Synflood input: 8 per-flag-bit packet counts (index = TCP flag bit) and
 # the total TCP packets in lane 8.
@@ -54,7 +53,7 @@ def portscan_plain(keys: torch.Tensor, weights: torch.Tensor, groups: int, preci
     group = _mul32(widen(keys[:, 0]), GROUP_MUL) % groups
     hll = HyperLogLog.zeros(groups, precision, seed=seed, device=keys.device)
     update_plain(hll.registers, seed, [keys[:, 3]], narrow(group), (weights > 0).to(torch.int32))
-    return hll.estimate()
+    return estimate_plain(hll.registers)
 
 
 def dnstunnel_program(hist: torch.Tensor) -> torch.Tensor:
@@ -65,8 +64,8 @@ def dnstunnel_program(hist: torch.Tensor) -> torch.Tensor:
 
 
 def dnstunnel_plain(hist: torch.Tensor) -> torch.Tensor:
-    """Plain version of K12: ``EntropyWindow.entropy_bits`` and the sum."""
-    bits = EntropyWindow(counts=hist, seed=DNSTUNNEL_SEED).entropy_bits()
+    """Plain version of K12: the plain entropy bits (K16's) and the sum."""
+    bits = entropy_bits_plain(hist)
     return torch.stack([bits[0], hist.sum()])
 
 

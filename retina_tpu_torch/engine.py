@@ -92,6 +92,7 @@ from retina_tpu_torch.config import Config
 from retina_tpu_torch.events.schema import VERDICT_FORWARDED, F
 from retina_tpu_torch.fleet.shipper import window_epoch
 from retina_tpu_torch.kernels import ops as kops
+from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.models.identity import HostIdentityTable, IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState
 from retina_tpu_torch.parallel.combine import combine_blocks
@@ -853,12 +854,22 @@ class SketchEngine:
     def _publish_window(self, win_host: dict[str, np.ndarray], meta: dict | None = None,
                         ) -> None:
         """(Harvest.) Publish one closed window: ``last_window`` (with the
-        overload annotation taken at the close) and the anomaly hook with
+        overload annotation taken at the close), the window's entropy and
+        anomaly series (``metrics.get_metrics()``) and the anomaly hook with
         the wall clock's epoch at publication, as the reference does."""
         if meta is not None:
             win_host = dict(win_host)
             win_host["overload"] = meta
         self.last_window = win_host
+        m = get_metrics()
+        for i, dim in enumerate(ANOMALY_DIMS):
+            m.entropy_bits.labels(dimension=dim).set(float(win_host["entropy_bits"][i]))
+            m.anomaly_flag.labels(dimension=dim).set(float(win_host["anomaly"][i]))
+            m.anomaly_zscore.labels(dimension=dim).set(float(win_host["zscore"][i]))
+            if win_host["anomaly"][i]:
+                # A counter: a short anomalous window stays visible at a
+                # slower scrape.
+                m.anomaly_windows.labels(dimension=dim).inc()
         flagged = [d for i, d in enumerate(ANOMALY_DIMS)
                    if i < len(win_host["anomaly"]) and win_host["anomaly"][i]]
         if flagged:

@@ -90,6 +90,12 @@ TCP_ECE = 1 << 6
 TCP_CWR = 1 << 7
 
 
+def ip_to_u32(ip: str) -> int:
+    """u32 of a dotted-quad IPv4 address."""
+    a, b, c, d = (int(x) for x in ip.split("."))
+    return (a << 24) | (b << 16) | (c << 8) | d
+
+
 def u32_to_ip(v: int) -> str:
     """Dotted quad of a u32 IPv4 address."""
     return f"{(v >> 24) & 0xFF}.{(v >> 16) & 0xFF}.{(v >> 8) & 0xFF}.{v & 0xFF}"

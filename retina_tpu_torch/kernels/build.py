@@ -24,6 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_kernels"
 KERNELS = (
     "step_rows", "hh_update", "hll_update", "entropy_update", "conntrack", "inv_update",
     "ingest", "fold", "topk_join", "cms_query", "detect", "latency", "inv_decode",
+    "window_close", "snapshot_readout",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

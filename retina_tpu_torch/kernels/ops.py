@@ -54,11 +54,17 @@ _ARGTYPES = {
     "synflood_score": [_VP, _VP],
     "latency_update": [_VP, _LL, _VP, _LL, _U32, _VP, _VP, _VP, _VP, _INT, _VP, _INT],
     "inv_decode": [_VP, _VP, _LL, _INT, _INT, _U32, _VP, _VP],
+    "window_close": [_VP, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP],
+    "entropy_bits": [_VP, _INT, _INT, _VP],
+    "hll_estimate": [_VP, _INT, _INT, _FLT, _VP],
+    "ct_active": [_VP, _VP, _LL, _U32, _U32, _U32, _U32, _INT, _VP, _VP, _VP],
 }
 # The library of each C function, where it is not the function's own name.
 _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
             "portscan_score": "detect", "dnstunnel_score": "detect",
-            "synflood_score": "detect", "latency_update": "latency"}
+            "synflood_score": "detect", "latency_update": "latency",
+            "entropy_bits": "window_close", "hll_estimate": "snapshot_readout",
+            "ct_active": "snapshot_readout"}
 
 # Kernel launches per wrapper since the last reset (a launch of hh_update
 # counts its three phases, one of conntrack, ingest_new or latency_update
@@ -776,3 +782,123 @@ def inv_decode(planes, weights, seed, n_key_cols):
         _launch("inv_decode", dev, planes.data_ptr(), weights.data_ptr(), d * w, w,
                 int(n_key_cols), seed, cols.data_ptr(), ok.data_ptr())
     return cols, ok
+
+
+# ---------------------------------------------------------------------------
+# K16: the window close and the entropy bits
+
+ENTROPY_MAX_BUCKETS = 1 << 14  # 512 threads holding 32 values each (csrc/window_close.cu)
+
+
+def _entropy_counts(counts: torch.Tensor, dev: torch.device) -> tuple[int, int]:
+    _state(counts, "entropy counts", dev, dtype=torch.float32)
+    if counts.dim() != 2:
+        raise ValueError(f"entropy counts must be (groups, buckets), got {tuple(counts.shape)}")
+    g, k = counts.shape
+    if dev.type == "cuda" and k > ENTROPY_MAX_BUCKETS:
+        raise ValueError(f"{k} entropy buckets do not fit the kernel (at most "
+                         f"{ENTROPY_MAX_BUCKETS})")
+    return g, k
+
+
+def window_close(counts, mean, var, n_obs, alpha, z_thresh, min_windows):
+    """The window close (K16): the (G,) float32 entropy bits of the (G, K)
+    float32 histograms ``counts``, the anomaly EWMA of each group applied to
+    ``mean``, ``var`` and ``n_obs`` (G,) in place, and ``counts`` zeroed.
+    Returns (bits, flags (G,) bool, z (G,) float32)."""
+    dev = counts.device
+    g, k = _entropy_counts(counts, dev)
+    for t, name in ((mean, "ewma mean"), (var, "ewma var"), (n_obs, "ewma n_obs")):
+        _state(t, name, dev, dtype=torch.float32, shape=(g,))
+    if not _on_card(dev):
+        from retina_tpu_torch.models.pipeline import end_window_plain
+
+        return end_window_plain(counts, mean, var, n_obs, alpha, z_thresh, min_windows)
+    bits = torch.empty((g,), dtype=torch.float32, device=dev)
+    flags = torch.empty((g,), dtype=torch.bool, device=dev)
+    z = torch.empty((g,), dtype=torch.float32, device=dev)
+    if g:
+        _launch("window_close", dev, counts.data_ptr(), g, k, mean.data_ptr(), var.data_ptr(),
+                n_obs.data_ptr(), float(alpha), float(z_thresh), float(min_windows),
+                bits.data_ptr(), flags.data_ptr(), z.data_ptr())
+    return bits, flags, z
+
+
+def entropy_bits(counts):
+    """K16's read-only entry: the (G,) float32 plug-in entropy bits of the
+    (G, K) float32 histograms ``counts``."""
+    dev = counts.device
+    g, k = _entropy_counts(counts, dev)
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.entropy import entropy_bits_plain
+
+        return entropy_bits_plain(counts)
+    bits = torch.empty((g,), dtype=torch.float32, device=dev)
+    if g:
+        _launch("entropy_bits", dev, counts.data_ptr(), g, k, bits.data_ptr())
+    return bits
+
+
+# ---------------------------------------------------------------------------
+# K17: the snapshot readout
+
+CT_ACTIVE_BLOCKS = 264  # two blocks a streaming multiprocessor of the H100
+# Per (device, stream): ct_active's block partials and its ticket, which
+# the kernel leaves at 0. One stream orders its calls, so they share them.
+_ct_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def hll_estimate(registers):
+    """The HLL estimate (K17) of every group of a (G, m) int32 (u32 bits)
+    register bank: (G,) float32."""
+    dev = registers.device
+    _state(registers, "hll registers", dev)
+    if registers.dim() != 2:
+        raise ValueError(f"hll registers must be (groups, m), got {tuple(registers.shape)}")
+    g, m = registers.shape
+    _pow2(m, "hll registers per group")
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.hyperloglog import estimate_plain
+
+        return estimate_plain(registers)
+    from retina_tpu_torch.ops.hyperloglog import _alpha
+
+    out = torch.empty((g,), dtype=torch.float32, device=dev)
+    if g:
+        _launch("hll_estimate", dev, registers.data_ptr(), g, m, _alpha(m) * m * m,
+                out.data_ptr())
+    return out
+
+
+def ct_active(keys, vals, now_s):
+    """The live connections (K17) of a conntrack table ``keys`` (S, 2) and
+    ``vals`` (S, 4) at ``now_s``: an int32 scalar tensor."""
+    from retina_tpu_torch.ops.conntrack import (
+        CLOCK_SKEW_SLACK,
+        CT_NON_TCP_LIFETIME,
+        CT_TCP_LIFETIME,
+    )
+
+    dev = keys.device
+    n_slots = keys.shape[0]
+    _state(keys, "conntrack keys", dev, shape=(n_slots, 2))
+    _state(vals, "conntrack vals", dev, shape=(n_slots, 4))
+    now = int(now_s) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.conntrack import active_connections_plain
+
+        return active_connections_plain(keys, vals, now)
+    if vals.data_ptr() % 16 or keys.data_ptr() % 8:
+        raise ValueError("conntrack keys and vals must be 8- and 16-byte aligned")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch.cuda.current_stream(dev).cuda_stream)
+    scratch = _ct_scratch.get(key)
+    if scratch is None:
+        scratch = _ct_scratch[key] = (
+            torch.empty((CT_ACTIVE_BLOCKS,), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    out = torch.empty((), dtype=torch.int32, device=dev)
+    _launch("ct_active", dev, keys.data_ptr(), vals.data_ptr(), n_slots, now,
+            CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME, 0xFFFF - CLOCK_SKEW_SLACK, CT_ACTIVE_BLOCKS,
+            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr())
+    return out

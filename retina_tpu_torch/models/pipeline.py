@@ -44,12 +44,15 @@ from retina_tpu_torch.events.schema import (
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.identity import IdentityMap, lookup_plain
 from retina_tpu_torch.ops.conntrack import ConntrackTable
-from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow
+from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow, entropy_bits_plain
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.ops.topk import HeavyHitterSketch
 from retina_tpu_torch.u32 import M32, narrow, widen
+
+
+EWMA_MIN_WINDOWS = 10  # the anomaly EWMA's warm-up at a window close (AnomalyEWMA.observe's)
 
 
 def priority_class(src_ip: torch.Tensor, dst_ip: torch.Tensor, mask: int,
@@ -453,11 +456,28 @@ class TelemetryPipeline:
 
     def end_window(self, state: PipelineState, z_thresh: float = 4.0,
                    ) -> tuple[PipelineState, dict[str, torch.Tensor]]:
-        """Close an entropy window: entropies, anomaly EWMA, histogram reset.
-        Idle windows do not touch the baseline."""
-        h = state.entropy.entropy_bits()
-        active = state.entropy.counts.sum(dim=-1) > 0
-        anomaly, flags, z = state.anomaly.observe(h, z_thresh=z_thresh, active=active)
-        state.entropy.reset()
-        state.anomaly = anomaly
+        """Close an entropy window in one launch of K16: entropies, the
+        anomaly EWMA (``state.anomaly``'s tensors updated in place) and the
+        histogram reset. Idle windows do not touch the baseline."""
+        a = state.anomaly
+        h, flags, z = kops.window_close(state.entropy.counts, a.mean, a.var, a.n_obs, a.alpha,
+                                        z_thresh, EWMA_MIN_WINDOWS)
         return state, {"entropy_bits": h, "anomaly": flags, "zscore": z}
+
+
+def end_window_plain(counts: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+                     n_obs: torch.Tensor, alpha: float, z_thresh: float, min_windows: int,
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K16, in place as the kernel: the entropy bits of
+    ``counts`` (G, K), ``AnomalyEWMA.observe`` with ``active`` = a row saw
+    traffic, its new mean, var and n_obs copied into the given tensors, and
+    ``counts`` zeroed. Returns (bits, flags, z)."""
+    h = entropy_bits_plain(counts)
+    active = counts.sum(dim=-1) > 0
+    new, flags, z = AnomalyEWMA(mean=mean, var=var, n_obs=n_obs, alpha=alpha).observe(
+        h, z_thresh=z_thresh, min_windows=min_windows, active=active)
+    mean.copy_(new.mean)
+    var.copy_(new.var)
+    n_obs.copy_(new.n_obs)
+    counts.zero_()
+    return h, flags, z

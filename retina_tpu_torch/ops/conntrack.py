@@ -197,12 +197,19 @@ class ConntrackTable:
         return self, lanes[0] != 0, lanes[1] != 0, lanes[2], lanes[3]
 
     def active_connections(self, now_s: int) -> torch.Tensor:
-        """int32 count of non-expired resident connections."""
-        live = (self.keys[:, 0] | self.keys[:, 1]) != 0
-        meta = widen(self.vals[:, 0])
-        seen16 = meta & 0xFFFF
-        is_tcp = (meta >> 31) > 0
-        lifetime = torch.where(is_tcp, CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME)
-        idle = ((int(now_s) & 0xFFFFFFFF) - seen16) & 0xFFFF
-        fresh = (idle <= lifetime) | (idle > 0xFFFF - CLOCK_SKEW_SLACK)
-        return (live & fresh).sum().to(torch.int32)
+        """int32 count of non-expired resident connections (K17)."""
+        return kops.ct_active(self.keys, self.vals, now_s)
+
+
+def active_connections_plain(keys: torch.Tensor, vals: torch.Tensor, now_s: int) -> torch.Tensor:
+    """Plain version of K17's count: the resident slots whose 16-bit idle
+    time is within the protocol's lifetime or inside the clock-skew slack
+    past the wrap, as an int32 scalar."""
+    live = (keys[:, 0] | keys[:, 1]) != 0
+    meta = widen(vals[:, 0])
+    seen16 = meta & 0xFFFF
+    is_tcp = (meta >> 31) > 0
+    lifetime = torch.where(is_tcp, CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME)
+    idle = ((int(now_s) & 0xFFFFFFFF) - seen16) & 0xFFFF
+    fresh = (idle <= lifetime) | (idle > 0xFFFF - CLOCK_SKEW_SLACK)
+    return (live & fresh).sum().to(torch.int32)

@@ -4,9 +4,13 @@
 window. Its ``update`` takes one key column per group and fills every group
 in one pass through K4 (``kernels/csrc/entropy_update.cu``): it is the
 reference's per-group ``update`` calls of the pipeline step (src IP into
-group 0, dst IP into 1, dst port into 2) made at once. ``merge`` adds two
-windows' histograms (torch ops). ``AnomalyEWMA`` keeps the per-group EWMA
-baseline and flags z-score outliers.
+group 0, dst IP into 1, dst port into 2) made at once. ``entropy_bits``
+goes through K16's read-only entry (``kernels/csrc/window_close.cu``);
+``entropy_bits_plain`` is its plain version. ``merge`` adds two windows'
+histograms (torch ops). ``AnomalyEWMA`` keeps the per-group EWMA baseline
+and flags z-score outliers; its ``observe`` is the plain version of K16's
+EWMA (the window close runs it in the kernel) and the detector bank's
+baseline.
 """
 
 from __future__ import annotations
@@ -29,6 +33,15 @@ def update_plain(counts: torch.Tensor, seed: int, key_cols: list[torch.Tensor],
     for g, col in enumerate(key_cols):
         idx = reduce_range(hash_cols([col], 0xE17209 + seed), k)
         counts[g].index_add_(0, idx, w)
+
+
+def entropy_bits_plain(counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K16's bits: (G,) plug-in Shannon entropy in bits of
+    each row of a (G, K) float32 histogram bank."""
+    n = counts.sum(dim=1, keepdim=True)
+    p = counts / torch.clamp(n, min=1.0)
+    terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)), 0.0)
+    return -terms.sum(dim=1)
 
 
 @dataclasses.dataclass
@@ -54,11 +67,8 @@ class EntropyWindow:
         return self
 
     def entropy_bits(self) -> torch.Tensor:
-        """(G,) plug-in Shannon entropy in bits of each histogram."""
-        n = self.counts.sum(dim=1, keepdim=True)
-        p = self.counts / torch.clamp(n, min=1.0)
-        terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)), 0.0)
-        return -terms.sum(dim=1)
+        """(G,) plug-in Shannon entropy in bits of each histogram (K16)."""
+        return kops.entropy_bits(self.counts)
 
     def merge(self, other: "EntropyWindow") -> "EntropyWindow":
         """Elementwise float32 add: a new window."""

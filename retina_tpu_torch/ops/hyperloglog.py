@@ -2,7 +2,9 @@
 
 A (G, 2^p) u32 bank holds G independent sketches. ``update`` goes through
 K3 (``kernels/csrc/hll_update.cu``); ``update_plain`` is its plain version.
-``merge`` is the reference's elementwise u32 max, in torch ops.
+``estimate`` goes through K17 (``kernels/csrc/snapshot_readout.cu``);
+``estimate_plain`` is its plain version. ``merge`` is the reference's
+elementwise u32 max, in torch ops.
 """
 
 from __future__ import annotations
@@ -47,6 +49,19 @@ def update_plain(registers: torch.Tensor, seed: int, key_cols: list[torch.Tensor
     )
 
 
+def estimate_plain(registers: torch.Tensor) -> torch.Tensor:
+    """Plain version of K17's estimate: (G,) float32 cardinalities of a
+    (G, m) register bank, with the small-range (linear counting)
+    correction."""
+    m = int(registers.shape[1])
+    regs = registers.to(torch.float32)
+    raw = _alpha(m) * m * m / torch.exp2(-regs).sum(dim=1)
+    zeros = (registers == 0).sum(dim=1).to(torch.float32)
+    lc = m * torch.log(m / torch.clamp(zeros, min=1e-9))
+    use_lc = (raw <= 2.5 * m) & (zeros > 0)
+    return torch.where(use_lc, lc, raw)
+
+
 @dataclasses.dataclass
 class HyperLogLog:
     """Bank of G HLL sketches with M = 2^p registers each."""
@@ -76,14 +91,9 @@ class HyperLogLog:
         return self
 
     def estimate(self) -> torch.Tensor:
-        """(G,) float32 cardinality estimates with small-range correction."""
-        m = self.m
-        regs = self.registers.to(torch.float32)
-        raw = _alpha(m) * m * m / torch.exp2(-regs).sum(dim=1)
-        zeros = (self.registers == 0).sum(dim=1).to(torch.float32)
-        lc = m * torch.log(m / torch.clamp(zeros, min=1e-9))
-        use_lc = (raw <= 2.5 * m) & (zeros > 0)
-        return torch.where(use_lc, lc, raw)
+        """(G,) float32 cardinality estimates with small-range correction
+        (K17)."""
+        return kops.hll_estimate(self.registers)
 
     def merge(self, other: "HyperLogLog") -> "HyperLogLog":
         """Register-wise u32 max: a new bank."""

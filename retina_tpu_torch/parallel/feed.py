@@ -19,9 +19,12 @@ any known row names its slot, so there is one serialization point.
 Backpressure never blocks a producer: a block that finds every worker's
 staging full is dropped and counted; a worker whose handoff stays full
 because the dispatch thread died drops the item through the pool's
-``drop`` callback. The reference's Prometheus series are plain counters in
-``stats()``; its restart policy is not ported (a worker that crashes is
-counted and stops, and its blocks go to the other shards).
+``drop`` callback. The reference's Prometheus series (``engine_errors``
+for a crash, ``feed_worker_fill``, ``feed_handoff_wait``,
+``feed_blocks_dropped``) are set through ``metrics.get_metrics()`` and kept
+besides as plain counters in ``stats()``; its restart policy is not ported
+(a worker that crashes is counted and stops, and its blocks go to the other
+shards), so nothing counts a ``thread_restarts``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
+
+from retina_tpu_torch.metrics import get_metrics
 
 _log = logging.getLogger("retina_tpu_torch.feed")
 
@@ -143,6 +148,7 @@ class FeedWorker(threading.Thread):
         self.fill = 0.0  # the last flush's quantum fill
         self.batches = 0
         self.handoff_dropped = 0  # worker-only: items the consumer lost
+        self._wait_pub = 0.0  # handoff wait already published
         self.busy_s = 0.0  # worker-only: seconds in build_steps
         self.crashed = False
 
@@ -168,6 +174,7 @@ class FeedWorker(threading.Thread):
         except Exception:
             # Counted; the distributor's liveness check routes blocks to
             # the other shards.
+            get_metrics().engine_errors.labels(site="feed_worker").inc()
             self.crashed = True
             _log.exception("feed worker %d crashed; its blocks go to the other shards",
                            self.idx)
@@ -219,6 +226,16 @@ class FeedWorker(threading.Thread):
                 self.handoff_dropped += 1
                 self.pool.drop(it)
         self.batches += 1
+        self._publish_metrics()
+
+    def _publish_metrics(self) -> None:
+        m = get_metrics()
+        w = str(self.idx)
+        m.feed_worker_fill.labels(worker=w).set(self.fill)
+        # The counter takes the wait since the last publication.
+        wait = self.outq.wait_s
+        m.feed_handoff_wait.labels(worker=w).inc(max(0.0, wait - self._wait_pub))
+        self._wait_pub = wait
 
     def stat(self) -> dict[str, Any]:
         return {
@@ -296,6 +313,7 @@ class FeedWorkerPool:
         """Account a block no worker could take."""
         self.staging_dropped_blocks += 1
         self.staging_dropped_events += n_events
+        get_metrics().feed_blocks_dropped.labels(worker=str(self._rr % len(self.workers))).inc()
 
     def stop(self, timeout: float = 30.0) -> None:
         """Signal stop and join the workers; each flushes its staged quantum

@@ -25,8 +25,10 @@ states with hysteresis::
   (dns, conntrack, labels), one more per ``overload_shed_escalate_s``.
 * ``DEGRADED``: every stage shed and sampling on.
 
-The reference's metrics become plain counters (``counters``) and a state
-gauge read through ``stats()``. Pure host numpy; the engine calls ``tick``
+The reference's series (``overload_state``, ``events_sampled``,
+``accuracy_debt``, ``events_shed``) are set through ``metrics.get_metrics()``
+as the reference sets them, and kept besides as plain counters
+(``counters``) read through ``stats()``. Pure host numpy; the engine calls ``tick``
 from its feed loop and ``sample_rows`` from the feed workers.
 """
 
@@ -41,6 +43,7 @@ from typing import Callable, Iterable
 import numpy as np
 
 from retina_tpu_torch.events.schema import F
+from retina_tpu_torch.metrics import get_metrics
 
 _log = logging.getLogger("retina_tpu_torch.overload")
 
@@ -184,6 +187,7 @@ class OverloadController:
             self._shed_level = len(self._shed_order())
         if state < SHEDDING:
             self._shed_level = 0
+        get_metrics().overload_state.set(state)
         log = _log.warning if state > old else _log.info
         log("overload: %s -> %s (pressure %.2f, signals %s)", STATE_NAMES[old],
             STATE_NAMES[state], p, {k: round(v, 3) for k, v in self._sigvals.items()})
@@ -240,6 +244,11 @@ class OverloadController:
         # Weight the step synthesizes back by the x k rescale of the kept
         # non-exempt rows: the estimated, not observed, share.
         debt = (k - 1) * int(kept[~exempt[keep], F.PACKETS].sum())
+        if dropped_ev:
+            m = get_metrics()
+            m.events_sampled.inc(dropped_ev)
+            if debt:
+                m.accuracy_debt.inc(debt)
         kept_ev = int(kept[:, F.PACKETS].sum())
         pri_ev = int(pk[tiers == TIER_PRIORITY].sum())
         with self._lock:
@@ -251,8 +260,10 @@ class OverloadController:
         return kept, k
 
     def note_shed(self, stage: str, amount: int = 1) -> None:
-        """Count one shed enrichment unit (events for dns)."""
+        """Count one shed enrichment unit (events for dns, passes for
+        conntrack and labels)."""
         if amount:
+            get_metrics().events_shed.labels(stage=stage).inc(amount)
             with self._lock:
                 self.counters[f"events_shed:{stage}"] += amount
 

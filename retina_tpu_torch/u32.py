@@ -32,7 +32,7 @@ def from_numpy(a: np.ndarray, device: torch.device | str) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.uint32).view(np.int32).copy()).to(device)
 
 
-def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> uint32 numpy copy; float tensors keep their type."""
-    a = np.array(t.detach().cpu().numpy())
+def to_numpy(t: torch.Tensor | np.ndarray) -> np.ndarray:
+    """int32 tensor (or array) -> uint32 numpy copy; floats keep their type."""
+    a = np.array(t) if isinstance(t, np.ndarray) else np.array(t.detach().cpu().numpy())
     return a.view(np.uint32) if a.dtype == np.int32 else a

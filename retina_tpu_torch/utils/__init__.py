@@ -1,1 +1,2 @@
-"""Runtime helpers (port of part of retina_tpu/utils/): the device proxy."""
+"""Runtime helpers (port of part of retina_tpu/utils/): the device proxy,
+the metric names and the build metadata."""

@@ -69,7 +69,14 @@ MODULES = [
     "retina_tpu_torch.plugins",
     "retina_tpu_torch.plugins.api", "retina_tpu_torch.parallel.feed",
     "retina_tpu_torch.utils", "retina_tpu_torch.utils.device_proxy",
-    "retina_tpu_torch.ops.countmin",
+    "retina_tpu_torch.ops.countmin", "retina_tpu_torch.log", "retina_tpu_torch.exporter",
+    "retina_tpu_torch.metrics", "retina_tpu_torch.utils.metric_names",
+    "retina_tpu_torch.utils.buildinfo", "retina_tpu_torch.common", "retina_tpu_torch.pubsub",
+    "retina_tpu_torch.crd.types", "retina_tpu_torch.controllers.cache",
+    "retina_tpu_torch.managers.filtermanager", "retina_tpu_torch.module.metric_objects",
+    "retina_tpu_torch.module.metrics_module", "retina_tpu_torch.plugins.registry",
+    "retina_tpu_torch.plugins.conntrack_gc", "retina_tpu_torch.plugins.dropreason",
+    "retina_tpu_torch.server",
 ]
 
 
@@ -83,6 +90,8 @@ def test_port_imports_without_jax_or_reference():
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['msgpack'] = None\n"
+        "sys.modules['prometheus_client'] = None\n"
+        "sys.modules['yaml'] = None\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'retina_tpu' or m.startswith('retina_tpu.')]\n"
         "assert not bad, bad\n"
@@ -425,7 +434,8 @@ def test_pipeline_on_card_matches_cpu(card):
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
                       "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0,
-                      "latency_update": 4, "inv_decode": 0}
+                      "latency_update": 4, "inv_decode": 0, "window_close": 0,
+                      "entropy_bits": 0, "hll_estimate": 0, "ct_active": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -850,3 +860,161 @@ def test_inv_decode_kernel_matches_plain(card, n_cols, heavy_weight):
         assert cols.shape == ref_cols.shape == (n_cols, wc.numel())
         assert torch.equal(cols, ref_cols) and torch.equal(ok, ref_ok)
     assert bool(kops.inv_decode(planes.to(card), weights.to(card), 9, n_cols)[1].any())
+
+
+# -- K16 and K17: the window close and the snapshot readout ---------------------
+
+
+def _close_windows(rng, g, k, n=40):
+    """n windows of (g, k) integer-valued histograms: idle windows (2, 9),
+    the last group idle alone (15), group 0 collapsed into one bucket after
+    the warm-up (30, 31)."""
+    for w in range(n):
+        counts = np.zeros((g, k), np.float32)
+        if w not in (2, 9):
+            for j in range(g):
+                if j == 0 and w in (30, 31):
+                    counts[j, 5] = 4000.0
+                    continue
+                if j == g - 1 and g > 1 and w == 15:
+                    continue
+                counts[j] = np.bincount(rng.integers(0, int(rng.integers(200, k)),
+                                                     int(rng.integers(500, 4000))),
+                                        minlength=k).astype(np.float32)
+        yield counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [1, 3])
+def test_window_close_kernel_matches_plain_over_40_windows(card, g):
+    """K16 with its EWMA carried over 40 windows, beside the plain version's
+    own carried state: bits and z within rtol 1e-5 (z with atol 1e-4), the
+    EWMA within rtol 1e-5 (var with atol 1e-6), flags and n_obs exactly,
+    the histogram zero after each close; the read-only entry leaves its
+    input as it was."""
+    rng = np.random.default_rng(110 + g)
+    k = 4096
+    ewma = [torch.zeros(g, device=card) for _ in range(3)]
+    ref_ewma = [torch.zeros(g, device=card) for _ in range(3)]
+    flagged = []
+    for counts in _close_windows(rng, g, k):
+        c = torch.from_numpy(counts).to(card)
+        c_ref = c.clone()
+        before = kops.launch_counts()
+        bits_only = kops.entropy_bits(c)
+        bits, flags, z = kops.window_close(c, *ewma, 0.1, 4.0, 10)
+        after = kops.launch_counts()
+        assert after["entropy_bits"] == before["entropy_bits"] + 1
+        assert after["window_close"] == before["window_close"] + 1
+        with kops.plain_versions():
+            ref_bits_only = kops.entropy_bits(c_ref)
+            ref_bits, ref_flags, ref_z = kops.window_close(c_ref, *ref_ewma, 0.1, 4.0, 10)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(bits_only, ref_bits_only, rtol=1e-5, atol=0)
+        torch.testing.assert_close(bits, ref_bits, rtol=1e-5, atol=0)
+        torch.testing.assert_close(z, ref_z, rtol=1e-5, atol=1e-4)
+        assert torch.equal(flags, ref_flags) and torch.equal(ewma[2], ref_ewma[2])
+        torch.testing.assert_close(ewma[0], ref_ewma[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(ewma[1], ref_ewma[1], rtol=1e-5, atol=1e-6)
+        assert not c.any() and not c_ref.any()
+        flagged.append(bool(flags[0]))
+    assert flagged[30] and not any(flagged[:30])
+    assert ewma[2].tolist()[0] == 38
+
+
+def _readout_banks(rng):
+    for g, m in ((1, 4096), (16, 4096), (4096, 64)):
+        yield np.where(rng.random((g, m)) < 0.05, rng.integers(1, 6, (g, m)), 0).astype(np.uint32)
+        yield rng.integers(1, 24, (g, m)).astype(np.uint32)
+        yield np.zeros((g, m), np.uint32)
+
+
+@pytest.mark.gpu
+def test_hll_estimate_kernel_matches_plain_on_the_three_banks(card):
+    """K17's estimate on the snapshot's three banks (the block and the warp
+    shapes) in the linear-counting and raw regimes and all zero, within rtol
+    1e-5."""
+    rng = np.random.default_rng(120)
+    for regs in _readout_banks(rng):
+        r = from_numpy(regs, card)
+        before = kops.launch_counts()["hll_estimate"]
+        got = kops.hll_estimate(r)
+        assert kops.launch_counts()["hll_estimate"] == before + 1
+        with kops.plain_versions():
+            want = kops.hll_estimate(r)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def _ct_table(rng, n, now):
+    """keys and vals of an n-slot table: empty slots, TCP and non-TCP rows,
+    idle times at every lifetime's edge and inside the skew slack."""
+    from retina_tpu_torch.ops.conntrack import (
+        CLOCK_SKEW_SLACK,
+        CT_NON_TCP_LIFETIME,
+        CT_TCP_LIFETIME,
+    )
+
+    keys = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+    keys[rng.random(n) < 0.25] = 0
+    idle = rng.choice(np.array([0, CT_NON_TCP_LIFETIME, CT_NON_TCP_LIFETIME + 1,
+                                CT_TCP_LIFETIME, CT_TCP_LIFETIME + 1, 5000,
+                                0xFFFF - CLOCK_SKEW_SLACK, 0xFFFF - CLOCK_SKEW_SLACK + 1]), n)
+    meta = ((now - idle) & 0xFFFF) | (rng.integers(0, 1 << 14, n) << 16) \
+        | ((rng.random(n) < 0.5).astype(np.int64) << 31)
+    vals = rng.integers(0, 1 << 32, (n, 4), dtype=np.uint64).astype(np.uint32)
+    vals[:, 0] = meta.astype(np.uint32)
+    return keys, vals
+
+
+@pytest.mark.gpu
+def test_ct_active_kernel_is_exact_and_resets_its_ticket(card):
+    """K17's live count over the deployed 2^18-slot table, exactly, at
+    clocks across the 16-bit wrap; repeated calls on one stream reuse the
+    ticket, which each call leaves at 0."""
+    rng = np.random.default_rng(130)
+    for now in (1_700_000_000, 0xFFFF, 0x10000 + 3, 0xFFFFFFFF):
+        keys, vals = _ct_table(rng, 1 << 18, now)
+        k, v = from_numpy(keys, card), from_numpy(vals, card)
+        with kops.plain_versions():
+            want = int(kops.ct_active(k, v, now))
+        for _ in range(2):
+            before = kops.launch_counts()["ct_active"]
+            got = kops.ct_active(k, v, now)
+            assert kops.launch_counts()["ct_active"] == before + 1
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and int(got) == want
+    assert 0 < want < 1 << 18
+
+
+@pytest.mark.gpu
+def test_close_and_snapshot_on_card_launch_k16_and_k17(card):
+    """end_window is one launch of K16 and no plain op; Telemetry.snapshot
+    takes four launches of K17 (three banks, one count); both equal the CPU
+    run of the same steps."""
+    from retina_tpu_torch.models import pipeline as tpipeline
+    from retina_tpu_torch.ops import hyperloglog as thll
+
+    on_card, on_cpu = Telemetry(DEPLOYED_CUT, device=card), Telemetry(DEPLOYED_CUT, device="cpu")
+    st_card = _run_steps(on_card.pipeline, card)
+    st_cpu = _run_steps(on_cpu.pipeline, "cpu")
+    plain, called = tpipeline.end_window_plain, []
+    tpipeline.end_window_plain = lambda *a: called.append(a)
+    est_plain, thll.estimate_plain = thll.estimate_plain, lambda *a: called.append(a)
+    try:
+        kops.reset_launch_counts()
+        st_card, win = on_card.end_window(st_card)
+        snap = on_card.snapshot(st_card, 41)
+        counts = kops.launch_counts()
+    finally:
+        tpipeline.end_window_plain, thll.estimate_plain = plain, est_plain
+    assert not called
+    assert counts["window_close"] == 1 and counts["hll_estimate"] == 3
+    assert counts["ct_active"] == 1
+    st_cpu, ref = on_cpu.end_window(st_cpu)
+    ref_snap = on_cpu.snapshot(st_cpu, 41)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(win["entropy_bits"].cpu(), ref["entropy_bits"], rtol=1e-5, atol=0)
+    for name in ("hll_flows", "hll_src_per_reason", "hll_src_per_pod"):
+        torch.testing.assert_close(snap[name].cpu(), ref_snap[name], rtol=1e-5, atol=0)
+    assert int(snap["active_conns"]) == int(ref_snap["active_conns"]) > 0
