@@ -19,6 +19,13 @@ top-k) each run over two 2^21-event batches of a 1M-flow Zipf stream:
   conntrack on, high aggregation) and NO_CONNTRACK_CONFIG, 1 window x 8
   steps each.
 
+K2 (the heavy-hitter update: one call, three launches, for a step's
+three sketches) and K4 (the entropy histograms) are held against their
+plain versions and timed as a step calls them, at three weight sets: the
+per-row lanes (high aggregation), the main path's conntrack reports, and a
+batch with one key in every row (see ``sketch_phase``). Every path's
+launch counts must show at most three launches of K2 and one of K4 a step.
+
 Before the paths, K14 (the apiserver latency match) runs against its plain
 version over 4 consecutive 2^21-event batches of that stream with one row
 in 64 turned into apiserver probes (the latency table carried over), then
@@ -357,49 +364,12 @@ def main() -> int:
            BATCH * 64 + (1 << 16) * 8 + 2 * rect_bytes + len(kops.SCRATCH) * BATCH * 4,
            BATCH * (4 * HASH_OPS + 60), None, 0.0)
 
-    # -- K2: the three heavy-hitter instances ------------------------------
+    # -- K2 and K4 as a step calls them, at three weight sets ---------------
+    row12_set = sketch_phase(dev, recs, ident, time_ms, report, equal_int, close_counts)
     src, dst = recs[0][:, F.SRC_IP], recs[0][:, F.DST_IP]
-    instances = [
-        ("flow_hh", [src, dst, recs[0][:, F.PORTS], scratch["proto"]], scratch["flow_w"]),
-        ("svc_hh", [scratch["src_pod"], scratch["dst_pod"]], scratch["svc_w"]),
-        ("dns_hh", [recs[0][:, F.DNS_QHASH]], scratch["dns_w"]),
-    ]
-    pair = [tel.init_state(), tel.init_state()]
-    for i, st in enumerate(pair):
-        for name, cols, w in instances:
-            for _ in range(2):  # the second offer meets counts already set
-                hh = getattr(st, name)
-                if i == 0:
-                    hh.update(cols, w)
-                else:
-                    with kops.plain_versions():
-                        hh.update(cols, w)
-    for name, _, _ in instances:
-        a, b = getattr(pair[0], name), getattr(pair[1], name)
-        equal_int(a.cms.table, b.cms.table, f"K2 {name} cms")
-        equal_int(a.table.counts, b.table.counts, f"K2 {name} counts")
-        equal_int(a.table.key_rows, b.table.key_rows, f"K2 {name} key rows")
-    st = tel.init_state()
-
-    def k2_all():
-        for name, cols, w in instances:
-            getattr(st, name).update(cols, w)
-
-    ms = time_ms(k2_all)
-    with kops.plain_versions():
-        plain_ms = time_ms(k2_all)
-    nbytes = ops = 0
-    d, wd, s = CFG.cms_depth, CFG.cms_width, CFG.topk_slots
-    for _, cols, w in instances:
-        c = len(cols)
-        active = int((w != 0).sum())
-        nbytes += BATCH * (4 * c + 4) + 2 * 4 * (d * wd + s * (c + 1))
-        ops += active * (2 * d * c * HASH_OPS + c * HASH_OPS + 4 * d)
-    report("hh_update", "retina_tpu_torch/kernels/csrc/hh_update.cu",
-           "retina_tpu/ops/topk.py:177", ms, plain_ms, nbytes, ops, None, 0.0)
+    five = [src, dst, recs[0][:, F.PORTS], scratch["proto"]]
 
     # -- K3: the three HLL banks -----------------------------------------
-    five = instances[0][1]
     banks = [
         ("hll_flows", five, None, scratch["mask"]),
         ("hll_src_per_reason", [src], scratch["reason"], scratch["is_drop"]),
@@ -448,29 +418,6 @@ def main() -> int:
     del flat, vals, flat_i, vals_i, regs
     report("hll_update", "retina_tpu_torch/kernels/csrc/hll_update.cu",
            "retina_tpu/ops/hyperloglog.py:72", ms, plain_ms, nbytes, ops, lib_ms, 0.0)
-
-    # -- K4: entropy histograms -------------------------------------------
-    ent_cols = [src, dst, scratch["dport"]]
-    pair = [tel.init_state(), tel.init_state()]
-    pair[0].entropy.update(ent_cols, scratch["ent_w"])
-    with kops.plain_versions():
-        pair[1].entropy.update(ent_cols, scratch["ent_w"])
-    err = close_counts(pair[0].entropy.counts, pair[1].entropy.counts, "K4 counts")
-    st = tel.init_state()
-    ms = time_ms(lambda: st.entropy.update(ent_cols, scratch["ent_w"]))
-    with kops.plain_versions():
-        plain_ms = time_ms(lambda: st.entropy.update(ent_cols, scratch["ent_w"]))
-    k = CFG.entropy_buckets
-    idx = torch.cat([g * k + reduce_range(hash_cols([c], 0xE17209 + st.entropy.seed), k)
-                     for g, c in enumerate(ent_cols)])
-    wf = widen(scratch["ent_w"]).float().repeat(3)
-    hist = torch.zeros(3 * k, dtype=torch.float32, device=dev)
-    lib_ms = time_ms(lambda: hist.index_add_(0, idx, wf))
-    del idx, wf
-    active = int((scratch["ent_w"] != 0).sum())
-    report("entropy_update", "retina_tpu_torch/kernels/csrc/entropy_update.cu",
-           "retina_tpu/ops/entropy.py:54", ms, plain_ms,
-           BATCH * 4 * 4 + 2 * 4 * 3 * k, active * (3 * HASH_OPS + 3), lib_ms, err)
 
     # -- K5: conntrack at 2^21 rows and 2^18 slots ------------------------
     rng = np.random.default_rng(SEED)
@@ -631,6 +578,7 @@ def main() -> int:
         run = run_path(t, windows, steps, plain=False)
         launches = kops.launch_counts()
         print(f"{name} launches: {launches}", flush=True)
+        check_sketch_launches(launches, name)
         for k in kernels:
             check(launches[k] > 0, f"{k} was not launched on the {name}")
         ref = run_path(t, windows, steps, plain=True)
@@ -916,6 +864,7 @@ def main() -> int:
         run = feed_run(cfg, schedule, plain=False)
         launches = kops.launch_counts()
         print(f"{name} launches: {launches}", flush=True)
+        check_sketch_launches(launches, name)
         for k in kernels:
             check(launches[k] > 0, f"{k} was not launched on the {name}")
         ref = feed_run(cfg, schedule, plain=True)
@@ -982,7 +931,7 @@ def main() -> int:
 
     timetravel_and_fleet(dev, quanta, pods, time_ms, report, results)
     detection_loop(dev, quanta, pods, time_ms, report, results)
-    cms_update_phase(dev, host[0], time_ms, report, results, equal_int)
+    cms_update_phase(dev, host[0], time_ms, report, results, equal_int, row12_set)
     runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     scrape_surface(dev, quanta, time_ms, report, results)
 
@@ -994,6 +943,120 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_sketch_launches(launches: dict, label: str) -> None:
+    """A step (one K1 launch) makes one call of K2, three launches for its
+    three sketches, and one launch of K4."""
+    steps = launches["step_rows"]
+    check(launches["hh_update"] <= 3 * steps,
+          f"{label}: hh_update launched {launches['hh_update']} times in {steps} steps")
+    check(launches["entropy_update"] <= steps,
+          f"{label}: entropy_update launched {launches['entropy_update']} times in {steps} steps")
+
+
+def sketch_phase(dev, recs, ident, time_ms, report, equal_int, close_counts):
+    """K2 and K4 as a step calls them, each held against its plain version
+    and timed at three weight sets of the deployed widths, the calls
+    captured at the wrappers (``step_profile.sketch_calls``): "per-row" (the
+    8th step of NO_CONNTRACK_CONFIG, high aggregation: every masked row
+    weighted), "report" (the 8th step of DEPLOYED_CONFIG, the main path:
+    the conntrack reports weight the sketches) and "one-key" (a
+    NO_CONNTRACK_CONFIG step on a batch whose rows all carry the first
+    row's addresses, ports, protocol and DNS hash). K2 is the step's one
+    ``hh_update_many`` call, made twice from clones of the state the step
+    left (the second offer meets the counts the first set), kernel against
+    plain: CMS, counts and key rows bit for bit, 3 launches a call; K4 within
+    ``close_counts``. Each set's times (CUDA events, and device time in
+    torch.profiler, which leaves out the host's launch gaps) go on a line
+    of their own; the kernels line carries the per-row CUDA-event times.
+    Returns the report set's flow keys and weights for row 12."""
+    import torch
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
+    from retina_tpu_torch.models.pipeline import NO_CONNTRACK_CONFIG
+    from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+    from retina_tpu_torch.step_profile import capture_sketch_calls, sketch_calls
+    from retina_tpu_torch.u32 import widen
+
+    sets = sketch_calls(dev, recs, ident)
+    hot = recs[0].clone()
+    lanes = [F.SRC_IP, F.DST_IP, F.PORTS, F.META, F.DNS_QHASH]
+    hot[:, lanes] = hot[0, lanes]
+    tel = Telemetry(NO_CONNTRACK_CONFIG, device=dev)
+    state = tel.init_state()
+    sets["one-key"] = capture_sketch_calls(lambda: tel.step(state, hot, len(hot), 2, ident))
+    n = len(recs[0])
+    row12 = None
+    for label in ("per-row", "report", "one-key"):
+        k2, k4 = sets[label]["k2"], sets[label]["k4"]
+        check(len(k2) == 1 and k2[0][0].__name__ == "hh_update_many" and len(k4) == 1,
+              f"K2/K4 {label}: the step made {len(k2)} and {len(k4)} calls")
+        updates = k2[0][1][0]
+        pair = [[(u[0].clone(), u[1], u[2].clone(), u[3].clone(), u[4], u[5], u[6])
+                 for u in updates] for _ in range(2)]
+        for _ in range(2):
+            before = kops.launch_counts()["hh_update"]
+            kops.hh_update_many(pair[0])
+            check(kops.launch_counts()["hh_update"] == before + 3,
+                  f"K2 {label}: one call did not launch 3 kernels")
+            with kops.plain_versions():
+                kops.hh_update_many(pair[1])
+        for name, a, b in zip(("flow_hh", "svc_hh", "dns_hh"), pair[0], pair[1]):
+            equal_int(a[0], b[0], f"K2 {label} {name} cms")
+            equal_int(a[3], b[3], f"K2 {label} {name} counts")
+            equal_int(a[2], b[2], f"K2 {label} {name} key rows")
+        weighted = [int((u[6] != 0).sum()) for u in updates]
+        ms = time_ms(lambda: kops.hh_update_many(pair[0]))
+        dev_ms = device_ms(lambda: kops.hh_update_many(pair[0]))
+        print(f"K2 at the {label} weights: kernel {ms:.4f} ms (CUDA events), device time "
+              f"{dev_ms:.4f} ms (3 launches for the 3 sketches); weighted rows {weighted} of {n}",
+              flush=True)
+        if label == "per-row":
+            with kops.plain_versions():
+                plain_ms = time_ms(lambda: kops.hh_update_many(pair[1]))
+            nbytes = ops = 0
+            for (cms, _, key_rows, _, _, cols, w), active in zip(updates, weighted):
+                c, (d, wd), s = len(cols), cms.shape, key_rows.shape[0]
+                nbytes += n * (4 * c + 4) + 2 * 4 * (d * wd + s * (c + 1))
+                ops += active * (2 * d * c * HASH_OPS + c * HASH_OPS + 4 * d)
+            report("hh_update", "retina_tpu_torch/kernels/csrc/hh_update.cu",
+                   "retina_tpu/ops/topk.py:177", ms, plain_ms, nbytes, ops, None, 0.0)
+        if label == "report":
+            row12 = (updates[0][5], updates[0][6])
+        del pair
+
+        counts, seed, cols, w = k4[0][1]
+        pair = [counts.clone(), counts.clone()]
+        kops.entropy_update(pair[0], seed, cols, w)
+        with kops.plain_versions():
+            kops.entropy_update(pair[1], seed, cols, w)
+        err = close_counts(pair[0], pair[1], f"K4 {label} counts")
+        ms = time_ms(lambda: kops.entropy_update(pair[0], seed, cols, w))
+        dev_ms = device_ms(lambda: kops.entropy_update(pair[0], seed, cols, w))
+        active = int((w != 0).sum())
+        print(f"K4 at the {label} weights: kernel {ms:.4f} ms (CUDA events), device time "
+              f"{dev_ms:.4f} ms; weighted rows {active} of {n}; max_abs_err {err}", flush=True)
+        if label == "per-row":
+            with kops.plain_versions():
+                plain_ms = time_ms(lambda: kops.entropy_update(pair[1], seed, cols, w))
+            g, k = counts.shape
+            idx = torch.cat([i * k + reduce_range(hash_cols([c], 0xE17209 + seed), k)
+                             for i, c in enumerate(cols)])
+            wf = widen(w).float().repeat(g)
+            hist = torch.zeros(g * k, dtype=torch.float32, device=dev)
+            lib_ms = time_ms(lambda: hist.index_add_(0, idx, wf))
+            del idx, wf, hist
+            report("entropy_update", "retina_tpu_torch/kernels/csrc/entropy_update.cu",
+                   "retina_tpu/ops/entropy.py:54", ms, plain_ms,
+                   n * 4 * (g + 1) + 2 * 4 * g * k, active * (g * HASH_OPS + g), lib_ms, err)
+        del pair
+    check(CFG.cms_depth == updates[0][0].shape[0], "the sets are not at the deployed widths")
+    del sets, state, tel, hot
+    return row12
 
 
 LAT_API = 0x7F000001  # the latency phase's apiserver: the captures' loopback address
@@ -1257,6 +1320,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         print(f"time-travel query over {n} windows: {ms:.3f} ms (first call)", flush=True)
     tt_launches = kops.launch_counts()
     print(f"time-travel path launches: {tt_launches}", flush=True)
+    check_sketch_launches(tt_launches, "time-travel path")
     for name in INVERTIBLE_ENGINE_KERNELS + EXTRACT_KERNELS:
         check(tt_launches[name] > 0, f"{name} was not launched on the time-travel path")
     for n, doc in docs.items():
@@ -1365,6 +1429,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     rollup, agg_cold_ms = sync_ms(aggregate)
     fleet_launches = kops.launch_counts()
     print(f"fleet path launches: {fleet_launches}", flush=True)
+    check_sketch_launches(fleet_launches, "fleet path")
     for name in INVERTIBLE_ENGINE_KERNELS + EXTRACT_KERNELS:
         check(fleet_launches[name] > 0, f"{name} was not launched on the fleet path")
     with kops.plain_versions():
@@ -1726,6 +1791,7 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     run = loop_run(plain=False)
     det_launches = run["launches"]
     print(f"detection path launches: {det_launches}", flush=True)
+    check_sketch_launches(det_launches, "detection path")
     for name in DETECTION_KERNELS:
         check(det_launches[name] > 0, f"{name} was not launched on the detection path")
     ref = loop_run(plain=True)
@@ -1832,12 +1898,14 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
           flush=True)
     print(f"detection phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
-def cms_update_phase(dev, batch, time_ms, report, results, equal_int) -> None:
+def cms_update_phase(dev, batch, time_ms, report, results, equal_int, report_set) -> None:
     """Row 12, ``cms.update_jit``, which lies on no path: its kernel
     (``cms_update``, K2's add phase alone) against its plain version at the
     deployed CMS shape (depth 4, width 2^15) over one 2^21-row batch, keyed
     by the 5-tuple and weighted by the packet lane with every eighth row
-    masked (weight 0). Its launches are this phase's own."""
+    masked (weight 0); then at the main path's report weights
+    (``report_set``: the flow sketch's keys and weights of ``sketch_phase``'s
+    report set). Its launches are this phase's own."""
     import torch
 
     from retina_tpu_torch.events.schema import F
@@ -1872,6 +1940,17 @@ def cms_update_phase(dev, batch, time_ms, report, results, equal_int) -> None:
     lib_table = torch.zeros(d * wd, dtype=torch.int32, device=dev)
     lib_ms = time_ms(lambda: lib_table.index_add_(0, flat, wts))
     del flat, wts, lib_table
+    rcols, rw = report_set
+    tables = [CountMinSketch.zeros(d, wd, seed=3, device=dev) for _ in range(2)]
+    cms_update_jit(tables[0], rcols, rw)
+    with kops.plain_versions():
+        cms_update_jit(tables[1], rcols, rw)
+    equal_int(tables[0].table, tables[1].table, "row 12 cms_update table (report weights)")
+    for label, args in (("report", (tables[0], rcols, rw)), ("packet", (sk, cols, w))):
+        print(f"cms_update at the {label} weights: kernel "
+              f"{ms if label == 'packet' else time_ms(lambda: cms_update_jit(*args)):.4f} ms "
+              f"(CUDA events), device time {device_ms(lambda: cms_update_jit(*args)):.4f} ms; "
+              f"weighted rows {int((args[2] != 0).sum())} of {len(args[2])}", flush=True)
     n, active = len(batch), int((w != 0).sum())
     report("cms_update", "retina_tpu_torch/kernels/csrc/hh_update.cu",
            "retina_tpu/ops/countmin.py:122", ms, plain_ms,
@@ -2059,6 +2138,7 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
         check(not lanes.is_alive() and not any(t.is_alive() for t in producers),
               f"{label}: a thread did not stop")
         launches = kops.launch_counts()
+        check_sketch_launches(launches, label)
         eng.stop()
         fs = eng.feed_stats()
         acc, off = sum(accepted), sum(offered)
@@ -2459,6 +2539,7 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
     finally:
         srv.stop()
     print(f"scrape path launches: {launches}", flush=True)
+    check_sketch_launches(launches, "scrape path")
     for name in ("window_close", "hll_estimate", "ct_active", "entropy_bits", "step_rows",
                  "ingest_new", "fold", "cms_query"):
         check(launches[name] > 0, f"{name} was not launched on the scrape path")

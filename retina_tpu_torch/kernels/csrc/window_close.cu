@@ -31,9 +31,15 @@
 // the plain version's order (__fmul_rn/__fadd_rn keep nvcc from fusing
 // them), so the state follows the plain version's arithmetic exactly given
 // the same bits. The close zeroes the row only after the sums' barrier,
-// when every thread has read it. log2f and the division are the full-
-// precision ones (no --use_fast_math); the sums group otherwise than
-// torch's, so bits and z agree within a relative 1e-5.
+// when every thread has read it.
+// The bits are summed in f64 (n exactly; p, log2 and their products
+// IEEE-rounded, no fused multiply-add) and rounded to f32 once, as the
+// plain version does: the two group their sums differently, which moves
+// an f64 sum by ~1e-16 and, but at a rounding tie, not its f32 bits. So
+// the bits, and the z-scores an EWMA makes of them, equal the plain
+// version's. f32 sums grouped differently moved the bits by an ulp, which
+// the z-score of a window whose baseline barely varies magnifies past any
+// tolerance a float comparison could hold it to.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -43,19 +49,19 @@ constexpr int kThreads = 512;
 constexpr int kPer = 32;  // elements a thread holds: K <= 16384
 constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int off = 16; off; off >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, off);
   return v;
 }
 
 // The sum of v over the block, in every thread. `part` holds kWarps words.
-__device__ __forceinline__ float block_sum(float v, float* part) {
+__device__ __forceinline__ double block_sum(double v, double* part) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   v = warp_sum(v);
   if (lane == 0) part[warp] = v;
   __syncthreads();
-  float s = 0.f;
+  double s = 0.0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) s += part[w];
   __syncthreads();
@@ -67,24 +73,24 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ var, float* __restrict__ n_obs, float alpha,
                         float z_thresh, float min_windows, float* __restrict__ bits_out,
                         uint8_t* __restrict__ flag_out, float* __restrict__ z_out) {
-  __shared__ float part[kWarps];
+  __shared__ double part[kWarps];
   const int g = blockIdx.x;
   float* row = counts + (long long)g * K;
   float v[kPer];
-  float n = 0.f;
+  double n = 0.0;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
     const int i = threadIdx.x + j * kThreads;
     v[j] = i < K ? row[i] : 0.f;
     n += v[j];
   }
-  n = block_sum(n, part);  // its barriers: every thread has read the row
-  const float denom = fmaxf(n, 1.f);
-  float t = 0.f;
+  n = block_sum(n, part);  // exact; its barriers: every thread has read the row
+  const double denom = fmax(n, 1.0);
+  double t = 0.0;
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
-    const float p = v[j] / denom;
-    if (p > 0.f) t += p * log2f(fmaxf(p, 1e-30f));
+    const double p = __ddiv_rn(v[j], denom);
+    if (p > 0.0) t = __dadd_rn(t, __dmul_rn(p, log2(fmax(p, 1e-30))));
   }
   if (close) {
 #pragma unroll
@@ -95,10 +101,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   t = block_sum(t, part);
   if (threadIdx.x != 0) return;
-  const float h = -t;
+  const float h = __double2float_rn(-t);
   bits_out[g] = h;
   if (!close) return;
-  const bool active = n > 0.f;
+  const bool active = n > 0.0;
   const float m0 = mean[g], v0 = var[g], k0 = n_obs[g];
   const bool warm = k0 >= min_windows;
   const float sd = sqrtf(fmaxf(v0, 1e-12f));

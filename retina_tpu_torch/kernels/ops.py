@@ -20,6 +20,7 @@ join or query) returns its empty result without a launch.
 
 from __future__ import annotations
 
+import array
 import contextlib
 import ctypes
 from typing import Iterator
@@ -35,9 +36,8 @@ _COLS = [_VP, _LL] * 4 + [_INT]
 _ARGTYPES = {
     "step_rows": [_VP, _LL, _U32, _U32, _VP, _INT, _U32, _VP, _INT, _U32]
     + [_VP] * 9 + [_INT] * 5 + [_U32] * 3 + [_VP],
-    "hh_update": [_VP, _INT, _INT, _U32, _VP, _VP, _INT, _U32, _VP]
-    + _COLS + [_VP, _LL, _LL, _VP],
-    "cms_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
+    "hh_update": [_VP, _INT, _LL, _VP],
+    "cms_update": [_VP, _LL, _VP],
     "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
     "entropy_update": [_VP, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
@@ -66,9 +66,9 @@ _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": 
             "entropy_bits": "window_close", "hll_estimate": "snapshot_readout",
             "ct_active": "snapshot_readout"}
 
-# Kernel launches per wrapper since the last reset (a launch of hh_update
-# counts its three phases, one of conntrack, ingest_new or latency_update
-# its two).
+# Kernel launches per C function since the last reset (a call of
+# hh_update counts its three phases, for up to three sketches; one of
+# conntrack, ingest_new or latency_update its two).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -236,35 +236,87 @@ def step_rows(records, n_valid, sample_k, ident_table, ident_seed,
 # K2
 
 
+HH_CHUNK = 2048  # rows a chunk of K2's add phase (kChunk in csrc/hh_update.cu)
+HH_MAX_DEPTH = 8  # CMS rows K2 hashes a key into
+
+
 def hh_update(cms_table, cms_seed, key_rows, counts, table_seed, key_cols, weights):
-    """Heavy-hitter update (K2) in place: CMS add, query, slot max, winner
-    key write. The winner of a slot is the last row in batch order among
-    the rows whose estimate equals the slot's new count."""
-    dev = cms_table.device
-    b = weights.shape[0]
+    """Heavy-hitter update (K2) of one sketch in place: CMS add, query, slot
+    max, winner key write. The winner of a slot is the last row in batch
+    order among the rows whose estimate equals the slot's new count."""
+    hh_update_many([(cms_table, cms_seed, key_rows, counts, table_seed, key_cols, weights)])
+
+
+def _hh_check(cms_table, key_rows, counts, key_cols, weights, dev, b) -> None:
     _state(cms_table, "cms table", dev)
-    d, w = cms_table.shape
-    _pow2(w, "cms width")
+    if cms_table.dim() != 2:
+        raise ValueError(f"cms table must be (depth, width), got {tuple(cms_table.shape)}")
+    _pow2(cms_table.shape[1], "cms width")
     s = counts.shape[0]
     _pow2(s, "topk slots")
     _state(counts, "topk counts", dev, shape=(s,))
     _state(key_rows, "topk key rows", dev, shape=(s, len(key_cols)))
     _col(weights, "weights", b, dev)
     _key_cols(key_cols, b, dev)
+
+
+def _hh_record(cms_table, cms_seed, key_rows, counts, table_seed, key_cols, weights,
+               packed=0, lst=0, lst_n=0) -> list[int]:
+    """One sketch's fields, in the order of csrc/hh_update.cu's record;
+    the scratch regions are raw pointers (0 where the call has none)."""
+    pad = [0] * (4 - len(key_cols))
+    return [cms_table.data_ptr(), cms_table.shape[0], cms_table.shape[1],
+            int(cms_seed) & 0xFFFFFFFF, 0 if key_rows is None else key_rows.data_ptr(),
+            0 if counts is None else counts.data_ptr(),
+            0 if counts is None else counts.shape[0], int(table_seed) & 0xFFFFFFFF,
+            packed, lst, lst_n, weights.data_ptr(), weights.stride(0), len(key_cols),
+            *[c.data_ptr() for c in key_cols], *pad, *[c.stride(0) for c in key_cols], *pad]
+
+
+def hh_update_many(updates):
+    """K2 over up to three heavy-hitter sketches of one batch, in place, in
+    three launches in all. Each update is (cms_table, cms_seed, key_rows,
+    counts, table_seed, key_cols, weights), as ``hh_update`` takes it; the
+    key columns and weights of every update have the batch's length, and no
+    two updates share a state tensor. Each sketch ends as ``hh_update``
+    alone would leave it."""
+    if not 1 <= len(updates) <= 3:
+        raise ValueError(f"1 to 3 heavy-hitter updates, got {len(updates)}")
+    dev = updates[0][0].device
+    b = updates[0][6].shape[0]
+    for cms_table, _, key_rows, counts, _, key_cols, weights in updates:
+        _hh_check(cms_table, key_rows, counts, key_cols, weights, dev, b)
+    state = {t.data_ptr() for u in updates for t in (u[0], u[2], u[3])}
+    if len(state) != 3 * len(updates):
+        raise ValueError("heavy-hitter updates share a state tensor")
     if not _on_card(dev):
         from retina_tpu_torch.ops.topk import hh_update_plain
 
-        return hh_update_plain(cms_table, cms_seed, key_rows, counts, table_seed,
-                               key_cols, weights)
+        for u in updates:
+            hh_update_plain(*u)
+        return
+    if b == 0:
+        return
     if b >= 0x7FFFFFFF:
         raise ValueError("batch too large for the 32-bit row index")
-    packed = torch.empty((s,), dtype=torch.int64, device=dev)
-    _launch(
-        "hh_update", dev, cms_table.data_ptr(), d, w, int(cms_seed) & 0xFFFFFFFF,
-        key_rows.data_ptr(), counts.data_ptr(), s, int(table_seed) & 0xFFFFFFFF,
-        packed.data_ptr(), *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b,
-        n_launches=3,
-    )
+    if any(u[0].shape[0] > HH_MAX_DEPTH for u in updates):
+        raise ValueError(f"cms depth above {HH_MAX_DEPTH}")
+    n_chunks = -(-b // HH_CHUNK)
+    slots = [u[3].shape[0] for u in updates]
+    sizes = [n_chunks * (u[0].shape[0] + 2) * HH_CHUNK for u in updates]
+    # One scratch buffer: each sketch's packed slot words (8 bytes a slot),
+    # then each sketch's chunk lists (each distinct key's CMS columns, slot
+    # and last row) and their lengths (see csrc/hh_update.cu).
+    scratch = torch.empty((2 * sum(slots) + sum(sizes) + n_chunks * len(updates),),
+                          dtype=torch.int32, device=dev)
+    p = scratch.data_ptr()
+    q = p + 8 * sum(slots)
+    fields = []
+    for u, s, size in zip(updates, slots, sizes):
+        fields += _hh_record(*u, p, q, q + 4 * size)
+        p, q = p + 8 * s, q + 4 * (size + n_chunks)
+    fields = array.array("q", fields)
+    _launch("hh_update", dev, fields.buffer_info()[0], len(updates), b, n_launches=3)
 
 
 def cms_update(table, seed, key_cols, weights):
@@ -275,8 +327,7 @@ def cms_update(table, seed, key_cols, weights):
     _state(table, "cms table", dev)
     if table.dim() != 2:
         raise ValueError(f"cms table must be (depth, width), got {tuple(table.shape)}")
-    d, w = table.shape
-    _pow2(w, "cms width")
+    _pow2(table.shape[1], "cms width")
     b = weights.shape[0]
     _col(weights, "weights", b, dev)
     _key_cols(key_cols, b, dev)
@@ -284,9 +335,11 @@ def cms_update(table, seed, key_cols, weights):
         from retina_tpu_torch.ops.countmin import update_plain
 
         return update_plain(table, seed, key_cols, weights)
+    if table.shape[0] > HH_MAX_DEPTH:
+        raise ValueError(f"cms depth above {HH_MAX_DEPTH}")
     if b:
-        _launch("cms_update", dev, table.data_ptr(), d, w, int(seed) & 0xFFFFFFFF,
-                *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b)
+        fields = array.array("q", _hh_record(table, seed, None, None, 0, key_cols, weights))
+        _launch("cms_update", dev, fields.buffer_info()[0], b)
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +375,9 @@ def hll_update(registers, seed, key_cols, group, mask):
 # K4
 
 
+ENTROPY_MAX_BYTES = 227 * 1024  # shared memory a block of K4 can hold (H100)
+
+
 def entropy_update(counts, seed, key_cols, weights):
     """Entropy histograms update (K4) in place: group g hashes key_cols[g]
     and adds the row's weight (u32, converted to f32)."""
@@ -338,6 +394,12 @@ def entropy_update(counts, seed, key_cols, weights):
         from retina_tpu_torch.ops.entropy import update_plain
 
         return update_plain(counts, seed, key_cols, weights)
+    if g * k * 8 > ENTROPY_MAX_BYTES:
+        raise ValueError(f"a ({g}, {k}) histogram bank, 8 bytes a bucket while it is summed, "
+                         f"exceeds the {ENTROPY_MAX_BYTES} bytes of shared memory a block "
+                         f"can hold")
+    if b == 0:
+        return
     _launch(
         "entropy_update", dev, counts.data_ptr(), k, int(seed) & 0xFFFFFFFF,
         *_col_args(key_cols), weights.data_ptr(), weights.stride(0), b,

@@ -11,7 +11,8 @@ One batch of (B, 16) event records updates every aggregator:
   bytes; at ``data_aggregation_level="low"`` the reports, and not the
   packets, drive the sketches (a few elementwise torch ops derive their
   weights and masks from the report lanes);
-- K2 (``HeavyHitterSketch.update``) updates flow_hh, svc_hh and dns_hh;
+- K2 (``topk.update_many``) updates flow_hh, svc_hh and dns_hh in one
+  call (three launches for the three sketches);
 - K6 (``InvertibleSketch.update``, with ``enable_invertible``) the two
   invertible sketches, priority rows to ``inv_hi`` and the rest to
   ``inv_flow``, with flow_hh's keys and weights;
@@ -48,6 +49,7 @@ from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow, entropy_bit
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.ops.invertible import InvertibleSketch
+from retina_tpu_torch.ops import topk
 from retina_tpu_torch.ops.topk import HeavyHitterSketch
 from retina_tpu_torch.u32 import M32, narrow, widen
 
@@ -425,13 +427,13 @@ class TelemetryPipeline:
             flow_w, svc_w, ent_w = r["flow_w"], r["svc_w"], r["ent_w"]
             sk_mask, pod_mask = r["mask"], r["pod_mask"]
         five = [src, dst, ports, r["proto"]]
-        state.flow_hh.update(five, flow_w)
+        topk.update_many([(state.flow_hh, five, flow_w),
+                          (state.svc_hh, [r["src_pod"], r["dst_pod"]], svc_w),
+                          (state.dns_hh, [records[:, F.DNS_QHASH]], r["dns_w"])])
         if c.enable_invertible:
             prio = r["is_priority"] != 0
             state.inv_flow.update(five, torch.where(prio, 0, flow_w))
             state.inv_hi.update(five, torch.where(prio, flow_w, 0))
-        state.svc_hh.update([r["src_pod"], r["dst_pod"]], svc_w)
-        state.dns_hh.update([records[:, F.DNS_QHASH]], r["dns_w"])
         state.hll_flows.update(five, None, sk_mask)
         state.hll_src_per_reason.update([src], r["reason"], r["is_drop"])
         state.hll_src_per_pod.update([src], r["pod_grp"], pod_mask)

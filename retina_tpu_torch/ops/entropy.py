@@ -37,11 +37,14 @@ def update_plain(counts: torch.Tensor, seed: int, key_cols: list[torch.Tensor],
 
 def entropy_bits_plain(counts: torch.Tensor) -> torch.Tensor:
     """Plain version of K16's bits: (G,) plug-in Shannon entropy in bits of
-    each row of a (G, K) float32 histogram bank."""
-    n = counts.sum(dim=1, keepdim=True)
-    p = counts / torch.clamp(n, min=1.0)
+    each row of a (G, K) float32 histogram bank, summed in float64 and
+    rounded to float32 once, as K16 does, so that the two agree bit for bit
+    however each groups its sums."""
+    c = counts.double()
+    n = c.sum(dim=1, keepdim=True)
+    p = c / torch.clamp(n, min=1.0)
     terms = torch.where(p > 0, p * torch.log2(torch.clamp(p, min=1e-30)), 0.0)
-    return -terms.sum(dim=1)
+    return (-terms.sum(dim=1)).float()
 
 
 @dataclasses.dataclass

@@ -160,8 +160,7 @@ class HeavyHitterSketch:
 
     def update(self, key_cols: list[torch.Tensor], weights: torch.Tensor) -> "HeavyHitterSketch":
         """One batch through K2, in place."""
-        kops.hh_update(self.cms.table, self.cms.seed, self.table.key_rows,
-                       self.table.counts, self.table.seed, key_cols, weights)
+        update_many([(self, key_cols, weights)])
         return self
 
     def merge(self, other: "HeavyHitterSketch") -> "HeavyHitterSketch":
@@ -173,3 +172,12 @@ class HeavyHitterSketch:
         self.cms.reset()
         self.table.reset()
         return self
+
+
+def update_many(updates: list[tuple[HeavyHitterSketch, list[torch.Tensor], torch.Tensor]],
+                ) -> None:
+    """Up to three sketches, each with its (B,) key columns and weights of
+    one batch, through one call of K2 (three launches in all), in place;
+    each ends as its own ``update`` would leave it."""
+    kops.hh_update_many([(hh.cms.table, hh.cms.seed, hh.table.key_rows, hh.table.counts,
+                          hh.table.seed, cols, w) for hh, cols, w in updates])

@@ -1,11 +1,14 @@
 """Where one step of the PyTorch/CUDA port spends its time on the card.
 
-    python3 -m retina_tpu_torch.step_profile [--steps N]
+    python3 -m retina_tpu_torch.step_profile [--steps N] [--config NAME]
     python3 -m retina_tpu_torch.step_profile --feed
+    python3 -m retina_tpu_torch.step_profile --sketches
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
-agent: conntrack on, low aggregation; two 2^21-event batches of a 1M-flow
-Zipf stream, as chip_smoke.py) and reports, after a warm-up:
+agent: conntrack on, low aggregation; or the configuration ``--config``
+names: ``no-conntrack``, ``production`` for PipelineConfig(); two
+2^21-event batches of a 1M-flow Zipf stream, as chip_smoke.py) and
+reports, after a warm-up:
 
 - steady-state step throughput with no synchronisation between steps
   (the host enqueues, the card runs), from the host clock;
@@ -23,6 +26,21 @@ the wall time with and without the profiler and the device's busy share
 of each (the device time of every kernel, memcpy and memset, from
 torch.profiler), with the device time by kernel.
 
+With ``--sketches`` it times the heavy-hitter update (K2, the three
+instances of a step) and the entropy histograms (K4) as a step calls them,
+by CUDA events over 10 replays after 2 warm-ups and by their device time in
+torch.profiler (which leaves out the host's launch gaps, most of a short
+call's CUDA-event span), at two weight sets of the
+deployed widths: "per-row" (NO_CONNTRACK_CONFIG, high aggregation: every
+masked row weighted) and "report" (DEPLOYED_CONFIG: the conntrack reports
+weight the sketches). Each set is the calls of the 8th step of a fresh
+state, captured at the wrappers. Then it times each step path
+(DEPLOYED_CONFIG, PipelineConfig(), NO_CONNTRACK_CONFIG) by the host clock
+around 16 synchronised steps, as chip_smoke.py's paths do. The script runs
+unchanged in a copy of an older tree (copy this file into the copy's
+package, then ``python3 -m retina_tpu_torch.step_profile --sketches`` from
+the copy's root), so that two trees are compared in one call.
+
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -36,6 +54,167 @@ import time
 
 BATCH = 1 << 21
 QUANTUM, BLOCK = 1 << 21, 1 << 13
+STEPS = 8  # steps of a window, as chip_smoke.py's main path
+# The wrappers of K2 and K4 that a step calls (hh_update_many is absent
+# from older trees, whose step calls hh_update once per sketch).
+SKETCH_WRAPPERS = {"hh_update": "k2", "hh_update_many": "k2", "entropy_update": "k4"}
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """ms of one call of ``fn`` by CUDA events over ``reps`` calls after 2
+    warm-ups."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """ms of device time of one call of ``fn`` from torch.profiler over
+    ``reps`` calls after 2 warm-ups: the summed durations of what the calls
+    ran on the card, without the host's launch gaps a CUDA-event span holds.
+    A trace with no device time is taken again, at most four times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    us = 0.0
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            break
+    return us / 1e3 / reps
+
+
+def capture_sketch_calls(step) -> dict[str, list]:
+    """Run ``step()`` and return the K2 and K4 wrapper calls it made, as
+    {"k2": [(wrapper, args)], "k4": [...]}: replaying them repeats the
+    step's sketch updates on the same tensors. A wrapper called from
+    inside another is not recorded twice."""
+    from retina_tpu_torch.kernels import ops as kops
+
+    calls: dict[str, list] = {"k2": [], "k4": []}
+    depth = [0]
+    saved = {n: getattr(kops, n) for n in SKETCH_WRAPPERS if hasattr(kops, n)}
+
+    def recording(name, fn):
+        def call(*args):
+            if depth[0] == 0:
+                calls[SKETCH_WRAPPERS[name]].append((fn, args))
+            depth[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
+        return call
+
+    for name, fn in saved.items():
+        setattr(kops, name, recording(name, fn))
+    try:
+        step()
+    finally:
+        for name, fn in saved.items():
+            setattr(kops, name, fn)
+    return calls
+
+
+def replay(calls: list) -> None:
+    for fn, args in calls:
+        fn(*args)
+
+
+def call_weights(calls: list) -> list:
+    """The weight lane of each sketch update in K2 or K4 calls."""
+    out = []
+    for fn, args in calls:
+        if fn.__name__ == "hh_update_many":
+            out += [inst[-1] for inst in args[0]]
+        else:
+            out.append(args[-1])
+    return out
+
+
+def sketch_calls(dev, recs, ident, steps: int = STEPS) -> dict[str, dict[str, list]]:
+    """{"per-row": calls, "report": calls}: the K2 and K4 calls of the last
+    of ``steps`` steps of a fresh state at NO_CONNTRACK_CONFIG and at
+    DEPLOYED_CONFIG (now_s 2, the batches in turn, as chip_smoke.py's main
+    path steps its first window)."""
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, NO_CONNTRACK_CONFIG
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    out = {}
+    for label, cfg in (("per-row", NO_CONNTRACK_CONFIG), ("report", DEPLOYED_CONFIG)):
+        tel = Telemetry(cfg, device=dev)
+        state = tel.init_state()
+        for s in range(steps - 1):
+            state, _ = tel.step(state, recs[s % 2], len(recs[0]), 2, ident)
+        out[label] = capture_sketch_calls(
+            lambda: tel.step(state, recs[(steps - 1) % 2], len(recs[0]), 2, ident))
+    return out
+
+
+def sketches(dev, recs, ident) -> dict:
+    """K2 and K4 at both weight sets, then ms/step of the three step paths."""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import (
+        DEPLOYED_CONFIG,
+        NO_CONNTRACK_CONFIG,
+        PipelineConfig,
+    )
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    result: dict = {}
+    for label, calls in sketch_calls(dev, recs, ident).items():
+        for kernel, group in calls.items():
+            before = sum(kops.launch_counts().values())
+            replay(group)
+            launches = sum(kops.launch_counts().values()) - before
+            ms = cuda_ms(lambda: replay(group))
+            dev_ms = device_ms(lambda: replay(group))
+            weighted = [int((w != 0).sum()) for w in call_weights(group)]
+            result[f"{kernel}_{label}_ms"] = ms
+            result[f"{kernel}_{label}_device_ms"] = dev_ms
+            result[f"{kernel}_{label}_launches"] = launches
+            print(f"{kernel.upper()} at the {label} weights: {ms:.4f} ms (CUDA events), device "
+                  f"time {dev_ms:.4f} ms, {len(group)} wrapper calls, {launches} launches, "
+                  f"weighted rows {weighted} of {BATCH}", flush=True)
+        del calls
+    for name, cfg in (("main path", DEPLOYED_CONFIG), ("production path", PipelineConfig()),
+                      ("no-conntrack path", NO_CONNTRACK_CONFIG)):
+        tel = Telemetry(cfg, device=dev)
+        state = tel.init_state()
+        for s in range(2):
+            state, _ = tel.step(state, recs[s % 2], BATCH, 2, ident)
+        wall = 0.0
+        for s in range(2 * STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = tel.step(state, recs[s % 2], BATCH, 2 + s // STEPS, ident)
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t
+        result[f"{name} ms_per_step"] = wall / (2 * STEPS) * 1e3
+        print(f"{name}: {wall / (2 * STEPS) * 1e3:.3f} ms/step over {2 * STEPS} synchronised "
+              f"steps", flush=True)
+        del state, tel
+    return result
 
 
 def device_rows(prof) -> tuple[list, list]:
@@ -113,6 +292,10 @@ def main() -> int:
     ap.add_argument("--feed", action="store_true",
                     help="profile the feed path (SketchEngine.flush) instead of the step")
     ap.add_argument("--quanta", type=int, default=4, help="quanta to profile with --feed")
+    ap.add_argument("--config", choices=["deployed", "no-conntrack", "production"],
+                    default="deployed", help="the configuration of the profiled step")
+    ap.add_argument("--sketches", action="store_true",
+                    help="time K2 and K4 at both weight sets and the step paths' ms/step")
     args = ap.parse_args()
 
     import torch
@@ -124,7 +307,11 @@ def main() -> int:
     from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
     from retina_tpu_torch.models.identity import IdentityMap
     from retina_tpu_torch.kernels import ops as kops
-    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG
+    from retina_tpu_torch.models.pipeline import (
+        DEPLOYED_CONFIG,
+        NO_CONNTRACK_CONFIG,
+        PipelineConfig,
+    )
     from retina_tpu_torch.parallel.telemetry import Telemetry
     from retina_tpu_torch.u32 import from_numpy
 
@@ -141,7 +328,13 @@ def main() -> int:
     recs = [from_numpy(gen.batch(BATCH), dev) for _ in range(2)]
     ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 2048)}, n_slots=1 << 16,
                                    device=dev)
-    tel = Telemetry(DEPLOYED_CONFIG, device=dev)
+    if args.sketches:
+        print(json.dumps(sketches(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
+    cfg = {"deployed": DEPLOYED_CONFIG, "no-conntrack": NO_CONNTRACK_CONFIG,
+           "production": PipelineConfig()}[args.config]
+    print(f"config: {args.config}")
+    tel = Telemetry(cfg, device=dev)
     state = tel.init_state()
 
     def steps(n):

@@ -199,6 +199,49 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                ct.scratch)
 
 
+def test_hh_update_many_lays_out_one_record_a_sketch(monkeypatch):
+    """The three-sketch entry of K2 without a card: the launch is caught
+    where it would enter C, and its int64 records (csrc/hh_update.cu's 22
+    fields a sketch) are read back: shapes, seeds, strided key lanes, and
+    the scratch regions laid end to end (packed words, then each sketch's
+    chunk lists and their lengths)."""
+    import ctypes
+
+    seen = []
+
+    def launch(name, dev, ptr, n_inst, n, n_launches=1):
+        seen.append((name, list((ctypes.c_longlong * (22 * n_inst)).from_address(ptr)),
+                     n_inst, n, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    n = 5000
+    rec = torch.zeros((n, 16), dtype=torch.int32)
+    w = torch.ones(n, dtype=torch.int32)
+    ups = [(torch.zeros((d, 1 << 10), dtype=torch.int32), 7 + c,
+            torch.zeros((64, c), dtype=torch.int32), torch.zeros(64, dtype=torch.int32),
+            -1, [rec[:, 2 + i] for i in range(c)], w) for d, c in ((4, 4), (2, 2), (4, 1))]
+    kops.hh_update_many(ups)
+    (name, f, n_inst, rows, n_launches), = seen
+    assert (name, n_inst, rows, n_launches) == ("hh_update", 3, n, 3)
+    n_chunks = -(-n // kops.HH_CHUNK)
+    rec_ = [f[22 * k:22 * (k + 1)] for k in range(3)]
+    for r, (cms, cseed, keys, counts, _, cols, wt) in zip(rec_, ups):
+        assert r[:8] == [cms.data_ptr(), *cms.shape, cseed, keys.data_ptr(), counts.data_ptr(),
+                         64, 0xFFFFFFFF]
+        assert r[11:14] == [wt.data_ptr(), 1, len(cols)]
+        assert r[14:22] == ([c.data_ptr() for c in cols] + [0] * (4 - len(cols))
+                            + [16] * len(cols) + [0] * (4 - len(cols)))
+    assert [r[8] - rec_[0][8] for r in rec_] == [0, 8 * 64, 16 * 64]
+    assert rec_[0][9] == rec_[2][8] + 8 * 64
+    for k, r in enumerate(rec_):
+        assert r[10] == r[9] + 4 * n_chunks * (ups[k][0].shape[0] + 2) * kops.HH_CHUNK
+        if k < 2:
+            assert rec_[k + 1][9] == r[10] + 4 * n_chunks
+    with pytest.raises(ValueError, match="share a state tensor"):
+        kops.hh_update_many([ups[0], ups[0]])
+
+
 def test_ingest_wrappers_reject_what_the_kernels_do_not_take():
     wire = torch.zeros((64, 12), dtype=torch.int32)
     table = torch.zeros((16, 12), dtype=torch.int32)
@@ -345,6 +388,90 @@ def test_hh_update_kernel_matches_plain(card, n_cols):
         tensors = a
 
 
+FULL_BATCH = (1 << 21) - 77  # not a multiple of a block (512) or of K2's chunk (2048)
+
+
+def _full_batch(card, case: str):
+    """(records, weights) of a 2^21-row bench batch less 77 rows: "zipf"
+    is the 1M-flow stream as it comes; "one_key" gives every row the first
+    row's addresses, ports and DNS hash; "distinct" draws them uniformly, so
+    a chunk holds ~2048 keys (more than a warp's 32); "wrap" weighs rows
+    near 2^32, so the sums wrap. Every third row weighs 0."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    host = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=5).batch(FULL_BATCH)
+    lanes = [F.SRC_IP, F.DST_IP, F.PORTS, F.DNS_QHASH]
+    if case == "one_key":
+        host[:, lanes] = host[0, lanes]
+    elif case == "distinct":
+        host[:, lanes] = rng.integers(0, 1 << 32, (FULL_BATCH, 4), dtype=np.uint64)
+    w = host[:, F.PACKETS].copy()
+    if case == "wrap":
+        w = (0xFFFFFFF0 + rng.integers(0, 16, FULL_BATCH)).astype(np.uint32)
+    w[::3] = 0
+    return from_numpy(host, card), from_numpy(w, card)
+
+
+def _hh_instances(rec, w, card, rng):
+    """The step's three sketches over one batch (flow 4 columns, service 2,
+    DNS 1), at the deployed widths, with counts and CMS already in use:
+    the flow and DNS keys are strided lanes of the records."""
+    proto = (rec[:, F.META] >> 24) & 0xFF
+    svc = [rec[:, F.SRC_IP] & 0x7FF, rec[:, F.DST_IP] & 0x7FF]
+    dns_w = torch.where(rec[:, F.DNS_QHASH] % 5 == 0, w, 0)
+    out = []
+    for seed, (cols, wt) in enumerate(((
+            [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS], proto], w),
+            (svc, w), ([rec[:, F.DNS_QHASH]], dns_w))):
+        out.append([from_numpy(rng.integers(0, 1 << 8, (4, 1 << 15)).astype(np.uint32), card),
+                    seed + 3,
+                    from_numpy(rng.integers(0, 1 << 32, (2048, len(cols)),
+                                            dtype=np.uint64).astype(np.uint32), card),
+                    from_numpy(rng.integers(0, 1 << 10, 2048).astype(np.uint32), card),
+                    seed + 3, cols, wt])
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zipf", "one_key", "distinct", "wrap"])
+def test_hh_update_many_matches_three_plain_updates(card, case):
+    """K2's three-sketch entry against three plain updates at 2^21 rows, in
+    3 launches a call, twice (the second offer meets the counts the first
+    set): CMS, counts and key rows bit for bit."""
+    rec, w = _full_batch(card, case)
+    rng = np.random.default_rng(3)
+    kern = _hh_instances(rec, w, card, rng)
+    plain = [[x.clone() if isinstance(x, torch.Tensor) and i in (0, 2, 3) else x
+              for i, x in enumerate(u)] for u in kern]
+    for _ in range(2):
+        before = kops.launch_counts()["hh_update"]
+        kops.hh_update_many(kern)
+        assert kops.launch_counts()["hh_update"] == before + 3
+        with kops.plain_versions():
+            for u in plain:
+                kops.hh_update(*u)
+        torch.cuda.synchronize()
+        for a, b in zip(kern, plain):
+            for i in (0, 2, 3):
+                assert torch.equal(a[i], b[i]), (case, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zipf", "one_key", "distinct"])
+def test_entropy_update_matches_plain_at_full_batch(card, case):
+    """K4 at 2^21 rows and the deployed (3, 4096) bank, key columns as
+    strided record lanes: buckets below 2^24 exactly, above it within a
+    relative 2^-22 (the order of float adds)."""
+    rec, w = _full_batch(card, case)
+    cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS] & 0xFFFF]
+    counts = torch.zeros((3, 4096), dtype=torch.float32, device=card)
+    a, b, _, _ = _pair(lambda c: kops.entropy_update(c, 7, cols, w), counts)
+    err = (a[0] - b[0]).abs()
+    exact = torch.maximum(a[0], b[0]) < 2 ** 24
+    assert bool((err[exact] == 0).all())
+    assert bool((err <= 2.0 ** -22 * b[0].abs()).all())
+    assert float(a[0].sum()) > 0
+
+
 @pytest.mark.gpu
 def test_hll_update_kernel_matches_plain(card):
     rng = np.random.default_rng(9)
@@ -429,7 +556,7 @@ def test_pipeline_on_card_matches_cpu(card):
     kops.reset_launch_counts()
     on_card = _run_steps(TelemetryPipeline(CFG, device=card), card)
     counts = kops.launch_counts()
-    assert counts == {"step_rows": 2, "hh_update": 18, "cms_update": 0, "hll_update": 6,
+    assert counts == {"step_rows": 2, "hh_update": 6, "cms_update": 0, "hll_update": 6,
                       "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
@@ -920,6 +1047,26 @@ def test_window_close_kernel_matches_plain_over_40_windows(card, g):
         flagged.append(bool(flags[0]))
     assert flagged[30] and not any(flagged[:30])
     assert ewma[2].tolist()[0] == 38
+
+
+@pytest.mark.gpu
+def test_window_close_bits_and_z_equal_plain_bit_for_bit(card):
+    """K16 and its plain version sum the bits in float64 and round once, so
+    over 40 windows of three groups the bits, z-scores and EWMA state are
+    equal, not only close: a z-score magnifies an ulp of the bits when its
+    baseline barely varies."""
+    rng = np.random.default_rng(131)
+    ewma = [torch.zeros(3, device=card) for _ in range(3)]
+    ref_ewma = [torch.zeros(3, device=card) for _ in range(3)]
+    for counts in _close_windows(rng, 3, 4096):
+        c = torch.from_numpy(counts).to(card)
+        c_ref = c.clone()
+        out = kops.window_close(c, *ewma, 0.1, 4.0, 10)
+        with kops.plain_versions():
+            ref = kops.window_close(c_ref, *ref_ewma, 0.1, 4.0, 10)
+        torch.cuda.synchronize()
+        for x, y in zip([*out, *ewma], [*ref, *ref_ewma]):
+            assert torch.equal(x, y)
 
 
 def _readout_banks(rng):

@@ -184,6 +184,97 @@ def test_heavy_hitter_update_matches_reference(n_cols):
                     key_est, n_cols)
 
 
+def _edge_batch(case: str, n: int = 1 << 12):
+    """(key columns (4, n) u32, weights (n,) u32) of a TrafficGen batch
+    (Zipf, 1M flows): the 5-tuple's four words and the packet lane, bent
+    to one of the inputs K2 and K4 take in a way of their own: "zipf" as
+    it comes; "one_key" every row the first row's key; "zero" every weight
+    0; "wrap" weights near 2^32, so every sum wraps."""
+    b = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=17).batch(n)
+    keys = np.stack([b[:, 2], b[:, 3], b[:, 4], (b[:, 5] >> 24) & 0xFF]).astype(np.uint32)
+    w = b[:, 7].astype(np.uint32)
+    if case == "one_key":
+        keys[:] = keys[:, :1]
+    elif case == "zero":
+        w[:] = 0
+    elif case == "wrap":
+        w = (0xFFFFFF00 + np.arange(n) % 256).astype(np.uint32)
+    return keys, w
+
+
+def _tied_keys(n_cols, n_slots, width, seed):
+    """Two distinct keys in one candidate slot, each at CMS columns no other
+    key of the pair shares."""
+    rng = np.random.default_rng(5)
+    cand = _u32(rng, (n_cols, 4096)).reshape(n_cols, 4096)
+    slot = slots(n_slots, seed, [torch.from_numpy(c.astype(np.int64)) for c in cand]).numpy()
+    cms = CountMinSketch.zeros(4, width, seed=seed)
+    from retina_tpu_torch.ops.countmin import indices
+
+    cols = indices(cms.table, seed, [torch.from_numpy(c.astype(np.int64)) for c in cand])
+    cols = cols.numpy()
+    for i in range(1, 4096):
+        if slot[i] == slot[0] and (cols[:, i] != cols[:, 0]).all():
+            return cand[:, [0, i]]
+    raise AssertionError("no tied pair")
+
+
+@pytest.mark.parametrize("case", ["zipf", "one_key", "tie", "zero", "wrap"])
+def test_heavy_hitter_update_edge_inputs_match_reference(case):
+    """K2's plain version against the reference's HeavyHitterSketch.update
+    on the inputs the kernel's per-key sums and per-key offers treat in a
+    way of their own: CMS exactly, key rows through _check_topk; on the tie
+    the port's rule (the last row in batch order) picks the second key."""
+    n_slots, width, seed = 1 << 6, 1 << 12, 4
+    if case == "tie":
+        pair = _tied_keys(4, n_slots, width, seed)
+        keys = pair[:, [0, 1, 0, 1, 1, 0, 0, 1]]  # each key weighs 10; the last row is key 1
+        w = np.array([1, 2, 3, 4, 3, 2, 4, 1], np.uint32)
+    else:
+        keys, w = _edge_batch(case)
+    ref = JHH.zeros(4, depth=4, width=width, n_slots=n_slots, seed=seed)
+    port = HeavyHitterSketch.zeros(4, depth=4, width=width, n_slots=n_slots, seed=seed)
+    for _ in range(2):
+        ref = ref.update([jnp.asarray(k) for k in keys], jnp.asarray(w))
+        port.update([_t(k) for k in keys], _t(w))
+        np.testing.assert_array_equal(to_numpy(port.cms.table), np.asarray(ref.cms.table))
+
+        def key_est(rows):
+            return port.cms.query([torch.from_numpy(rows[:, c].astype(np.int64))
+                                   for c in range(4)]).numpy().astype(np.uint32)
+
+        _check_topk(to_numpy(port.table.key_rows), to_numpy(port.table.counts),
+                    np.asarray(ref.table.key_rows), np.asarray(ref.table.counts), key_est, seed)
+    counts = to_numpy(port.table.counts)
+    if case == "zero":
+        assert not counts.any() and not to_numpy(port.cms.table).any()
+    if case == "tie":
+        s = int(slots(n_slots, seed, [torch.from_numpy(pair[c, :1].astype(np.int64))
+                                      for c in range(4)])[0])
+        assert counts[s] == 20
+        np.testing.assert_array_equal(to_numpy(port.table.key_rows)[s], pair[:, 1])
+
+
+@pytest.mark.parametrize("case", ["zipf", "one_key", "zero", "wrap"])
+def test_entropy_update_edge_inputs_match_reference(case):
+    """K4's plain version against the reference's EntropyWindow.update (one
+    call a group) on the same inputs: buckets below 2^24 exactly, above it
+    within a relative 2^-22 (the order of float adds)."""
+    keys, w = _edge_batch(case)
+    cols = [keys[0], keys[1], keys[2] & 0xFFFF]
+    ref = JEntropy.zeros(3, 1 << 12, seed=7)
+    port = EntropyWindow.zeros(3, 1 << 12, seed=7)
+    for g, c in enumerate(cols):
+        ref = ref.update([jnp.asarray(c)], jnp.full((len(w),), g, jnp.uint32), jnp.asarray(w))
+    port.update([_t(c) for c in cols], _t(w))
+    a, b = port.counts.numpy(), np.asarray(ref.counts)
+    err = np.abs(a - b)
+    exact = np.maximum(a, b) < 2 ** 24
+    assert (err[exact] == 0).all()
+    assert (err <= 2.0 ** -22 * np.abs(b)).all()
+    assert (a.sum() == 0) == (case == "zero")
+
+
 # -- HyperLogLog ------------------------------------------------------------
 
 
