@@ -26,6 +26,14 @@ per-row lanes (high aggregation), the main path's conntrack reports, and a
 batch with one key in every row (see ``sketch_phase``). Every path's
 launch counts must show at most three launches of K2 and one of K4 a step.
 
+K5 (conntrack) is held against its plain version through a now_s sequence
+that reaches every branch of the decision, on three batch sequences: the
+bench stream with partial, garbage and reply rows; a hot connection on
+every other row (its first row in the first 2048-row chunk, its last in the
+last); and sums past 2^32. K8 (the N-way fold) folds each path's arrays in
+one launch, an odd-length array among them, each bit for bit against its
+plain version, and is timed beside the same arrays folded one a launch.
+
 Before the paths, K14 (the apiserver latency match) runs against its plain
 version over 4 consecutive 2^21-event batches of that stream with one row
 in 64 turned into apiserver probes (the latency table carried over), then
@@ -444,20 +452,62 @@ def main() -> int:
     batches = {1: (partial, n_partial), 3: (flipped,), 5: (flipped,)}
     ct_calls = [(now, *ct_inputs(*batches.get(i, (recs[i % 2],))))
                 for i, now in enumerate(CT_CLOCK)]
-    tables = [ConntrackTable.zeros(CFG.conntrack_slots, seed=8, device=dev) for _ in range(2)]
+    # The hot connection: every other row of a batch is one connection (its
+    # first row in the first chunk, its last in the last), one in four of them
+    # in the reply direction.
+    h = int(torch.nonzero(ct_calls[0][2][1])[0])  # a masked row of recs[0]
+    hot = recs[0].clone()
+    hot[0::2] = recs[0][h]
+    rh = hot[2::8]
+    rh[:, F.SRC_IP], rh[:, F.DST_IP] = recs[0][h, F.DST_IP], recs[0][h, F.SRC_IP]
+    p0 = recs[0][h, F.PORTS]
+    rh[:, F.PORTS] = ((p0 & 0xFFFF) << 16) | ((p0 >> 16) & 0xFFFF)
+    hot_head, hot_tail = ct_inputs(hot)
+    # Sums past 2^32: every row carries ~2^31 packets and ~2^32 bytes, so a
+    # connection's sums wrap from its third row on.
+    wrap_head, wrap_tail = ct_inputs(recs[1])
+    rows = torch.arange(BATCH, dtype=torch.int32, device=dev)
+    wrap_tail = [(-256) | (rows & 0xFF), wrap_tail[1], 0x7FFFFFF1 + (rows & 7)]
+    sequences = {"mixed": ct_calls,
+                 "hot connection": [(now, hot_head, hot_tail) for now in CT_CLOCK],
+                 "sums past 2^32": [(now, wrap_head, wrap_tail) for now in CT_CLOCK]}
+    from retina_tpu_torch.ops.conntrack import fingerprint
+
+    def ct_stats(head, tail):
+        """Distinct connections of a batch and distinct keys a 2048-row chunk."""
+        lo, hi, _ = fingerprint(*head[:4], 8)
+        m = tail[1] != 0
+        key = ((lo << 32) | hi)[m]
+        chunk = torch.arange(BATCH, device=dev)[m] // 2048
+        return (int(torch.unique(key).numel()),
+                torch.unique(torch.stack([chunk, key]), dim=1).shape[1] / (BATCH // 2048))
+
     rep_low = None
-    for now, head, tail in ct_calls:
-        out = tables[0].process_lanes(*head, now, *tail)
-        with kops.plain_versions():
-            ref = tables[1].process_lanes(*head, now, *tail)
-        equal_int(out, ref, f"K5 lanes at now={now}")
-        equal_int(tables[0].keys, tables[1].keys, f"K5 keys at now={now}")
-        equal_int(tables[0].vals, tables[1].vals, f"K5 vals at now={now}")
-        check(int(out[0].sum()) > 0, f"K5 no reports at now={now}")
-        print(f"K5 now={now}: {int(out[0].sum())} reports, {int(out[1].sum())} replies",
-              flush=True)
-        if now == 131:
-            rep_low = out[2].clone()  # flow_w of a real step at low aggregation
+    for seq, calls in sequences.items():
+        tables = [ConntrackTable.zeros(CFG.conntrack_slots, seed=8, device=dev) for _ in range(2)]
+        n_conn, per_chunk = ct_stats(*calls[0][1:])
+        for now, head, tail in calls:
+            out = tables[0].process_lanes(*head, now, *tail)
+            with kops.plain_versions():
+                ref = tables[1].process_lanes(*head, now, *tail)
+            what = f"K5 ({seq}) at now={now}"
+            equal_int(out, ref, f"{what}: lanes")
+            equal_int(tables[0].keys, tables[1].keys, f"{what}: keys")
+            equal_int(tables[0].vals, tables[1].vals, f"{what}: vals")
+            check(int(out[0].sum()) > 0, f"{what}: no reports")
+            print(f"{what}: {int(out[0].sum())} reports, {int(out[1].sum())} replies", flush=True)
+            if seq == "mixed" and now == 131:
+                rep_low = out[2].clone()  # flow_w of a real step at low aggregation
+            if seq == "hot connection" and now == CT_CLOCK[0]:
+                # New: one report, at the connection's last row.
+                check(int(out[0][0:BATCH - 2:2].sum()) == 0 and int(out[0][BATCH - 2]) == 1,
+                      f"{what}: the report is not on the connection's last row")
+        print(f"K5 {seq}: {n_conn} distinct connections a batch, {per_chunk:.1f} distinct keys "
+              f"a 2048-row chunk; scratch {kops.conntrack_scratch_bytes(tables[0].scratch)} "
+              f"bytes", flush=True)
+        if seq == "mixed":
+            kept = tables
+    tables = kept
     now, head, tail = ct_calls[2]
     ms = time_ms(lambda: tables[0].process_lanes(*head, now, *tail))
     with kops.plain_versions():
@@ -1466,41 +1516,60 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
 
     # -- K8, K9, K10 against their plain versions, timed --------------------------------
     def fold_ops(stacked):
-        return [(n, x, "max_u32" if n.startswith("hll_") else
+        return [(x, "max_u32" if n.startswith("hll_") else
                  "sum_f32" if x.dtype == torch.float32 else "sum_u32")
                 for n, x in stacked.items() if not n.endswith(("_keys", "_counts"))]
 
+    check(tt_launches["fold"] == len(docs),
+          f"K8: {tt_launches['fold']} launches for {len(docs)} range queries (one a fold)")
+    rng = np.random.default_rng(SEED)
     for label, stacked, n_slots, launches in (
             (f"fold ({len(arrays32)} ring slots)", stacked32, len(arrays32), tt_launches["fold"]),
             (f"fold ({FLEET_NODES} nodes)", stacked64, FLEET_NODES, fleet_launches["fold"])):
         ops = fold_ops(stacked)
-        for n, x, op in ops:
-            out = kops.fold(x, op)
-            with kops.plain_versions():
-                want = kops.fold(x, op)
-            torch.cuda.synchronize()
-            equal_bits = torch.equal(out.view(torch.int32), want.view(torch.int32))
-            check(equal_bits, f"K8 {label} {n}: kernel != plain")
+        # An array of odd length besides the catalog: its slots but every 4th
+        # lie off a 16-byte boundary, so the kernel folds it by scalar loads,
+        # with a tail.
+        odd = from_numpy(rng.integers(0, 1 << 32, (n_slots, 4099), dtype=np.uint64)
+                         .astype(np.uint32), dev)
+        checked = ops + [(odd, "sum_u32")]
+        kops.reset_launch_counts()
+        outs = kops.fold_many(checked)
+        check(kops.launch_counts()["fold"] == 1, f"K8 {label}: fold_many took more than a launch")
+        with kops.plain_versions():
+            wants = [kops.fold(x, op) for x, op in checked]
+        torch.cuda.synchronize()
+        for (x, op), out, want in zip(checked, outs, wants):
+            check(torch.equal(out.view(torch.int32), want.view(torch.int32)),
+                  f"K8 {label} {op} of shape {tuple(x.shape)}: kernel != plain")
+        del odd, checked, outs, wants
+
         def kernel():
-            return [kops.fold(x, op) for _, x, op in ops]
+            return kops.fold_many(ops)
+
+        def per_array():
+            return [kops.fold(x, op) for x, op in ops]
 
         def library():
             return [torch.amax(x, 0) if op == "max_u32" else torch.sum(x, 0, dtype=x.dtype)
-                    for _, x, op in ops]
+                    for x, op in ops]
 
         ms = device_ms(kernel, kernel="fold_kernel")
+        per_array_ms = device_ms(per_array, kernel="fold_kernel")
         with kops.plain_versions():
             plain_ms = device_ms(kernel)
             plain_span = time_ms(kernel)
         lib_ms = device_ms(library)
-        n_elems = sum(x[0].numel() for _, x, _ in ops)
+        n_elems = sum(x[0].numel() for x, _ in ops)
         report(label, "retina_tpu_torch/kernels/csrc/fold.cu",
                "retina_tpu/timetravel/fold.py:102" if stacked is stacked32
                else "retina_tpu/fleet/aggregator.py:328",
                ms, plain_ms, 4 * n_elems * (n_slots + 1), n_elems * n_slots, lib_ms, 0.0)
         results[-1]["launches"] = launches
-        print(f"{label}: device time of the {len(ops)} launches; CUDA-event span of the "
-              f"{len(ops)} wrapper calls {time_ms(kernel):.4f} ms, plain {plain_span:.4f}, "
+        print(f"{label}: {len(ops)} arrays, {n_elems} elements a slot; device time of one "
+              f"fold_many launch {ms:.4f} ms, of {len(ops)} one-array launches {per_array_ms:.4f} "
+              f"ms; CUDA-event span of a fold_many call {time_ms(kernel):.4f} ms, of the "
+              f"{len(ops)} one-array calls {time_ms(per_array):.4f}, plain {plain_span:.4f}, "
               f"library {time_ms(library):.4f}", flush=True)
 
     keys, counts = stacked64["flow_keys"], stacked64["flow_counts"]

@@ -41,12 +41,12 @@ _ARGTYPES = {
     "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
     "entropy_update": [_VP, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
-    + [_LL, _U32, _VP, _VP, _VP, _INT, _VP, _VP, _VP],
+    + [_LL, _U32, _VP, _INT, _VP, _VP, _VP, _VP],
     "inv_update": [_VP, _VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "ingest_packed": [_VP, _LL, _INT, _U32, _U32, _VP, _LL, _VP],
     "ingest_new": [_VP, _LL, _VP, _LL, _VP, _U32, _U32, _VP, _LL, _VP],
     "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
-    "fold": [_VP, _LL, _LL, _INT, _VP],
+    "fold": [_VP, _INT, _LL],
     "topk_join": [_VP, _VP, _LL, _LL, _INT, _VP, _VP],
     "cms_query": [_VP, _INT, _INT, _U32] + _COLS + [_LL, _VP],
     "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _VP],
@@ -409,6 +409,10 @@ def entropy_update(counts, seed, key_cols, weights):
 # ---------------------------------------------------------------------------
 # K5
 
+CT_RECORD_WORDS = 8  # u32 words of one connection's record (kRecWords in csrc/conntrack.cu)
+CT_CHUNK = 2048  # rows a block of K5 sums in shared memory (kChunk there)
+CT_FREE_SLOT = [0, 0, 0, 0, -1, -1, 0, 0]  # a free key slot of K5's batch table (kEntWords)
+
 
 def conntrack_process(keys, vals, seed, src_ip, dst_ip, ports, proto, tcp_flags, now_s,
                       bytes_, mask, packets, scratch):
@@ -440,31 +444,45 @@ def conntrack_process(keys, vals, seed, src_ip, dst_ip, ports, proto, tcp_flags,
                              now, bytes_, mask, packets)
     if b > 1 << 30:
         raise ValueError("batch too large for the 31-bit row index")
-    if vals.data_ptr() % 16:
-        raise ValueError("conntrack vals must be 16-byte aligned")
-    n_ent = 1 << max(6, (2 * b - 1).bit_length())  # a power of two >= 2B
-    if scratch.get("n_ent", 0) < n_ent or scratch["winner"].shape[0] != n_slots \
+    if vals.data_ptr() % 16 or keys.data_ptr() % 8:
+        raise ValueError("conntrack keys and vals must be 8- and 16-byte aligned")
+    out = torch.empty((4, b), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out
+    # Key slots: a power of two >= 2B, and >= 2 CT_CHUNK so that the records
+    # (half as many, a region of CT_CHUNK a chunk) cover every chunk.
+    key_slots = 1 << max(CT_CHUNK.bit_length(), (2 * b - 1).bit_length())
+    if scratch.get("key_slots", 0) < key_slots or scratch["winner"].shape[0] != n_slots \
             or scratch["winner"].device != dev:
+        # A free key slot: zero accumulators and the key ~0 (csrc/conntrack.cu);
+        # phase B leaves them so for the next batch. The call clears the
+        # winner words, and a record is written whole before it is read.
         scratch.clear()
         scratch.update(
-            n_ent=n_ent,
-            key=torch.full((n_ent,), -1, dtype=torch.int64, device=dev),
-            acc=torch.zeros((n_ent, 4), dtype=torch.int32, device=dev),
-            res=torch.empty((n_ent, 6), dtype=torch.int32, device=dev),
+            key_slots=key_slots,
+            slots=torch.tensor(CT_FREE_SLOT, dtype=torch.int32, device=dev).repeat(key_slots, 1),
+            rec=torch.empty((key_slots // 2, CT_RECORD_WORDS), dtype=torch.int32, device=dev),
+            count=torch.empty((key_slots // 2 // CT_CHUNK,), dtype=torch.int32, device=dev),
             winner=torch.empty((n_slots,), dtype=torch.int64, device=dev),
         )
-    out = torch.empty((4, b), dtype=torch.int32, device=dev)
     args = []
     for t in (src_ip, dst_ip, ports, proto, tcp_flags, bytes_, mask):
         args += [t.data_ptr(), t.stride(0)]
     args += [None, 0] if packets is None else [packets.data_ptr(), packets.stride(0)]
     _launch(
         "conntrack", dev, keys.data_ptr(), vals.data_ptr(), n_slots,
-        int(seed) & 0xFFFFFFFF, *args, b, now, scratch["key"].data_ptr(),
-        scratch["acc"].data_ptr(), scratch["res"].data_ptr(), scratch["n_ent"],
-        scratch["winner"].data_ptr(), out.data_ptr(), n_launches=2,
+        int(seed) & 0xFFFFFFFF, *args, b, now, scratch["slots"].data_ptr(),
+        scratch["key_slots"], scratch["rec"].data_ptr(),
+        scratch["count"].data_ptr(), scratch["winner"].data_ptr(), out.data_ptr(),
+        n_launches=2,
     )
     return out
+
+
+def conntrack_scratch_bytes(scratch: dict) -> int:
+    """Bytes of K5's batch scratch held in ``scratch``."""
+    return sum(t.numel() * t.element_size() for t in scratch.values()
+               if isinstance(t, torch.Tensor))
 
 
 # ---------------------------------------------------------------------------
@@ -616,28 +634,47 @@ def ingest_known(wire, bucket, dense, id_bits, table, ts_rel, base_lo, base_hi, 
 FOLD_OPS = {"sum_u32": 0, "sum_f32": 1, "max_u32": 2}
 
 
+FOLD_MAX_ARRAYS = 32  # arrays one launch of K8 folds (kMaxArrays in csrc/fold.cu)
+
+
 def fold(stacked, op):
     """The N-way fold (K8) of one stacked array: (N, *shape) -> a new
     (*shape) tensor, by ``op`` "sum_u32" (wrapping), "sum_f32" (slot by
     slot, in slot order) or "max_u32". u32 arrays are int32 bit patterns,
-    the f32 sum takes float32."""
-    dev = stacked.device
-    if op not in FOLD_OPS:
-        raise ValueError(f"fold op must be one of {sorted(FOLD_OPS)}, got {op!r}")
-    _state(stacked, "stacked array", dev,
-           dtype=torch.float32 if op == "sum_f32" else torch.int32)
-    if stacked.dim() < 1 or stacked.shape[0] < 1:
-        raise ValueError(f"a fold needs at least one slot, got shape {tuple(stacked.shape)}")
+    the f32 sum takes float32. The one-array case of ``fold_many``."""
+    return fold_many([(stacked, op)])[0]
+
+
+def fold_many(items):
+    """K8 over several stacked arrays in one launch: each item is (stacked
+    (N, *shape), op) as ``fold`` takes it, every item has the same N, and the
+    result is the list of folded (*shape) tensors in the items' order."""
+    if not items:
+        return []
+    dev = items[0][0].device
+    n_slots = items[0][0].shape[0] if items[0][0].dim() else 0
+    for stacked, op in items:
+        if op not in FOLD_OPS:
+            raise ValueError(f"fold op must be one of {sorted(FOLD_OPS)}, got {op!r}")
+        _state(stacked, "stacked array", dev,
+               dtype=torch.float32 if op == "sum_f32" else torch.int32)
+        if stacked.dim() < 1 or stacked.shape[0] < 1:
+            raise ValueError(f"a fold needs at least one slot, got shape {tuple(stacked.shape)}")
+        if stacked.shape[0] != n_slots:
+            raise ValueError(f"folded arrays differ in slots: {stacked.shape[0]} and {n_slots}")
     if not _on_card(dev):
         from retina_tpu_torch.timetravel.fold import fold_plain
 
-        return fold_plain(stacked, op)
-    n = stacked[0].numel()
-    out = torch.empty(stacked.shape[1:], dtype=stacked.dtype, device=dev)
-    if n:
-        _launch("fold", dev, stacked.data_ptr(), stacked.shape[0], n, FOLD_OPS[op],
-                out.data_ptr())
-    return out
+        return [fold_plain(stacked, op) for stacked, op in items]
+    outs = [torch.empty(x.shape[1:], dtype=x.dtype, device=dev) for x, _ in items]
+    # Arrays with no element need no block; the rest go FOLD_MAX_ARRAYS a launch.
+    live = [(x, op, o) for (x, op), o in zip(items, outs) if o.numel()]
+    for g in range(0, len(live), FOLD_MAX_ARRAYS):
+        group = live[g:g + FOLD_MAX_ARRAYS]
+        fields = array.array("q", [f for x, op, o in group
+                                   for f in (x.data_ptr(), o.numel(), FOLD_OPS[op], o.data_ptr())])
+        _launch("fold", dev, fields.buffer_info()[0], len(group), n_slots)
+    return outs
 
 
 def topk_join(keys, counts):

@@ -39,6 +39,7 @@ import dataclasses
 import torch
 
 from retina_tpu_torch.events.schema import TCP_FIN, TCP_RST, TCP_SYN
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols
 from retina_tpu_torch.u32 import M32, narrow, widen
@@ -162,9 +163,10 @@ class ConntrackTable:
 
     @classmethod
     def zeros(cls, n_slots: int = DEFAULT_SLOTS, seed: int = 0,
-              device: torch.device | str = "cpu") -> "ConntrackTable":
+              device: torch.device | str | None = None) -> "ConntrackTable":
         if n_slots & (n_slots - 1):
             raise ValueError("n_slots must be a power of two")
+        device = resolve_device(device)
         return cls(
             keys=torch.zeros((n_slots, 2), dtype=torch.int32, device=device),
             vals=torch.zeros((n_slots, 4), dtype=torch.int32, device=device),

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.u32 import M32, narrow, widen
@@ -58,10 +59,11 @@ class CountMinSketch:
 
     @classmethod
     def zeros(cls, depth: int = 4, width: int = 1 << 15, seed: int = 0,
-              device: torch.device | str = "cpu") -> "CountMinSketch":
+              device: torch.device | str | None = None) -> "CountMinSketch":
         if width & (width - 1):
             raise ValueError("width must be a power of two")
-        return cls(torch.zeros((depth, width), dtype=torch.int32, device=device), seed)
+        return cls(torch.zeros((depth, width), dtype=torch.int32,
+                               device=resolve_device(device)), seed)
 
     @property
     def depth(self) -> int:

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.u32 import widen
@@ -56,9 +57,9 @@ class EntropyWindow:
 
     @classmethod
     def zeros(cls, n_groups: int = 1, n_buckets: int = 1 << 12, seed: int = 0,
-              device: torch.device | str = "cpu") -> "EntropyWindow":
+              device: torch.device | str | None = None) -> "EntropyWindow":
         return cls(torch.zeros((n_groups, n_buckets), dtype=torch.float32,
-                               device=device), seed)
+                               device=resolve_device(device)), seed)
 
     @property
     def n_buckets(self) -> int:
@@ -93,7 +94,8 @@ class AnomalyEWMA:
 
     @classmethod
     def zeros(cls, n_groups: int = 1, alpha: float = 0.1,
-              device: torch.device | str = "cpu") -> "AnomalyEWMA":
+              device: torch.device | str | None = None) -> "AnomalyEWMA":
+        device = resolve_device(device)
         z = lambda: torch.zeros((n_groups,), dtype=torch.float32, device=device)
         return cls(mean=z(), var=z(), n_obs=z(), alpha=alpha)
 

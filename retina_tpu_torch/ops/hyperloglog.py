@@ -13,6 +13,7 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.u32 import M32, narrow, widen
@@ -71,9 +72,9 @@ class HyperLogLog:
 
     @classmethod
     def zeros(cls, n_groups: int = 1, precision: int = 12, seed: int = 0,
-              device: torch.device | str = "cpu") -> "HyperLogLog":
+              device: torch.device | str | None = None) -> "HyperLogLog":
         return cls(torch.zeros((n_groups, 1 << precision), dtype=torch.int32,
-                               device=device), seed)
+                               device=resolve_device(device)), seed)
 
     @property
     def n_groups(self) -> int:

@@ -22,6 +22,7 @@ import dataclasses
 
 import torch
 
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.u32 import M32, narrow, widen
@@ -97,9 +98,10 @@ class InvertibleSketch:
 
     @classmethod
     def zeros(cls, depth: int = 2, width: int = 1 << 12, n_key_cols: int = 4,
-              seed: int = 0, device: torch.device | str = "cpu") -> "InvertibleSketch":
+              seed: int = 0, device: torch.device | str | None = None) -> "InvertibleSketch":
         if width & (width - 1):
             raise ValueError("width must be a power of two")
+        device = resolve_device(device)
         return cls(
             planes=torch.zeros((depth, width, n_planes(n_key_cols)), dtype=torch.int32,
                                device=device),

@@ -26,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.countmin import CountMinSketch, query_plain, update_plain
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
@@ -98,9 +99,10 @@ class TopKTable:
 
     @classmethod
     def zeros(cls, n_key_cols: int, n_slots: int = 1 << 11, seed: int = 0,
-              device: torch.device | str = "cpu") -> "TopKTable":
+              device: torch.device | str | None = None) -> "TopKTable":
         if n_slots & (n_slots - 1):
             raise ValueError("n_slots must be a power of two")
+        device = resolve_device(device)
         return cls(
             key_rows=torch.zeros((n_slots, n_key_cols), dtype=torch.int32, device=device),
             counts=torch.zeros((n_slots,), dtype=torch.int32, device=device),
@@ -152,7 +154,8 @@ class HeavyHitterSketch:
     @classmethod
     def zeros(cls, n_key_cols: int, depth: int = 4, width: int = 1 << 15,
               n_slots: int = 1 << 11, seed: int = 0,
-              device: torch.device | str = "cpu") -> "HeavyHitterSketch":
+              device: torch.device | str | None = None) -> "HeavyHitterSketch":
+        device = resolve_device(device)
         return cls(
             cms=CountMinSketch.zeros(depth, width, seed=seed, device=device),
             table=TopKTable.zeros(n_key_cols, n_slots, seed=seed, device=device),

@@ -3,6 +3,8 @@
     python3 -m retina_tpu_torch.step_profile [--steps N] [--config NAME]
     python3 -m retina_tpu_torch.step_profile --feed
     python3 -m retina_tpu_torch.step_profile --sketches
+    python3 -m retina_tpu_torch.step_profile --conntrack
+    python3 -m retina_tpu_torch.step_profile --fold
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
 agent: conntrack on, low aggregation; or the configuration ``--config``
@@ -41,6 +43,24 @@ unchanged in a copy of an older tree (copy this file into the copy's
 package, then ``python3 -m retina_tpu_torch.step_profile --sketches`` from
 the copy's root), so that two trees are compared in one call.
 
+With ``--conntrack`` it times connection tracking (K5) as the deployed step
+calls it: the K5 calls of DEPLOYED_CONFIG's 8th step, captured at the
+wrapper and replayed 10 times after 2 warm-ups, by device time in
+torch.profiler (by kernel, with the memset) and by CUDA events. Then the
+same call on three batches that pull K5's costs apart, each on a table of
+its own: every masked row a connection of its own ("distinct"), pairs of
+rows a connection ("pairs": a repeated key in every warp, no hot one), and
+every masked row one connection ("one": the hottest key there can be).
+Like ``--sketches``, it runs unchanged in a copy of an older tree.
+
+With ``--fold`` it times the N-way fold (K8) of a range query and a fleet
+epoch: the arrays ``fold_stacked`` sums or maxes (the fleet catalog of
+``Config(heavy_keys_source="invertible")``, as chip_smoke.py's time-travel
+and fleet paths export it, less the candidate tables), stacked 32 and 64
+deep with random contents, by the device time of the fold kernels of one
+``fold_stacked`` call and their launches, beside one ``sum``/``amax`` call
+an array. It too runs unchanged in a copy of an older tree.
+
 Needs a CUDA card; exits non-zero without one.
 """
 
@@ -78,28 +98,10 @@ def cuda_ms(fn, reps: int = 10) -> float:
 
 
 def device_ms(fn, reps: int = 10) -> float:
-    """ms of device time of one call of ``fn`` from torch.profiler over
-    ``reps`` calls after 2 warm-ups: the summed durations of what the calls
-    ran on the card, without the host's launch gaps a CUDA-event span holds.
-    A trace with no device time is taken again, at most four times."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    us = 0.0
-    for _ in range(4):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            break
-    return us / 1e3 / reps
+    """ms of device time of one call of ``fn`` (see ``kernel_ms``): the
+    summed durations of what the calls ran on the card, without the host's
+    launch gaps a CUDA-event span holds."""
+    return sum(kernel_ms(fn, reps).values())
 
 
 def capture_sketch_calls(step) -> dict[str, list]:
@@ -217,6 +219,154 @@ def sketches(dev, recs, ident) -> dict:
     return result
 
 
+def capture_conntrack_calls(step) -> list:
+    """Run ``step()`` and return its K5 wrapper calls as (wrapper, args)."""
+    from retina_tpu_torch.kernels import ops as kops
+
+    calls, fn = [], kops.conntrack_process
+
+    def call(*args):
+        calls.append((fn, args))
+        return fn(*args)
+
+    kops.conntrack_process = call
+    try:
+        step()
+    finally:
+        kops.conntrack_process = fn
+    return calls
+
+
+def conntrack_variants(args: tuple) -> dict[str, tuple]:
+    """K5's arguments on batches that separate its costs: the step's own
+    ("step"), every row its own connection ("distinct": src = the row),
+    pairs of rows one connection ("pairs": src = the row // 2) and every row
+    one connection ("one"). Each variant but the step's has a fresh table
+    and scratch of its own."""
+    import torch
+
+    keys, vals, seed, src = args[:4]
+    rows = torch.arange(src.shape[0], dtype=torch.int32, device=src.device)
+    one = torch.ones_like(rows)
+    out = {"step": args}
+    for name, cols in (("distinct", (rows, one, one, 6 * one)),
+                       ("pairs", (rows // 2, one, one, 6 * one)),
+                       ("one", (0 * one, one, one, 6 * one))):
+        out[name] = (torch.zeros_like(keys), torch.zeros_like(vals), seed, *cols, *args[7:-1],
+                     {})
+    return out
+
+
+def kernel_ms(fn, reps: int = 10) -> dict[str, float]:
+    """Device ms of one call of ``fn`` by kernel, memcpy or memset name, from
+    torch.profiler over ``reps`` calls after 2 warm-ups. A trace with no
+    device time is taken again, at most four times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    rows: list = []
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows, _ = device_rows(prof)
+        if rows:
+            break
+    out: dict[str, float] = {}
+    for us, _, key in rows:  # names that share their first 60 characters add up
+        out[key[:60]] = out.get(key[:60], 0.0) + us / 1e3 / reps
+    return out
+
+
+def conntrack(dev, recs, ident) -> dict:
+    """K5 at the deployed step's calls and at the variants."""
+    import torch
+
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG
+    from retina_tpu_torch.ops.conntrack import fingerprint
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    tel = Telemetry(DEPLOYED_CONFIG, device=dev)
+    state = tel.init_state()
+    for s in range(STEPS - 1):
+        state, _ = tel.step(state, recs[s % 2], BATCH, 2, ident)
+    calls = capture_conntrack_calls(
+        lambda: tel.step(state, recs[(STEPS - 1) % 2], BATCH, 2, ident))
+    result: dict = {}
+    for fn, args in calls:
+        for name, vargs in conntrack_variants(args).items():
+            def once(fn=fn, vargs=vargs):
+                return fn(*vargs)
+            out = once()
+            mask = vargs[10] != 0
+            lo, hi, _ = fingerprint(*vargs[3:7], vargs[2])
+            key = (lo << 32) | hi
+            n_conn = int(torch.unique(key[mask]).numel())
+            chunk = torch.arange(BATCH, device=dev) // 2048  # the rows' 2048-row chunk
+            per_chunk = torch.unique(torch.stack([chunk[mask], key[mask]]), dim=1).shape[1] \
+                / (BATCH // 2048)
+            ms = cuda_ms(once)
+            by_kernel = kernel_ms(once)
+            dev_ms = sum(by_kernel.values())
+            result[f"k5_{name}_ms"] = ms
+            result[f"k5_{name}_device_ms"] = dev_ms
+            print(f"K5 on the {name} batch: {ms:.4f} ms (CUDA events), device time "
+                  f"{dev_ms:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); "
+                  f"{int(mask.sum())} masked rows, {n_conn} connections, "
+                  f"{per_chunk:.1f} a 2048-row chunk, {int(out[0].sum())} reports", flush=True)
+    return result
+
+
+def fold(dev) -> dict:
+    """K8 of fold_stacked at 32 and 64 slots, beside the library calls."""
+    import numpy as np
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.timetravel.fold import fold_stacked, host_arrays
+
+    eng = SketchEngine(Config(heavy_keys_source="invertible"), device=dev)
+    arrays = {k: v for k, v in host_arrays(eng.telemetry.fleet_export(eng.state)).items()
+              if not k.endswith(("_keys", "_counts"))}
+    eng.stop()
+    rng = np.random.default_rng(0)
+    result: dict = {}
+    for n in (32, 64):
+        stacked = {}
+        for k, a in arrays.items():
+            shape = (n, *a.shape)
+            if a.dtype == np.float32:
+                x = torch.from_numpy(rng.integers(0, 1 << 20, shape).astype(np.float32))
+            else:
+                high = 34 if k.startswith("hll_") else 1 << 32
+                x = torch.from_numpy(rng.integers(0, high, shape, dtype=np.uint64)
+                                     .astype(np.uint32).view(np.int32))
+            stacked[k] = x.to(dev)
+        before = kops.launch_counts()["fold"]
+        fold_stacked(stacked)
+        launches = kops.launch_counts()["fold"] - before
+        by_kernel = kernel_ms(lambda: fold_stacked(stacked))
+        ms = sum(v for k, v in by_kernel.items() if "fold_kernel" in k)
+        lib = sum(kernel_ms(lambda: [
+            torch.amax(x, 0) if k.startswith("hll_") else torch.sum(x, 0, dtype=x.dtype)
+            for k, x in stacked.items()]).values())
+        n_elems = sum(x[0].numel() for x in stacked.values())
+        bound = 4 * n_elems * (n + 1) / 3.35e12 * 1e3
+        result |= {f"k8_{n}_ms": ms, f"k8_{n}_library_ms": lib, f"k8_{n}_launches": launches}
+        print(f"K8 at {n} slots: {len(stacked)} arrays, {n_elems} elements a slot; device time "
+              f"of the fold kernels of one fold_stacked call {ms:.4f} ms in {launches} "
+              f"launches; library (one sum or amax an array) {lib:.4f} ms; bound {bound:.4f} "
+              f"ms", flush=True)
+        del stacked
+    return result
+
+
 def device_rows(prof) -> tuple[list, list]:
     """(kernel rows, torch-op rows) of a profile as (device us, calls, name),
     largest first. A device row is one kernel, memcpy or memset; an aten row
@@ -296,6 +446,11 @@ def main() -> int:
                     default="deployed", help="the configuration of the profiled step")
     ap.add_argument("--sketches", action="store_true",
                     help="time K2 and K4 at both weight sets and the step paths' ms/step")
+    ap.add_argument("--fold", action="store_true",
+                    help="time K8 at a range query's and a fleet epoch's shapes")
+    ap.add_argument("--conntrack", action="store_true",
+                    help="time K5 at the deployed step's calls and at batches that separate "
+                    "its costs")
     args = ap.parse_args()
 
     import torch
@@ -324,12 +479,18 @@ def main() -> int:
     if args.feed:
         print(json.dumps(feed_profile(dev, args.quanta)))
         return 0
+    if args.fold:
+        print(json.dumps(fold(dev) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
     gen = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=42)
     recs = [from_numpy(gen.batch(BATCH), dev) for _ in range(2)]
     ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 2048)}, n_slots=1 << 16,
                                    device=dev)
     if args.sketches:
         print(json.dumps(sketches(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
+    if args.conntrack:
+        print(json.dumps(conntrack(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
         return 0
     cfg = {"deployed": DEPLOYED_CONFIG, "no-conntrack": NO_CONNTRACK_CONFIG,
            "production": PipelineConfig()}[args.config]

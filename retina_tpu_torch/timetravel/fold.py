@@ -83,16 +83,12 @@ def fold_stacked(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     """The batched merge of ``timetravel.range_fold`` and ``fleet.merge``
     over stacked arrays on one device: ``hll_*`` by u32 max, the
     ``<fam>_keys``/``<fam>_counts`` pairs by the candidate-table join, every
-    other array by sum (f32 for float arrays, u32 wrapping otherwise)."""
-    out: dict[str, torch.Tensor] = {}
-    for name, arr in stacked.items():
-        if name.endswith("_keys") or name.endswith("_counts"):
-            continue  # joined below as (keys, counts) pairs
-        if name.startswith("hll_"):
-            op = "max_u32"
-        else:
-            op = "sum_f32" if arr.dtype == torch.float32 else "sum_u32"
-        out[name] = kops.fold(arr, op)
+    other array by sum (f32 for float arrays, u32 wrapping otherwise). The
+    sums and maxes take one launch of K8 (``kops.fold_many``) in all."""
+    items = {name: (arr, "max_u32" if name.startswith("hll_") else
+                    "sum_f32" if arr.dtype == torch.float32 else "sum_u32")
+             for name, arr in stacked.items() if not name.endswith(("_keys", "_counts"))}
+    out = dict(zip(items, kops.fold_many(list(items.values()))))
     for fam in HH_FAMILIES:
         kname, cname = f"{fam}_keys", f"{fam}_counts"
         if kname in stacked:

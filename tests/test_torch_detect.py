@@ -694,7 +694,7 @@ def test_autocapture_closes_the_dryrun_loop():
 
     ac = AutoCapture(cfg, qs, manager=CaptureManager(ReplayProvider(source=capture_source)))
     ac.start()
-    det = AnomalyEWMA.zeros(3)
+    det = AnomalyEWMA.zeros(3, device="cpu")
     detected = []
     burst = EPOCH0 + burst_at
     for i in range(windows):

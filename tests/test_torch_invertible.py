@@ -154,7 +154,7 @@ def test_decode_plain_matches_reference_at_the_edges(case, n_cols):
 
 
 def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
-    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=2)
+    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=2, device="cpu")
     with pytest.raises(ValueError, match="planes do not fit"):
         kops.inv_decode(inv.planes, inv.weights, 0, 3)
     with pytest.raises(ValueError, match="1 to 4"):

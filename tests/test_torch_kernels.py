@@ -182,13 +182,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="unsupported device"):
         kops.entropy_update(torch.zeros((1, 64), device="meta"), 0,
                             [rec[:, 2].to("meta")], w.to("meta"))
-    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=4)
+    inv = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=4, device="cpu")
     with pytest.raises(ValueError, match="planes"):
         kops.inv_update(inv.planes, inv.weights, 0, [rec[:, 2]], w)
     with pytest.raises(ValueError, match="power of two"):
         kops.inv_update(torch.zeros((2, 12, 64), dtype=torch.int32),
                         torch.zeros((2, 12), dtype=torch.int32), 0, [rec[:, 2]], w)
-    ct = ConntrackTable.zeros(1 << 4)
+    ct = ConntrackTable.zeros(1 << 4, device="cpu")
     cols = [rec[:, 2], rec[:, 3], rec[:, 4], w, w]
     with pytest.raises(ValueError, match="shape"):
         kops.conntrack_process(ct.keys, ct.vals, 0, *cols, 5, w, w[:10], None, ct.scratch)
@@ -240,6 +240,75 @@ def test_hh_update_many_lays_out_one_record_a_sketch(monkeypatch):
             assert rec_[k + 1][9] == r[10] + 4 * n_chunks
     with pytest.raises(ValueError, match="share a state tensor"):
         kops.hh_update_many([ups[0], ups[0]])
+
+
+def test_fold_many_lays_out_one_record_an_array(monkeypatch):
+    """K8's many-array entry without a card: the launch is caught where it
+    would enter C, and its int64 records (csrc/fold.cu's 4 fields an array:
+    source, elements a slot, op, output) are read back. Arrays with no
+    element take no record; the rest go 32 a launch."""
+    import ctypes
+
+    seen = []
+
+    def launch(name, dev, ptr, n_arrays, n_slots, n_launches=1):
+        seen.append((name, list((ctypes.c_longlong * (4 * n_arrays)).from_address(ptr)),
+                     n_slots, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    ops = ["sum_u32", "sum_f32", "max_u32"]
+    items = [(torch.zeros((3, k + 1), dtype=torch.float32 if k % 3 == 1 else torch.int32),
+              ops[k % 3]) for k in range(35)]
+    items.insert(5, (torch.zeros((3, 2, 0), dtype=torch.int32), "sum_u32"))
+    outs = kops.fold_many(items)
+    assert [o.shape for o in outs] == [x.shape[1:] for x, _ in items]
+    assert [o.dtype for o in outs] == [x.dtype for x, _ in items]
+    assert [(name, len(f) // 4, n, nl) for name, f, n, nl in seen] == [
+        ("fold", 32, 3, 1), ("fold", 3, 3, 1)]
+    fields = seen[0][1] + seen[1][1]
+    live = [(x, op, o) for (x, op), o in zip(items, outs) if o.numel()]
+    assert fields == [v for x, op, o in live
+                      for v in (x.data_ptr(), o.numel(), kops.FOLD_OPS[op], o.data_ptr())]
+
+
+def test_conntrack_wrapper_keeps_its_batch_scratch(monkeypatch):
+    """K5's scratch without a card: 2B key slots (the next power of two, at
+    least two chunks' worth) of 32 bytes, each free (zero accumulators, the
+    key ~0), a 32-byte record for each connection a batch can hold (a region
+    of 2048 a chunk) and a record count a chunk, and the winner words; a
+    second batch reuses it."""
+    seen = []
+
+    def launch(name, dev, *args, n_launches=1):
+        seen.append((name, args, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    ct = ConntrackTable.zeros(1 << 6, device="cpu")
+    b = 3000
+    w = torch.ones(b, dtype=torch.int32)
+    rec = torch.zeros((b, 16), dtype=torch.int32)
+    cols = [rec[:, 2], rec[:, 3], rec[:, 4], w, w]
+    out = ct.process_lanes(*cols, 5, w, w, None)
+    assert out.shape == (4, b)
+    sc = dict(ct.scratch)
+    assert sc["key_slots"] == 8192
+    free = torch.tensor([0, 0, 0, 0, -1, -1, 0, 0], dtype=torch.int32)
+    assert torch.equal(sc["slots"], free.repeat(8192, 1))
+    assert sc["rec"].shape == (4096, kops.CT_RECORD_WORDS) and sc["count"].shape == (2,)
+    assert sc["winner"].shape == (64,) and sc["winner"].dtype == torch.int64
+    assert kops.conntrack_scratch_bytes(ct.scratch) == 8192 * 32 + 4096 * 32 + 2 * 4 + 64 * 8
+    (name, args, n_launches), = seen
+    assert (name, n_launches) == ("conntrack", 2)
+    assert args[20:] == (b, 5, sc["slots"].data_ptr(), 8192, sc["rec"].data_ptr(),
+                         sc["count"].data_ptr(), sc["winner"].data_ptr(), out.data_ptr())
+    ct.process_lanes(*[c[:100] for c in cols], 6, w[:100], w[:100], None)
+    assert all(ct.scratch[k] is sc[k] for k in ("slots", "rec", "count", "winner"))
+    assert len(seen) == 2 and seen[1][1][22:26] == args[22:26]
+    small = ConntrackTable.zeros(1 << 6, device="cpu")
+    small.process_lanes(*[c[:10] for c in cols], 5, w[:10], w[:10], None)
+    assert small.scratch["key_slots"] == 4096 and small.scratch["count"].shape == (1,)
 
 
 def test_ingest_wrappers_reject_what_the_kernels_do_not_take():
@@ -534,6 +603,74 @@ def test_conntrack_kernel_matches_plain(card):
         assert torch.equal(tables[0].keys, tables[1].keys), f"keys differ at now={now}"
         assert torch.equal(tables[0].vals, tables[1].vals), f"vals differ at now={now}"
         assert int(out[0][0].sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hot", "wrap"])
+def test_conntrack_kernel_matches_plain_at_a_full_batch(card, case):
+    """K5 against its plain version at a full batch (2^21 rows less 77) and
+    the deployed 2^18 slots, through every branch of the clock. "hot" makes
+    every other row one connection (its first row in the first chunk, its
+    last in the last; a quarter of them in the reply direction); "wrap"
+    gives every row ~2^31 packets and ~2^32 bytes, so the connections' sums
+    wrap mod 2^32."""
+    rec, _ = _full_batch(card, "zipf")
+    n = rec.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=card)
+    if case == "hot":
+        rec[0::2] = rec[0]
+        rev = rec[2::8]
+        rev[:, [F.SRC_IP, F.DST_IP]] = rec[0, [F.DST_IP, F.SRC_IP]]
+        p = rec[0, F.PORTS]
+        rev[:, F.PORTS] = ((p & 0xFFFF) << 16) | ((p >> 16) & 0xFFFF)
+    flags = (rec[:, F.META] >> 16) & 0xFF
+    mask = torch.ones(n, dtype=torch.int32, device=card)
+    mask[::9] = 0
+    cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS],
+            (rec[:, F.META] >> 24) & 0xFF, flags]
+    bytes_, packets = rec[:, F.BYTES], rec[:, F.PACKETS]
+    if case == "wrap":
+        bytes_, packets = (-256) | (rows & 0xFF), 0x7FFFFFF1 + (rows & 7)
+    tables = [ConntrackTable.zeros(1 << 18, seed=8, device=card) for _ in range(2)]
+    for now in (100, 101, 131, 200, 600, 65_700, 65_690):
+        out = tables[0].process_lanes(*cols, now, bytes_, mask, packets)
+        with kops.plain_versions():
+            ref = tables[1].process_lanes(*cols, now, bytes_, mask, packets)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), f"lanes differ at now={now}"
+        assert torch.equal(tables[0].keys, tables[1].keys), f"keys differ at now={now}"
+        assert torch.equal(tables[0].vals, tables[1].vals), f"vals differ at now={now}"
+        if case == "hot" and now == 100:  # new: one report, at the last masked row
+            hot = torch.nonzero(mask[0::2]).flatten() * 2
+            assert torch.equal(torch.nonzero(out[0][hot]).flatten(),
+                               torch.tensor([len(hot) - 1], device=card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_slots", [1, 2, 33, 64])
+def test_fold_many_kernel_matches_plain(card, n_slots):
+    """One launch folds arrays of mixed ops and lengths, each equal to its
+    plain fold bit for bit: 16-byte loads where base and length allow, and
+    the scalar path on an odd length (its slots off 16-byte boundaries) and
+    on an array whose base is 4 bytes off one."""
+    rng = np.random.default_rng(60 + n_slots)
+    u = from_numpy(_stack(rng, (n_slots, 3, 1000)), card)
+    hll = from_numpy(_stack(rng, (n_slots, 64, 65), high=34), card)
+    hll[:, 0, :5] = -1
+    ent = torch.from_numpy(rng.integers(0, 1 << 26, (n_slots, 3, 4096)).astype(np.float32))
+    odd = from_numpy(_stack(rng, (n_slots, 4099)), card)
+    shifted = from_numpy(_stack(rng, (n_slots * 1000 + 1,)), card)[1:].view(n_slots, 1000)
+    items = [(u, "sum_u32"), (hll, "max_u32"), (ent.to(card), "sum_f32"), (odd, "sum_u32"),
+             (from_numpy(_stack(rng, (n_slots, 6)), card), "sum_u32"), (shifted, "max_u32")]
+    before = kops.launch_counts()["fold"]
+    outs = kops.fold_many(items)
+    assert kops.launch_counts()["fold"] == before + 1
+    with kops.plain_versions():
+        refs = [kops.fold(x, op) for x, op in items]
+    torch.cuda.synchronize()
+    for (x, op), out, ref in zip(items, outs, refs):
+        assert out.dtype == x.dtype and out.shape == x.shape[1:]
+        assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), (op, x.shape)
 
 
 @pytest.mark.gpu

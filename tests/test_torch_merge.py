@@ -25,12 +25,14 @@ from retina_tpu.ops.hyperloglog import HyperLogLog as JHLL
 from retina_tpu.ops.invertible import InvertibleSketch as JInv
 from retina_tpu.ops.topk import HeavyHitterSketch as JHH
 from retina_tpu.ops.topk import TopKTable as JTopK
+from retina_tpu.timetravel.fold import RangeFold as JRangeFold
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.ops.entropy import EntropyWindow
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.ops.topk import HeavyHitterSketch, TopKTable
+from retina_tpu_torch.timetravel.fold import RangeFold, fold_plain
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
 # Values that make ties and sign trouble likely.
@@ -125,9 +127,9 @@ def test_topk_merge_matches_reference(case):
 
 
 def test_topk_merge_refuses_other_seeds():
-    z = TopKTable.zeros(2, 8, seed=1)
+    z = TopKTable.zeros(2, 8, seed=1, device="cpu")
     with pytest.raises(ValueError, match="seed mismatch"):
-        z.merge(TopKTable.zeros(2, 8, seed=2))
+        z.merge(TopKTable.zeros(2, 8, seed=2, device="cpu"))
 
 
 def test_heavy_hitter_merge_matches_reference():
@@ -221,6 +223,58 @@ def test_fold_plain_equals_chained_pairwise_merges(n):
     np.testing.assert_array_equal(kops.fold(torch.from_numpy(ent), "sum_f32").numpy(),
                                   np.asarray(jnp.sum(jnp.asarray(ent), axis=0)))
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}  # CPU: plain
+
+
+@pytest.mark.parametrize("n", [1, 2, 33])
+def test_fold_many_equals_per_array_fold_plain_and_the_reference_range_fold(n):
+    """One ``fold_many`` call over a catalog of mixed ops, an odd-length
+    array among them, equals ``fold_plain`` array by array and the
+    reference's ``range_fold`` over the same slots (entropy counts stay
+    below 2^24, where the reference's sum is exact)."""
+    rng = np.random.default_rng(40 + n)
+    slots = []
+    for _ in range(n):
+        slots.append({
+            "flow_cms": u32(rng, (4, 128)),
+            "hll_flows": u32(rng, (1, 64), high=34),
+            "entropy": rng.integers(0, 1 << 12, (3, 256)).astype(np.float32),
+            "totals": u32(rng, (6,)),  # odd length: no 16-byte loads after slot 0
+            "inv_flow_weights": u32(rng, (2, 33)),
+            "flow_keys": topk_arrays(rng, s=16)[0],
+            "flow_counts": topk_arrays(rng, s=16)[1],
+        })
+    slots[0]["hll_flows"][0, :8] = EDGES
+    names = sorted(slots[0])
+    ops = {name: "max_u32" if name.startswith("hll_") else
+           "sum_f32" if slots[0][name].dtype == np.float32 else "sum_u32"
+           for name in names if not name.endswith(("_keys", "_counts"))}
+
+    def stacked(name):
+        a = np.stack([s[name] for s in slots])
+        return torch.from_numpy(a) if a.dtype == np.float32 else t(a)
+
+    kops.reset_launch_counts()
+    got = kops.fold_many([(stacked(name), op) for name, op in ops.items()])
+    assert [g.shape for g in got] == [stacked(name).shape[1:] for name in ops]
+    for g, (name, op) in zip(got, ops.items()):
+        assert torch.equal(g, fold_plain(stacked(name), op)), name
+        assert torch.equal(kops.fold(stacked(name), op), g), name
+    ref = JRangeFold().fold(slots, {"flow": 3})
+    port = RangeFold(device="cpu").fold(slots, {"flow": 3})
+    assert sorted(port) == sorted(ref) == names
+    for name in names:
+        np.testing.assert_array_equal(port[name], ref[name], err_msg=name)
+    for g, name in zip(got, ops):
+        np.testing.assert_array_equal(g.numpy().view(ref[name].dtype), ref[name], err_msg=name)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}  # CPU: plain
+    assert kops.fold_many([]) == []
+    with pytest.raises(ValueError, match="differ in slots"):
+        kops.fold_many([(stacked("totals"), "sum_u32"),
+                        (torch.cat([stacked("totals")] * 2), "sum_u32")])
+    with pytest.raises(ValueError, match="fold op"):
+        kops.fold_many([(stacked("totals"), "min_u32")])
+    with pytest.raises(TypeError, match="float32"):
+        kops.fold_many([(stacked("totals"), "sum_f32")])
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 17])

@@ -38,6 +38,7 @@ from retina_tpu_torch.ops.conntrack import ConntrackTable
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
+from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.ops.topk import HeavyHitterSketch, TopKTable, slots
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
@@ -58,6 +59,35 @@ def _keys(rng, n, n_distinct, n_cols):
     table[:, 0] = EDGE[-1]  # one key of all-ones words
     table[:, 1] = 0  # one key of zero words
     return table[:, rng.integers(0, n_distinct, n)]
+
+
+# -- constructors -----------------------------------------------------------
+
+SKETCH_ZEROS = {
+    "countmin": lambda **kw: CountMinSketch.zeros(4, 1 << 6, **kw),
+    "topk_table": lambda **kw: TopKTable.zeros(2, 8, **kw),
+    "heavy_hitter": lambda **kw: HeavyHitterSketch.zeros(2, 4, 1 << 6, 8, **kw),
+    "entropy": lambda **kw: EntropyWindow.zeros(3, 1 << 6, **kw),
+    "anomaly_ewma": lambda **kw: AnomalyEWMA.zeros(3, **kw),
+    "hyperloglog": lambda **kw: HyperLogLog.zeros(1, 6, **kw),
+    "invertible": lambda **kw: InvertibleSketch.zeros(2, 1 << 4, 2, **kw),
+    "conntrack": lambda **kw: ConntrackTable.zeros(1 << 4, **kw),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SKETCH_ZEROS))
+def test_sketch_constructors_default_to_the_card(name, monkeypatch):
+    """Without ``device=`` a sketch is made on the card, as the reference's
+    zeros land on JAX's default device: with no card it raises, and
+    ``device="cpu"`` still builds it on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SKETCH_ZEROS[name]()
+    sketch = SKETCH_ZEROS[name](device="cpu")
+    tensors = [f for f in vars(sketch).values() if isinstance(f, torch.Tensor)]
+    tensors += [t for f in vars(sketch).values() if dataclasses.is_dataclass(f)
+                for t in vars(f).values() if isinstance(t, torch.Tensor)]
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 # -- hashing --------------------------------------------------------------
@@ -110,7 +140,7 @@ def test_cms_update_and_query_match_reference():
     w[rng.random(n) < 0.2] = 0  # masked rows carry weight 0
     w[:3] = 0xFFFFFFF0  # huge weights: the u32 counters wrap
     ref = JCMS.zeros(4, 1 << 9, seed=3)
-    port = CountMinSketch.zeros(4, 1 << 9, seed=3)
+    port = CountMinSketch.zeros(4, 1 << 9, seed=3, device="cpu")
     for _ in range(2):
         ref = ref.update([jnp.asarray(k) for k in keys], jnp.asarray(w))
         port.update([_t(k) for k in keys], _t(w))
@@ -143,7 +173,7 @@ def test_topk_table_update_matches_reference():
     est = rng.integers(0, 6, n).astype(np.uint32)  # many ties per slot
     est[rng.random(n) < 0.3] = 0
     ref = JTopK.zeros(3, s, seed=2)
-    port = TopKTable.zeros(3, s, seed=2)
+    port = TopKTable.zeros(3, s, seed=2, device="cpu")
     for _ in range(2):
         ref = ref.update([jnp.asarray(k) for k in keys], jnp.asarray(est))
         port.update([_t(k) for k in keys], _t(est))
@@ -166,7 +196,7 @@ def test_heavy_hitter_update_matches_reference(n_cols):
     n = 3000
     ref = JHH.zeros(n_cols, depth=4, width=1 << 8, n_slots=1 << 5, seed=n_cols)
     port = HeavyHitterSketch.zeros(n_cols, depth=4, width=1 << 8, n_slots=1 << 5,
-                                   seed=n_cols)
+                                   seed=n_cols, device="cpu")
     for _ in range(3):
         keys = _keys(rng, n, 200, n_cols)
         w = rng.integers(1, 4, n).astype(np.uint32)
@@ -208,7 +238,7 @@ def _tied_keys(n_cols, n_slots, width, seed):
     rng = np.random.default_rng(5)
     cand = _u32(rng, (n_cols, 4096)).reshape(n_cols, 4096)
     slot = slots(n_slots, seed, [torch.from_numpy(c.astype(np.int64)) for c in cand]).numpy()
-    cms = CountMinSketch.zeros(4, width, seed=seed)
+    cms = CountMinSketch.zeros(4, width, seed=seed, device="cpu")
     from retina_tpu_torch.ops.countmin import indices
 
     cols = indices(cms.table, seed, [torch.from_numpy(c.astype(np.int64)) for c in cand])
@@ -233,7 +263,8 @@ def test_heavy_hitter_update_edge_inputs_match_reference(case):
     else:
         keys, w = _edge_batch(case)
     ref = JHH.zeros(4, depth=4, width=width, n_slots=n_slots, seed=seed)
-    port = HeavyHitterSketch.zeros(4, depth=4, width=width, n_slots=n_slots, seed=seed)
+    port = HeavyHitterSketch.zeros(4, depth=4, width=width, n_slots=n_slots, seed=seed,
+                                   device="cpu")
     for _ in range(2):
         ref = ref.update([jnp.asarray(k) for k in keys], jnp.asarray(w))
         port.update([_t(k) for k in keys], _t(w))
@@ -263,7 +294,7 @@ def test_entropy_update_edge_inputs_match_reference(case):
     keys, w = _edge_batch(case)
     cols = [keys[0], keys[1], keys[2] & 0xFFFF]
     ref = JEntropy.zeros(3, 1 << 12, seed=7)
-    port = EntropyWindow.zeros(3, 1 << 12, seed=7)
+    port = EntropyWindow.zeros(3, 1 << 12, seed=7, device="cpu")
     for g, c in enumerate(cols):
         ref = ref.update([jnp.asarray(c)], jnp.full((len(w),), g, jnp.uint32), jnp.asarray(w))
     port.update([_t(c) for c in cols], _t(w))
@@ -285,14 +316,14 @@ def test_hll_update_and_estimate_match_reference():
     group = rng.integers(0, g + 2, n).astype(np.uint32)  # g, g+1 out of range: dropped
     mask = rng.random(n) < 0.8
     ref = JHLL.zeros(g, precision=6, seed=5)
-    port = HyperLogLog.zeros(g, precision=6, seed=5)
+    port = HyperLogLog.zeros(g, precision=6, seed=5, device="cpu")
     ref = ref.update([jnp.asarray(k) for k in keys], jnp.asarray(group), jnp.asarray(mask))
     port.update([_t(k) for k in keys], _t(group), torch.from_numpy(mask.astype(np.int32)))
     np.testing.assert_array_equal(to_numpy(port.registers), np.asarray(ref.registers))
     np.testing.assert_allclose(port.estimate().numpy(), np.asarray(ref.estimate()), rtol=1e-5)
     # group None is group 0 of a single bank; rho covers the all-zero rest
     ref1 = JHLL.zeros(1, precision=12, seed=4)
-    port1 = HyperLogLog.zeros(1, precision=12, seed=4)
+    port1 = HyperLogLog.zeros(1, precision=12, seed=4, device="cpu")
     ref1 = ref1.update([jnp.asarray(k) for k in keys], jnp.zeros(n, jnp.uint32),
                        jnp.asarray(mask))
     port1.update([_t(k) for k in keys], None, torch.from_numpy(mask.astype(np.int32)))
@@ -310,7 +341,7 @@ def test_entropy_update_and_bits_match_reference():
     cols = [_u32(rng, n, 500), _u32(rng, n, 50), _u32(rng, n, 1 << 16)]
     w = rng.integers(0, 3, n).astype(np.uint32)
     ref = JEntropy.zeros(3, 1 << 8, seed=7)
-    port = EntropyWindow.zeros(3, 1 << 8, seed=7)
+    port = EntropyWindow.zeros(3, 1 << 8, seed=7, device="cpu")
     for g, c in enumerate(cols):
         ref = ref.update([jnp.asarray(c)], jnp.full((n,), g, jnp.uint32), jnp.asarray(w))
     port.update([_t(c) for c in cols], _t(w))
@@ -323,7 +354,7 @@ def test_entropy_update_and_bits_match_reference():
 
 def test_anomaly_ewma_observe_matches_reference():
     rng = np.random.default_rng(42)
-    ref, port = JEWMA.zeros(3), AnomalyEWMA.zeros(3)
+    ref, port = JEWMA.zeros(3), AnomalyEWMA.zeros(3, device="cpu")
     flagged = []
     for t in range(16):
         h = (5.0 + 0.01 * rng.standard_normal(3)).astype(np.float32)

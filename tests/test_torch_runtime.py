@@ -742,7 +742,7 @@ def test_cms_update_jit_matches_reference():
     w[rng.random(n) < 0.25] = 0  # masked rows carry weight 0
     w[:4] = 0xFFFFFFF0  # the u32 counters wrap
     ref = JCMS.zeros(depth=4, width=1 << 10, seed=6)
-    port = CountMinSketch.zeros(depth=4, width=1 << 10, seed=6)
+    port = CountMinSketch.zeros(depth=4, width=1 << 10, seed=6, device="cpu")
     for _ in range(2):
         ref = jcms_update_jit(ref, [jnp.asarray(k) for k in keys], jnp.asarray(w))
         out = cms_update_jit(port, [from_numpy(k, "cpu") for k in keys], from_numpy(w, "cpu"))
