@@ -24,7 +24,8 @@ three sketches) and K4 (the entropy histograms) are held against their
 plain versions and timed as a step calls them, at three weight sets: the
 per-row lanes (high aggregation), the main path's conntrack reports, and a
 batch with one key in every row (see ``sketch_phase``). Every path's
-launch counts must show at most three launches of K2 and one of K4 a step.
+launch counts must show at most three launches of K2 and one of K4 a step,
+and one of K14's finish a launch of K1.
 
 K5 (conntrack) is held against its plain version through a now_s sequence
 that reaches every branch of the decision, on three batch sequences: the
@@ -34,8 +35,14 @@ last); and sums past 2^32. K8 (the N-way fold) folds each path's arrays in
 one launch, an odd-length array among them, each bit for bit against its
 plain version, and is timed beside the same arrays folded one a launch.
 
-Before the paths, K14 (the apiserver latency match) runs against its plain
-version over 4 consecutive 2^21-event batches of that stream with one row
+K1 (the step's per-event body) is held bit for bit against its plain
+version on the two bench batches, on a batch with every row on one pod
+whose forward bytes sum past 2^32, and on a batch with pods, drop reasons
+and DNS qtypes past the rectangles' last rows (see ``k1_batches``).
+
+Before the paths, K14 (the apiserver latency match: K1 lists the probes of
+its final mask, one launch finishes the list) runs against the plain
+versions over 4 consecutive 2^21-event batches of that stream with one row
 in 64 turned into apiserver probes (the latency table carried over), then
 over three batches of the in-repo captures (``TrafficGen(mode=
 "pcap_replay")``, the apiserver at their loopback address); after the
@@ -129,8 +136,8 @@ per bucket and compared exactly there, within a relative 2^-22 above;
 derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
 
-K1-K7 and K14 are timed by CUDA events around 10 calls after 2 warm-ups;
-K8-K13 and K15-K17, whose kernels take microseconds, by their device time in
+K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K17,
+whose kernels take microseconds, by their device time in
 torch.profiler (the summed durations of what the calls ran on the card),
 with the CUDA-event span of the same calls beside it. K11-K13 are held
 against their plain versions at the tap's largest shapes (2^16 flow keys,
@@ -341,26 +348,25 @@ def main() -> int:
     pair = [tel.init_state(), tel.init_state()]
     filt = IdentityMap.zeros(1 << 4, seed=99, device=dev)  # Telemetry's empty filter map
 
-    def k1(state, r, n_valid=BATCH):
-        return kops.step_rows(r, n_valid, 1, ident.table, ident.seed, filt.table, filt.seed,
+    def k1(state, r, n_valid=BATCH, table=ident, api=None):
+        return kops.step_rows(r, n_valid, 1, table.table, table.seed, filt.table, filt.seed,
                               state.pod_forward, state.pod_drop, state.pod_tcpflags,
                               state.pod_dns, state.pod_retrans, state.node_counters,
-                              state.totals, CFG)
+                              state.totals, CFG, apiserver_ip=api)
 
-    outs = []
-    for i, st in enumerate(pair):
-        if i == 0:
-            outs.append([k1(st, r) for r in recs])
-        else:
-            with kops.plain_versions():
-                outs.append([k1(st, r) for r in recs])
-    for j in range(2):
-        equal_int(outs[0][j][0], outs[1][j][0], f"K1 scratch batch {j}")
-        equal_int(outs[0][j][1], outs[1][j][1], f"K1 sums batch {j}")
-    for a, b, n in zip(named_leaves(pair[0]), named_leaves(pair[1]), range(10)):
-        if a[1].dtype == torch.int32:
-            equal_int(a[1], b[1], f"K1 state {a[0]}")
-    scratch = dict(zip(kops.SCRATCH, outs[0][0][0]))
+    scratch = None  # the kernel's lanes of the first bench batch
+    for label, r, table in k1_batches(dev, host, recs, ident):
+        out = []
+        for i, st in enumerate(pair):
+            with kops.plain_versions() if i else contextlib.nullcontext():
+                out.append(k1(st, r, table=table))
+        equal_int(out[0][0], out[1][0], f"K1 scratch ({label})")
+        equal_int(out[0][1], out[1][1], f"K1 sums ({label})")
+        for (name, a), (_, b) in zip(named_leaves(pair[0])[:7], named_leaves(pair[1])[:7]):
+            equal_int(a, b, f"K1 state {name} after the {label} batch")
+        print(f"K1 {label} batch: bit-equal to the plain version", flush=True)
+        if scratch is None:
+            scratch = dict(zip(kops.SCRATCH, out[0][0]))
     st = tel.init_state()
     ms = time_ms(lambda: k1(st, recs[0]))
     with kops.plain_versions():
@@ -559,10 +565,7 @@ def main() -> int:
            active * ((d + 1) * 4 * HASH_OPS + d * nb), lib_ms, 0.0)
 
     # -- K14: the latency match over probe batches and the captures ------
-    def k1_mask(r, n_valid=BATCH):
-        return k1(tel.init_state(), r, n_valid)[0][kops.SCRATCH.index("mask")]
-
-    latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int)
+    latency_phase(dev, host, recs, tel, k1, time_ms, report, equal_int)
 
     # -- the paths: step -> end_window -> snapshot (-> inv_decode) ---------
     def run_path(t, windows, steps, plain):
@@ -995,10 +998,50 @@ def main() -> int:
     return 0
 
 
+def k1_batches(dev, host, recs, ident):
+    """K1's check batches at the deployed widths, as (label, records,
+    identity map): the two bench batches; "one", the first with every row's
+    addresses on pod 1 and its bytes times 4096, so that the pod's forward
+    bytes sum past 2^32 (and wrap); "clamped", the second with every third
+    row's destination a pod past P - 1, every other row dropped with a
+    reason up to 3 R, and every odd row a DNS request or reply with a qtype
+    up to 4 Q."""
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.models.identity import IdentityMap
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
+    from retina_tpu_torch.u32 import from_numpy
+
+    yield "bench 0", recs[0], ident
+    yield "bench 1", recs[1], ident
+    one = host[0].copy()
+    one[:, F.SRC_IP] = one[:, F.DST_IP] = pod_ip(1)
+    one[:, F.BYTES] *= 4096
+    check(int(one[one[:, F.VERDICT] == 1, F.BYTES].astype(np.uint64).sum()) > 1 << 33,
+          "K1: the one-pod batch's forward bytes stay under 2^32")
+    yield "one", from_numpy(one, dev), ident
+    del one
+    rng = np.random.default_rng(SEED + 1)
+    cl = host[1].copy()
+    n, P, R, Q = len(cl), CFG.n_pods, CFG.n_drop_reasons, CFG.n_dns_qtypes
+    far = {pod_ip(N_PODS_GEN + j): P - 1 + 977 * j for j in range(16)}
+    cl[::3, F.DST_IP] = pod_ip(N_PODS_GEN) + rng.integers(0, 16, len(cl[::3]))
+    cl[::2, F.VERDICT] = 2  # dropped
+    cl[:, F.DROP_REASON] = rng.integers(0, 3 * R, n)
+    cl[1::2, F.EVENT_TYPE] = rng.integers(2, 4, len(cl[1::2]))  # DNS request, reply
+    cl[:, F.DNS] = rng.integers(0, 4 * Q, n).astype(np.uint32) << np.uint32(16)
+    table = IdentityMap.build_host({pod_ip(i): i for i in range(1, N_PODS_GEN)} | far,
+                                   n_slots=1 << 16, device=dev)
+    yield "clamped", from_numpy(cl, dev), table
+
+
 def check_sketch_launches(launches: dict, label: str) -> None:
-    """A step (one K1 launch) makes one call of K2, three launches for its
-    three sketches, and one launch of K4."""
+    """A step makes one K1 launch, which also lists the latency probes, one
+    launch of the latency match's finish (K14), one call of K2 (three
+    launches for its three sketches) and one launch of K4."""
     steps = launches["step_rows"]
+    check(launches["latency_update"] == steps,
+          f"{label}: latency_update launched {launches['latency_update']} times in {steps} steps")
     check(launches["hh_update"] <= 3 * steps,
           f"{label}: hh_update launched {launches['hh_update']} times in {steps} steps")
     check(launches["entropy_update"] <= steps,
@@ -1151,19 +1194,25 @@ def latency_probes(batch, rng, prev):
     return rec, (tsv, t_send)
 
 
-def latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int) -> None:
-    """K14 against its plain version: LAT_BATCHES consecutive 2^21-row
-    batches of the bench traffic with probes (the mask lane K1 gives each,
-    one batch partial), then three batches of the in-repo captures through
-    ``TrafficGen(mode="pcap_replay")`` (every row in the mask: loopback TCP
-    carries TSval and TSecr, and each row is a send and a reply), the
-    latency state carried through all of them. The state must be equal
-    after every batch and the histogram count matches. Timed on the main
-    path's batch (no probe, the apiserver at 0) and on a probe batch."""
+def latency_phase(dev, host, recs, tel, k1, time_ms, report, equal_int) -> None:
+    """K14 through the fused path against the plain versions: K1 with the
+    apiserver lists the probes of its final mask, then the finish applies
+    them; the plain path is K1's plain version and ``latency_update_plain``
+    on its mask lane. Over LAT_BATCHES consecutive 2^21-row batches of the
+    bench traffic with probes (one batch partial), then three batches of the
+    in-repo captures through ``TrafficGen(mode="pcap_replay")`` (loopback
+    TCP: every row carries TSval and TSecr and is a send and a reply; the
+    apiserver's address is a pod of the identity map, so K1 keeps every
+    row), the latency state carried through all of them. The masks and the
+    state must be equal after every batch and the histogram count matches.
+    Timed on the main path's batch (no probe, the apiserver at 0) and on a
+    probe batch: the finish and K1 with and without the list by device
+    time, the plain version by CUDA events."""
     import torch
 
-    from retina_tpu_torch.events.synthetic import TrafficGen
+    from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
     from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.identity import IdentityMap
     from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG as CFG
     from retina_tpu_torch.models.pipeline import latency_update_plain
     from retina_tpu_torch.u32 import from_numpy
@@ -1173,12 +1222,24 @@ def latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int) -> None:
     states = [[torch.zeros(n, dtype=torch.int32, device=dev)
                for n in (n_slots, n_slots, n_buckets)] for _ in range(2)]
     names = ("lat_key", "lat_ts", "lat_hist")
+    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, N_PODS_GEN)} | {LAT_API: 1},
+                                   n_slots=1 << 16, device=dev)
+    kst = tel.init_state()
+    lane = kops.SCRATCH.index("mask")
 
-    def both(rec, mask, label):
+    def fused(rec, n_valid, api, lat):
+        mask = k1(kst, rec, n_valid, ident, api)[0][lane]
+        kops.latency_update(*lat, rec, mask, api)
+        return mask
+
+    def both(rec, n_valid, label):
         before = int(states[0][2].sum())
-        kops.latency_update(*states[0], rec, mask, LAT_API)
-        latency_update_plain(*states[1], rec, mask, LAT_API)
+        mask = fused(rec, n_valid, LAT_API, states[0])
+        with kops.plain_versions():
+            ref_mask = k1(kst, rec, n_valid, ident)[0][lane]
+        latency_update_plain(*states[1], rec, ref_mask, LAT_API)
         torch.cuda.synchronize()
+        equal_int(mask, ref_mask, f"K1's mask lane ({label})")
         for name, a, b in zip(names, *states):
             equal_int(a, b, f"K14 {name} after {label}")
         print(f"K14 {label}: {int(mask.sum())} rows in the mask, "
@@ -1188,33 +1249,37 @@ def latency_phase(dev, host, recs, k1_mask, time_ms, report, equal_int) -> None:
     for i in range(LAT_BATCHES):
         rows, prev = latency_probes(host[i % 2], rng, prev)
         rec = from_numpy(rows, dev)
-        mask = k1_mask(rec, BATCH - BATCH // 8 if i == 2 else BATCH)
-        both(rec, mask, f"probe batch {i}")
-        probe = (rec, mask)
+        both(rec, BATCH - BATCH // 8 if i == 2 else BATCH, f"probe batch {i}")
+        probe = rec
     check(int(states[0][2].sum()) > 0, "K14: no probe matched")
     cap = TrafficGen(mode="pcap_replay", seed=0)
     before = int(states[0][2].sum())
     for i in range(3):
-        rec = from_numpy(cap.batch(LAT_CAPTURE_ROWS), dev)
-        both(rec, torch.ones(LAT_CAPTURE_ROWS, dtype=torch.int32, device=dev),
+        both(from_numpy(cap.batch(LAT_CAPTURE_ROWS), dev), LAT_CAPTURE_ROWS,
              f"capture batch {i}")
     check(int(states[0][2].sum()) > before, "K14: no capture row matched")
     print(f"K14 histogram {states[0][2].tolist()}", flush=True)
 
-    main_mask = k1_mask(recs[0])
     st = [t.clone() for t in states[0]]
-    ms = time_ms(lambda: kops.latency_update(*st, recs[0], main_mask, 0))
+    main_mask = k1(kst, recs[0], BATCH, ident)[0][lane]
+    ms = device_ms(lambda: fused(recs[0], BATCH, 0, st), kernel="finish_kernel")
+    k1_list_ms = device_ms(lambda: fused(recs[0], BATCH, 0, st), kernel="step_rows_kernel")
+    k1_ms = device_ms(lambda: k1(kst, recs[0], BATCH, ident), kernel="step_rows_kernel")
     plain_ms = time_ms(lambda: latency_update_plain(*st, recs[0], main_mask, 0))
-    probe_ms = time_ms(lambda: kops.latency_update(*st, *probe, LAT_API))
-    probe_plain_ms = time_ms(lambda: latency_update_plain(*st, *probe, LAT_API))
-    print(f"K14 on a probe batch ({BATCH // LAT_EVERY} probes): kernel {probe_ms:.4f} ms, plain "
-          f"{probe_plain_ms:.4f} ms", flush=True)
-    # Each masked row's lanes 2, 3, 10 and 11 lie in both 32-byte sectors of
-    # its 64-byte record; every row's mask lane; the slots read and written.
-    n_masked = int((main_mask != 0).sum())
+    probe_ms = device_ms(lambda: fused(probe, BATCH, LAT_API, st), kernel="finish_kernel")
+    probe_k1_ms = device_ms(lambda: fused(probe, BATCH, LAT_API, st), kernel="step_rows_kernel")
+    probe_mask = k1(kst, probe, BATCH, ident)[0][lane]
+    probe_plain_ms = time_ms(lambda: latency_update_plain(*st, probe, probe_mask, LAT_API))
+    n_probes = BATCH // LAT_EVERY
+    print(f"K14 finish (device time): main batch {ms:.4f} ms, probe batch ({n_probes} probes) "
+          f"{probe_ms:.4f} ms; K1 listing the probes {k1_list_ms:.4f} ms (probe batch "
+          f"{probe_k1_ms:.4f}), without the list {k1_ms:.4f} ms; plain version {plain_ms:.4f} "
+          f"ms (probe batch {probe_plain_ms:.4f})", flush=True)
+    # The finish reads the list's count and entries (none on the main batch:
+    # no row is a probe) and reads and writes the slots and the histogram.
     report("latency_update", "retina_tpu_torch/kernels/csrc/latency.cu",
            "retina_tpu/models/pipeline.py:565", ms, plain_ms,
-           n_masked * 64 + BATCH * 4 + 2 * 4 * (2 * n_slots + n_buckets), BATCH * 8, None, 0.0)
+           4 + 2 * 4 * (2 * n_slots + n_buckets), n_buckets, None, 0.0)
 
 
 def inv_decode_phase(dev, state, time_ms, report, equal_int) -> None:

@@ -15,65 +15,31 @@
 // sends; every matching reply counts, and matched slots are zeroed only
 // after every reply has read them; the bucket is exact.
 //
-// Bound on the H100: bytes. Every masked row's lanes 2, 3, 10 and 11 sit
-// in both 32-byte sectors of its 64-byte record, so a batch costs ~64 B a
-// row plus its mask lane; the tables (2 x 4 KiB at L = 4096) are noise.
-// Almost no row is a probe.
+// Bound on the H100: bytes. The match needs every masked row's lanes 2, 3,
+// 10 and 11, in both 32-byte sectors of its 64-byte record, and the tables
+// (2 x 4 KiB at L = 4096); K1 reads those lanes for its own work, so what
+// is left to this launch is the list (16 bytes a probe; almost no row is
+// one) and the tables.
 //
-// Design: two launches. scan_kernel reads each row's mask, then its four
-// lanes, and appends every send or reply as one 16-byte entry (row and
-// flags, both hashes, the send time) to a list in device memory through
-// one atomic per warp. finish_kernel is a single block of 1024 threads
-// over that list, with __syncthreads between the phases the rules need:
-// the per-slot winner (an atomicMax of row + 1 in shared memory), the
-// winners' writes, the replies' match (histogram in shared memory, kill
-// flags in the reused winner array), the kills. At its end thread 0 clears
-// the list's count for the next step, so there is no memset and no read
-// back to the host; a row that is no probe costs its loads and nothing
-// else.
+// Design: the row scan is K1's (csrc/step_rows.cu): the step's per-event
+// kernel holds each row's lanes and final mask in registers already and
+// appends every send or reply as one 16-byte entry (row and flags, both
+// hashes, the send time) to a list in device memory through one atomic a
+// warp, so the batch is not read a second time. This file is the finish,
+// one launch a step: a single block of 1024 threads over that list, with
+// __syncthreads between the phases the rules need: the per-slot winner (an
+// atomicMax of row + 1 in shared memory), the winners' writes, the
+// replies' match (histogram in shared memory, kill flags in the reused
+// winner array), the kills. At its end thread 0 clears the list's count
+// for the next step, so there is no memset and no read back to the host.
 #include "hash.cuh"
 
 namespace {
 
-constexpr uint32_t kFull = 0xFFFFFFFFu;
-constexpr uint32_t kSeed = 0x1A7u;
 constexpr uint32_t kSend = 1u << 30;
 constexpr uint32_t kReply = 1u << 31;
 constexpr uint32_t kRowMask = kSend - 1u;
 constexpr int kFinishThreads = 1024;
-
-__global__ void scan_kernel(const uint32_t* __restrict__ rec, long long B,
-                            const uint32_t* __restrict__ mask, long long mask_stride,
-                            uint32_t api, uint32_t* __restrict__ count,
-                            uint4* __restrict__ entries) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long base = blockIdx.x * (long long)blockDim.x + (threadIdx.x - lane); base < B;
-       base += stride) {
-    const long long i = base + lane;
-    uint32_t flags = 0u;
-    uint2 ip = make_uint2(0u, 0u), ts = make_uint2(0u, 0u);
-    if (i < B && mask[i * mask_stride] != 0u) {
-      const uint32_t* row = rec + i * 16;
-      ip = *reinterpret_cast<const uint2*>(row + 2);   // src_ip, dst_ip
-      ts = *reinterpret_cast<const uint2*>(row + 10);  // TSval, TSecr
-      if (ip.y == api && ts.x > 0u) flags |= kSend;
-      if (ip.x == api && ts.y > 0u) flags |= kReply;
-    }
-    const uint32_t act = __ballot_sync(kFull, flags != 0u);
-    if (!act) continue;
-    const int leader = __ffs(act) - 1;
-    uint32_t pos = 0u;
-    if (lane == leader) pos = atomicAdd(count, (uint32_t)__popc(act));
-    pos = __shfl_sync(kFull, pos, leader) + __popc(act & ((1u << lane) - 1u));
-    if (flags) {
-      const uint2 t = *reinterpret_cast<const uint2*>(rec + i * 16);  // TS_LO, TS_HI
-      const uint32_t k_out = rt::hash_step(rt::hash_step(rt::hash_init(kSeed), ip.y), ts.x);
-      const uint32_t k_in = rt::hash_step(rt::hash_step(rt::hash_init(kSeed), ip.x), ts.y);
-      entries[pos] = make_uint4((uint32_t)i | flags, k_out, k_in, (t.y << 12) | (t.x >> 20));
-    }
-  }
-}
 
 __global__ void __launch_bounds__(kFinishThreads)
 finish_kernel(uint32_t* __restrict__ count, const uint4* __restrict__ entries,
@@ -124,22 +90,15 @@ finish_kernel(uint32_t* __restrict__ count, const uint4* __restrict__ entries,
 
 }  // namespace
 
-// count: one u32, 0 on entry and left 0; entries: at least B uint4.
-extern "C" int latency_update(const void* records, long long B, const void* mask,
-                              long long mask_stride, unsigned int api, void* count,
-                              void* entries, void* lat_key, void* lat_ts, int L, void* lat_hist,
-                              int H, void* stream) {
+// count: one u32, the length of the list K1 filled (left 0); entries: the
+// list (csrc/step_rows.cu).
+extern "C" int latency_update(void* count, const void* entries, void* lat_key, void* lat_ts, int L,
+                              void* lat_hist, int H, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  scan_kernel<<<rt::grid_for(B, threads), threads, 0, st>>>(
-      static_cast<const uint32_t*>(records), B, static_cast<const uint32_t*>(mask), mask_stride,
-      api, static_cast<uint32_t*>(count), static_cast<uint4*>(entries));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(uint32_t) * ((size_t)L + (size_t)H);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const cudaError_t err = cudaFuncSetAttribute(
+        finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   finish_kernel<<<1, kFinishThreads, smem, st>>>(

@@ -35,7 +35,7 @@ _COLS = [_VP, _LL] * 4 + [_INT]
 
 _ARGTYPES = {
     "step_rows": [_VP, _LL, _U32, _U32, _VP, _INT, _U32, _VP, _INT, _U32]
-    + [_VP] * 9 + [_INT] * 5 + [_U32] * 3 + [_VP],
+    + [_VP] * 9 + [_INT] * 5 + [_U32] * 4 + [_VP] * 3,
     "hh_update": [_VP, _INT, _LL, _VP],
     "cms_update": [_VP, _LL, _VP],
     "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
@@ -52,7 +52,7 @@ _ARGTYPES = {
     "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _VP],
     "dnstunnel_score": [_VP, _INT, _VP],
     "synflood_score": [_VP, _VP],
-    "latency_update": [_VP, _LL, _VP, _LL, _U32, _VP, _VP, _VP, _VP, _INT, _VP, _INT],
+    "latency_update": [_VP, _VP, _VP, _VP, _INT, _VP, _INT],
     "inv_decode": [_VP, _VP, _LL, _INT, _INT, _U32, _VP, _VP],
     "window_close": [_VP, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP],
     "entropy_bits": [_VP, _INT, _INT, _VP],
@@ -68,7 +68,7 @@ _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": 
 
 # Kernel launches per C function since the last reset (a call of
 # hh_update counts its three phases, for up to three sketches; one of
-# conntrack, ingest_new or latency_update its two).
+# conntrack or ingest_new its two).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -175,15 +175,22 @@ def _pow2(x: int, name: str) -> None:
 # K1
 
 
+STEP_CHUNK = 512  # rows a chunk of K1 (kChunk in csrc/step_rows.cu)
+STEP_SLOTS = 1024  # keys K1 sums a chunk's counts under in shared memory (kSlots there)
+
+
 def step_rows(records, n_valid, sample_k, ident_table, ident_seed,
               filt_table, filt_seed, pod_forward, pod_drop, pod_tcpflags,
-              pod_dns, pod_retrans, node_counters, totals, cfg):
+              pod_dns, pod_retrans, node_counters, totals, cfg, apiserver_ip=None):
     """Per-event body of the step (K1): updates the rectangles, node
     counters and totals[0:6] in place and returns (scratch (15, B) int32
     with the lanes of SCRATCH, sums (10,) int32 of this batch).
 
     ``cfg`` is a PipelineConfig; ``filt_table`` is None when no filter map
-    is consulted."""
+    is consulted. With ``apiserver_ip`` (the step's latency match is on),
+    the kernel also lists the batch's apiserver probes for the match, which
+    ``latency_update`` on the same records finishes; the plain version lists
+    nothing (``latency_update``'s plain version reads the records)."""
     dev = records.device
     if records.dim() != 2 or records.shape[1] != 16:
         raise ValueError(f"records must be (B, 16), got {tuple(records.shape)}")
@@ -212,10 +219,26 @@ def step_rows(records, n_valid, sample_k, ident_table, ident_seed,
             filt_seed, pod_forward, pod_drop, pod_tcpflags, pod_dns,
             pod_retrans, node_counters, totals, cfg,
         )
+    if min(P, R, Q) < 1 or P * (1 + R + Q) >= 0xFFFFFFFF:
+        raise ValueError(f"{P} pods, {R} drop reasons and {Q} DNS qtypes do not fit K1's "
+                         f"32-bit keys")
     if records.data_ptr() % 16:
         raise ValueError("records must be 16-byte aligned")
+    if ident_table.data_ptr() % 8 or (filt_table is not None and filt_table.data_ptr() % 8):
+        raise ValueError("identity and filter tables must be 8-byte aligned")
     scratch = torch.empty((len(SCRATCH), b), dtype=torch.int32, device=dev)
     sums = torch.zeros((N_SUMS,), dtype=torch.int32, device=dev)
+    if not b:
+        return scratch, sums
+    api, lst = 0, None
+    if apiserver_ip is not None:
+        if b >= 1 << 30:
+            raise ValueError("batch too large for the latency list's 30-bit row index")
+        api = int(apiserver_ip) & 0xFFFFFFFF
+        lst = _latency_list(dev, b)
+        if lst["pending"] is not None:  # filled and never finished: start it afresh
+            lst["count"].zero_()
+        lst["pending"] = (records.data_ptr(), b, api)
     _launch(
         "step_rows", dev, records.data_ptr(), b, n_valid, sample_k,
         ident_table.data_ptr(), ident_table.shape[0], int(ident_seed) & 0xFFFFFFFF,
@@ -227,7 +250,9 @@ def step_rows(records, n_valid, sample_k, ident_table, ident_seed,
         totals.data_ptr(), sums.data_ptr(), scratch.data_ptr(),
         P, R, Q, int(cfg.bypass_filter), int(cfg.identity_implies_interest),
         cfg.sample_exempt_packets & 0xFFFFFFFF,
-        cfg.priority_ip_mask & 0xFFFFFFFF, cfg.priority_ip_match & 0xFFFFFFFF,
+        cfg.priority_ip_mask & 0xFFFFFFFF, cfg.priority_ip_match & 0xFFFFFFFF, api,
+        None if lst is None else lst["count"].data_ptr(),
+        None if lst is None else lst["entries"].data_ptr(),
     )
     return scratch, sums
 
@@ -797,19 +822,26 @@ def synflood_score(lanes):
 
 LATENCY_MAX_SLOTS = 1 << 15  # the slots and the histogram live in shared memory
 LATENCY_MAX_BUCKETS = 64
-# Per (device, stream): K14's probe list and its count, which the kernel
-# leaves at 0. One stream orders its steps, so they can share them.
-_latency_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# Per (device, stream): K14's probe list, its count (which the finish leaves
+# at 0) and the (records, rows, apiserver) of the step_rows call that filled
+# it and was not finished yet. One stream orders its steps, so they can
+# share them.
+_latency_scratch: dict[tuple[int, int], dict] = {}
 
 
-def _latency_lists(dev: torch.device, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _stream_key(dev: torch.device) -> tuple[int, int]:
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (index, torch.cuda.current_stream(dev).cuda_stream)
+    return index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def _latency_list(dev: torch.device, b: int) -> dict:
+    key = _stream_key(dev)
     got = _latency_scratch.get(key)
-    if got is None or got[1].shape[0] < b:
-        count = got[0] if got is not None else torch.zeros(1, dtype=torch.int32, device=dev)
-        got = _latency_scratch[key] = (count, torch.empty((max(b, 1 << 16), 4),
-                                                          dtype=torch.int32, device=dev))
+    if got is None:
+        got = _latency_scratch[key] = {
+            "count": torch.zeros(1, dtype=torch.int32, device=dev), "pending": None}
+    if got.get("entries") is None or got["entries"].shape[0] < b:
+        got["entries"] = torch.empty((max(b, 1 << 16), 4), dtype=torch.int32, device=dev)
     return got
 
 
@@ -817,7 +849,11 @@ def latency_update(lat_key, lat_ts, lat_hist, records, mask, apiserver_ip):
     """The apiserver latency match (K14) in place: rows of ``records``
     (B, 16) whose ``mask`` lane (K1's) is set write their send fingerprints
     into ``lat_key``/``lat_ts`` (L,) and count matched replies' RTTs into
-    ``lat_hist`` (H,) (see models/pipeline.py latency_update_plain)."""
+    ``lat_hist`` (H,) (see models/pipeline.py latency_update_plain).
+
+    On the card the rows come from the probe list that ``step_rows`` with
+    the same ``apiserver_ip`` filled for these records (its mask lane is
+    ``mask``), and one launch finishes it; without such a call this raises."""
     dev = records.device
     if records.dim() != 2 or records.shape[1] != 16:
         raise ValueError(f"records must be (B, 16), got {tuple(records.shape)}")
@@ -837,16 +873,16 @@ def latency_update(lat_key, lat_ts, lat_hist, records, mask, apiserver_ip):
     if n_slots > LATENCY_MAX_SLOTS or not 1 <= n_buckets <= LATENCY_MAX_BUCKETS:
         raise ValueError(f"{n_slots} latency slots and {n_buckets} buckets do not fit the "
                          f"kernel (at most {LATENCY_MAX_SLOTS} and {LATENCY_MAX_BUCKETS})")
-    if b >= 1 << 30:
-        raise ValueError("batch too large for the 30-bit row index")
-    if records.data_ptr() % 16:
-        raise ValueError("records must be 16-byte aligned")
     if not b:
         return None
-    count, entries = _latency_lists(dev, b)
-    _launch("latency_update", dev, records.data_ptr(), b, mask.data_ptr(), mask.stride(0), api,
-            count.data_ptr(), entries.data_ptr(), lat_key.data_ptr(), lat_ts.data_ptr(),
-            n_slots, lat_hist.data_ptr(), n_buckets, n_launches=2)
+    lst = _latency_scratch.get(_stream_key(dev))
+    if lst is None or lst["pending"] != (records.data_ptr(), b, api):
+        raise ValueError("no probe list for these records: on the card step_rows(..., "
+                         "apiserver_ip=...) lists them, on the same stream, before "
+                         "latency_update")
+    _launch("latency_update", dev, lst["count"].data_ptr(), lst["entries"].data_ptr(),
+            lat_key.data_ptr(), lat_ts.data_ptr(), n_slots, lat_hist.data_ptr(), n_buckets)
+    lst["pending"] = None
     return None
 
 
@@ -989,8 +1025,7 @@ def ct_active(keys, vals, now_s):
         return active_connections_plain(keys, vals, now)
     if vals.data_ptr() % 16 or keys.data_ptr() % 8:
         raise ValueError("conntrack keys and vals must be 8- and 16-byte aligned")
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (index, torch.cuda.current_stream(dev).cuda_stream)
+    key = _stream_key(dev)
     scratch = _ct_scratch.get(key)
     if scratch is None:
         scratch = _ct_scratch[key] = (

@@ -5,7 +5,8 @@ One batch of (B, 16) event records updates every aggregator:
 - K1 (``kernels/csrc/step_rows.cu``, plain version ``step_rows_plain``)
   decodes the records, rescales sampled rows, joins IPs to pods, filters,
   adds into the dense counter rectangles, node counters and totals, and
-  writes per-event lanes (pods, weights, masks) for the sketches;
+  writes per-event lanes (pods, weights, masks) for the sketches; with
+  ``enable_latency`` it also lists the apiserver probes for K14;
 - K5 (``ConntrackTable.process_lanes``, with ``enable_conntrack``) decides
   the conntrack reports on K1's filtered mask and rescaled packets and
   bytes; at ``data_aggregation_level="low"`` the reports, and not the
@@ -19,8 +20,9 @@ One batch of (B, 16) event records updates every aggregator:
 - K3 (``HyperLogLog.update``) the three HLL banks;
 - K4 (``EntropyWindow.update``) the three entropy histograms;
 - K14 (``kernels/csrc/latency.cu``, plain version ``latency_update_plain``)
-  the apiserver latency match: sends write their fingerprints into the
-  latency slots, replies that match count their RTT bucket.
+  the apiserver latency match over K1's list: sends write their
+  fingerprints into the latency slots, replies that match count their RTT
+  bucket.
 
 State is updated in place.
 """
@@ -407,6 +409,7 @@ class TelemetryPipeline:
             None if filt is None else filt.table, 0 if filt is None else filt.seed,
             state.pod_forward, state.pod_drop, state.pod_tcpflags, state.pod_dns,
             state.pod_retrans, state.node_counters, state.totals, c,
+            apiserver_ip=apiserver_ip if c.enable_latency else None,
         )
         r = dict(zip(kops.SCRATCH, scratch))
         src, dst, ports = records[:, F.SRC_IP], records[:, F.DST_IP], records[:, F.PORTS]

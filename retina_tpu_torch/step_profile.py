@@ -4,6 +4,7 @@
     python3 -m retina_tpu_torch.step_profile --feed
     python3 -m retina_tpu_torch.step_profile --sketches
     python3 -m retina_tpu_torch.step_profile --conntrack
+    python3 -m retina_tpu_torch.step_profile --rows
     python3 -m retina_tpu_torch.step_profile --fold
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
@@ -18,8 +19,9 @@ reports, after a warm-up:
   from torch.profiler, with the device's busy and idle share of the
   wall time, and the launches a step (the kernels, copies and fills the
   profiler saw on the card, divided by the steps);
-- the time of the apiserver latency match alone, its kernel K14 and its
-  plain version (torch ops), from CUDA events.
+- the device time of the step's K1 and K14 calls (captured at the
+  wrappers and replayed, by kernel, from torch.profiler) and of the
+  latency match's plain version (torch ops), from CUDA events.
 
 With ``--feed`` it profiles the feed path instead: ``SketchEngine.flush``
 at ``Config()`` (the deployed agent) over quanta of 256 blocks of 2^13
@@ -52,6 +54,18 @@ its own: every masked row a connection of its own ("distinct"), pairs of
 rows a connection ("pairs": a repeated key in every warp, no hot one), and
 every masked row one connection ("one": the hottest key there can be).
 Like ``--sketches``, it runs unchanged in a copy of an older tree.
+
+With ``--rows`` it times the step's per-event body (K1) as the deployed step
+calls it: the K1 call of DEPLOYED_CONFIG's 8th step, captured at the wrapper
+and replayed 10 times after 2 warm-ups, by device time in torch.profiler
+(by kernel) and by CUDA events, and the same call with the step's latency
+match (K14) after it. Then the K1 call on batches that pull its costs
+apart, each on rectangles of their own: the step's batch ("zipf"); the same
+rows with the pods of row i spread evenly over all P pods ("spread": no hot
+pod); every masked row on one local pod ("one": the hottest address there
+can be); every proto set to UDP ("udp": no TCP-flag counts); and no valid
+row ("masked": the record reads and the scratch writes alone). It too runs
+unchanged in a copy of an older tree.
 
 With ``--fold`` it times the N-way fold (K8) of a range query and a fleet
 epoch: the arrays ``fold_stacked`` sums or maxes (the fleet catalog of
@@ -219,22 +233,33 @@ def sketches(dev, recs, ident) -> dict:
     return result
 
 
-def capture_conntrack_calls(step) -> list:
-    """Run ``step()`` and return its K5 wrapper calls as (wrapper, args)."""
+def capture_calls(step, names: tuple[str, ...]) -> list:
+    """Run ``step()`` and return its calls of the kernel wrappers ``names``,
+    in order, as (name, wrapper, args, kwargs): replaying them repeats the
+    step's calls on the same tensors."""
     from retina_tpu_torch.kernels import ops as kops
 
-    calls, fn = [], kops.conntrack_process
+    calls, saved = [], {n: getattr(kops, n) for n in names}
 
-    def call(*args):
-        calls.append((fn, args))
-        return fn(*args)
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            calls.append((name, fn, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
 
-    kops.conntrack_process = call
+    for name, fn in saved.items():
+        setattr(kops, name, recording(name, fn))
     try:
         step()
     finally:
-        kops.conntrack_process = fn
+        for name, fn in saved.items():
+            setattr(kops, name, fn)
     return calls
+
+
+def replay_calls(calls: list) -> None:
+    for _, fn, args, kwargs in calls:
+        fn(*args, **kwargs)
 
 
 def conntrack_variants(args: tuple) -> dict[str, tuple]:
@@ -294,10 +319,10 @@ def conntrack(dev, recs, ident) -> dict:
     state = tel.init_state()
     for s in range(STEPS - 1):
         state, _ = tel.step(state, recs[s % 2], BATCH, 2, ident)
-    calls = capture_conntrack_calls(
-        lambda: tel.step(state, recs[(STEPS - 1) % 2], BATCH, 2, ident))
+    calls = capture_calls(lambda: tel.step(state, recs[(STEPS - 1) % 2], BATCH, 2, ident),
+                          ("conntrack_process",))
     result: dict = {}
-    for fn, args in calls:
+    for _, fn, args, _ in calls:
         for name, vargs in conntrack_variants(args).items():
             def once(fn=fn, vargs=vargs):
                 return fn(*vargs)
@@ -318,6 +343,100 @@ def conntrack(dev, recs, ident) -> dict:
                   f"{dev_ms:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); "
                   f"{int(mask.sum())} masked rows, {n_conn} connections, "
                   f"{per_chunk:.1f} a 2048-row chunk, {int(out[0].sum())} reports", flush=True)
+    return result
+
+
+def rows_variants(args: tuple, kwargs: dict, spread_ident) -> dict[str, tuple]:
+    """K1's (args, kwargs) on batches that separate its costs: the step's
+    own rows ("zipf"); the pods of row i spread evenly over all P pods
+    ("spread": source and destination pod_ip(1 + i mod (P - 1)), looked up
+    in ``spread_ident``, which maps them); every row on pod 1 ("one");
+    every proto UDP ("udp"); and n_valid 0 ("masked"). Each has zeroed
+    rectangles, node counters and totals of its own."""
+    import torch
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.events.synthetic import pod_ip
+
+    rec, cfg = args[0], args[14]
+    idx = torch.arange(rec.shape[0], device=rec.device)
+
+    def with_lanes(**lanes):
+        r = rec.clone()
+        for lane, v in lanes.items():
+            r[:, getattr(F, lane)] = v
+        return r
+
+    spread = (pod_ip(1) + idx % (cfg.n_pods - 1)).to(torch.int32)
+    udp = (rec[:, F.META] & 0x00FFFFFF) | (17 << 24)
+    out = {}
+    for name, r, n_valid, ident in (
+        ("zipf", rec, args[1], None),
+        ("spread", with_lanes(SRC_IP=spread, DST_IP=spread), args[1], spread_ident),
+        ("one", with_lanes(SRC_IP=pod_ip(1), DST_IP=pod_ip(1)), args[1], None),
+        ("udp", with_lanes(META=udp), args[1], None),
+        ("masked", rec, 0, None),
+    ):
+        a = list(args)
+        a[0], a[1] = r, n_valid
+        if ident is not None:
+            a[3], a[4] = ident.table, ident.seed
+        a[7:14] = [torch.zeros_like(t) for t in args[7:14]]
+        out[name] = (tuple(a), kwargs)
+    return out
+
+
+def rows_profile(dev, recs, ident) -> dict:
+    """K1 at the deployed step's call, with K14 after it, and at the
+    variants."""
+    import torch
+
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.identity import IdentityMap
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    P = DEPLOYED_CONFIG.n_pods
+    tel = Telemetry(DEPLOYED_CONFIG, device=dev)
+    state = tel.init_state()
+    for s in range(STEPS - 1):
+        state, _ = tel.step(state, recs[s % 2], BATCH, 2, ident)
+    calls = capture_calls(lambda: tel.step(state, recs[(STEPS - 1) % 2], BATCH, 2, ident),
+                          ("step_rows", "latency_update"))
+    result: dict = {}
+    by_kernel = kernel_ms(lambda: replay_calls(calls))
+    k14 = sum(v for k, v in by_kernel.items() if "step_rows" not in k)
+    result["k1_k14_device_ms"] = sum(by_kernel.values())
+    result["k14_device_ms"] = k14
+    print(f"K1 + K14 as the step calls them: device time {sum(by_kernel.values()):.4f} ms "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); K14's part {k14:.4f} "
+          f"ms; {len(calls)} wrapper calls", flush=True)
+    spread_ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, P)}, n_slots=1 << 16,
+                                          device=dev)
+    _, fn, args, kwargs = calls[0]
+    lane = {n: i for i, n in enumerate(kops.SCRATCH)}
+    for name, (a, kw) in rows_variants(args, kwargs, spread_ident).items():
+        def once(a=a, kw=kw):
+            return fn(*a, **kw)
+        scratch, _ = once()
+        m = scratch[lane["mask"]] != 0
+        ing = scratch[lane["pod_mask"]] != 0
+        lc = torch.where(ing, scratch[lane["dst_pod"]], scratch[lane["src_pod"]]).clamp(max=P - 1)
+        addr = (lc.long() * 2 + (~ing).long())[m]
+        hot = int(torch.bincount(addr).max()) if addr.numel() else 0
+        chunk_pod = (torch.arange(BATCH, device=dev) // 1024 * P + lc)[m]
+        per_chunk = torch.unique(chunk_pod).numel() / (BATCH // 1024)
+        ms = cuda_ms(once)
+        by_kernel = kernel_ms(once)
+        k1 = sum(v for k, v in by_kernel.items() if "step_rows" in k)
+        result[f"k1_{name}_ms"] = ms
+        result[f"k1_{name}_device_ms"] = k1
+        print(f"K1 on the {name} batch: {ms:.4f} ms (CUDA events), device time {k1:.4f} ms "
+              f"({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); "
+              f"{int(m.sum())} masked rows, {hot} on the hottest (pod, direction), "
+              f"{per_chunk:.1f} local pods a 1024-row chunk", flush=True)
+        del scratch
     return result
 
 
@@ -451,6 +570,9 @@ def main() -> int:
     ap.add_argument("--conntrack", action="store_true",
                     help="time K5 at the deployed step's calls and at batches that separate "
                     "its costs")
+    ap.add_argument("--rows", action="store_true",
+                    help="time K1 at the deployed step's call and at batches that separate "
+                    "its costs")
     args = ap.parse_args()
 
     import torch
@@ -492,6 +614,9 @@ def main() -> int:
     if args.conntrack:
         print(json.dumps(conntrack(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
         return 0
+    if args.rows:
+        print(json.dumps(rows_profile(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
     cfg = {"deployed": DEPLOYED_CONFIG, "no-conntrack": NO_CONNTRACK_CONFIG,
            "production": PipelineConfig()}[args.config]
     print(f"config: {args.config}")
@@ -529,25 +654,18 @@ def main() -> int:
         for dev_us, count, key in rows[:24]:
             print(f"  {dev_us / 1e3 / args.steps:9.4f}  {count / args.steps:6.1f}  {key[:90]}")
 
-    lat = [state.lat_key, state.lat_ts, state.lat_hist]
-    mask = torch.ones(BATCH, dtype=torch.int32, device=dev)
-
-    def latency_ms() -> float:
-        for _ in range(2):
-            kops.latency_update(*lat, recs[0], mask, 0)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(10):
-            kops.latency_update(*lat, recs[0], mask, 0)
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / 10
-
-    k14_ms = latency_ms()
+    # The step's K1 and K14 calls, replayed: K14's kernels by device time,
+    # its plain version by CUDA events.
+    calls = capture_calls(lambda: tel.step(state, recs[0], BATCH, 2, ident),
+                          ("step_rows", "latency_update"))
+    by_kernel = kernel_ms(lambda: replay_calls(calls))
+    k14_ms = sum(v for k, v in by_kernel.items() if "step_rows" not in k)
+    lat_calls = [c for c in calls if c[0] == "latency_update"]
     with kops.plain_versions():
-        plain_ms = latency_ms()
-    print(f"latency match alone: K14 {k14_ms:.4f} ms, plain version (torch ops) "
-          f"{plain_ms:.4f} ms")
+        plain_ms = cuda_ms(lambda: replay_calls(lat_calls))
+    print(f"K1 + K14 replayed: {', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())} ms "
+          f"(device time); the latency match's kernels {k14_ms:.4f} ms, its plain version "
+          f"(torch ops) {plain_ms:.4f} ms")
 
     print(json.dumps({
         "ms_per_step": wall / args.steps * 1e3,

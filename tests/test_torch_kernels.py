@@ -13,6 +13,7 @@ one the ``gpu`` tests skip with a reason.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -311,6 +312,62 @@ def test_conntrack_wrapper_keeps_its_batch_scratch(monkeypatch):
     assert small.scratch["key_slots"] == 4096 and small.scratch["count"].shape == (1,)
 
 
+def test_step_rows_lists_the_probes_that_latency_update_finishes(monkeypatch):
+    """K1's probe list for K14 without a card: the launches are caught where
+    they would enter C. step_rows with an apiserver passes it and the list's
+    count and entries and marks the list filled for its records;
+    latency_update on those records and that apiserver finishes it in one
+    launch; with no list filled for its records it raises; a list filled
+    and never finished is cleared by the next step_rows; an empty batch
+    launches nothing."""
+    seen = []
+
+    def launch(name, dev, *args, n_launches=1):
+        seen.append((name, args, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    monkeypatch.setattr(kops, "_stream_key", lambda dev: (0, 0))
+    monkeypatch.setattr(kops, "_latency_scratch", {})
+    st = TelemetryPipeline(CFG, device="cpu").init_state()
+    ident = IdentityMap.build_host({pod_ip(1): 1}, n_slots=1 << 4, device="cpu")
+    rec = torch.zeros((3000, 16), dtype=torch.int32)
+    mask = torch.ones(3000, dtype=torch.int32)
+    lat = [st.lat_key, st.lat_ts, st.lat_hist]
+
+    def k1(r, api):
+        return kops.step_rows(r, r.shape[0], 1, ident.table, ident.seed, None, 0,
+                              st.pod_forward, st.pod_drop, st.pod_tcpflags, st.pod_dns,
+                              st.pod_retrans, st.node_counters, st.totals, CFG,
+                              apiserver_ip=api)
+
+    k1(rec, None)
+    assert seen[-1][0] == "step_rows" and seen[-1][1][-3:] == (0, None, None)
+    with pytest.raises(ValueError, match="no probe list"):
+        kops.latency_update(*lat, rec, mask, API)
+    k1(rec, API)
+    lst = kops._latency_scratch[(0, 0)]
+    assert seen[-1][1][-3:] == (API, lst["count"].data_ptr(), lst["entries"].data_ptr())
+    assert lst["entries"].shape == (1 << 16, 4)
+    for other in ((rec, 0), (rec.clone(), API)):  # another apiserver, other records
+        with pytest.raises(ValueError, match="no probe list"):
+            kops.latency_update(*lat, other[0], mask, other[1])
+    kops.latency_update(*lat, rec, mask, API)
+    assert seen[-1] == ("latency_update", (
+        lst["count"].data_ptr(), lst["entries"].data_ptr(), st.lat_key.data_ptr(),
+        st.lat_ts.data_ptr(), CFG.latency_slots, st.lat_hist.data_ptr(), CFG.latency_buckets),
+        1)
+    with pytest.raises(ValueError, match="no probe list"):  # finished
+        kops.latency_update(*lat, rec, mask, API)
+    k1(rec, API)
+    lst["count"].fill_(7)  # what the kernel listed; no latency_update follows
+    k1(rec, API)
+    assert int(lst["count"]) == 0 and lst["pending"] == (rec.data_ptr(), 3000, API)
+    n = len(seen)
+    scratch, sums = k1(rec[:0], API)
+    assert len(seen) == n and scratch.shape == (len(kops.SCRATCH), 0) and not sums.any()
+
+
 def test_ingest_wrappers_reject_what_the_kernels_do_not_take():
     wire = torch.zeros((64, 12), dtype=torch.int32)
     table = torch.zeros((16, 12), dtype=torch.int32)
@@ -419,25 +476,84 @@ def _pair(fn, *tensors):
     return a, b, out_a, out_b
 
 
-@pytest.mark.gpu
-def test_step_rows_kernel_matches_plain(card):
-    gen = TrafficGen(n_flows=5000, n_pods=200, seed=4)
-    rec = from_numpy(gen.batch(1 << 16), card)
+def _step_rows_batch(card, case: str, n: int = 1 << 16):
+    """(records, identity map) of a K1 batch at CFG's widths: "zipf" the
+    bench's skewed stream; "one" every row on pod 1, its forward bytes
+    summing past 2^32; "spread" row i on pod 1 + i mod (P - 1), so no pod
+    is hot; "clamped" pods, drop reasons and DNS qtypes past P - 1, R - 1
+    and Q - 1. Every seventh row is exempt from sampling, every fifth a
+    probe-like TSval."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    host = TrafficGen(n_flows=5000, n_pods=200, seed=4).batch(n)
+    pods = {pod_ip(i): i for i in range(1, 150)}
+    if case == "one":
+        host[:, F.SRC_IP] = host[:, F.DST_IP] = pod_ip(1)
+        host[:, F.BYTES] = rng.integers(1 << 20, 1 << 24, n)
+    elif case == "spread":
+        host[:, F.SRC_IP] = host[:, F.DST_IP] = pod_ip(1) + np.arange(n) % (CFG.n_pods - 1)
+        pods = {pod_ip(i): i for i in range(1, CFG.n_pods)}
+    elif case == "clamped":
+        pods |= {pod_ip(150 + i): CFG.n_pods - 2 + i * 37 for i in range(40)}
+        host[::3, F.DST_IP] = pod_ip(150) + rng.integers(0, 40, len(host[::3]))
+        host[::2, F.VERDICT] = 2  # dropped
+        host[:, F.DROP_REASON] = rng.integers(0, 3 * CFG.n_drop_reasons, n)
+        host[1::2, F.EVENT_TYPE] = rng.integers(2, 4, len(host[1::2]))  # DNS requests, replies
+        host[:, F.DNS] = rng.integers(0, 4 * CFG.n_dns_qtypes, n).astype(np.uint32) << 16
+    rec = from_numpy(host, card)
     rec[::7, F.PACKETS] = 100  # exempt rows
     rec[::5, F.TSVAL] = 3
-    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 150)}, n_slots=1 << 9,
-                                   device=card)
-    filt = IdentityMap.build_host({pod_ip(170): 1}, n_slots=1 << 4, device=card)
-    state = TelemetryPipeline(CFG, device=card).init_state()
+    ident = IdentityMap.build_host(pods, n_slots=1 << 10, device=card)
+    return rec, ident
+
+
+def _k1_pair(card, cfg, rec, ident, filt, cases, api=None):
+    """K1 on its kernel and on its plain version, from zeroed state, for
+    each (sample_k, n_valid): the rectangles, node counters, totals,
+    scratch and sums must be bit-equal. Returns the last (kernel, plain)
+    scratch."""
+    state = TelemetryPipeline(cfg, device=card).init_state()
     rects = [state.pod_forward, state.pod_drop, state.pod_tcpflags, state.pod_dns,
              state.pod_retrans, state.node_counters, state.totals]
-    for sample_k, n_valid in ((1, 1 << 16), (4, 40000)):
+    for sample_k, n_valid in cases:
         a, b, out_a, out_b = _pair(
             lambda *r: kops.step_rows(rec, n_valid, sample_k, ident.table, ident.seed,
-                                      filt.table, filt.seed, *r, CFG), *rects)
+                                      None if filt is None else filt.table,
+                                      0 if filt is None else filt.seed, *r, cfg,
+                                      apiserver_ip=api), *rects)
         for x, y in zip(a, b):
             assert torch.equal(x, y)
         assert torch.equal(out_a[0], out_b[0]) and torch.equal(out_a[1], out_b[1])
+        rects = a
+    return out_a[0], out_b[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zipf", "one", "spread", "clamped"])
+def test_step_rows_kernel_matches_plain(card, case):
+    rec, ident = _step_rows_batch(card, case)
+    filt = IdentityMap.build_host({pod_ip(170): 1}, n_slots=1 << 4, device=card)
+    _k1_pair(card, CFG, rec, ident, filt, ((1, 1 << 16), (4, 40000)))
+    if case == "one":  # a pod's forward bytes wrapped past 2^32
+        assert int(rec[:, F.BYTES].double().sum()) > 1 << 32
+
+
+@pytest.mark.gpu
+def test_step_rows_kernel_overflows_its_shared_table(card):
+    """Every row on a pod of its own, dropped and a DNS request: three keys
+    a row, more than STEP_SLOTS in a STEP_CHUNK-row chunk, so rows whose key
+    finds no free slot add to the rectangles directly; bit-equal all the
+    same."""
+    cfg = dataclasses.replace(CFG, n_pods=4096)
+    n = 1 << 16
+    host = TrafficGen(n_flows=5000, n_pods=200, seed=8).batch(n)
+    host[:, F.SRC_IP] = host[:, F.DST_IP] = pod_ip(1) + np.arange(n) % (cfg.n_pods - 1)
+    host[:, F.META] = (6 << 24) | (0x12 << 16) | (host[:, F.META] & 0xFFFF)  # TCP, SYN | ACK
+    host[:, F.VERDICT] = 2
+    host[:, F.EVENT_TYPE] = 2
+    assert 3 * kops.STEP_CHUNK > kops.STEP_SLOTS
+    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, cfg.n_pods)},
+                                   n_slots=1 << 13, device=card)
+    _k1_pair(card, cfg, from_numpy(host, card), ident, None, ((1, n), (1, n - 999)))
 
 
 @pytest.mark.gpu
@@ -698,7 +814,7 @@ def test_pipeline_on_card_matches_cpu(card):
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
                       "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0,
-                      "latency_update": 4, "inv_decode": 0, "window_close": 0,
+                      "latency_update": 2, "inv_decode": 0, "window_close": 0,
                       "entropy_bits": 0, "hll_estimate": 0, "ct_active": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
@@ -1048,43 +1164,72 @@ def _latency_records(rng, n, api, prev=None, every=8):
 @pytest.mark.parametrize("n_slots", [1 << 6, 1 << 12])
 @pytest.mark.parametrize("api", [API, 0])
 def test_latency_kernel_matches_plain(card, n_slots, api):
-    """K14 over three consecutive batches (the table carries over), with a
-    mask that drops rows and a partial batch, at a heavily colliding and at
-    the deployed slot count."""
+    """K14 through the fused path (K1 lists the probes, the finish applies
+    them) over three consecutive batches (the table carries over), with
+    rows the filter drops and a partial batch, at a heavily colliding and
+    at the deployed slot count; the plain path is K1's and K14's plain
+    versions on K1's mask lane."""
     rng = np.random.default_rng(90 + n_slots.bit_length() + api % 7)
     n = 1 << 16
-    state = [torch.zeros(k, dtype=torch.int32, device=card) for k in (n_slots, n_slots, 16)]
+    cfg = dataclasses.replace(CFG, latency_slots=n_slots)
+    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 150)} | {API: 3},
+                                   n_slots=1 << 10, device=card)
+    pipe = TelemetryPipeline(cfg, device=card)
+    states = [pipe.init_state(), pipe.init_state()]
     prev = None
     for t in range(3):
         rows, prev = _latency_records(rng, n, api, prev)
+        rows[5::13, F.SRC_IP] = rows[5::13, F.DST_IP] = 0xC0000001  # no pod: filtered
         rec = from_numpy(rows, card)
-        mask = (torch.arange(n, device=card) < n - 3000 * t).to(torch.int32)
-        mask[5::13] = 0
-        a, b, _, _ = _pair(lambda *s: kops.latency_update(*s, rec, mask, api), *state)
-        for x, y in zip(a, b):
-            assert torch.equal(x, y)
-        state = a
-    assert int(state[2].sum()) > 0 and int(state[2][15]) > 0
+        for plain, st in ((False, states[0]), (True, states[1])):
+            with kops.plain_versions() if plain else contextlib.nullcontext():
+                before = kops.launch_counts()
+                scratch, _ = kops.step_rows(
+                    rec, n - 3000 * t, 1, ident.table, ident.seed, None, 0, st.pod_forward,
+                    st.pod_drop, st.pod_tcpflags, st.pod_dns, st.pod_retrans,
+                    st.node_counters, st.totals, cfg, apiserver_ip=api)
+                kops.latency_update(st.lat_key, st.lat_ts, st.lat_hist, rec,
+                                    scratch[kops.SCRATCH.index("mask")], api)
+                launched = {k: v - before[k] for k, v in kops.launch_counts().items() if v != before[k]}
+                assert launched == ({} if plain else {"step_rows": 1, "latency_update": 1})
+        torch.cuda.synchronize()
+        for name in ("lat_key", "lat_ts", "lat_hist"):
+            assert torch.equal(getattr(states[0], name), getattr(states[1], name)), name
+    hist = states[0].lat_hist
+    assert int(hist.sum()) > 0 and int(hist[15]) > 0
 
 
 @pytest.mark.gpu
-def test_latency_kernel_at_the_step_launches_twice_and_no_plain_op(card):
+def test_latency_kernel_at_the_step_launches_once_and_no_plain_op(card):
+    """Through the fused path a step's latency match is one launch of the
+    finish after K1's; with no K1 list for the records the wrapper raises."""
     from retina_tpu_torch.models import pipeline as tpipeline
 
     rng = np.random.default_rng(95)
     rec = from_numpy(_latency_records(rng, 1 << 12, API)[0], card)
-    mask = torch.ones(1 << 12, dtype=torch.int32, device=card)
-    state = [torch.zeros(k, dtype=torch.int32, device=card) for k in (1 << 8, 1 << 8, 16)]
+    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 200)}, n_slots=1 << 9,
+                                   device=card)
+    st = TelemetryPipeline(CFG, device=card).init_state()
+    lat = [st.lat_key, st.lat_ts, st.lat_hist]
     plain, called = tpipeline.latency_update_plain, []
     tpipeline.latency_update_plain = lambda *a: called.append(a)
     try:
-        before = kops.launch_counts()["latency_update"]
-        kops.latency_update(*state, rec, mask, API)
-        assert kops.launch_counts()["latency_update"] == before + 2 and not called
+        before = kops.launch_counts()
+        scratch, _ = kops.step_rows(rec, 1 << 12, 1, ident.table, ident.seed, None, 0,
+                                    st.pod_forward, st.pod_drop, st.pod_tcpflags, st.pod_dns,
+                                    st.pod_retrans, st.node_counters, st.totals, CFG,
+                                    apiserver_ip=API)
+        mask = scratch[kops.SCRATCH.index("mask")]
+        kops.latency_update(*lat, rec, mask, API)
+        after = kops.launch_counts()
+        assert after["latency_update"] == before["latency_update"] + 1 and not called
+        assert after["step_rows"] == before["step_rows"] + 1
+        with pytest.raises(ValueError, match="no probe list"):
+            kops.latency_update(*lat, rec, mask, API)
     finally:
         tpipeline.latency_update_plain = plain
     torch.cuda.synchronize()
-    assert int(state[2].sum()) > 0
+    assert int(st.lat_hist.sum()) > 0
 
 
 def _decode_inputs(rng, n_cols, width, heavy_weight):

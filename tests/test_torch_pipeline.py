@@ -344,6 +344,31 @@ def test_deployed_cut_with_real_capture_and_latency():
              apiserver_ip=API, windows=2, now=clock)
 
 
+@pytest.mark.parametrize("cut", ["slice", "deployed"])
+def test_skewed_batch_with_flags_and_probes(cut):
+    """The pattern the card's K1 sums in shared memory: one hot pod pair
+    takes ~80% of the other rows, with random TCP flags, its drops and DNS rows;
+    apiserver probes and replies sit among them. Rectangles, totals and the
+    latency state equal the reference's as integers."""
+    rng = np.random.default_rng(25)
+    batches = traffic(25, 2)
+    for rec in batches:
+        hot = rng.random(B) < 0.8
+        rec[hot, F.SRC_IP], rec[hot, F.DST_IP] = 0x0A000003, 0x0A000004
+        flags = rng.integers(0, 256, B).astype(np.uint32)
+        rec[:, F.META] = (rec[:, F.META] & np.uint32(0xFF00FFFF)) | (flags << np.uint32(16))
+        rec[hot & (rng.random(B) < 0.9), F.META] &= np.uint32(0x00FFFFFF)
+        rec[hot & (rng.random(B) < 0.9), F.META] |= np.uint32(6 << 24)  # mostly TCP
+        probes = latency_batch(rng)  # sends, then their replies
+        rec[0::6] = probes[:171]
+        rec[3::6] = probes[B // 2:B // 2 + 171]
+    js, ts = run_case(SMALL if cut == "slice" else SMALL_CUTS["deployed"], batches,
+                      apiserver_ip=API, check_latency=True, now=clock)
+    fwd = to_numpy(ts.pod_forward)
+    assert fwd[3:5, :, 0].sum() > 0.45 * 2 * B and to_numpy(ts.pod_tcpflags)[3:5].all()
+    assert int(to_numpy(ts.lat_hist).sum()) > 0
+
+
 def test_state_leaves_line_up_with_reference():
     jp = JPipeline(JConfig(**SMALL))
     tp = TelemetryPipeline(PipelineConfig(**SMALL), device="cpu")
