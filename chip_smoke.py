@@ -27,6 +27,15 @@ batch with one key in every row (see ``sketch_phase``). Every path's
 launch counts must show at most three launches of K2 and one of K4 a step,
 and one of K14's finish a launch of K1.
 
+K3 (the HLL registers: one launch for a step's three banks) is held bit for
+bit against three plain updates at the per-row masks and at the main path's
+report masks, whose pod bank the kernel ANDs with the reports (see
+``hll_phase``); K6 (the invertible sketch: one call, two launches, for a
+step's inv_flow and inv_hi) against its plain version, planes, weights and
+decodes, with a priority class that feeds inv_hi, at the report and the
+per-row weights (see ``inv_phase``). Every path's launch counts must show at
+most one launch of K3 and two of K6 a step.
+
 K5 (conntrack) is held against its plain version through a now_s sequence
 that reaches every branch of the decision, on three batch sequences: the
 bench stream with partial, garbage and reply rows; a hot connection on
@@ -258,10 +267,8 @@ def main() -> int:
         PipelineConfig,
     )
     from retina_tpu_torch.ops.conntrack import ConntrackTable
-    from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
-    from retina_tpu_torch.ops.invertible import InvertibleSketch, bits, indices
     from retina_tpu_torch.parallel.telemetry import Telemetry, topk_from_snapshot
-    from retina_tpu_torch.u32 import from_numpy, narrow, to_numpy, widen
+    from retina_tpu_torch.u32 import from_numpy, to_numpy, widen
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -383,56 +390,6 @@ def main() -> int:
     src, dst = recs[0][:, F.SRC_IP], recs[0][:, F.DST_IP]
     five = [src, dst, recs[0][:, F.PORTS], scratch["proto"]]
 
-    # -- K3: the three HLL banks -----------------------------------------
-    banks = [
-        ("hll_flows", five, None, scratch["mask"]),
-        ("hll_src_per_reason", [src], scratch["reason"], scratch["is_drop"]),
-        ("hll_src_per_pod", [src], scratch["pod_grp"], scratch["pod_mask"]),
-    ]
-    pair = [tel.init_state(), tel.init_state()]
-    for i, st in enumerate(pair):
-        for name, cols, grp, msk in banks:
-            if i == 0:
-                getattr(st, name).update(cols, grp, msk)
-            else:
-                with kops.plain_versions():
-                    getattr(st, name).update(cols, grp, msk)
-    for name, _, _, _ in banks:
-        equal_int(getattr(pair[0], name).registers, getattr(pair[1], name).registers,
-                  f"K3 {name}")
-    st = tel.init_state()
-
-    def k3_all():
-        for name, cols, grp, msk in banks:
-            getattr(st, name).update(cols, grp, msk)
-
-    ms = time_ms(k3_all)
-    with kops.plain_versions():
-        plain_ms = time_ms(k3_all)
-    # Library yardstick: one scatter_reduce_(amax) over the three banks laid
-    # end to end, with the indices and ranks precomputed (no hashing).
-    flat, vals, off, nbytes, ops = [], [], 0, 0, 0
-    for name, cols, grp, msk in banks:
-        hll = getattr(st, name)
-        g, m = hll.registers.shape
-        p = m.bit_length() - 1
-        h = hash_cols(cols, 0xC0FFEE + hll.seed)
-        rest = h >> p
-        rho = (32 - p) - (torch.frexp(rest.double()).exponent.long() - 1)
-        gi = widen(grp) if grp is not None else 0
-        on = msk != 0
-        flat.append(torch.where(on, off + gi * m + reduce_range(h, m), off))
-        vals.append(torch.where(on, rho, 0).int())
-        off += g * m
-        nbytes += BATCH * (4 * len(cols) + (8 if grp is not None else 4)) + 2 * 4 * g * m
-        ops += int(on.sum()) * (len(cols) * HASH_OPS + 10)
-    flat_i, vals_i = torch.cat(flat), torch.cat(vals)
-    regs = torch.zeros(off, dtype=torch.int32, device=dev)
-    lib_ms = time_ms(lambda: regs.scatter_reduce_(0, flat_i, vals_i, "amax"))
-    del flat, vals, flat_i, vals_i, regs
-    report("hll_update", "retina_tpu_torch/kernels/csrc/hll_update.cu",
-           "retina_tpu/ops/hyperloglog.py:72", ms, plain_ms, nbytes, ops, lib_ms, 0.0)
-
     # -- K5: conntrack at 2^21 rows and 2^18 slots ------------------------
     rng = np.random.default_rng(SEED)
     partial = recs[1].clone()
@@ -488,7 +445,7 @@ def main() -> int:
         return (int(torch.unique(key).numel()),
                 torch.unique(torch.stack([chunk, key]), dim=1).shape[1] / (BATCH // 2048))
 
-    rep_low = None
+    rep_low = rep_mask = None
     for seq, calls in sequences.items():
         tables = [ConntrackTable.zeros(CFG.conntrack_slots, seed=8, device=dev) for _ in range(2)]
         n_conn, per_chunk = ct_stats(*calls[0][1:])
@@ -503,7 +460,8 @@ def main() -> int:
             check(int(out[0].sum()) > 0, f"{what}: no reports")
             print(f"{what}: {int(out[0].sum())} reports, {int(out[1].sum())} replies", flush=True)
             if seq == "mixed" and now == 131:
-                rep_low = out[2].clone()  # flow_w of a real step at low aggregation
+                # flow_w and the report mask of a real step at low aggregation
+                rep_low, rep_mask = out[2].clone(), out[0].clone()
             if seq == "hot connection" and now == CT_CLOCK[0]:
                 # New: one report, at the connection's last row.
                 check(int(out[0][0:BATCH - 2:2].sum()) == 0 and int(out[0][BATCH - 2]) == 1,
@@ -529,40 +487,11 @@ def main() -> int:
     print(f"K5 note: torch.sort (stable) of {BATCH} int64 keys {sort_ms:.4f} ms, the "
           f"reference design's sort alone", flush=True)
 
-    # -- K6: the invertible sketch at INVERTIBLE_CONFIG's shapes ----------
-    icfg = INVERTIBLE_CONFIG
-    key5 = [recs[0][:, F.SRC_IP], recs[0][:, F.DST_IP], recs[0][:, F.PORTS], scratch["proto"]]
-    for label, w in (("low", rep_low), ("high", scratch["flow_w"])):
-        invs = [InvertibleSketch.zeros(icfg.inv_depth, icfg.inv_width, 4, seed=9, device=dev)
-                for _ in range(2)]
-        for _ in range(2):
-            invs[0].update(key5, w)
-            with kops.plain_versions():
-                invs[1].update(key5, w)
-        equal_int(invs[0].planes, invs[1].planes, f"K6 planes ({label})")
-        equal_int(invs[0].weights, invs[1].weights, f"K6 weights ({label})")
-        dec = [inv.decode() for inv in invs]
-        for j in range(4):
-            equal_int(dec[0][0][j], dec[1][0][j], f"K6 decode col {j} ({label})")
-        equal_int(dec[0][1], dec[1][1], f"K6 decode weight ({label})")
-        equal_int(dec[0][2], dec[1][2], f"K6 decode ok ({label})")
-        print(f"K6 {label}: {int((w != 0).sum())} weighted rows, "
-              f"{int(dec[0][2].sum())} buckets decode", flush=True)
-    inv = InvertibleSketch.zeros(icfg.inv_depth, icfg.inv_width, 4, seed=9, device=dev)
-    ms = time_ms(lambda: inv.update(key5, rep_low))
-    with kops.plain_versions():
-        plain_ms = time_ms(lambda: inv.update(key5, rep_low))
-    d, w, nb = inv.planes.shape
-    flat_idx = (indices(d, w, 9, key5) + (torch.arange(d, device=dev) * w)[:, None]).reshape(-1)
-    rows = narrow(bits(key5, 9) * widen(rep_low)[:, None]).repeat(d, 1)
-    lib_planes = torch.zeros((d * w, nb), dtype=torch.int32, device=dev)
-    lib_ms = time_ms(lambda: lib_planes.index_add_(0, flat_idx, rows))
-    del flat_idx, rows, lib_planes
-    active = int((rep_low != 0).sum())
-    report("inv_update", "retina_tpu_torch/kernels/csrc/inv_update.cu",
-           "retina_tpu/ops/invertible.py:136", ms, plain_ms,
-           BATCH * 4 + active * 16 + 2 * 4 * d * w * (nb + 1),
-           active * ((d + 1) * 4 * HASH_OPS + d * nb), lib_ms, 0.0)
+    # -- K3: the step's three HLL banks in one launch, per-row and report --
+    hll_phase(dev, recs, scratch, rep_mask, tel, time_ms, report, equal_int)
+
+    # -- K6: both invertible regions in one call at INVERTIBLE_CONFIG's shapes
+    inv_phase(dev, recs, scratch, rep_low, time_ms, report, equal_int)
 
     # -- K14: the latency match over probe batches and the captures ------
     latency_phase(dev, host, recs, tel, k1, time_ms, report, equal_int)
@@ -1038,8 +967,13 @@ def k1_batches(dev, host, recs, ident):
 def check_sketch_launches(launches: dict, label: str) -> None:
     """A step makes one K1 launch, which also lists the latency probes, one
     launch of the latency match's finish (K14), one call of K2 (three
-    launches for its three sketches) and one launch of K4."""
+    launches for its three sketches), one launch of K3 for its three HLL
+    banks, at most two of K6 for both invertible regions and one of K4."""
     steps = launches["step_rows"]
+    check(launches["hll_update"] <= steps,
+          f"{label}: hll_update launched {launches['hll_update']} times in {steps} steps")
+    check(launches["inv_update"] <= 2 * steps,
+          f"{label}: inv_update launched {launches['inv_update']} times in {steps} steps")
     check(launches["latency_update"] == steps,
           f"{label}: latency_update launched {launches['latency_update']} times in {steps} steps")
     check(launches["hh_update"] <= 3 * steps,
@@ -1150,6 +1084,185 @@ def sketch_phase(dev, recs, ident, time_ms, report, equal_int, close_counts):
     check(CFG.cms_depth == updates[0][0].shape[0], "the sets are not at the deployed widths")
     del sets, state, tel, hot
     return row12
+
+
+def hll_phase(dev, recs, scratch, report_lane, tel, time_ms, report, equal_int) -> None:
+    """K3 as the step calls it: one launch for the deployed state's three
+    HLL banks (1 x 2^12, 16 x 2^12, 4096 x 2^6) over the first bench batch,
+    at the per-row masks (high aggregation: K1's mask, is_drop and pod_mask
+    lanes) and at the main path's report masks (low aggregation: the flow
+    bank masked by the conntrack reports, the pod bank's pod_mask ANDed with
+    them in the kernel); each bank bit-equal to three plain updates, twice
+    over (the second call meets the registers the first raised). The kernels
+    line carries the per-row times. Bound: the records' first 32-byte sector
+    (src, dst, ports) and each of the six scratch lanes (4 bytes) once a
+    row, the banks read and written once; the earlier formula (4 bytes a key
+    lane, a bank) is printed beside it."""
+    import torch
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
+    from retina_tpu_torch.u32 import widen
+
+    src = recs[0][:, F.SRC_IP]
+    five = [src, recs[0][:, F.DST_IP], recs[0][:, F.PORTS], scratch["proto"]]
+    masks = {"per-row": (scratch["mask"], None), "report": (report_lane, report_lane)}
+    names = ("hll_flows", "hll_src_per_reason", "hll_src_per_pod")
+
+    def banks_of(st, label):
+        sk, pod2 = masks[label]
+        lanes = [(five, None, sk, None), ([src], scratch["reason"], scratch["is_drop"], None),
+                 ([src], scratch["pod_grp"], scratch["pod_mask"], pod2)]
+        return [(getattr(st, n).registers, getattr(st, n).seed, *x) for n, x in zip(names, lanes)]
+
+    for label in masks:
+        pair = [tel.init_state(), tel.init_state()]
+        for _ in range(2):
+            before = kops.launch_counts()["hll_update"]
+            kops.hll_update_many(banks_of(pair[0], label))
+            check(kops.launch_counts()["hll_update"] == before + 1,
+                  f"K3 {label}: one call did not make one launch")
+            with kops.plain_versions():
+                kops.hll_update_many(banks_of(pair[1], label))
+        for n in names:
+            equal_int(getattr(pair[0], n).registers, getattr(pair[1], n).registers,
+                      f"K3 {label} {n}")
+        banks = banks_of(tel.init_state(), label)
+        on = [(m != 0) if m2 is None else ((m & m2) != 0) for *_, m, m2 in banks]
+        ms = time_ms(lambda: kops.hll_update_many(banks))
+        dev_ms = device_ms(lambda: kops.hll_update_many(banks))
+        print(f"K3 at the {label} masks: kernel {ms:.4f} ms (CUDA events), device time "
+              f"{dev_ms:.4f} ms (one launch for the three banks); masked rows "
+              f"{[int(x.sum()) for x in on]} of {BATCH}; bit-equal to the plain version",
+              flush=True)
+        if label != "per-row":
+            continue
+        with kops.plain_versions():
+            plain_ms = time_ms(lambda: kops.hll_update_many(banks))
+        # Library yardstick: one scatter_reduce_(amax) over the three banks
+        # laid end to end, with the indices and ranks precomputed (no hashing).
+        flat, vals, off, ops = [], [], 0, 0
+        for (regs, seed, cols, grp, _, _), hit in zip(banks, on):
+            g, m = regs.shape
+            p = m.bit_length() - 1
+            h = hash_cols(cols, 0xC0FFEE + seed)
+            rho = (32 - p) - (torch.frexp((h >> p).double()).exponent.long() - 1)
+            gi = widen(grp) if grp is not None else 0
+            flat.append(torch.where(hit, off + gi * m + reduce_range(h, m), off))
+            vals.append(torch.where(hit, rho, 0).int())
+            off += g * m
+            ops += int(hit.sum()) * (len(cols) * HASH_OPS + 10)
+        flat_i, vals_i = torch.cat(flat), torch.cat(vals)
+        lib = torch.zeros(off, dtype=torch.int32, device=dev)
+        lib_ms = time_ms(lambda: lib.scatter_reduce_(0, flat_i, vals_i, "amax"))
+        del flat, vals, flat_i, vals_i, lib
+        regs_bytes = 2 * 4 * off
+        nbytes = BATCH * (32 + 4 * 6) + regs_bytes
+        old = BATCH * sum(4 * len(b[2]) + (8 if b[3] is not None else 4) for b in banks) \
+            + regs_bytes
+        print(f"K3 bound: {nbytes} bytes, {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms (a 32-byte "
+              f"record sector and six 4-byte lanes a row); by the earlier formula (4 bytes a "
+              f"key lane, a bank) {old} bytes, {old / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+        report("hll_update", "retina_tpu_torch/kernels/csrc/hll_update.cu",
+               "retina_tpu/ops/hyperloglog.py:72", ms, plain_ms, nbytes, ops, lib_ms, 0.0)
+
+
+INV_PRIORITY_MASK = 0xFFFFFF00  # K6's priority class: the /24 of pod_ip(0), pods 1-255
+
+
+def inv_phase(dev, recs, scratch, rep_low, time_ms, report, equal_int) -> None:
+    """K6 as the invertible step calls it: one call (two launches) for
+    inv_flow (2 x 4096) and inv_hi (2 x 512) at INVERTIBLE_CONFIG's widths
+    over the first bench batch, its rows split by a priority class (src or
+    dst in pods 1-255: priority_ip_mask INV_PRIORITY_MASK over pod_ip(0)'s
+    /24, whose share of the rows is printed) so that inv_hi's planes carry
+    weight, at the main path's report weights ("low") and the per-row
+    weights ("high"); both regions' planes, weights and decodes bit-equal to
+    the plain version, twice over. The kernels line carries the "low" times.
+    Bound: the weight and selector lanes (4 bytes a row), a weighted row's
+    32-byte record sector and proto lane, both regions' planes and weights
+    read and written once; the earlier formula (inv_flow alone, 16 bytes a
+    weighted row's key) is printed beside it."""
+    import torch
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import INVERTIBLE_CONFIG as ICFG
+    from retina_tpu_torch.models.pipeline import priority_class
+    from retina_tpu_torch.ops.invertible import InvertibleSketch, bits, indices
+    from retina_tpu_torch.u32 import narrow, widen
+
+    key5 = [recs[0][:, F.SRC_IP], recs[0][:, F.DST_IP], recs[0][:, F.PORTS], scratch["proto"]]
+    prio = priority_class(widen(key5[0]), widen(key5[1]), INV_PRIORITY_MASK,
+                          pod_ip(0) & INV_PRIORITY_MASK).to(torch.int32)
+    widths = (ICFG.inv_width, ICFG.inv_hi_width)
+
+    def sketches():
+        return [InvertibleSketch.zeros(ICFG.inv_depth, wd, 4, seed=9 + i, device=dev)
+                for i, wd in enumerate(widths)]
+
+    def regions(invs):
+        return [(inv.planes, inv.weights, inv.seed) for inv in invs]
+
+    print(f"K6 priority class: {int(prio.sum())} of {BATCH} rows "
+          f"({int(prio.sum()) / BATCH:.4f}) have src or dst in pods 1-255", flush=True)
+    for label, w in (("low", rep_low), ("high", scratch["flow_w"])):
+        pair = [sketches(), sketches()]
+        for _ in range(2):
+            before = kops.launch_counts()["inv_update"]
+            kops.inv_update_pair(regions(pair[0]), key5, w, prio)
+            check(kops.launch_counts()["inv_update"] == before + 2,
+                  f"K6 {label}: one call did not make two launches")
+            with kops.plain_versions():
+                kops.inv_update_pair(regions(pair[1]), key5, w, prio)
+        decoded = []
+        for name, a, b in zip(("inv_flow", "inv_hi"), *pair):
+            equal_int(a.planes, b.planes, f"K6 {name} planes ({label})")
+            equal_int(a.weights, b.weights, f"K6 {name} weights ({label})")
+            dec = [a.decode(), b.decode()]
+            for j in range(4):
+                equal_int(dec[0][0][j], dec[1][0][j], f"K6 {name} decode col {j} ({label})")
+            equal_int(dec[0][1], dec[1][1], f"K6 {name} decode weight ({label})")
+            equal_int(dec[0][2], dec[1][2], f"K6 {name} decode ok ({label})")
+            decoded.append(int(dec[0][2].sum()))
+        weighted = w != 0
+        n_hi = int((weighted & (prio != 0)).sum())
+        check(n_hi > 0 and bool(pair[0][1].weights.any()), f"K6 {label}: inv_hi took no row")
+        print(f"K6 {label}: {int(weighted.sum())} weighted rows, {n_hi} of them to inv_hi; "
+              f"buckets decode: inv_flow {decoded[0]}, inv_hi {decoded[1]}; bit-equal to the "
+              f"plain version", flush=True)
+    invs = regions(sketches())
+    ms = time_ms(lambda: kops.inv_update_pair(invs, key5, rep_low, prio))
+    dev_ms = device_ms(lambda: kops.inv_update_pair(invs, key5, rep_low, prio))
+    with kops.plain_versions():
+        plain_ms = time_ms(lambda: kops.inv_update_pair(invs, key5, rep_low, prio))
+    # Library yardstick: one index_add_ over both regions laid end to end,
+    # each row's bucket indices and weighted bits precomputed (no hashing).
+    d, nb = ICFG.inv_depth, invs[0][0].shape[2]
+    pick = prio != 0
+    flat = torch.where(pick[None, :],
+                       indices(d, widths[1], 10, key5) + d * widths[0]
+                       + (torch.arange(d, device=dev) * widths[1])[:, None],
+                       indices(d, widths[0], 9, key5)
+                       + (torch.arange(d, device=dev) * widths[0])[:, None]).reshape(-1)
+    rows = narrow(torch.where(pick[:, None], bits(key5, 10), bits(key5, 9))
+                  * widen(rep_low)[:, None]).repeat(d, 1)
+    lib = torch.zeros((d * sum(widths), nb), dtype=torch.int32, device=dev)
+    lib_ms = time_ms(lambda: lib.index_add_(0, flat, rows))
+    del flat, rows, lib
+    active = int((rep_low != 0).sum())
+    nbytes = BATCH * 8 + active * 36 + 2 * 4 * d * sum(widths) * (nb + 1)
+    old = BATCH * 4 + active * 16 + 2 * 4 * d * widths[0] * (nb + 1)
+    print(f"K6 at the low weights, both regions: kernel {ms:.4f} ms (CUDA events), device time "
+          f"{dev_ms:.4f} ms (two launches); bound {nbytes} bytes, "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; by the earlier formula (inv_flow alone, "
+          f"16 bytes a weighted row's key) {old} bytes, {old / HBM_BYTES_PER_S * 1e3:.4f} ms",
+          flush=True)
+    report("inv_update", "retina_tpu_torch/kernels/csrc/inv_update.cu",
+           "retina_tpu/ops/invertible.py:136", ms, plain_ms, nbytes,
+           active * ((d + 1) * 4 * HASH_OPS + d * nb), lib_ms, 0.0)
 
 
 LAT_API = 0x7F000001  # the latency phase's apiserver: the captures' loopback address

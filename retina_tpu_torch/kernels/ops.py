@@ -38,11 +38,11 @@ _ARGTYPES = {
     + [_VP] * 9 + [_INT] * 5 + [_U32] * 4 + [_VP] * 3,
     "hh_update": [_VP, _INT, _LL, _VP],
     "cms_update": [_VP, _LL, _VP],
-    "hll_update": [_VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP],
+    "hll_update": [_VP, _INT, _LL, _VP],
     "entropy_update": [_VP, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
     "conntrack": [_VP, _VP, _INT, _U32] + [_VP, _LL] * 8
     + [_LL, _U32, _VP, _INT, _VP, _VP, _VP, _VP],
-    "inv_update": [_VP, _VP, _INT, _INT, _U32] + _COLS + [_VP, _LL, _LL, _VP],
+    "inv_update": [_VP, _INT] + _COLS + [_VP, _LL, _VP, _LL, _LL, _VP, _VP, _VP, _VP],
     "ingest_packed": [_VP, _LL, _INT, _U32, _U32, _VP, _LL, _VP],
     "ingest_new": [_VP, _LL, _VP, _LL, _VP, _U32, _U32, _VP, _LL, _VP],
     "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
@@ -68,7 +68,8 @@ _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": 
 
 # Kernel launches per C function since the last reset (a call of
 # hh_update counts its three phases, for up to three sketches; one of
-# conntrack or ingest_new its two).
+# conntrack, ingest_new or inv_update its two; one of hll_update one, for
+# up to three banks).
 _launches = {name: 0 for name in _ARGTYPES}
 _plain_on_card = False
 _fns: dict[str, ctypes._CFuncPtr] = {}
@@ -371,29 +372,58 @@ def cms_update(table, seed, key_cols, weights):
 # K3
 
 
+HLL_MAX_BANKS = 3  # banks one launch of K3 updates (kMaxBanks in csrc/hll_update.cu)
+
+
 def hll_update(registers, seed, key_cols, group, mask):
     """HyperLogLog bank update (K3) in place. ``group`` None means group 0;
-    rows with ``mask`` 0 are skipped."""
-    dev = registers.device
-    b = mask.shape[0]
-    _state(registers, "hll registers", dev)
-    g, m = registers.shape
-    _pow2(m, "hll registers per group")
-    _col(mask, "mask", b, dev)
-    if group is not None:
-        _col(group, "group", b, dev)
-    _key_cols(key_cols, b, dev)
+    rows with ``mask`` 0 are skipped. One bank of ``hll_update_many``."""
+    hll_update_many([(registers, seed, key_cols, group, mask, None)])
+
+
+def hll_update_many(updates):
+    """K3 over up to three HyperLogLog banks of one batch, in place, in one
+    launch. Each update is (registers, seed, key_cols, group, mask, mask2):
+    ``group`` None means group 0; a row counts where ``mask``, ANDed bit by
+    bit with ``mask2`` where that is not None, is not 0. Every lane has the
+    batch's length, and no two updates share a bank. Each bank ends as
+    ``hll_update`` with the mask ``mask & mask2`` would leave it."""
+    if not 1 <= len(updates) <= HLL_MAX_BANKS:
+        raise ValueError(f"1 to {HLL_MAX_BANKS} HLL banks, got {len(updates)}")
+    dev = updates[0][0].device
+    b = updates[0][4].shape[0]
+    for registers, _, key_cols, group, mask, mask2 in updates:
+        _state(registers, "hll registers", dev)
+        _pow2(registers.shape[1], "hll registers per group")
+        _col(mask, "mask", b, dev)
+        if mask2 is not None:
+            _col(mask2, "second mask", b, dev)
+        if group is not None:
+            _col(group, "group", b, dev)
+        _key_cols(key_cols, b, dev)
+    if len({u[0].data_ptr() for u in updates}) != len(updates):
+        raise ValueError("HLL updates share a bank")
     if not _on_card(dev):
         from retina_tpu_torch.ops.hyperloglog import update_plain
 
-        return update_plain(registers, seed, key_cols, group, mask)
-    _launch(
-        "hll_update", dev, registers.data_ptr(), g, m.bit_length() - 1,
-        int(seed) & 0xFFFFFFFF, *_col_args(key_cols),
-        None if group is None else group.data_ptr(),
-        0 if group is None else group.stride(0),
-        mask.data_ptr(), mask.stride(0), b,
-    )
+        for registers, seed, key_cols, group, mask, mask2 in updates:
+            update_plain(registers, seed, key_cols, group,
+                         mask if mask2 is None else mask & mask2)
+        return
+    if b == 0:
+        return
+    fields = []
+    for registers, seed, key_cols, group, mask, mask2 in updates:
+        pad = [0] * (4 - len(key_cols))
+        fields += [registers.data_ptr(), registers.shape[0], registers.shape[1].bit_length() - 1,
+                   int(seed) & 0xFFFFFFFF, len(key_cols), *[c.data_ptr() for c in key_cols],
+                   *pad, *[c.stride(0) for c in key_cols], *pad,
+                   0 if group is None else group.data_ptr(),
+                   0 if group is None else group.stride(0), mask.data_ptr(), mask.stride(0),
+                   0 if mask2 is None else mask2.data_ptr(),
+                   0 if mask2 is None else mask2.stride(0)]
+    fields = array.array("q", fields)
+    _launch("hll_update", dev, fields.buffer_info()[0], len(updates), b)
 
 
 # ---------------------------------------------------------------------------
@@ -514,28 +544,80 @@ def conntrack_scratch_bytes(scratch: dict) -> int:
 # K6
 
 
+INV_CHUNK = 2048  # rows a block of K6's bin phase (kChunk in csrc/inv_update.cu)
+INV_TILE = 32  # buckets an apply block of K6 owns (kTile there)
+INV_MAX_DEPTH = 4  # kMaxDepth there
+INV_MAX_TILES = 4096  # kMaxTiles there: buckets of both regions, in tiles
+INV_MAX_CHUNKS = 8192  # kMaxChunks there: rows of a batch, in chunks
+
+
 def inv_update(planes, weights_table, seed, key_cols, weights):
     """Invertible sketch update (K6) in place: bit planes (D, W, 32(C+1))
     and bucket weights (D, W) of the C key columns; rows of weight 0 add
-    nothing."""
-    dev = planes.device
+    nothing. One region of ``inv_update_pair``."""
+    inv_update_pair([(planes, weights_table, seed)], key_cols, weights)
+
+
+def inv_update_pair(regions, key_cols, weights, select=None):
+    """K6 over one or two invertible sketches of a batch, in place, in two
+    launches. ``regions`` is [(planes, weights_table, seed)] or two such;
+    with two, a row of weight != 0 adds to the second where ``select`` is
+    not 0 and to the first otherwise (the step's inv_hi and inv_flow, split
+    by the priority class); with one, ``select`` is None. The regions share
+    the C key columns; each ends as ``inv_update`` of its own rows would
+    leave it."""
+    if not 1 <= len(regions) <= 2:
+        raise ValueError(f"1 or 2 invertible regions, got {len(regions)}")
+    if (select is None) != (len(regions) == 1):
+        raise ValueError("a selector lane goes with two regions, and only with two")
+    dev = regions[0][0].device
     b = weights.shape[0]
-    _state(planes, "invertible planes", dev)
-    d, w, nb = planes.shape
-    _pow2(w, "invertible width")
-    _state(weights_table, "invertible weights", dev, shape=(d, w))
-    if nb != 32 * (len(key_cols) + 1):
-        raise ValueError(f"{nb} planes do not fit {len(key_cols)} key columns")
+    for planes, weights_table, _ in regions:
+        _state(planes, "invertible planes", dev)
+        d, w, nb = planes.shape
+        _pow2(w, "invertible width")
+        _state(weights_table, "invertible weights", dev, shape=(d, w))
+        if nb != 32 * (len(key_cols) + 1):
+            raise ValueError(f"{nb} planes do not fit {len(key_cols)} key columns")
+    if len({t.data_ptr() for r in regions for t in r[:2]}) != 2 * len(regions):
+        raise ValueError("invertible regions share a state tensor")
     _col(weights, "weights", b, dev)
+    if select is not None:
+        _col(select, "select", b, dev)
     _key_cols(key_cols, b, dev)
     if not _on_card(dev):
-        from retina_tpu_torch.ops.invertible import update_plain
+        from retina_tpu_torch.ops.invertible import update_pair_plain
 
-        return update_plain(planes, weights_table, seed, key_cols, weights)
+        return update_pair_plain(regions, key_cols, weights, select)
+    depths = [r[0].shape[0] for r in regions]
+    if max(depths) > INV_MAX_DEPTH:
+        raise ValueError(f"invertible depth above {INV_MAX_DEPTH}")
+    if any(r[0].data_ptr() % 16 for r in regions):
+        raise ValueError("invertible planes must be 16-byte aligned")
+    n_tiles = sum(-(-r[0].shape[0] * r[0].shape[1] // INV_TILE) for r in regions)
+    n_chunks = -(-b // INV_CHUNK)
+    if n_tiles > INV_MAX_TILES:
+        raise ValueError(f"{n_tiles} tiles of {INV_TILE} buckets exceed {INV_MAX_TILES}")
+    if n_chunks > INV_MAX_CHUNKS:
+        raise ValueError(f"batch above {INV_MAX_CHUNKS * INV_CHUNK} rows")
+    if b == 0:
+        return
+    # Scratch, every word written before it is read: each chunk's entries (8
+    # words), its pair list (max depth words an entry), then the tile-major
+    # (start, count) table of the chunks (see csrc/inv_update.cu).
+    n_ent = n_chunks * INV_CHUNK
+    scratch = torch.empty((n_ent * (8 + max(depths)) + n_tiles * n_chunks,), dtype=torch.int32,
+                          device=dev)
+    p = scratch.data_ptr()
+    fields = array.array("q", [x for planes, weights_table, seed in regions
+                               for x in (planes.data_ptr(), weights_table.data_ptr(),
+                                         planes.shape[0], planes.shape[1],
+                                         int(seed) & 0xFFFFFFFF)])
     _launch(
-        "inv_update", dev, planes.data_ptr(), weights_table.data_ptr(), d, w,
-        int(seed) & 0xFFFFFFFF, *_col_args(key_cols), weights.data_ptr(),
-        weights.stride(0), b,
+        "inv_update", dev, fields.buffer_info()[0], len(regions), *_col_args(key_cols),
+        weights.data_ptr(), weights.stride(0),
+        None if select is None else select.data_ptr(), 0 if select is None else select.stride(0),
+        b, p, p + 4 * 8 * n_ent, p + 4 * (8 + max(depths)) * n_ent, n_launches=2,
     )
 
 

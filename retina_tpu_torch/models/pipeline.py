@@ -14,10 +14,10 @@ One batch of (B, 16) event records updates every aggregator:
   weights and masks from the report lanes);
 - K2 (``topk.update_many``) updates flow_hh, svc_hh and dns_hh in one
   call (three launches for the three sketches);
-- K6 (``InvertibleSketch.update``, with ``enable_invertible``) the two
-  invertible sketches, priority rows to ``inv_hi`` and the rest to
-  ``inv_flow``, with flow_hh's keys and weights;
-- K3 (``HyperLogLog.update``) the three HLL banks;
+- K6 (``invertible.update_pair``, with ``enable_invertible``) the two
+  invertible sketches in one call (two launches), priority rows to
+  ``inv_hi`` and the rest to ``inv_flow``, with flow_hh's keys and weights;
+- K3 (``hyperloglog.update_many``) the three HLL banks in one launch;
 - K4 (``EntropyWindow.update``) the three entropy histograms;
 - K14 (``kernels/csrc/latency.cu``, plain version ``latency_update_plain``)
   the apiserver latency match over K1's list: sends write their
@@ -51,7 +51,7 @@ from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow, entropy_bit
 from retina_tpu_torch.ops.hashing import hash_cols, reduce_range
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.ops.invertible import InvertibleSketch
-from retina_tpu_torch.ops import topk
+from retina_tpu_torch.ops import hyperloglog, invertible, topk
 from retina_tpu_torch.ops.topk import HeavyHitterSketch
 from retina_tpu_torch.u32 import M32, narrow, widen
 
@@ -422,24 +422,25 @@ class TelemetryPipeline:
                                                       device=records.device)
         if c.data_aggregation_level == "low":
             # One weighted update per reporting connection, carrying its
-            # packets since its previous report.
-            flow_w, ent_w, sk_mask = rep_pkts, rep_pkts, report
+            # packets since its previous report; K3 ANDs the pod bank's
+            # mask with the reports itself.
+            flow_w, ent_w, sk_mask, pod_report = rep_pkts, rep_pkts, report, report
             svc_w = torch.where((r["src_pod"] != 0) & (r["dst_pod"] != 0), rep_pkts, 0)
-            pod_mask = r["pod_mask"] & report
         else:
             flow_w, svc_w, ent_w = r["flow_w"], r["svc_w"], r["ent_w"]
-            sk_mask, pod_mask = r["mask"], r["pod_mask"]
+            sk_mask, pod_report = r["mask"], None
         five = [src, dst, ports, r["proto"]]
         topk.update_many([(state.flow_hh, five, flow_w),
                           (state.svc_hh, [r["src_pod"], r["dst_pod"]], svc_w),
                           (state.dns_hh, [records[:, F.DNS_QHASH]], r["dns_w"])])
         if c.enable_invertible:
-            prio = r["is_priority"] != 0
-            state.inv_flow.update(five, torch.where(prio, 0, flow_w))
-            state.inv_hi.update(five, torch.where(prio, flow_w, 0))
-        state.hll_flows.update(five, None, sk_mask)
-        state.hll_src_per_reason.update([src], r["reason"], r["is_drop"])
-        state.hll_src_per_pod.update([src], r["pod_grp"], pod_mask)
+            # Priority rows go only to inv_hi, the rest to inv_flow: one K6 call.
+            invertible.update_pair(state.inv_flow, state.inv_hi, five, flow_w,
+                                   r["is_priority"])
+        hyperloglog.update_many([
+            (state.hll_flows, five, None, sk_mask, None),
+            (state.hll_src_per_reason, [src], r["reason"], r["is_drop"], None),
+            (state.hll_src_per_pod, [src], r["pod_grp"], r["pod_mask"], pod_report)])
         state.entropy.update([src, dst, r["dport"]], ent_w)
         if c.enable_latency:
             kops.latency_update(state.lat_key, state.lat_ts, state.lat_hist, records,

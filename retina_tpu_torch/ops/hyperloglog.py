@@ -2,6 +2,7 @@
 
 A (G, 2^p) u32 bank holds G independent sketches. ``update`` goes through
 K3 (``kernels/csrc/hll_update.cu``); ``update_plain`` is its plain version.
+``update_many`` updates up to three banks of one batch in one launch of K3.
 ``estimate`` goes through K17 (``kernels/csrc/snapshot_readout.cu``);
 ``estimate_plain`` is its plain version. ``merge`` is the reference's
 elementwise u32 max, in torch ops.
@@ -105,3 +106,12 @@ class HyperLogLog:
         self.registers.zero_()
         return self
 
+
+def update_many(updates: list[tuple[HyperLogLog, list[torch.Tensor], torch.Tensor | None,
+                                    torch.Tensor, torch.Tensor | None]]) -> None:
+    """Up to three banks, each with its (B,) key columns, group (None: group
+    0), mask and second mask (ANDed with the first; None: none) of one
+    batch, through one launch of K3, in place; each ends as its own
+    ``update`` with the mask ``mask & mask2`` would leave it."""
+    kops.hll_update_many([(h.registers, h.seed, cols, group, mask, mask2)
+                          for h, cols, group, mask, mask2 in updates])

@@ -7,7 +7,9 @@ retina_tpu/ops/invertible.py).
   weights (D, W)          u32  total update weight per bucket
 
 ``update`` is K6 (``kernels/csrc/inv_update.cu``; plain version
-``update_plain``). ``decode`` is K15 (``kernels/csrc/inv_decode.cu``; plain
+``update_plain``); ``update_pair`` runs it once for two sketches of a batch
+whose rows a selector lane splits (plain version ``update_pair_plain``).
+``decode`` is K15 (``kernels/csrc/inv_decode.cu``; plain
 version ``decode_plain``): one pass over the D·W buckets at a window close
 or a range query. A bucket where one key owns a strict majority of the
 weight yields that key bit by bit (majorities compared as u32); it is
@@ -66,6 +68,22 @@ def update_plain(planes: torch.Tensor, weights_table: torch.Tensor, seed: int,
     vals = narrow(bits(key_cols, seed) * wts[:, None])
     planes.view(-1, nb).index_add_(0, flat, vals.repeat(d, 1))
     weights_table.view(-1).index_add_(0, flat, narrow(wts).repeat(d))
+
+
+def update_pair_plain(regions: list[tuple[torch.Tensor, torch.Tensor, int]],
+                      key_cols: list[torch.Tensor], weights: torch.Tensor,
+                      select: torch.Tensor | None) -> None:
+    """Plain version of K6 over one or two (planes, weights, seed) regions,
+    in place: with two, rows whose ``select`` is not 0 add to the second and
+    the rest to the first, as the reference step's two updates under
+    ``where(is_priority, ...)``; with one, every row adds to it."""
+    if select is None:
+        (planes, weights_table, seed), = regions
+        return update_plain(planes, weights_table, seed, key_cols, weights)
+    pick = select != 0
+    for (planes, weights_table, seed), w in zip(
+            regions, (torch.where(pick, 0, weights), torch.where(pick, weights, 0))):
+        update_plain(planes, weights_table, seed, key_cols, w)
 
 
 def decode_plain(planes: torch.Tensor, weights: torch.Tensor, seed: int,
@@ -136,6 +154,14 @@ class InvertibleSketch:
         self.planes.zero_()
         self.weights.zero_()
         return self
+
+
+def update_pair(lo: InvertibleSketch, hi: InvertibleSketch, key_cols: list[torch.Tensor],
+                weights: torch.Tensor, select: torch.Tensor) -> None:
+    """Add ``weights`` at the keys, in place, through one call of K6: rows
+    whose ``select`` is not 0 to ``hi``, the rest to ``lo``."""
+    kops.inv_update_pair([(lo.planes, lo.weights, lo.seed), (hi.planes, hi.weights, hi.seed)],
+                         key_cols, weights, select)
 
 
 def decode_verified(inv: InvertibleSketch, cms, min_weight: int = 0,

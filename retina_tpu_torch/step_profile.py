@@ -6,10 +6,12 @@
     python3 -m retina_tpu_torch.step_profile --conntrack
     python3 -m retina_tpu_torch.step_profile --rows
     python3 -m retina_tpu_torch.step_profile --fold
+    python3 -m retina_tpu_torch.step_profile --hll-inv
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
 agent: conntrack on, low aggregation; or the configuration ``--config``
-names: ``no-conntrack``, ``production`` for PipelineConfig(); two
+names: ``no-conntrack``, ``production`` for PipelineConfig(), ``invertible``
+for INVERTIBLE_CONFIG; two
 2^21-event batches of a 1M-flow Zipf stream, as chip_smoke.py) and
 reports, after a warm-up:
 
@@ -74,6 +76,24 @@ and fleet paths export it, less the candidate tables), stacked 32 and 64
 deep with random contents, by the device time of the fold kernels of one
 ``fold_stacked`` call and their launches, beside one ``sum``/``amax`` call
 an array. It too runs unchanged in a copy of an older tree.
+
+With ``--hll-inv`` it times the HLL banks (K3) and the invertible sketches
+(K6) as the step calls them: the K3 and K6 calls of the 8th step of a fresh
+state at INVERTIBLE_CONFIG (the conntrack reports weight and mask them:
+"report") and at the same configuration with high aggregation (every
+masked row: "per-row"), captured at the step's wrappers (one
+``hll_update_many`` and one ``inv_update_pair`` call, or, in an older tree,
+three ``hll_update`` and two ``inv_update`` calls) and replayed 10 times
+after 2 warm-ups, by device time in torch.profiler (by kernel) and by CUDA
+events. An older tree's K6 replay includes the step's torch ops that split
+the weights by the priority class (``!=`` and two ``where``), as its step
+runs them; its K3 replay lacks the step's ``pod_mask & report``, which the
+step profile shows. The batches beside the step's: weights and masks all 0
+("zero": the scan floor), every masked row on the first row's key
+("one-key", at the per-row weights: one bucket a depth, the hottest), and
+the report weights with a priority class (src or dst in pods 1-255, the
+/24 of ``pod_ip(0)``: "priority", which feeds inv_hi). It too runs
+unchanged in a copy of an older tree.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -236,15 +256,21 @@ def sketches(dev, recs, ident) -> dict:
 def capture_calls(step, names: tuple[str, ...]) -> list:
     """Run ``step()`` and return its calls of the kernel wrappers ``names``,
     in order, as (name, wrapper, args, kwargs): replaying them repeats the
-    step's calls on the same tensors."""
+    step's calls on the same tensors. A wrapper called from inside another
+    is not recorded twice."""
     from retina_tpu_torch.kernels import ops as kops
 
-    calls, saved = [], {n: getattr(kops, n) for n in names}
+    calls, saved, depth = [], {n: getattr(kops, n) for n in names}, [0]
 
     def recording(name, fn):
         def call(*args, **kwargs):
-            calls.append((name, fn, args, kwargs))
-            return fn(*args, **kwargs)
+            if depth[0] == 0:  # a wrapper called from inside another is not recorded
+                calls.append((name, fn, args, kwargs))
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
         return call
 
     for name, fn in saved.items():
@@ -486,6 +512,127 @@ def fold(dev) -> dict:
     return result
 
 
+K3_K6_WRAPPERS = ("hll_update", "hll_update_many", "inv_update", "inv_update_pair")
+
+
+def hll_inv_calls(dev, recs, ident, cfg) -> tuple[list, tuple]:
+    """The K3 and K6 calls of the 8th step of a fresh state at ``cfg``, as
+    (banks, inv): banks a list of (registers, seed, key_cols, group, mask,
+    mask2), inv (regions, key_cols, weights, select), whichever wrappers the
+    tree's step calls (an older tree's second mask is None: its step ANDs
+    the masks before the call)."""
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    tel = Telemetry(cfg, device=dev)
+    state = tel.init_state()
+    for s in range(STEPS - 1):
+        state, _ = tel.step(state, recs[s % 2], BATCH, 2, ident)
+    calls = capture_calls(lambda: tel.step(state, recs[(STEPS - 1) % 2], BATCH, 2, ident),
+                          tuple(n for n in K3_K6_WRAPPERS if hasattr(kops, n)))
+    banks, inv = [], []
+    for name, _, args, kwargs in calls:
+        if name == "hll_update_many":
+            banks += [tuple(u) for u in args[0]]
+        elif name == "hll_update":
+            banks.append((*args, None))
+        else:
+            inv.append((name, args, kwargs))
+    if inv[0][0] == "inv_update_pair":
+        (_, args, kwargs), = inv
+        regions, cols, w = args[:3]
+        return banks, (regions, cols, w, args[3] if len(args) > 3 else kwargs["select"])
+    (_, (p0, w0, s0, cols, lo), _), (_, (p1, w1, s1, _, hi), _) = inv
+    return banks, ([(p0, w0, s0), (p1, w1, s1)], cols, lo + hi, (hi != 0).to(lo.dtype))
+
+
+def run_k3(banks) -> None:
+    """The banks through the tree's K3 wrappers."""
+    from retina_tpu_torch.kernels import ops as kops
+
+    if hasattr(kops, "hll_update_many"):
+        kops.hll_update_many(banks)
+        return
+    for regs, seed, cols, group, mask, mask2 in banks:
+        kops.hll_update(regs, seed, cols, group, mask if mask2 is None else mask & mask2)
+
+
+def run_k6(regions, cols, w, select) -> None:
+    """Both regions through the tree's K6 wrappers; an older tree's split of
+    the weights by the selector is the step's own torch ops."""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+
+    if hasattr(kops, "inv_update_pair"):
+        kops.inv_update_pair(regions, cols, w, select)
+        return
+    prio = select != 0
+    for (planes, weights, seed), x in zip(regions, (torch.where(prio, 0, w),
+                                                    torch.where(prio, w, 0))):
+        kops.inv_update(planes, weights, seed, cols, x)
+
+
+def hll_inv(dev, recs, ident) -> dict:
+    """K3 and K6 at the step's calls and at the batches that pull them apart."""
+    import dataclasses
+
+    import torch
+
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import INVERTIBLE_CONFIG
+    from retina_tpu_torch.u32 import widen
+
+    report = hll_inv_calls(dev, recs, ident, INVERTIBLE_CONFIG)
+    per_row = hll_inv_calls(dev, recs, ident,
+                            dataclasses.replace(INVERTIBLE_CONFIG, data_aggregation_level="high"))
+    (banks, (regions, cols, w, sel)), (row_banks, (_, row_cols, row_w, _)) = report, per_row
+
+    def one_key(cs):
+        return [c[:1].expand(c.shape[0]).contiguous() for c in cs]
+
+    src, dst = (widen(c) for c in cols[:2])
+    pmask, match = 0xFFFFFF00, pod_ip(0) & 0xFFFFFF00
+    prio = (((src & pmask) == match) | ((dst & pmask) == match)).to(torch.int32)
+    zero = torch.zeros_like(w)
+    k3 = {"zero": [(r, s, c, g, zero, None) for r, s, c, g, _, _ in banks],
+          "report": banks, "per-row": row_banks,
+          "one-key": [(r, s, one_key(c), g, m, m2) for r, s, c, g, m, m2 in row_banks]}
+    k6 = {"zero": (regions, cols, zero, sel), "report": (regions, cols, w, sel),
+          "per-row": (regions, row_cols, row_w, sel),
+          "one-key": (regions, one_key(row_cols), row_w, sel),
+          "priority": (regions, cols, w, prio)}
+    result: dict = {}
+    names = {"k3": ("hll_kernel",), "k6": ("inv_kernel", "bin_kernel", "apply_kernel")}
+    for kernel, sets, run in (("k3", k3, run_k3), ("k6", k6, run_k6)):
+        for name, args in sets.items():
+            def once(args=args, run=run):
+                return run(*args) if kernel == "k6" else run(args)
+            before = sum(kops.launch_counts().values())
+            once()
+            launches = sum(kops.launch_counts().values()) - before
+            ms = cuda_ms(once)
+            by_kernel = kernel_ms(once)
+            dev_ms = sum(by_kernel.values())
+            mine = sum(v for k, v in by_kernel.items() if any(x in k for x in names[kernel]))
+            result[f"{kernel}_{name}_ms"] = ms
+            result[f"{kernel}_{name}_device_ms"] = dev_ms
+            result[f"{kernel}_{name}_kernel_ms"] = mine
+            if kernel == "k3":
+                what = [int((m != 0).sum() if m2 is None else ((m & m2) != 0).sum())
+                        for *_, m, m2 in args]
+                what = f"masked rows {what} of {BATCH}"
+            else:
+                wt = args[2] != 0
+                what = (f"weighted rows {int(wt.sum())} of {BATCH}, "
+                        f"{int((wt & (args[3] != 0)).sum())} of them to inv_hi")
+            print(f"{kernel.upper()} on the {name} batch: {ms:.4f} ms (CUDA events), device time "
+                  f"{dev_ms:.4f} ms ({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}); "
+                  f"{launches} launches; {what}", flush=True)
+    return result
+
+
 def device_rows(prof) -> tuple[list, list]:
     """(kernel rows, torch-op rows) of a profile as (device us, calls, name),
     largest first. A device row is one kernel, memcpy or memset; an aten row
@@ -561,7 +708,7 @@ def main() -> int:
     ap.add_argument("--feed", action="store_true",
                     help="profile the feed path (SketchEngine.flush) instead of the step")
     ap.add_argument("--quanta", type=int, default=4, help="quanta to profile with --feed")
-    ap.add_argument("--config", choices=["deployed", "no-conntrack", "production"],
+    ap.add_argument("--config", choices=["deployed", "no-conntrack", "production", "invertible"],
                     default="deployed", help="the configuration of the profiled step")
     ap.add_argument("--sketches", action="store_true",
                     help="time K2 and K4 at both weight sets and the step paths' ms/step")
@@ -573,6 +720,9 @@ def main() -> int:
     ap.add_argument("--rows", action="store_true",
                     help="time K1 at the deployed step's call and at batches that separate "
                     "its costs")
+    ap.add_argument("--hll-inv", action="store_true",
+                    help="time K3 and K6 at the invertible step's calls and at batches that "
+                    "separate their costs")
     args = ap.parse_args()
 
     import torch
@@ -586,6 +736,7 @@ def main() -> int:
     from retina_tpu_torch.kernels import ops as kops
     from retina_tpu_torch.models.pipeline import (
         DEPLOYED_CONFIG,
+        INVERTIBLE_CONFIG,
         NO_CONNTRACK_CONFIG,
         PipelineConfig,
     )
@@ -617,8 +768,11 @@ def main() -> int:
     if args.rows:
         print(json.dumps(rows_profile(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
         return 0
+    if args.hll_inv:
+        print(json.dumps(hll_inv(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
     cfg = {"deployed": DEPLOYED_CONFIG, "no-conntrack": NO_CONNTRACK_CONFIG,
-           "production": PipelineConfig()}[args.config]
+           "production": PipelineConfig(), "invertible": INVERTIBLE_CONFIG}[args.config]
     print(f"config: {args.config}")
     tel = Telemetry(cfg, device=dev)
     state = tel.init_state()

@@ -6,7 +6,9 @@ wrap); ``decode`` the same decoded columns, weights and ``ok`` flags, and
 ``decode_plain`` (K15's plain version) is held to the reference's decode
 where a signed or careless majority would differ: bucket weights of 2^31
 and more, ties (p == w - p is no majority), key words with the top bit set,
-one and four key columns, and an empty sketch.
+one and four key columns, and an empty sketch. ``update_pair`` (K6's entry
+for the step's two regions) must give each region the reference step's
+update under ``where(is_priority, ...)`` exactly.
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ from retina_tpu.ops.invertible import InvertibleSketch as JInv
 from retina_tpu.ops.invertible import decode_verified as jdecode_verified
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.kernels import ops as kops
-from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_plain, decode_verified
+from retina_tpu_torch.ops.invertible import (
+    InvertibleSketch,
+    decode_plain,
+    decode_verified,
+    update_pair,
+)
 from retina_tpu_torch.u32 import from_numpy, to_numpy
 
 
@@ -48,6 +55,59 @@ def test_update_matches_reference(n_cols):
     w = [rng.integers(0, 4, 700).astype(np.uint32) for _ in range(3)]
     w[2][::5] = rng.integers(1 << 30, 1 << 32, len(w[2][::5]), dtype=np.uint64)  # wraps
     _pair(2, 1 << 7, n_cols, 9, keys, w)
+
+
+def _split(n_cols, keys, w, sel, widths=(1 << 7, 1 << 4), depth=2):
+    """The reference step's two updates (retina_tpu/models/pipeline.py:527-534:
+    inv_flow takes where(is_priority, 0, w), inv_hi where(is_priority, w, 0))
+    against one ``update_pair`` call: both regions' planes and weights equal."""
+    jcols = [jnp.asarray(keys[:, i]) for i in range(n_cols)]
+    jw, prio = jnp.asarray(w), jnp.asarray(sel != 0)
+    ref = [JInv.zeros(depth, widths[0], n_key_cols=n_cols, seed=9).update(
+               jcols, jnp.where(prio, 0, jw)),
+           JInv.zeros(depth, widths[1], n_key_cols=n_cols, seed=10).update(
+               jcols, jnp.where(prio, jw, 0))]
+    port = [InvertibleSketch.zeros(depth, wd, n_key_cols=n_cols, seed=9 + i, device="cpu")
+            for i, wd in enumerate(widths)]
+    update_pair(*port, [from_numpy(keys[:, i], "cpu") for i in range(n_cols)],
+                from_numpy(w, "cpu"), from_numpy(sel, "cpu"))
+    for r, p in zip(ref, port):
+        np.testing.assert_array_equal(to_numpy(p.planes), np.asarray(r.planes))
+        np.testing.assert_array_equal(to_numpy(p.weights), np.asarray(r.weights))
+    return port
+
+
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
+def test_update_pair_matches_the_reference_split_by_priority(n_cols):
+    """A selector that splits the rows (any non-zero value selects), a
+    repeated key, zero weights and weights past 2^31, so sums wrap."""
+    rng = np.random.default_rng(40 + n_cols)
+    n = 900
+    keys = _keys(rng, n, n_cols)
+    keys[::4] = keys[1]
+    w = rng.integers(0, 5, n).astype(np.uint32)
+    w[::7] = rng.integers(1 << 31, 1 << 32, len(w[::7]), dtype=np.uint64)
+    sel = (rng.random(n) < 0.35) * rng.integers(1, 1 << 32, n, dtype=np.uint64)
+    lo, hi = _split(n_cols, keys, w, sel.astype(np.uint32))
+    assert lo.weights.any() and hi.weights.any()
+
+
+@pytest.mark.parametrize("case", ["one_key", "width_one"])
+def test_update_pair_matches_the_reference_in_one_bucket(case):
+    """Every weighted row in one bucket of each depth: one key for all rows
+    ("one_key", its weights summing past 2^32), or distinct keys in sketches
+    one bucket wide ("width_one")."""
+    rng = np.random.default_rng(len(case))
+    n = 700
+    keys = _keys(rng, n, 4)
+    if case == "one_key":
+        keys[:] = keys[0]
+    w = rng.integers(1 << 30, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    w[::5] = 0
+    sel = (np.arange(n) % 3 == 0).astype(np.uint32)
+    widths = (1, 1) if case == "width_one" else (1 << 7, 1 << 4)
+    lo, hi = _split(4, keys, w, sel, widths=widths)
+    assert int((to_numpy(lo.weights) != 0).sum()) <= 2
 
 
 def test_decode_and_verify_match_reference():

@@ -243,6 +243,92 @@ def test_hh_update_many_lays_out_one_record_a_sketch(monkeypatch):
         kops.hh_update_many([ups[0], ups[0]])
 
 
+def test_hll_update_many_lays_out_one_record_a_bank(monkeypatch):
+    """K3's many-bank entry without a card: the launch is caught where it
+    would enter C, and its int64 records (csrc/hll_update.cu's 19 fields a
+    bank) are read back: bank, groups, precision, seed, strided key lanes,
+    group, mask, and the second mask or 0; one launch for the three."""
+    import ctypes
+
+    seen = []
+
+    def launch(name, dev, ptr, n_banks, n, n_launches=1):
+        seen.append((name, list((ctypes.c_longlong * (19 * n_banks)).from_address(ptr)),
+                     n_banks, n, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    n = 3000
+    rec = torch.zeros((n, 16), dtype=torch.int32)
+    lanes = torch.zeros((4, n), dtype=torch.int32)
+    five = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS], lanes[0]]
+    banks = [(torch.zeros((1, 1 << 12), dtype=torch.int32), 4, five, None, lanes[1], None),
+             (torch.zeros((16, 1 << 12), dtype=torch.int32), 5, five[:1], lanes[2], lanes[3],
+              None),
+             (torch.zeros((64, 1 << 6), dtype=torch.int32), -2, five[:1], lanes[0], lanes[1],
+              lanes[2])]
+    kops.hll_update_many(banks)
+    (name, f, n_banks, rows, n_launches), = seen
+    assert (name, n_banks, rows, n_launches) == ("hll_update", 3, n, 1)
+    for k, (regs, seed, cols, grp, mask, mask2) in enumerate(banks):
+        pad = [0] * (4 - len(cols))
+        assert f[19 * k:19 * (k + 1)] == [
+            regs.data_ptr(), regs.shape[0], regs.shape[1].bit_length() - 1, seed & 0xFFFFFFFF,
+            len(cols), *[c.data_ptr() for c in cols], *pad, *[c.stride(0) for c in cols], *pad,
+            0 if grp is None else grp.data_ptr(), 0 if grp is None else 1, mask.data_ptr(), 1,
+            0 if mask2 is None else mask2.data_ptr(), 0 if mask2 is None else 1]
+    assert f[9:13] == [16, 16, 16, 1]  # record lanes at the records' stride
+    with pytest.raises(ValueError, match="share a bank"):
+        kops.hll_update_many([banks[0], banks[0]])
+    with pytest.raises(ValueError, match="1 to 3"):
+        kops.hll_update_many(banks + banks[:1])
+
+
+def test_inv_update_pair_lays_out_its_regions_and_scratch(monkeypatch):
+    """K6's two-region entry without a card: the launch is caught where it
+    would enter C; its region records (5 int64 fields each), lanes and the
+    scratch regions laid end to end (entries, pairs, the tile table) are
+    read back; one region takes no selector, two need one."""
+    import ctypes
+
+    seen = []
+
+    def launch(name, dev, ptr, n_regions, *args, n_launches=1):
+        seen.append((name, list((ctypes.c_longlong * (5 * n_regions)).from_address(ptr)),
+                     n_regions, args, n_launches))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    n = 5000
+    rec = torch.zeros((n, 16), dtype=torch.int32)
+    w, sel = torch.ones((2, n), dtype=torch.int32)
+    cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS], w]
+    lo = InvertibleSketch.zeros(2, 1 << 9, n_key_cols=4, seed=9, device="cpu")
+    hi = InvertibleSketch.zeros(2, 1 << 6, n_key_cols=4, seed=10, device="cpu")
+    regions = [(lo.planes, lo.weights, 9), (hi.planes, hi.weights, 10)]
+    kops.inv_update_pair(regions, cols, w, sel)
+    kops.inv_update_pair(regions[1:], cols, w)
+    (name, f, n_regions, args, n_launches), (_, f1, n1, args1, _) = seen
+    assert (name, n_regions, n_launches, n1) == ("inv_update", 2, 2, 1)
+    assert f == [lo.planes.data_ptr(), lo.weights.data_ptr(), 2, 1 << 9, 9,
+                 hi.planes.data_ptr(), hi.weights.data_ptr(), 2, 1 << 6, 10] and f1 == f[5:]
+    assert list(args[:9]) == [*[x for c in cols for x in (c.data_ptr(), c.stride(0))], 4]
+    assert list(args[9:14]) == [w.data_ptr(), 1, sel.data_ptr(), 1, n]
+    assert list(args1[11:13]) == [None, 0]
+    n_ent = -(-n // kops.INV_CHUNK) * kops.INV_CHUNK
+    entries, pairs, seg = args[14:17]
+    assert (pairs - entries, seg - pairs) == (4 * 8 * n_ent, 4 * 2 * n_ent)
+    with pytest.raises(ValueError, match="selector"):
+        kops.inv_update_pair(regions[:1], cols, w, sel)
+    with pytest.raises(ValueError, match="selector"):
+        kops.inv_update_pair(regions, cols, w)
+    with pytest.raises(ValueError, match="share"):
+        kops.inv_update_pair([regions[0], regions[0]], cols, w, sel)
+    deep = InvertibleSketch.zeros(kops.INV_MAX_DEPTH + 1, 1 << 4, n_key_cols=4, device="cpu")
+    with pytest.raises(ValueError, match="depth"):
+        kops.inv_update_pair([(deep.planes, deep.weights, 0)], cols, w)
+
+
 def test_fold_many_lays_out_one_record_an_array(monkeypatch):
     """K8's many-array entry without a card: the launch is caught where it
     would enter C, and its int64 records (csrc/fold.cu's 4 fields an array:
@@ -790,7 +876,7 @@ def test_fold_many_kernel_matches_plain(card, n_slots):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_cols", [1, 4])
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
 def test_inv_update_kernel_matches_plain(card, n_cols):
     rng = np.random.default_rng(20 + n_cols)
     n = 1 << 16
@@ -804,12 +890,97 @@ def test_inv_update_kernel_matches_plain(card, n_cols):
         inv.planes, inv.weights = a
 
 
+def _inv_regions(card, widths=(1 << 12, 1 << 9)):
+    """inv_flow and inv_hi at INVERTIBLE_CONFIG's widths (or ``widths``),
+    their planes and weights already in use."""
+    rng = np.random.default_rng(70)
+    out = []
+    for i, wd in enumerate(widths):
+        inv = InvertibleSketch.zeros(2, wd, n_key_cols=4, seed=9 + i, device=card)
+        inv.planes.copy_(from_numpy(_stack(rng, tuple(inv.planes.shape)), card))
+        inv.weights.copy_(from_numpy(_stack(rng, tuple(inv.weights.shape)), card))
+        out.append((inv.planes, inv.weights, 9 + i))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["split", "per_row", "one_key", "one_bucket"])
+def test_inv_update_pair_matches_plain(card, case):
+    """Both regions of a step through one call (2 launches), bit-equal to the
+    plain version over a full batch (2^21 rows less 77): "split" the bench
+    stream with a priority class on a third of the rows and weights past
+    2^31; "per_row" every row weighted; "one_key" every row one key (one
+    bucket a depth, summed a chunk in shared memory); "one_bucket" distinct
+    keys in regions one bucket wide, every pair of a region in one tile."""
+    rec, w = _full_batch(card, "distinct" if case == "one_bucket" else
+                         "one_key" if case == "one_key" else "zipf")
+    n = rec.shape[0]
+    rng = np.random.default_rng(len(case))
+    if case == "split":
+        w[::5] = from_numpy(rng.integers(1 << 31, 1 << 32, len(w[::5]), dtype=np.uint64)
+                            .astype(np.uint32), card)
+    if case == "per_row":
+        w = rec[:, F.PACKETS].clone()
+    sel = from_numpy((rng.random(n) < 0.33).astype(np.uint32), card)
+    cols = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS], (rec[:, F.META] >> 24) & 0xFF]
+    regions = _inv_regions(card, (1, 1) if case == "one_bucket" else (1 << 12, 1 << 9))
+    pair = [[(p.clone(), q.clone(), s) for p, q, s in regions] for _ in range(2)]
+    for _ in range(2):
+        before = kops.launch_counts()["inv_update"]
+        kops.inv_update_pair(pair[0], cols, w, sel)
+        assert kops.launch_counts()["inv_update"] == before + 2
+        with kops.plain_versions():
+            kops.inv_update_pair(pair[1], cols, w, sel)
+    torch.cuda.synchronize()
+    for a, b in zip(pair[0], pair[1]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(pair[0][1][0], regions[1][0])  # inv_hi took rows
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["per_row", "report"])
+def test_hll_update_many_matches_three_plain_updates(card, case):
+    """The step's three banks at the deployed widths (1 x 2^12, 16 x 2^12,
+    4096 x 2^6) through one launch over a full batch, bit-equal to three plain
+    updates: reasons and pods past the groups, groups whose g * m wraps past
+    2^32, registers already in use; "report" masks the flow bank by a
+    sparse report lane and ANDs the pod bank's mask with it."""
+    rec, _ = _full_batch(card, "zipf")
+    n = rec.shape[0]
+    rng = np.random.default_rng(80 + len(case))
+
+    def lane(hi, p=None):
+        x = rng.integers(0, hi, n) if p is None else rng.random(n) < p
+        return from_numpy(x.astype(np.uint32), card)
+
+    mask, is_drop, pod_mask, report = lane(2, 0.9), lane(2, 0.2), lane(2, 0.5), lane(2, 0.03)
+    reason, pod_grp = lane(20), lane(4200)
+    reason[::97] = (1 << 20) + 3
+    pod_grp[::89] = (1 << 26) + 5
+    five = [rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS], lane(256)]
+    low = case == "report"
+    banks = [((1, 1 << 12), 4, five, None, report if low else mask, None),
+             ((16, 1 << 12), 5, five[:1], reason, is_drop, None),
+             ((4096, 1 << 6), 6, five[:1], pod_grp, pod_mask, report if low else None)]
+    regs = [from_numpy(_stack(rng, shape, high=8), card) for shape, *_ in banks]
+    pair = [[(r.clone(), *b[1:]) for r, b in zip(regs, banks)] for _ in range(2)]
+    for _ in range(2):
+        before = kops.launch_counts()["hll_update"]
+        kops.hll_update_many(pair[0])
+        assert kops.launch_counts()["hll_update"] == before + 1
+        with kops.plain_versions():
+            kops.hll_update_many(pair[1])
+    torch.cuda.synchronize()
+    for a, b, r in zip(pair[0], pair[1], regs):
+        assert torch.equal(a[0], b[0]) and not torch.equal(a[0], r)
+
+
 @pytest.mark.gpu
 def test_pipeline_on_card_matches_cpu(card):
     kops.reset_launch_counts()
     on_card = _run_steps(TelemetryPipeline(CFG, device=card), card)
     counts = kops.launch_counts()
-    assert counts == {"step_rows": 2, "hh_update": 6, "cms_update": 0, "hll_update": 6,
+    assert counts == {"step_rows": 2, "hh_update": 6, "cms_update": 0, "hll_update": 2,
                       "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
@@ -832,7 +1003,7 @@ def test_conntrack_pipeline_on_card_matches_cpu(card, cfg):
     card_sums, cpu_sums = [], []
     on_card = _run_steps(Telemetry(cfg, device=card), card, n_steps=3, summaries=card_sums)
     counts = kops.launch_counts()
-    assert counts["conntrack"] == 6
+    assert counts["conntrack"] == 6 and counts["hll_update"] == 3
     assert counts["inv_update"] == (6 if cfg.enable_invertible else 0)
     on_cpu = _run_steps(Telemetry(cfg, device="cpu"), "cpu", n_steps=3, summaries=cpu_sums)
     for x, y in zip(tensor_leaves(on_card), tensor_leaves(on_cpu)):

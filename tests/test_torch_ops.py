@@ -37,6 +37,7 @@ from retina_tpu_torch.ops import hashing as thash
 from retina_tpu_torch.ops.conntrack import ConntrackTable
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.ops.entropy import AnomalyEWMA, EntropyWindow
+from retina_tpu_torch.ops import hyperloglog
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.ops.topk import HeavyHitterSketch, TopKTable, slots
@@ -330,6 +331,60 @@ def test_hll_update_and_estimate_match_reference():
     np.testing.assert_array_equal(to_numpy(port1.registers), np.asarray(ref1.registers))
     np.testing.assert_allclose(port1.estimate().numpy(), np.asarray(ref1.estimate()),
                                rtol=1e-5)
+
+
+def _rest_zero_keys(rng, n_cols, seed, p, count):
+    """``count`` keys of ``n_cols`` columns whose HLL hash leaves rest 0
+    (rho = 32 - p + 1), found by search."""
+    found = []
+    while sum(len(f) for f in found) < count:
+        cand = np.stack([_u32(rng, 1 << 20) for _ in range(n_cols)])
+        h = jhash_np.hash_cols_np(list(cand), np.uint32(0xC0FFEE + seed))
+        found.append(cand[:, (h >> np.uint32(p)) == 0].T)
+    return np.concatenate(found)[:count].T
+
+
+@pytest.mark.parametrize("agg", ["high", "low"])
+def test_hll_update_many_matches_three_reference_updates(agg):
+    """The step's three banks through one ``update_many`` call against the
+    reference step's three updates (retina_tpu/models/pipeline.py:542-550):
+    reasons and pods past the banks' groups (dropped), groups whose g * m
+    passes 2^32 (u32 arithmetic wraps them into the bank, as the
+    reference's), masked rows, and keys whose hash rest is 0. At low
+    aggregation the flow bank's mask is the report lane and the pod bank's
+    is pod_mask ANDed with it by K3."""
+    rng = np.random.default_rng(33 if agg == "high" else 34)
+    n, n_reasons, n_pods = 6000, 16, 64
+    five = _keys(rng, n, 2500, 4)
+    five[:, :8] = _rest_zero_keys(rng, 4, 4, 16, 8)
+    five[0, 8:16] = _rest_zero_keys(rng, 1, 5, 12, 8)[0]
+    src = five[0]
+    mask, is_drop, pod_mask, report = (rng.random((4, n)) < [[0.8], [0.3], [0.5], [0.1]])
+    reason = rng.integers(0, n_reasons + 4, n).astype(np.uint32)
+    reason[::97] = (1 << 20) + 3  # 2^20 * 2^12 wraps to 0: group 3
+    pod_grp = rng.integers(0, n_pods + 8, n).astype(np.uint32)
+    pod_grp[::89] = (1 << 26) + 5  # 2^26 * 2^6 wraps to 0: group 5
+    mask[:8] = report[:8] = is_drop[8:16] = True  # the rest-0 keys count
+    reason[8:16] = 2
+    sk_mask = report if agg == "low" else mask
+    ref_pod_mask = pod_mask & report if agg == "low" else pod_mask
+    banks = [(4, 1, 16), (5, n_reasons, 12), (6, n_pods, 6)]
+    refs = [JHLL.zeros(g, precision=p, seed=seed) for seed, g, p in banks]
+    refs[0] = refs[0].update([jnp.asarray(k) for k in five], jnp.zeros(n, jnp.uint32),
+                             jnp.asarray(sk_mask))
+    refs[1] = refs[1].update([jnp.asarray(src)], jnp.asarray(reason), jnp.asarray(is_drop))
+    refs[2] = refs[2].update([jnp.asarray(src)], jnp.asarray(pod_grp),
+                             jnp.asarray(ref_pod_mask))
+    ports = [HyperLogLog.zeros(g, precision=p, seed=seed, device="cpu") for seed, g, p in banks]
+    lane = [_t(x.astype(np.uint32)) for x in (mask, is_drop, pod_mask, report)]
+    hyperloglog.update_many([
+        (ports[0], [_t(k) for k in five], None, lane[3] if agg == "low" else lane[0], None),
+        (ports[1], [_t(src)], _t(reason), lane[1], None),
+        (ports[2], [_t(src)], _t(pod_grp), lane[2], lane[3] if agg == "low" else None)])
+    for r, p in zip(refs, ports):
+        np.testing.assert_array_equal(to_numpy(p.registers), np.asarray(r.registers))
+    assert int(to_numpy(ports[0].registers).max()) == 32 - 16 + 1
+    assert int(to_numpy(ports[1].registers).max()) == 32 - 12 + 1
 
 
 # -- entropy ------------------------------------------------------------------

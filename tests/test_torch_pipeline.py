@@ -369,6 +369,16 @@ def test_skewed_batch_with_flags_and_probes(cut):
     assert int(to_numpy(ts.lat_hist).sum()) > 0
 
 
+def test_invertible_at_high_aggregation_with_a_priority_class():
+    """Per-row weights: the step's one K6 call splits every forwarded row
+    between inv_flow and inv_hi by the priority class, and its one K3 call
+    takes the three banks at the per-row masks."""
+    js, ts = run_case(SMALL_CUTS["invertible"] | dict(enable_conntrack=False,
+                                                      data_aggregation_level="high"),
+                      traffic(26, 2), windows=2, now=clock)
+    assert to_numpy(ts.inv_flow.weights).any() and to_numpy(ts.inv_hi.weights).any()
+
+
 def test_state_leaves_line_up_with_reference():
     jp = JPipeline(JConfig(**SMALL))
     tp = TelemetryPipeline(PipelineConfig(**SMALL), device="cpu")
