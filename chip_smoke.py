@@ -145,7 +145,12 @@ per bucket and compared exactly there, within a relative 2^-22 above;
 derived floats (entropy bits, HLL estimates, EWMA state, z-scores) within
 a relative 1e-5, since reductions may group differently.
 
-K1-K7 are timed by CUDA events around 10 calls after 2 warm-ups; K8-K17,
+K7 (the ingest kernels) is held bit for bit against its plain versions at
+the default-flush and bench shapes (2^21 slots: the known side's gather
+does not fit in the L2), and its new side on a wire a third of which is
+padding, on one id in every row and on distinct ids: the windows, the
+descriptor table and zero claims after every call. K1-K6 are timed by
+CUDA events around 10 calls after 2 warm-ups; K7-K17,
 whose kernels take microseconds, by their device time in
 torch.profiler (the summed durations of what the calls ran on the card),
 with the CUDA-event span of the same calls beside it. K11-K13 are held
@@ -714,46 +719,19 @@ def main() -> int:
     from retina_tpu_torch.config import Config
     from retina_tpu_torch.engine import SketchEngine
     from retina_tpu_torch.parallel.flowdict import flow_dict_stats
-    from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
+    from retina_tpu_torch.step_profile import ingest_wires, k7_sector_bytes, new_claim_wires
 
     t0 = time.perf_counter()
     native.get_lib()
     print(f"native host helpers: built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    def k7_inputs(bucket, slots, id_bits):
-        """One flush's wires at these shapes: packed lanes with unstamped
-        rows, saturated spreads (the low word carries) and saturated MISC;
-        a new wire whose ids repeat (slot 0 too) and whose last rows are
-        padding; a v4 stream and a v3 wire of ids inside the table."""
-        packed = rng.integers(0, 1 << 32, (bucket, 12), dtype=np.uint64).astype(np.uint32)
-        packed[::5, 0] = 0
-        packed[1::5, 0] = 0xFFFFFFFF
-        packed[2::5, 7] = 0xFFFFFFFF
-        n_valid = bucket - bucket // 10
-        new = np.zeros((bucket, 13), np.uint32)
-        new[:n_valid, 1:] = packed[:n_valid]
-        new[:n_valid, 0] = rng.integers(0, min(slots, bucket // 2), n_valid)
-        new[::7, 0] = 0
-        rows = np.zeros((n_valid, 16), np.uint32)
-        rows[:, F.PACKETS] = rng.integers(0, 1 << 10, n_valid)
-        rows[:, F.BYTES] = rng.integers(0, 1 << 22, n_valid)
-        ids = rng.integers(0, slots, n_valid).astype(np.uint32)
-        dense = np.zeros(dense_words(bucket, id_bits), np.uint32)
-        dense_known_rows(rows, ids, id_bits, dense)
-        two = np.zeros((bucket, 2), np.uint32)
-        known_rows(rows, ids, np.uint32(id_bits), two[:n_valid])
-        table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
-        return {k: from_numpy(v, dev) for k, v in (
-            ("packed", packed), ("new", new), ("dense", dense), ("two", two),
-            ("table", table))} | {"ids": ids, "new_ids": new[:, 0]}
-
     k7 = {}
     for label, cap, bucket, slots in (("default flush", 1 << 15, 1 << 17, 1 << 18),
                                       ("bench sizing", 1 << 19, 1 << 18, 1 << 21)):
-        id_bits = (slots - 1).bit_length()
+        x = ingest_wires(dev, bucket, slots, seed=SEED + 7)
+        id_bits = x["id_bits"]
         n_out = -(-bucket // cap) * cap
-        x = k7_inputs(bucket, slots, id_bits)
         for lo, hi in ((0xFFFFFF00, 7), (0, 0)):
             out = kops.ingest_packed(x["packed"], True, lo, hi, n_out)
             with kops.plain_versions():
@@ -779,40 +757,90 @@ def main() -> int:
               f"(id_bits {id_bits}): kernels equal their plain versions", flush=True)
         k7[label] = (x, n_out, slots, id_bits, bucket)
 
-    # Times at the default flush: one coalesced chunk of 2^17 rows.
-    x, n_out, slots, id_bits, bucket = k7["default flush"]
-    table = x["table"].clone()
-    winner = torch.zeros(slots, dtype=torch.int32, device=dev)
-    new_distinct = len(np.unique(x["new_ids"]))
-    known_distinct = len(np.unique(x["ids"]))
-    row_ops = 40  # integer operations a row: decode, unpack, addressing
-    k7_runs = (
-        ("ingest_packed", "retina_tpu/engine.py:1052",
-         lambda: kops.ingest_packed(x["packed"], True, 0xFFFFFF00, 7, n_out),
-         bucket * 48 + n_out * 64, None),
-        ("ingest_new", "retina_tpu/engine.py:1205",
-         lambda: kops.ingest_new(x["new"], table, winner, 0xFFFFFF00, 7, n_out),
-         bucket * 52 + new_distinct * 48 + n_out * 64, None),
-        ("ingest_known", "retina_tpu/engine.py:1275",
-         lambda: kops.ingest_known(x["dense"], bucket, True, id_bits, x["table"], 1,
-                                   0xFFFFFF00, 7, n_out),
-         x["dense"].numel() * 4 + known_distinct * 48 + n_out * 64, "index_select"),
-    )
-    for name, replaces, fn, nbytes, lib in k7_runs:
-        ms = time_ms(fn)
+    # The new side's claims at the batches that pull them apart, each
+    # against its plain version: a wire a third of which is padding (id 0,
+    # as the engine pads a bucket: every padding row claims slot 0), every
+    # row one id, every row an id of its own. The windows, the table and
+    # zero claims after the call, then the device time and the span.
+    slots = 1 << 18
+    for label, (n_valid, w) in new_claim_wires(SEED + 13, slots).items():
+        bucket = w.shape[0]
+        wire = from_numpy(w, dev)
+        n_out = -(-bucket // (1 << 15)) * (1 << 15)
+        table = from_numpy(rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64)
+                           .astype(np.uint32), dev)
+        tables = [table, table.clone()]
+        winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+        out = kops.ingest_new(wire, tables[0], winner, 0xFFFFFF00, 7, n_out)
+        torch.cuda.synchronize()
+        check(not bool(winner.any()), f"K7 ingest_new left claims ({label})")
         with kops.plain_versions():
-            plain_ms = time_ms(fn)
-        lib_ms = None
-        if lib:
-            ids_dev = from_numpy(x["ids"], dev).long()
-            lib_out = torch.zeros((n_out, 16), dtype=torch.int32, device=dev)
+            ref = kops.ingest_new(wire, tables[1], winner, 0xFFFFFF00, 7, n_out)
+        equal_int(out, ref, f"K7 ingest_new windows ({label})")
+        equal_int(tables[0], tables[1], f"K7 ingest_new table ({label})")
+        nbytes = k7_sector_bytes("ingest_new", wire, w[:, 0], n_out)
 
-            def lib_fn():
-                lib_out[: len(x["ids"]), :12].copy_(x["table"].index_select(0, ids_dev))
+        def new_fn(wire=wire, table=tables[0], winner=winner, n_out=n_out):
+            return kops.ingest_new(wire, table, winner, 0xFFFFFF00, 7, n_out)
 
-            lib_ms = time_ms(lib_fn)
-        report(name, "retina_tpu_torch/kernels/csrc/ingest.cu", replaces, ms, plain_ms,
-               nbytes, bucket * row_ops, lib_ms, 0.0)
+        dev_ms, span = device_ms(new_fn), time_ms(new_fn)
+        check(not bool(winner.any()), f"K7 ingest_new left claims after its timing ({label})")
+        print(f"K7 ingest_new on the {label} batch (bucket {bucket}, {n_valid} valid rows): "
+              f"device time {dev_ms:.4f} ms, CUDA-event span {span:.4f} ms; sector bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes); equal to the plain "
+              f"version", flush=True)
+        del wire, tables, table, winner, out, ref
+
+    # Times at the default flush (one coalesced chunk of 2^17 rows) and the
+    # known side's gather at bench sizing (2^21 slots: the table, 100.7 MB,
+    # does not fit in the L2): device time first, the CUDA-event span of a
+    # call beside it. Back to back, the default flush's wire, table and
+    # records (27 MB) stay in the 50 MB L2, so its times may pass the HBM
+    # bound; step_profile --ingest times them with the L2 flushed too.
+    row_ops = 40  # integer operations a row: decode, unpack, addressing
+    for label in ("default flush", "bench sizing"):
+        x, n_out, slots, id_bits, bucket = k7[label]
+        table = x["table"].clone()
+        winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+        new_ids = to_numpy(x["new"][:, 0])
+        k7_runs = (
+            ("ingest_packed", "retina_tpu/engine.py:1052",
+             lambda: kops.ingest_packed(x["packed"], True, 0xFFFFFF00, 7, n_out),
+             k7_sector_bytes("ingest_packed", x["packed"], [], n_out), None),
+            ("ingest_new", "retina_tpu/engine.py:1205",
+             lambda: kops.ingest_new(x["new"], table, winner, 0xFFFFFF00, 7, n_out),
+             k7_sector_bytes("ingest_new", x["new"], new_ids[new_ids < slots], n_out), None),
+            ("ingest_known", "retina_tpu/engine.py:1275",
+             lambda: kops.ingest_known(x["dense"], bucket, True, id_bits, x["table"], 1,
+                                       0xFFFFFF00, 7, n_out),
+             k7_sector_bytes("ingest_known", x["dense"], x["known_ids"], n_out),
+             "index_select"),
+        )
+        for name, replaces, fn, nbytes, lib in k7_runs:
+            if label == "bench sizing" and name != "ingest_known":
+                continue
+            ms, span = device_ms(fn), time_ms(fn)
+            lib_ms = None
+            if lib:
+                ids_dev = from_numpy(x["known_ids"], dev).long()
+                lib_out = torch.zeros((n_out, 16), dtype=torch.int32, device=dev)
+
+                def lib_fn():
+                    lib_out[: len(x["known_ids"]), :12].copy_(x["table"].index_select(0, ids_dev))
+
+                lib_ms = device_ms(lib_fn)
+            print(f"K7 {name} at the {label}: device time {ms:.4f} ms, CUDA-event span "
+                  f"{span:.4f} ms (the wrapper's host cost {span - ms:.4f} ms a call); sector "
+                  f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes)"
+                  + (f"; index_select + copy {lib_ms:.4f} ms (device time)" if lib else ""),
+                  flush=True)
+            if label == "bench sizing":
+                continue
+            with kops.plain_versions():
+                plain_ms = time_ms(fn)
+            report(name, "retina_tpu_torch/kernels/csrc/ingest.cu", replaces, ms, plain_ms,
+                   nbytes, bucket * row_ops, lib_ms, 0.0)
+        check(not bool(winner.any()), f"K7 ingest_new left claims after its timing ({label})")
 
     # -- the ingest paths: raw blocks -> combine -> flow dictionary ->
     # wire -> K7 -> step, through SketchEngine, as the feed loop flushes --

@@ -693,7 +693,7 @@ def ingest_new(wire, table, winner, base_lo, base_hi, n_out):
     if bucket >= 0x7FFFFFFF:
         raise ValueError("bucket too large for the 32-bit row claim")
     out = torch.empty((n_out, 16), dtype=torch.int32, device=dev)
-    _aligned(table, out)
+    _aligned(wire, table, out)
     _launch("ingest_new", dev, wire.data_ptr(), bucket, table.data_ptr(), slots,
             winner.data_ptr(), base_lo, base_hi, out.data_ptr(), n_out, n_launches=2)
     return out
@@ -728,7 +728,7 @@ def ingest_known(wire, bucket, dense, id_bits, table, ts_rel, base_lo, base_hi, 
         return ingest_known_plain(wire, bucket, bool(dense), int(id_bits), table, ts_rel,
                                   base_lo, base_hi, n_out)
     out = torch.empty((n_out, 16), dtype=torch.int32, device=dev)
-    _aligned(table, out)
+    _aligned(wire, table, out)
     _launch("ingest_known", dev, wire.data_ptr(), bucket, int(bool(dense)), int(id_bits),
             table.data_ptr(), slots, ts_rel, base_lo, base_hi, out.data_ptr(), n_out)
     return out

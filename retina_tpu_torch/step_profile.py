@@ -7,6 +7,7 @@
     python3 -m retina_tpu_torch.step_profile --rows
     python3 -m retina_tpu_torch.step_profile --fold
     python3 -m retina_tpu_torch.step_profile --hll-inv
+    python3 -m retina_tpu_torch.step_profile --ingest
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
 agent: conntrack on, low aggregation; or the configuration ``--config``
@@ -93,6 +94,27 @@ step profile shows. The batches beside the step's: weights and masks all 0
 ("one-key", at the per-row weights: one bucket a depth, the hottest), and
 the report weights with a priority class (src or dst in pods 1-255, the
 /24 of ``pod_ip(0)``: "priority", which feeds inv_hi). It too runs
+unchanged in a copy of an older tree.
+
+With ``--ingest`` it times the three ingest entries (K7: ``ingest_packed``,
+``ingest_new``, ``ingest_known``), each call 10 times after 2 warm-ups, by
+its device time by kernel in torch.profiler, back to back (the batch stays
+in the L2) and with the L2 flushed before each call, by the CUDA-event span
+of one call, and by the difference of span and device time (the wrapper's
+host cost a call), beside its launches and its sector bound (each wire byte
+once, 64 bytes an output row; on the new side 48 bytes a distinct id's table
+row and 32 a distinct sector of claim words; on the known side 32 a distinct
+sector of the table rows read). The batches: "default" (chip_smoke.py's
+default-flush inputs: a bucket of 2^17 rows in windows of 2^15, 2^18 slots)
+and "bench" (a bucket of 2^18 in one window of 2^19, 2^21 slots: the table
+does not fit in L2), for all three entries; on the new side the wires of
+``new_claim_wires``: "a third padding", "one id" (the hottest claim),
+"distinct" and "distinct 98304" (the claim's floor); "path 1", the two
+new-side dispatches of ``SketchEngine.flush`` at ``Config()`` on the second
+quantum of bench.py's traffic (a full 2^17-row bucket and a 98,304-row one
+padded with id-0 rows), and "path 2 known", the known-side dispatch at bench
+sizing on a quantum fed again, both captured at the wrapper and replayed;
+the known side's batches beside ``index_select`` + copy. It too runs
 unchanged in a copy of an older tree.
 
 Needs a CUDA card; exits non-zero without one.
@@ -633,6 +655,223 @@ def hll_inv(dev, recs, ident) -> dict:
     return result
 
 
+def ingest_wires(dev, bucket: int, slots: int, seed: int = 7) -> dict:
+    """One flush's K7 wires at these shapes: packed lanes with unstamped
+    rows, saturated spreads (the low word carries) and saturated MISC; a new
+    wire whose ids repeat (every 7th row's is 0) and whose last tenth is
+    padding; a v4 dense stream and a v3 two-lane wire of ids inside the
+    table; a random table. ``known_ids`` are the known rows' ids."""
+    import numpy as np
+
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
+    from retina_tpu_torch.u32 import from_numpy
+
+    rng = np.random.default_rng(seed)
+    id_bits = (slots - 1).bit_length()
+    packed = rng.integers(0, 1 << 32, (bucket, 12), dtype=np.uint64).astype(np.uint32)
+    packed[::5, 0] = 0
+    packed[1::5, 0] = 0xFFFFFFFF
+    packed[2::5, 7] = 0xFFFFFFFF
+    n_valid = bucket - bucket // 10
+    new = np.zeros((bucket, 13), np.uint32)
+    new[:n_valid, 1:] = packed[:n_valid]
+    new[:n_valid, 0] = rng.integers(0, min(slots, bucket // 2), n_valid)
+    new[::7, 0] = 0
+    rows = np.zeros((n_valid, 16), np.uint32)
+    rows[:, F.PACKETS] = rng.integers(0, 1 << 10, n_valid)
+    rows[:, F.BYTES] = rng.integers(0, 1 << 22, n_valid)
+    ids = rng.integers(0, slots, n_valid).astype(np.uint32)
+    dense = np.zeros(dense_words(bucket, id_bits), np.uint32)
+    dense_known_rows(rows, ids, id_bits, dense)
+    two = np.zeros((bucket, 2), np.uint32)
+    known_rows(rows, ids, np.uint32(id_bits), two[:n_valid])
+    table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
+    return {k: from_numpy(v, dev) for k, v in (
+        ("packed", packed), ("new", new), ("dense", dense), ("two", two), ("table", table))} \
+        | {"id_bits": id_bits, "known_ids": ids, "bucket": bucket}
+
+
+def new_claim_wires(seed: int, slots: int = 1 << 18) -> dict:
+    """New-side wires (13 random lanes a row, ids inside ``slots``) that pull
+    the claims' costs apart, by label as (valid rows, wire): "a third
+    padding" (98,304 rows, random ids, the last third zero, as the engine
+    pads a bucket: every padding row claims slot 0), "one id" (2^17 rows of
+    one id: the hottest claim) and "distinct" and "distinct 98304" (every
+    row an id of its own, no padding: the claim's floor)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for label, bucket, n_valid, ids in (
+            ("a third padding", 98304, 98304 - 98304 // 3, rng.integers(0, slots, 98304)),
+            ("one id", 1 << 17, 1 << 17, np.full(1 << 17, 12345)),
+            ("distinct", 1 << 17, 1 << 17, rng.permutation(slots)[: 1 << 17]),
+            ("distinct 98304", 98304, 98304, rng.permutation(slots)[:98304])):
+        w = rng.integers(0, 1 << 32, (bucket, 13), dtype=np.uint64).astype(np.uint32)
+        w[:, 0] = ids
+        w[n_valid:] = 0
+        out[label] = (n_valid, w)
+    return out
+
+
+def k7_sector_bytes(entry: str, wire, ids, n_out: int) -> int:
+    """The bytes of K7's sector bound: each wire byte once and 64 bytes a
+    record; on the new side 48 a distinct id's table row and 32 a distinct
+    32-byte sector of its claim words (eight 4-byte words a sector); on the
+    known side 32 a distinct 32-byte sector of the 48-byte table rows read,
+    two a row, a sector shared by neighbouring rows counted once (``ids``:
+    the ids inside the table)."""
+    import numpy as np
+
+    ids = np.unique(np.asarray(ids, dtype=np.int64))
+    if entry == "ingest_new":
+        table = ids.size * 48 + np.unique(ids // 8).size * 32
+    elif entry == "ingest_known":
+        table = np.union1d(ids * 48 // 32, (ids * 48 + 47) // 32).size * 32
+    else:
+        table = 0
+    return wire.numel() * 4 + int(table) + n_out * 64
+
+
+def capture_feed_calls(dev, cfg, schedule, name: str) -> list:
+    """The ``name`` wrapper calls that ``SketchEngine.flush`` makes on the last
+    quantum of ``schedule`` (the earlier quanta fill the dictionary), as
+    capture_calls returns them: their replay repeats the dispatches' K7 calls
+    on the same wires, table and scratch."""
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.synthetic import pod_ip
+
+    eng = SketchEngine(cfg, device=dev)
+    eng.update_identities({pod_ip(i): i for i in range(1, 2048)})
+    for i, blocks in enumerate(schedule[:-1]):
+        eng.flush(blocks, 100 + i)
+    calls = capture_calls(lambda: eng.flush(schedule[-1], 100 + len(schedule)), (name,))
+    eng.stop()
+    return calls
+
+
+def ingest(dev) -> dict:
+    """K7's three entries on the batches of ``--ingest``: device time by
+    kernel, the CUDA-event span of one call and their difference (the
+    wrapper's host cost), launches, the sector bound, and the known side's
+    library call."""
+    import numpy as np
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.events.synthetic import TrafficGen
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.wire import dense_known_unpack_plain
+    from retina_tpu_torch.u32 import from_numpy
+
+    batches = []  # (label, entry, fn, bytes of the sector bound, library args or None)
+    for label, cap, bucket, slots in (("default", 1 << 15, 1 << 17, 1 << 18),
+                                      ("bench", 1 << 19, 1 << 18, 1 << 21)):
+        x = ingest_wires(dev, bucket, slots)
+        n_out = -(-bucket // cap) * cap
+        winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+        table = x["table"].clone()
+        new_ids = x["new"][:, 0].cpu().numpy().view(np.uint32)
+        known_ids = x["known_ids"]
+        batches += [
+            (label, "ingest_packed",
+             lambda x=x, n_out=n_out: kops.ingest_packed(x["packed"], True, 0xFFFFFF00, 7, n_out),
+             k7_sector_bytes("ingest_packed", x["packed"], [], n_out), None),
+            (label, "ingest_new",
+             lambda x=x, t=table, w=winner, n_out=n_out:
+                 kops.ingest_new(x["new"], t, w, 0xFFFFFF00, 7, n_out),
+             k7_sector_bytes("ingest_new", x["new"], new_ids[new_ids < slots], n_out), None),
+            (label, "ingest_known",
+             lambda x=x, n_out=n_out: kops.ingest_known(x["dense"], x["bucket"], True,
+                                                        x["id_bits"], x["table"], 1, 0xFFFFFF00,
+                                                        7, n_out),
+             k7_sector_bytes("ingest_known", x["dense"], known_ids, n_out),
+             (x["table"], torch.from_numpy(known_ids.astype(np.int64)).to(dev), n_out)),
+        ]
+
+    # The new side's claims at their floor and at their hottest, and a
+    # bucket of ingest path 1's second dispatch a third of which is padding.
+    slots = 1 << 18
+    table = torch.zeros((slots, 12), dtype=torch.int32, device=dev)
+    winner = torch.zeros(slots, dtype=torch.int32, device=dev)
+    for label, (_, w) in new_claim_wires(1, slots).items():
+        wire = from_numpy(w, dev)
+        n_out = -(-w.shape[0] // (1 << 15)) * (1 << 15)
+        batches.append((label, "ingest_new",
+                        lambda w=wire, n_out=n_out, t=table, c=winner:
+                            kops.ingest_new(w, t, c, 5, 0, n_out),
+                        k7_sector_bytes("ingest_new", wire, w[:, 0], n_out), None))
+
+    # Ingest path 1's new-side dispatches and ingest path 2's known-side
+    # dispatch, captured at the wrappers on bench.py's traffic.
+    gen = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=42)
+    quanta = [np.split(gen.batch(QUANTUM), QUANTUM // BLOCK) for _ in range(3)]
+    for label, cfg, schedule, name in (
+            ("path 1", Config(), quanta[:2], "ingest_new"),
+            ("path 2 known",
+             Config(batch_capacity=1 << 19, feed_coalesce_windows=8, flow_dict_slots=1 << 21),
+             quanta + quanta[:1], "ingest_known")):
+        for i, (_, fn, args, kwargs) in enumerate(capture_feed_calls(dev, cfg, schedule, name)):
+            lib = None
+            if name == "ingest_new":
+                wire, tbl, _, _, _, n_out = args
+                ids = wire[:, 0].cpu().numpy().view(np.uint32)
+                what = f"bucket {wire.shape[0]}, {int((ids == 0).sum())} rows with id 0"
+                ids = ids[ids < tbl.shape[0]]
+            else:
+                wire, bucket, _, id_bits, tbl, _, _, _, n_out = args
+                kid = dense_known_unpack_plain(wire, bucket, id_bits)[0].clamp(
+                    max=tbl.shape[0] - 1)
+                ids = kid.cpu().numpy()
+                lib = (tbl, kid, n_out)
+                what = f"bucket {bucket}, {np.unique(ids).size} distinct ids"
+            print(f"{label} dispatch {i}: {what}", flush=True)
+            batches.append((f"{label} #{i}", name,
+                            lambda fn=fn, args=args, kwargs=kwargs: fn(*args, **kwargs),
+                            k7_sector_bytes(name, wire, ids, n_out), lib))
+    del quanta
+
+    # Timed back to back, a batch's wire, table and records stay in the 50 MB
+    # L2 from one call to the next. The L2-flushed time writes a 128 MiB
+    # buffer before each call, as a dispatch meets a wire just copied in and
+    # a table last touched a step ago; only the batch's own kernels count.
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    result: dict = {}
+    for label, entry, fn, nbytes, lib in batches:
+        before = kops.launch_counts()[entry]
+        fn()
+        launches = kops.launch_counts()[entry] - before
+        by_kernel = kernel_ms(fn)
+        dev_ms = sum(by_kernel.values())
+        cold = kernel_ms(lambda fn=fn: (l2.zero_(), fn()))
+        cold_ms = sum(v for k, v in cold.items() if k in by_kernel)
+        span = cuda_ms(fn)
+        bound = nbytes / 3.35e12 * 1e3
+        lib_ms = None
+        if lib is not None:
+            tbl, ids, n_out = lib
+            lib_out = torch.zeros((n_out, 16), dtype=torch.int32, device=dev)
+
+            def lib_fn(tbl=tbl, ids=ids, lib_out=lib_out):
+                lib_out[: ids.shape[0], :12].copy_(tbl.index_select(0, ids))
+
+            lib_ms = sum(kernel_ms(lib_fn).values())
+        key = f"{entry} {label}"
+        result[key] = {"device_ms": dev_ms, "flushed_ms": cold_ms, "span_ms": span,
+                       "host_ms": span - dev_ms, "bound_ms": bound, "bytes": nbytes,
+                       "launches": launches, "library_ms": lib_ms}
+        print(f"K7 {key}: device time {dev_ms:.4f} ms "
+              f"({', '.join(f'{k} {v:.4f}' for k, v in by_kernel.items())}), L2 flushed "
+              f"{cold_ms:.4f} ms; CUDA-event span {span:.4f} ms; host cost "
+              f"{span - dev_ms:.4f} ms a call; {launches} launches; sector bound {bound:.4f} ms "
+              f"({nbytes} bytes); {dev_ms / bound:.2f}x the bound, {cold_ms / bound:.2f}x "
+              "L2 flushed"
+              + (f"; index_select + copy {lib_ms:.4f} ms" if lib_ms is not None else ""),
+              flush=True)
+    return result
+
+
 def device_rows(prof) -> tuple[list, list]:
     """(kernel rows, torch-op rows) of a profile as (device us, calls, name),
     largest first. A device row is one kernel, memcpy or memset; an aten row
@@ -720,6 +959,9 @@ def main() -> int:
     ap.add_argument("--rows", action="store_true",
                     help="time K1 at the deployed step's call and at batches that separate "
                     "its costs")
+    ap.add_argument("--ingest", action="store_true",
+                    help="time K7's three entries by device time and CUDA events on the "
+                    "default-flush, bench and feed-path batches")
     ap.add_argument("--hll-inv", action="store_true",
                     help="time K3 and K6 at the invertible step's calls and at batches that "
                     "separate their costs")
@@ -754,6 +996,9 @@ def main() -> int:
         return 0
     if args.fold:
         print(json.dumps(fold(dev) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
+    if args.ingest:
+        print(json.dumps(ingest(dev) | {"device": torch.cuda.get_device_name(0)}))
         return 0
     gen = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=42)
     recs = [from_numpy(gen.batch(BATCH), dev) for _ in range(2)]

@@ -1075,7 +1075,7 @@ def test_ingest_new_kernel_matches_plain(card):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dense", [True, False])
-@pytest.mark.parametrize("id_bits", [1, 12, 18, 21, 32])
+@pytest.mark.parametrize("id_bits", [1, 12, 18, 21, 32, 13])
 def test_ingest_known_kernel_matches_plain(card, dense, id_bits):
     from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
 
@@ -1103,6 +1103,115 @@ def test_ingest_known_kernel_matches_plain(card, dense, id_bits):
             ref = kops.ingest_known(wire, bucket, dense, id_bits, table, flag, lo, hi, 8192)
         torch.cuda.synchronize()
         assert torch.equal(out, ref)
+
+
+# Shapes at the edges of K7's 256-row tiles: one row, a bucket that ends
+# inside a tile, windows whose zero tail spans several tiles.
+K7_EDGES = [(1, 1), (1, 256), (256, 256), (257, 1024), (1000, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("bucket, n_out", K7_EDGES)
+def test_ingest_packed_kernel_at_tile_edges(card, packed, bucket, n_out):
+    rng = np.random.default_rng(bucket + n_out + packed)
+    w = _k7_wire(rng, (bucket, 12 if packed else 16), bucket)
+    w[::5, 0] = 0
+    w[1::5, 0] = 0xFFFFFFFF
+    wire = from_numpy(w, card)
+    out = kops.ingest_packed(wire, packed, 0xFFFFFF00, 7, n_out)
+    with kops.plain_versions():
+        ref = kops.ingest_packed(wire, packed, 0xFFFFFF00, 7, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not out[bucket:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["one id", "across tiles", "a third padding", "distinct"])
+@pytest.mark.parametrize("bucket, n_out", [(1, 256), (257, 1024), (1000, 1024), (4096, 8192)])
+def test_ingest_new_kernel_at_tile_edges(card, pattern, bucket, n_out):
+    """Every row one id (one claim a tile, the last row writes); ids that
+    repeat across tile boundaries (row % 300); a wire a third of which is
+    padding (id 0, zero lanes: the last padding row writes slot 0); distinct
+    ids. Called twice: the claim scratch is zero after each call."""
+    slots = 1 << 12
+    rng = np.random.default_rng(bucket + len(pattern))
+    n_valid = bucket - bucket // 3 if pattern == "a third padding" else bucket
+    w = _k7_wire(rng, (bucket, 13), n_valid)
+    ids = {"one id": np.full(bucket, 5), "across tiles": np.arange(bucket) % 300,
+           "a third padding": rng.integers(0, 300, bucket),
+           "distinct": rng.permutation(slots)[:bucket]}[pattern]
+    w[:n_valid, 0] = ids[:n_valid]
+    wire = from_numpy(w, card)
+    table = from_numpy(rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64)
+                       .astype(np.uint32), card)
+    tables = [table.clone(), table.clone()]
+    winner = torch.zeros(slots, dtype=torch.int32, device=card)
+    for _ in range(2):
+        before = kops.launch_counts()["ingest_new"]
+        out = kops.ingest_new(wire, tables[0], winner, 0xFFFFF000, 3, n_out)
+        assert kops.launch_counts()["ingest_new"] == before + 2
+        torch.cuda.synchronize()
+        assert not winner.any()
+        with kops.plain_versions():
+            ref = kops.ingest_new(wire, tables[1], winner, 0xFFFFF000, 3, n_out)
+        assert torch.equal(out, ref)
+        assert torch.equal(tables[0], tables[1])
+
+
+def _k7_known(rng, bucket, n_valid, id_bits, dense, slots):
+    """A known wire of ``bucket`` rows (v4 stream or v3 rows), half of its
+    ids inside a table of ``slots``, the rest anywhere in id_bits."""
+    from retina_tpu_torch.parallel.wire import dense_known_rows, dense_words, known_rows
+
+    rows = np.zeros((n_valid, 16), np.uint32)
+    pk_bits = 10 if dense else 32 - id_bits
+    rows[:, F.PACKETS] = rng.integers(0, 1 << pk_bits, n_valid) if pk_bits else 0
+    rows[:, F.BYTES] = rng.integers(0, 1 << (22 if dense else 32), n_valid, dtype=np.uint64)
+    ids = rng.integers(0, 1 << id_bits, n_valid, dtype=np.uint64).astype(np.uint32)
+    ids[::2] %= slots
+    if dense:
+        w = np.zeros(dense_words(bucket, id_bits), np.uint32)
+        dense_known_rows(rows, ids, id_bits, w)
+    else:
+        w = np.zeros((bucket, 2), np.uint32)
+        known_rows(rows, ids, np.uint32(id_bits), w[:n_valid])
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("id_bits", [1, 13, 21, 32])
+@pytest.mark.parametrize("bucket, n_out", K7_EDGES)
+def test_ingest_known_kernel_at_tile_edges(card, dense, id_bits, bucket, n_out):
+    rng = np.random.default_rng(bucket + n_out + id_bits + dense)
+    slots = min(1 << id_bits, 1 << 12)
+    wire = from_numpy(_k7_known(rng, bucket, bucket, id_bits, dense, slots), card)
+    table = from_numpy(rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64)
+                       .astype(np.uint32), card)
+    out = kops.ingest_known(wire, bucket, dense, id_bits, table, 1, 0xFFFFFFF0, 5, n_out)
+    with kops.plain_versions():
+        ref = kops.ingest_known(wire, bucket, dense, id_bits, table, 1, 0xFFFFFFF0, 5, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not out[bucket:].any()
+
+
+@pytest.mark.gpu
+def test_ingest_known_kernel_on_a_bench_sized_table(card):
+    """Bench sizing: a 2^18-row v4 stream (id_bits 21) gathering from a
+    2^21-slot table (100.7 MB, larger than the L2) into a 2^19-row window."""
+    rng = np.random.default_rng(21)
+    slots, bucket, n_out = 1 << 21, 1 << 18, 1 << 19
+    wire = from_numpy(_k7_known(rng, bucket, bucket - 1000, 21, True, slots), card)
+    table = torch.randint(-(1 << 31), 1 << 31, (slots, 12), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(21)).to(card)
+    out = kops.ingest_known(wire, bucket, True, 21, table, 1, 0xFFFFFF00, 7, n_out)
+    with kops.plain_versions():
+        ref = kops.ingest_known(wire, bucket, True, 21, table, 1, 0xFFFFFF00, 7, n_out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.gpu

@@ -387,7 +387,8 @@ def _compare_windows(jwins, jnvs, wins):
 
 
 @pytest.mark.parametrize("packed", [True, False])
-@pytest.mark.parametrize("bucket, n_valid", [(1024, 1000), (640, 640), (100, 37)])
+@pytest.mark.parametrize("bucket, n_valid",
+                         [(1024, 1000), (640, 640), (100, 37), (257, 257), (1000, 1000)])
 def test_ingest_matches_reference_jit(packed, bucket, n_valid):
     jeng, eng = _engines(1 << 8, True)
     rng = np.random.default_rng(bucket)
@@ -417,7 +418,7 @@ def _new_wire(rng, bucket, n_valid, slots):
 
 
 @pytest.mark.parametrize("slots", [2, 1 << 12, 1 << 18])
-@pytest.mark.parametrize("bucket, n_valid", [(1024, 1000), (256, 256)])
+@pytest.mark.parametrize("bucket, n_valid", [(1024, 1000), (256, 256), (257, 257), (1000, 667)])
 def test_ingest_new_matches_reference_jit(slots, bucket, n_valid):
     jeng, eng = _engines(slots, True)
     rng = np.random.default_rng(slots + bucket)
@@ -434,7 +435,7 @@ def test_ingest_new_matches_reference_jit(slots, bucket, n_valid):
 
 
 @pytest.mark.parametrize("dense", [True, False])
-@pytest.mark.parametrize("slots", [2, 1 << 12, 1 << 18])
+@pytest.mark.parametrize("slots", [2, 1 << 12, 1 << 18, 1 << 13, 1 << 21])
 def test_ingest_known_matches_reference_jit(dense, slots):
     jeng, eng = _engines(slots, dense)
     id_bits = eng._fd_id_bits
@@ -460,6 +461,106 @@ def test_ingest_known_matches_reference_jit(dense, slots):
         eng._desc_table = from_numpy(table, "cpu")
         wins = eng._ingest_known(bucket, from_numpy(w, "cpu"), flag, lo, hi, n_valid)
         _compare_windows(jwins, jnvs, wins)
+
+
+def _new_ids(pattern: str, bucket: int, rng) -> np.ndarray:
+    """Ids of a new wire that meet the kernel's 256-row tiles at their edges:
+    every row one id; ids that repeat across tile boundaries (row % 300,
+    then reversed, so a tile's last row and a later tile's first share
+    one)."""
+    if pattern == "one id":
+        return np.full(bucket, 5, np.uint32)
+    ids = (np.arange(bucket) % 300).astype(np.uint32)
+    return ids if pattern == "across tiles" else ids[::-1].copy()
+
+
+@pytest.mark.parametrize("pattern", ["one id", "across tiles", "across tiles reversed"])
+@pytest.mark.parametrize("bucket, n_valid", [(1000, 1000), (768, 512)])
+def test_ingest_new_id_patterns_match_reference_jit(pattern, bucket, n_valid):
+    """The last row in batch order writes a repeated id's slot wherever the
+    id's rows fall among the tiles; (768, 512) is a wire a third of which is
+    padding (id 0, zero lanes)."""
+    slots = 1 << 12
+    jeng, eng = _engines(slots, True)
+    rng = np.random.default_rng(bucket + len(pattern))
+    w = rng.integers(0, 1 << 32, (bucket, 13), dtype=np.uint64).astype(np.uint32)
+    w[:, 0] = _new_ids(pattern, bucket, rng)
+    w[n_valid:] = 0
+    table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
+    lo, hi = 0xFFFFF000, 11
+    jwins, jnvs, _, _, jtable = jeng._ingest_new_fn(bucket)(
+        jnp.asarray(w[None]), _meta(lo, hi, 1, 0, 1, n_valid), jnp.asarray(table[None]))
+    eng._desc_table = from_numpy(table, "cpu")
+    eng._desc_winner = torch.zeros(slots, dtype=torch.int32)
+    wins = eng._ingest_new(bucket, from_numpy(w, "cpu"), lo, hi, n_valid)
+    _compare_windows(jwins, jnvs, wins)
+    np.testing.assert_array_equal(to_numpy(eng._desc_table), np.asarray(jtable)[0])
+
+
+def _known_32(jeng, eng, dense, bucket, ids, rng):
+    """A known-side wire at id_bits 32 (a dense row of 64 bits, a v3 row with
+    no packet lane) of rows with these ids and random packets and bytes,
+    through the reference's jit and the port on one random table: (the
+    reference's windows, its counts, the port's windows)."""
+    slots = eng.cfg.flow_dict_slots
+    jeng._fd_id_bits = eng._fd_id_bits = 32
+    n_valid = ids.size
+    rows = np.zeros((n_valid, NUM_FIELDS), np.uint32)
+    rows[:, F.PACKETS] = rng.integers(0, 1 << wire.DENSE_PK_BITS, n_valid) if dense else 0
+    rows[:, F.BYTES] = rng.integers(0, 1 << (wire.DENSE_BY_BITS if dense else 32), n_valid,
+                                    dtype=np.uint64)
+    if dense:
+        w = np.zeros(wire.dense_words(bucket, 32), np.uint32)
+        wire.dense_known_rows(rows, ids, 32, w)
+    else:
+        w = np.zeros((bucket, 2), np.uint32)
+        wire.known_rows(rows, ids, np.uint32(32), w[:n_valid])
+    table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
+    jwins, jnvs, _, _ = jeng._ingest_known_fn(bucket)(
+        jnp.asarray(w[None]), _meta(0xFFFFFFF0, 4, 1, 0, 1, n_valid), jnp.asarray(table[None]))
+    eng._desc_table = from_numpy(table, "cpu")
+    wins = eng._ingest_known(bucket, from_numpy(w, "cpu"), 1, 0xFFFFFFF0, 4, n_valid)
+    return jwins, jnvs, wins
+
+
+@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("bucket, n_valid", [(257, 257), (1000, 1000), (1, 1)])
+def test_ingest_known_at_32_id_bits_matches_reference_jit(dense, bucket, n_valid):
+    """id_bits 32, buckets that end inside a tile; ids past the small table
+    read its last slot. Those ids stay below 2^31, where the two rules agree:
+    test_ingest_known_ids_past_2_31_read_last_slot pins the rest."""
+    jeng, eng = _engines(1 << 10, dense)
+    rng = np.random.default_rng(bucket + dense)
+    ids = rng.integers(0, 1 << 31, n_valid, dtype=np.uint64).astype(np.uint32)
+    ids[::2] %= 1 << 10
+    _compare_windows(*_known_32(jeng, eng, dense, bucket, ids, rng))
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_ingest_known_ids_past_2_31_read_last_slot(dense):
+    """An id of 2^31 or more (only id_bits 32 carries one) reads the table's
+    last slot in the port, as every id past the table does; the reference's
+    gather reads it as slot 0 (a u32 index past int32), the divergence that
+    ROADMAP §3 records. Both rules are pinned on the same rows: the port
+    equals the reference with those ids set to the last slot, and the
+    reference equals itself with them set to 0."""
+    slots, bucket = 1 << 10, 300
+    ids = np.random.default_rng(31).integers(0, 1 << 32, bucket, dtype=np.uint64)
+    ids = ids.astype(np.uint32)
+    ids[::3] %= slots
+    high = ids >= 1 << 31
+    assert high.any() and (~high & (ids >= slots)).any() and (ids < slots).any()
+    jeng, eng = _engines(slots, dense)
+    jwins, jnvs, wins = _known_32(jeng, eng, dense, bucket, ids, np.random.default_rng(1))
+    jlast, jnv_last, _ = _known_32(jeng, eng, dense, bucket,
+                                   np.where(high, slots - 1, ids).astype(np.uint32),
+                                   np.random.default_rng(1))
+    jzero, _, _ = _known_32(jeng, eng, dense, bucket, np.where(high, 0, ids).astype(np.uint32),
+                            np.random.default_rng(1))
+    _compare_windows(jlast, jnv_last, wins)
+    for a, b in zip(jwins, jzero):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert not all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(jwins, jlast))
 
 
 def test_ingest_windows_cover_coalesced_buckets():
