@@ -159,6 +159,18 @@ and a padded 2^6), estimates and entropy within a relative 1e-5, K13 bit
 for bit. The pairwise merges are timed by device time beside their
 bounds.
 
+K16 (the window close: 16 blocks a group, one launch a close) and K17's
+readout (one launch writes the scrape's whole flat snapshot: the copied
+leaves, the HLL estimates and the live count) are held bit for bit
+against their plain versions at the batches of ``step_profile --readout``
+(a close of the main path's state, one bucket a group, every bucket
+nonzero, 16384 buckets, a 32-window histogram; the readout of that state,
+of a zero state and of the invertible path's), estimates within a
+relative 1e-5, and timed by device time back to back and with the L2
+flushed, beside the span of a call and the sector bound (see
+``readout_phase``). Every path that closes a window and takes a snapshot
+must launch K16 and the readout.
+
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, if there is no card or any check fails.
@@ -201,8 +213,9 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
     """Device time of one call of ``fn`` from torch.profiler, over ``reps``
     calls after 2 warm-ups: the summed durations of the kernels, copies and
     fills the calls ran on the card (only the kernels whose name holds
-    ``kernel``, if given). Unlike a CUDA-event span, it holds no wait for
-    the host's launches. A trace that holds no device activity (the
+    ``kernel``, if given), after an empty session that takes the records an
+    earlier session delivered late. Unlike a CUDA-event span, it holds no
+    wait for the host's launches. A trace that holds no device activity (the
     profiler has returned such traces, up to three in a row, on the chip
     machine) is taken again with twice the calls, at most eight times in
     all."""
@@ -214,7 +227,12 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
         fn()
     torch.cuda.synchronize()
     for attempt in range(8):
+        # An empty session first: the card's activity records that an
+        # earlier session delivered late land there and are dropped.
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)  # the tracer is on before the first call
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -589,9 +607,11 @@ def main() -> int:
 
     k1_k5 = ["step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
              "latency_update"]
-    # Every path that closes a window and takes a snapshot: K16 and K17.
-    close_snap = ["window_close", "hll_estimate", "ct_active"]
+    # Every path that closes a window and takes a snapshot: K16 and K17's
+    # one-launch readout.
+    close_snap = ["window_close", "snapshot_flat"]
     run, launches = path("main path", CFG, WINDOWS, STEPS, k1_k5 + close_snap)
+    main_launches = launches
     cms_rows = widen(run["state"].flow_hh.cms.table).sum(dim=1) & 0xFFFFFFFF
     ct_lo = int(to_numpy(run["state"].ct_totals)[0])
     check(bool((cms_rows == ct_lo).all()), "main path: a flow_hh CMS row != ct_totals[0]")
@@ -617,19 +637,19 @@ def main() -> int:
          [k for k in k1_k5 if k != "conntrack"] + close_snap)
 
     # -- the window close and the scrape, timed -------------------------------
-    # end_window is K16 and the snapshot's estimates and live count K17, each
-    # beside its plain version; the rest (inv_decode's glue, the export, the
-    # flat snapshot) is torch ops, whose "plain version" is themselves. Bounds
-    # count the state they read and the copies they write.
+    # end_window is K16 and the snapshot K17's one-launch readout, each
+    # beside its plain version; the rest (inv_decode's glue, the export) is
+    # torch ops, whose "plain version" is themselves. Bounds count the state
+    # they read and the copies they write.
+    from retina_tpu_torch.step_profile import readout_sector_bytes
+
     t = Telemetry(INVERTIBLE_CONFIG, device=dev)
     st = t.init_state()
     for r in recs:
         st, _ = t.step(st, r, BATCH, 2, ident)
     snap = t.snapshot(st, 2)
     snap_bytes = sum(x.numel() * x.element_size() for _, x in named_leaves_dict(snap))
-    read = [st.hll_flows.registers, st.hll_src_per_reason.registers,
-            st.hll_src_per_pod.registers, st.conntrack.vals]
-    snap_read = snap_bytes + sum(x.numel() * x.element_size() for x in read)
+    ro_bytes = readout_sector_bytes(st)["total"]
     snap_ms = time_ms(lambda: t.snapshot(st, 2))
 
     def plain_snapshot():
@@ -660,19 +680,20 @@ def main() -> int:
         t.end_window(st)
     close_ms = [one_close(False), one_close(True), one_close(True), one_close(False)]
     print(f"end_window (K16, one launch) {close_ms[0]:.4f}, {close_ms[3]:.4f} ms; plain (torch "
-          f"ops) {close_ms[1]:.4f}, {close_ms[2]:.4f} ms; snapshot (K17 and the clones) "
+          f"ops) {close_ms[1]:.4f}, {close_ms[2]:.4f} ms; snapshot (K17, one launch) "
           f"{snap_ms:.4f} ms, plain {snap_plain_ms:.4f} ms", flush=True)
     export_bytes = sum(x.numel() * x.element_size() for x in t.fleet_export(st).values())
     export_ms = time_ms(lambda: t.fleet_export(st))
     flat_ms = time_ms(lambda: t.snapshot_flat_dispatch(st, 2))
     host_ms = time_ms(lambda: t.snapshot_host(st, 2))
-    for name, ms, nbytes in (("snapshot (K17 and clones)", snap_ms, snap_read + snap_bytes),
+    for name, ms, nbytes in (("snapshot (K17, one launch; its leaves views of the buffer)",
+                              snap_ms, ro_bytes),
                              ("inv_decode (K15 and K10 a region, torch glue)", dec_ms,
                               dec_bytes),
                              ("fleet_export", export_ms, 2 * export_bytes),
-                             ("snapshot_flat", flat_ms, snap_read + 3 * snap_bytes),
+                             ("snapshot_flat (K17, one launch)", flat_ms, ro_bytes),
                              ("snapshot_host (flat + readback)", host_ms,
-                              snap_read + 4 * snap_bytes),
+                              ro_bytes + snap_bytes),
                              ("end_window (K16)", close_ms[0], ent_bytes)):
         print(f"{name}: {ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
               f"({nbytes} bytes)", flush=True)
@@ -713,6 +734,9 @@ def main() -> int:
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms ({nbytes} bytes; warm in L2)",
               flush=True)
     del st, t, snap
+
+    # -- K16 and the readout at the batches of step_profile --readout -------
+    readout_phase(dev, recs, ident, time_ms, report, results, main_launches, equal_int)
 
     # -- K7: the ingest kernels against their plain versions ---------------
     from retina_tpu_torch import native
@@ -953,6 +977,154 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def readout_phase(dev, recs, ident, time_ms, report, results, main_launches,
+                  equal_int) -> None:
+    """K16 and K17's one-launch readout at the batches of ``step_profile
+    --readout`` (``step_profile.readout_inputs``), each held bit for bit
+    against its plain version and timed by device time (back to back and
+    with the L2 flushed by a 128 MiB write before each call) beside its
+    CUDA-event span and its sector bound.
+
+    K16: the close of DEPLOYED_CONFIG's state after one window at (3, 4096),
+    each group's mass in one bucket ("collapse"), every bucket nonzero
+    ("dense") and K = 16384 ("K max"), each from a warm EWMA state (n_obs
+    12, random mean and var): bits, flags, z, mean, var and n_obs equal, the
+    histogram zeroed, and the read-only entry's bits equal; the 32-window
+    merged histogram of a range query ("bits"). The readout: the snapshot
+    of that state ("scrape"), of a zero state ("empty") and of
+    INVERTIBLE_CONFIG's after one window ("invertible scrape"), at clocks
+    across the 16-bit wrap: one launch a call, the flat layout equal, every
+    int leaf equal, the estimates within a relative 1e-5. It reports the
+    readout (``snapshot_flat``) with the main path's launches, the scrape's
+    flushed device time, its sector bound and ``torch.cat`` of the copied
+    leaves as its library call."""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import EWMA_MIN_WINDOWS
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+    from retina_tpu_torch.step_profile import (
+        copied_leaves,
+        k16_bytes,
+        readout_inputs,
+        readout_sector_bytes,
+        span_ms,
+    )
+
+    inp = readout_inputs(dev, recs, ident)
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    floor = device_ms(lambda: l2[:1].zero_(), reps=50, kernel="Fill")
+    print(f"launch floor (a one-word fill, device time): {floor:.4f} ms", flush=True)
+    rng = np.random.default_rng(SEED + 14)
+    alpha = inp["state"].anomaly.alpha
+
+    def warm_ewma(g):
+        return [torch.from_numpy(rng.uniform(0, 12, g).astype(np.float32)).to(dev),
+                torch.from_numpy(rng.uniform(0, 0.5, g).astype(np.float32)).to(dev),
+                torch.full((g,), 12.0, device=dev)]
+
+    def timed(label, fn, prep, kernel, nbytes, plain):
+        """Device time back to back and L2 flushed, the span and the plain
+        version's time of one call after ``prep()``."""
+        warm = device_ms(lambda: (prep(), fn()), kernel=kernel)
+        cold = device_ms(lambda: (prep(), l2.zero_(), fn()), kernel=kernel)
+        span = span_ms(fn, prep)
+
+        def plain_call():
+            prep()
+            with kops.plain_versions():
+                plain()
+
+        plain_ms = time_ms(plain_call)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"{label}: device time {warm:.4f} ms back to back, {cold:.4f} ms L2 flushed; "
+              f"CUDA-event span {span:.4f} ms (host cost {span - warm:.4f} ms a call); plain "
+              f"{plain_ms:.4f} ms; sector bound {bound:.4f} ms ({nbytes} bytes), launch floor "
+              f"{floor:.4f} ms", flush=True)
+        return cold, plain_ms
+
+    for label, counts in inp["counts"].items():
+        g, k = counts.shape
+        ewma0 = warm_ewma(g)
+        c, c_ref = counts.clone(), counts.clone()
+        e, e_ref = [x.clone() for x in ewma0], [x.clone() for x in ewma0]
+        before = kops.launch_counts()["window_close"]
+        out = kops.window_close(c, *e, alpha, 4.0, EWMA_MIN_WINDOWS)
+        check(kops.launch_counts()["window_close"] == before + 1, f"K16 {label}: launches")
+        with kops.plain_versions():
+            ref = kops.window_close(c_ref, *e_ref, alpha, 4.0, EWMA_MIN_WINDOWS)
+        bits = kops.entropy_bits(counts)
+        torch.cuda.synchronize()
+        for x, y, what in zip([*out, *e], [*ref, *e_ref],
+                              ("bits", "flags", "z", "mean", "var", "n_obs")):
+            check(x.shape == y.shape and bool(torch.equal(x, y)), f"K16 {label}: {what} differ")
+        check(not bool(c.any()), f"K16 {label}: the histogram was not zeroed")
+        check(bool(torch.equal(bits, ref[0])), f"K16 {label}: entropy_bits differs")
+        print(f"K16 {label} ({g}, {k}): bits, flags, z, mean, var, n_obs and the reset equal "
+              f"the plain version's; {int(out[1].sum())} flags", flush=True)
+        timed(f"K16 {label}", lambda: kops.window_close(c, *e, alpha, 4.0, EWMA_MIN_WINDOWS),
+              lambda: c.copy_(counts), "window_close_kernel", k16_bytes(g, k),
+              lambda: kops.window_close(c, *e, alpha, 4.0, EWMA_MIN_WINDOWS))
+    merged = inp["merged"]
+    bits = kops.entropy_bits(merged)
+    with kops.plain_versions():
+        ref = kops.entropy_bits(merged)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(bits, ref)), "K16 bits on the 32-window histogram differ")
+    timed("K16 bits (32 windows)", lambda: kops.entropy_bits(merged), lambda: None,
+          "window_close_kernel", k16_bytes(*merged.shape, close=False),
+          lambda: kops.entropy_bits(merged))
+
+    tel, st = inp["tel"], inp["state"]
+    inv_tel, inv_st = inp["invertible"]
+    for label, t, s in (("scrape", tel, st), ("empty", tel, inp["empty"]),
+                        ("invertible scrape", inv_tel, inv_st)):
+        err = 0.0
+        for now in (3, 40, 0xFFFF + 3, 0xFFFFFFFF):
+            before = kops.launch_counts()
+            flat, layout = t.snapshot_flat_dispatch(s, now)
+            after = kops.launch_counts()
+            check({n: after[n] - before[n] for n in after if after[n] != before[n]}
+                  == {"snapshot_flat": 1}, f"readout {label}: not one launch")
+            with kops.plain_versions():
+                ref, ref_layout = t.snapshot_flat_dispatch(s, now)
+            torch.cuda.synchronize()
+            check(layout == ref_layout, f"readout {label}: layouts differ")
+            got, want = (Telemetry.snapshot_flat_finish(x, layout) for x in (flat, ref))
+            for (name, a), (_, b) in zip(named_leaves_dict(got), named_leaves_dict(want)):
+                if a.dtype == torch.float32:
+                    check(bool(torch.allclose(a, b, rtol=1e-5, atol=0)),
+                          f"readout {label}: {name} estimates differ")
+                    err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+                else:
+                    equal_int(a, b, f"readout {label} at now {now}: {name}")
+        nb = readout_sector_bytes(s)
+        print(f"readout {label}: one launch, {flat.numel()} words equal to the plain "
+              f"version's (estimates within {err}); bytes " +
+              ", ".join(f"{a} {b}" for a, b in nb.items()), flush=True)
+        ms, plain_ms = timed(f"readout {label} (snapshot_flat_dispatch)",
+                             lambda t=t, s=s: t.snapshot_flat_dispatch(s, 3), lambda: None,
+                             "readout_kernel", nb["total"],
+                             lambda t=t, s=s: t.snapshot_flat_dispatch(s, 3))
+        snap_span = span_ms(lambda t=t, s=s: t.snapshot(s, 3))
+        print(f"readout {label}: Telemetry.snapshot CUDA-event span {snap_span:.4f} ms",
+              flush=True)
+        if label == "scrape":
+            scrape = (ms, plain_ms, nb, err)
+    s = st
+    words = [x.reshape(-1) for x in copied_leaves(s)]
+    cat_ms = device_ms(lambda: (l2.zero_(), torch.cat(words)), kernel="CatArray")
+    print(f"library: torch.cat of the {len(words)} copied leaves, L2 flushed, {cat_ms:.4f} ms "
+          "(device time)", flush=True)
+    ms, plain_ms, nb, err = scrape
+    n_regs = sum(b.registers.numel() for b in (s.hll_flows, s.hll_src_per_reason,
+                                               s.hll_src_per_pod))
+    report("snapshot_flat", "retina_tpu_torch/kernels/csrc/snapshot_readout.cu",
+           "retina_tpu/parallel/telemetry.py:712", ms, plain_ms, nb["total"],
+           3 * n_regs + 8 * s.conntrack.n_slots, cat_ms, err)
+    results[-1]["launches"] = main_launches["snapshot_flat"]
 
 
 def k1_batches(dev, host, recs, ident):
@@ -2815,7 +2987,7 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
         srv.stop()
     print(f"scrape path launches: {launches}", flush=True)
     check_sketch_launches(launches, "scrape path")
-    for name in ("window_close", "hll_estimate", "ct_active", "entropy_bits", "step_rows",
+    for name in ("window_close", "snapshot_flat", "hll_estimate", "entropy_bits", "step_rows",
                  "ingest_new", "fold", "cms_query"):
         check(launches[name] > 0, f"{name} was not launched on the scrape path")
     ring = eng.timetravel_ring
@@ -2836,7 +3008,7 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
     print(f"scrape path: {SCRAPE_WINDOWS} windows, {SCRAPE_PODS} pods; GET /metrics median of "
           f"{SCRAPE_WINDOWS}: {med['GET (first)']:.3f} ms (the first GET after the close, "
           f"from the render cache), {med['GET (fresh)']:.3f} ms (the GET that served the "
-          f"window's exposition); a fresh scrape split: snapshot (K17, the clones, one copy) "
+          f"window's exposition); a fresh scrape split: snapshot (K17, one launch, one copy) "
           f"{med['snapshot']:.3f} ms, publish {med['publish']:.3f} ms, render "
           f"{med['render']:.3f} ms; exposition {n_bytes} bytes, {n_samples} samples",
           flush=True)
@@ -2922,7 +3094,7 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
               f"K17 hll_estimate on a {tuple(regs.shape)} bank")
         est_err = max(est_err, max_err(got, want))
     est_ms = cold_ms("hll_estimate", lambda: [(l2.zero_(), kops.hll_estimate(r)) for r in banks],
-                     "hll_")
+                     "readout_kernel")
 
     def plain_est():
         with kops.plain_versions():
@@ -2946,7 +3118,7 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
         check(int(got) == int(want), f"K17 ct_active at now {now}: {int(got)} != {int(want)}")
     check(int(kops.ct_active(ct.keys, ct.vals, last)) > 0, "K17 ct_active: no live connection")
     ct_ms = cold_ms("ct_active", lambda: (l2.zero_(), kops.ct_active(ct.keys, ct.vals, last)),
-                    "ct_active")
+                    "readout_kernel")
 
     def plain_ct():
         with kops.plain_versions():
@@ -2956,7 +3128,10 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
     report("ct_active", "retina_tpu_torch/kernels/csrc/snapshot_readout.cu",
            "retina_tpu/ops/conntrack.py:286 (under parallel/telemetry.py:493)", ct_ms,
            ct_plain_ms, ct.n_slots * 12 + 4, 8 * ct.n_slots, None, 0.0)
-    results[-1]["launches"] = launches["ct_active"]
+    # The live count runs as a job of every readout launch of the snapshot
+    # (kops.ct_active is its one-job launch): its launches are the path's
+    # own calls and its readouts.
+    results[-1]["launches"] = launches["ct_active"] + launches["snapshot_flat"]
     eng.stop()
     print(f"scrape phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import array
 import contextlib
 import ctypes
-from typing import Iterator
+from typing import Iterator, NamedTuple
 
 import torch
 
@@ -54,17 +54,23 @@ _ARGTYPES = {
     "synflood_score": [_VP, _VP],
     "latency_update": [_VP, _VP, _VP, _VP, _INT, _VP, _INT],
     "inv_decode": [_VP, _VP, _LL, _INT, _INT, _U32, _VP, _VP],
-    "window_close": [_VP, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP],
-    "entropy_bits": [_VP, _INT, _INT, _VP],
-    "hll_estimate": [_VP, _INT, _INT, _FLT, _VP],
-    "ct_active": [_VP, _VP, _LL, _U32, _U32, _U32, _U32, _INT, _VP, _VP, _VP],
+    "window_close": [_VP, _INT, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP,
+                     _VP, _VP],
+    "entropy_bits": [_VP, _INT, _INT, _INT, _VP, _VP, _VP],
+    "snapshot_flat": [_VP],
+    "hll_estimate": [_VP],
+    "ct_active": [_VP],
 }
 # The library of each C function, where it is not the function's own name.
 _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
             "portscan_score": "detect", "dnstunnel_score": "detect",
             "synflood_score": "detect", "latency_update": "latency",
-            "entropy_bits": "window_close", "hll_estimate": "snapshot_readout",
-            "ct_active": "snapshot_readout"}
+            "entropy_bits": "window_close", "snapshot_flat": "snapshot_readout",
+            "hll_estimate": "snapshot_readout", "ct_active": "snapshot_readout"}
+# The C function of a wrapper, where it is not the wrapper's own name: the
+# readout's three wrappers launch one kernel on tables of their own.
+_SYMBOL = {"snapshot_flat": "snapshot_readout", "hll_estimate": "snapshot_readout",
+           "ct_active": "snapshot_readout"}
 
 # Kernel launches per C function since the last reset (a call of
 # hh_update counts its three phases, for up to three sketches; one of
@@ -107,7 +113,7 @@ def plain_versions() -> Iterator[None]:
 def _fn(name: str):
     fn = _fns.get(name)
     if fn is None:
-        fn = getattr(build.load(_LIBRARY.get(name, name)), name)
+        fn = build.load(_LIBRARY.get(name, name))[_SYMBOL.get(name, name)]
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -1004,7 +1010,12 @@ def inv_decode(planes, weights, seed, n_key_cols):
 # ---------------------------------------------------------------------------
 # K16: the window close and the entropy bits
 
-ENTROPY_MAX_BUCKETS = 1 << 14  # 512 threads holding 32 values each (csrc/window_close.cu)
+ENTROPY_MAX_BUCKETS = 1 << 14  # the widest histogram bank the wrappers take
+ENTROPY_SLICES = 16  # blocks a group (at most one a bucket, at most 64): csrc/window_close.cu
+# Per (device, stream): K16's f64 block partials and its tickets, a word a
+# group, which the kernel leaves at 0. One stream orders its calls, so they
+# share them.
+_close_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _entropy_counts(counts: torch.Tensor, dev: torch.device) -> tuple[int, int]:
@@ -1016,6 +1027,18 @@ def _entropy_counts(counts: torch.Tensor, dev: torch.device) -> tuple[int, int]:
         raise ValueError(f"{k} entropy buckets do not fit the kernel (at most "
                          f"{ENTROPY_MAX_BUCKETS})")
     return g, k
+
+
+def _close_args(dev: torch.device, g: int, k: int) -> tuple[int, int, int]:
+    """(blocks a group, partials, tickets) of a K16 launch over (g, k)."""
+    slices = max(1, min(ENTROPY_SLICES, k, 64))
+    key = _stream_key(dev)
+    got = _close_scratch.get(key)
+    if got is None or got[0].numel() < g * slices or got[1].numel() < g:
+        got = _close_scratch[key] = (
+            torch.empty((max(g * slices, 1024),), dtype=torch.float64, device=dev),
+            torch.zeros((max(g, 64),), dtype=torch.int32, device=dev))
+    return slices, got[0].data_ptr(), got[1].data_ptr()
 
 
 def window_close(counts, mean, var, n_obs, alpha, z_thresh, min_windows):
@@ -1035,9 +1058,11 @@ def window_close(counts, mean, var, n_obs, alpha, z_thresh, min_windows):
     flags = torch.empty((g,), dtype=torch.bool, device=dev)
     z = torch.empty((g,), dtype=torch.float32, device=dev)
     if g:
-        _launch("window_close", dev, counts.data_ptr(), g, k, mean.data_ptr(), var.data_ptr(),
-                n_obs.data_ptr(), float(alpha), float(z_thresh), float(min_windows),
-                bits.data_ptr(), flags.data_ptr(), z.data_ptr())
+        slices, partials, tickets = _close_args(dev, g, k)
+        _launch("window_close", dev, counts.data_ptr(), g, k, slices, mean.data_ptr(),
+                var.data_ptr(), n_obs.data_ptr(), float(alpha), float(z_thresh),
+                float(min_windows), bits.data_ptr(), flags.data_ptr(), z.data_ptr(), partials,
+                tickets)
     return bits, flags, z
 
 
@@ -1052,69 +1077,215 @@ def entropy_bits(counts):
         return entropy_bits_plain(counts)
     bits = torch.empty((g,), dtype=torch.float32, device=dev)
     if g:
-        _launch("entropy_bits", dev, counts.data_ptr(), g, k, bits.data_ptr())
+        slices, partials, tickets = _close_args(dev, g, k)
+        _launch("entropy_bits", dev, counts.data_ptr(), g, k, slices, bits.data_ptr(), partials,
+                tickets)
     return bits
 
 
 # ---------------------------------------------------------------------------
 # K17: the snapshot readout
 
-CT_ACTIVE_BLOCKS = 264  # two blocks a streaming multiprocessor of the H100
-# Per (device, stream): ct_active's block partials and its ticket, which
-# the kernel leaves at 0. One stream orders its calls, so they share them.
-_ct_scratch: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+READOUT_BLOCK_BYTES = 16 << 10  # bytes a block of K17 reads and writes, about
+READOUT_MAX_JOBS = 32  # kMaxJobs in csrc/snapshot_readout.cu
+READOUT_LIVE_BLOCKS = 1024  # the most blocks of a live count
+_READOUT_KINDS = {"copy": 0, "hll_block": 1, "hll_warp": 2, "live": 3}
+# Per (device, stream): the live count's 64-bit ticket, which the kernel
+# leaves at 0. One stream orders its calls, so they share it.
+_ct_scratch: dict[tuple[int, int], torch.Tensor] = {}
+# (bytes a block, device, the jobs' kinds, pointers, shapes, strides and
+# dtypes) -> [plan, launch table or None]: a state's snapshot plans once.
+_readout_plans: dict[tuple, list] = {}
 
 
-def hll_estimate(registers):
-    """The HLL estimate (K17) of every group of a (G, m) int32 (u32 bits)
-    register bank: (G,) float32."""
-    dev = registers.device
-    _state(registers, "hll registers", dev)
-    if registers.dim() != 2:
-        raise ValueError(f"hll registers must be (groups, m), got {tuple(registers.shape)}")
-    g, m = registers.shape
-    _pow2(m, "hll registers per group")
-    if not _on_card(dev):
-        from retina_tpu_torch.ops.hyperloglog import estimate_plain
+class _ReadoutJob(ctypes.Structure):
+    """``Job`` of csrc/snapshot_readout.cu."""
 
-        return estimate_plain(registers)
+    _fields_ = [("src", _VP), ("src2", _VP), ("n", _LL), ("dst", _LL), ("kind", _INT),
+                ("block0", _INT), ("m", _INT), ("alpha_mm", _FLT)]
+
+
+class _ReadoutTable(ctypes.Structure):
+    """``Table`` of csrc/snapshot_readout.cu: passed by value to the kernel."""
+
+    _fields_ = [("out", _VP), ("ticket", _VP), ("n_jobs", _INT), ("n_blocks", _INT),
+                ("now", _U32), ("tcp_life", _U32), ("other_life", _U32), ("wrap_floor", _U32),
+                ("jobs", _ReadoutJob * READOUT_MAX_JOBS)]
+
+
+class ReadoutPlan(NamedTuple):
+    """Where each job of a readout writes and how many blocks it takes."""
+
+    kinds: tuple[str, ...]  # "copy", "hll_block", "hll_warp" or "live"
+    offsets: tuple[int, ...]  # the first word of each job's output in the buffer
+    words: tuple[int, ...]  # the words of each job's output
+    blocks: tuple[int, ...]  # the blocks of each job
+    total: int  # the words of the buffer
+
+
+def readout_plan(jobs) -> ReadoutPlan:
+    """The layout and grid of a readout of ``jobs``, each ("copy", leaf)
+    (its words), ("hll", registers) (an f32 estimate a group) or ("live",
+    keys, vals) (one int32 count): the outputs laid end to end in job order,
+    and each job given blocks in proportion to the bytes it reads and
+    writes, READOUT_BLOCK_BYTES a block, at least one a job with output, at
+    most one a 1024 words copied, 1024 / m groups (hll, 4 <= m <= 128: a
+    group on m / 4 lanes), a group (other hll banks: a block a group) or
+    READOUT_LIVE_BLOCKS."""
+    kinds, offsets, words, blocks = [], [], [], []
+    off = 0
+    for job in jobs:
+        if job[0] == "copy":
+            n = job[1].numel()
+            kind, out, nbytes, cap = "copy", n, 8 * n, -(-n // 1024)
+        elif job[0] == "hll":
+            g, m = job[1].shape
+            kind = "hll_warp" if 4 <= m <= 128 else "hll_block"
+            out, nbytes = g, 4 * g * (m + 1)
+            cap = -(-g * m // 1024) if kind == "hll_warp" else g
+        else:
+            n = job[1].shape[0]
+            kind, out, nbytes, cap = "live", 1, 24 * n + 4, READOUT_LIVE_BLOCKS
+        kinds.append(kind)
+        offsets.append(off)
+        words.append(out)
+        blocks.append(max(1, min(cap, -(-nbytes // READOUT_BLOCK_BYTES))) if cap else 0)
+        off += out
+    return ReadoutPlan(tuple(kinds), tuple(offsets), tuple(words), tuple(blocks), off)
+
+
+def _readout_check(jobs, dev: torch.device) -> None:
+    if not 1 <= len(jobs) <= READOUT_MAX_JOBS:
+        raise ValueError(f"1 to {READOUT_MAX_JOBS} readout jobs, got {len(jobs)}")
+    if sum(job[0] == "live" for job in jobs) > 1:
+        raise ValueError("at most one live count a readout")
+    for i, job in enumerate(jobs):
+        if job[0] == "copy":
+            t = job[1]
+            _state(t, f"readout leaf {i}", dev, dtype=t.dtype)
+            if t.element_size() != 4:
+                raise TypeError(f"readout leaf {i} must have 4-byte elements, got {t.dtype}")
+        elif job[0] == "hll":
+            regs = job[1]
+            _state(regs, "hll registers", dev)
+            if regs.dim() != 2:
+                raise ValueError(f"hll registers must be (groups, m), got {tuple(regs.shape)}")
+            _pow2(regs.shape[1], "hll registers per group")
+        elif job[0] == "live":
+            keys, vals = job[1], job[2]
+            n_slots = keys.shape[0]
+            _state(keys, "conntrack keys", dev, shape=(n_slots, 2))
+            _state(vals, "conntrack vals", dev, shape=(n_slots, 4))
+            if dev.type == "cuda" and (vals.data_ptr() % 16 or keys.data_ptr() % 8):
+                raise ValueError("conntrack keys and vals must be 8- and 16-byte aligned")
+        else:
+            raise ValueError(f"unknown readout job {job[0]!r}")
+
+
+def _readout_table(jobs, plan: ReadoutPlan) -> _ReadoutTable:
     from retina_tpu_torch.ops.hyperloglog import _alpha
 
-    out = torch.empty((g,), dtype=torch.float32, device=dev)
-    if g:
-        _launch("hll_estimate", dev, registers.data_ptr(), g, m, _alpha(m) * m * m,
-                out.data_ptr())
-    return out
+    table = _ReadoutTable()
+    table.n_jobs = len(jobs)
+    block0 = 0
+    for i, (job, kind, off, nb) in enumerate(zip(jobs, plan.kinds, plan.offsets, plan.blocks)):
+        e = table.jobs[i]
+        e.kind, e.block0, e.dst, e.src = _READOUT_KINDS[kind], block0, off, job[1].data_ptr()
+        if kind == "copy":
+            e.n = job[1].numel()
+        elif kind == "live":
+            e.n, e.src2 = job[1].shape[0], job[2].data_ptr()
+        else:
+            e.n, e.m = job[1].shape
+            e.alpha_mm = _alpha(e.m) * e.m * e.m
+        block0 += nb
+    table.n_blocks = block0
+    return table
 
 
-def ct_active(keys, vals, now_s):
-    """The live connections (K17) of a conntrack table ``keys`` (S, 2) and
-    ``vals`` (S, 4) at ``now_s``: an int32 scalar tensor."""
+def _readout_cached(jobs, dev: torch.device) -> list:
+    """[plan, launch table or None] of ``jobs``, checked and planned once
+    for the same tensors; the launch fills in the table the first time."""
+    key = (READOUT_BLOCK_BYTES, dev, *((job[0], *((t.data_ptr(), tuple(t.shape), t.stride(),
+                                                   t.dtype) for t in job[1:])) for job in jobs))
+    got = _readout_plans.get(key)
+    if got is None:
+        _readout_check(jobs, dev)
+        if len(_readout_plans) >= 16:
+            _readout_plans.clear()
+        got = _readout_plans[key] = [readout_plan(jobs), None]
+    return got
+
+
+def _readout_launch(name: str, dev: torch.device, jobs, out: torch.Tensor, now: int) -> None:
     from retina_tpu_torch.ops.conntrack import (
         CLOCK_SKEW_SLACK,
         CT_NON_TCP_LIFETIME,
         CT_TCP_LIFETIME,
     )
 
+    got = _readout_cached(jobs, dev)
+    if got[1] is None:
+        got[1] = _readout_table(jobs, got[0])
+    table = got[1]
+    key = _stream_key(dev)
+    ticket = _ct_scratch.get(key)
+    if ticket is None:
+        ticket = _ct_scratch[key] = torch.zeros((1,), dtype=torch.int64, device=dev)
+    table.out, table.ticket = out.data_ptr(), ticket.data_ptr()
+    table.now, table.tcp_life, table.other_life = now, CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME
+    table.wrap_floor = 0xFFFF - CLOCK_SKEW_SLACK
+    _launch(name, dev, ctypes.addressof(table))
+
+
+def snapshot_flat(jobs, now_s):
+    """The snapshot readout (K17) in one launch: a fresh flat int32 buffer
+    holding, in job order (``readout_plan``), each ("copy", leaf)'s words,
+    each ("hll", registers)'s f32 estimates bit for bit and ("live", keys,
+    vals)'s int32 count of live connections at ``now_s``."""
+    if not jobs:
+        raise ValueError("1 to 32 readout jobs, got 0")
+    dev = jobs[0][1].device
+    plan, _ = _readout_cached(jobs, dev)
+    now = int(now_s) & 0xFFFFFFFF
+    if not _on_card(dev):
+        from retina_tpu_torch.parallel.telemetry import readout_plain
+
+        return readout_plain(jobs, plan, now)
+    flat = torch.empty((plan.total,), dtype=torch.int32, device=dev)
+    if plan.total:
+        _readout_launch("snapshot_flat", dev, jobs, flat, now)
+    return flat
+
+
+def hll_estimate(registers):
+    """The HLL estimate (K17) of every group of a (G, m) int32 (u32 bits)
+    register bank: (G,) float32. On the card, a one-job launch of the
+    readout."""
+    dev = registers.device
+    _readout_check([("hll", registers)], dev)
+    g = registers.shape[0]
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.hyperloglog import estimate_plain
+
+        return estimate_plain(registers)
+    out = torch.empty((g,), dtype=torch.float32, device=dev)
+    if g:
+        _readout_launch("hll_estimate", dev, [("hll", registers)], out, 0)
+    return out
+
+
+def ct_active(keys, vals, now_s):
+    """The live connections (K17) of a conntrack table ``keys`` (S, 2) and
+    ``vals`` (S, 4) at ``now_s``: an int32 scalar tensor. On the card, a
+    one-job launch of the readout."""
     dev = keys.device
-    n_slots = keys.shape[0]
-    _state(keys, "conntrack keys", dev, shape=(n_slots, 2))
-    _state(vals, "conntrack vals", dev, shape=(n_slots, 4))
+    _readout_check([("live", keys, vals)], dev)
     now = int(now_s) & 0xFFFFFFFF
     if not _on_card(dev):
         from retina_tpu_torch.ops.conntrack import active_connections_plain
 
         return active_connections_plain(keys, vals, now)
-    if vals.data_ptr() % 16 or keys.data_ptr() % 8:
-        raise ValueError("conntrack keys and vals must be 8- and 16-byte aligned")
-    key = _stream_key(dev)
-    scratch = _ct_scratch.get(key)
-    if scratch is None:
-        scratch = _ct_scratch[key] = (
-            torch.empty((CT_ACTIVE_BLOCKS,), dtype=torch.int32, device=dev),
-            torch.zeros((1,), dtype=torch.int32, device=dev))
     out = torch.empty((), dtype=torch.int32, device=dev)
-    _launch("ct_active", dev, keys.data_ptr(), vals.data_ptr(), n_slots, now,
-            CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME, 0xFFFF - CLOCK_SKEW_SLACK, CT_ACTIVE_BLOCKS,
-            scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr())
+    _readout_launch("ct_active", dev, [("live", keys, vals)], out, now)
     return out

@@ -6,23 +6,29 @@ step also counts host-side losses into totals[7] and returns the per-row
 report lanes with a leading device axis of size 1; ``snapshot`` returns
 the same keys, shapes and dtypes (u32 leaves as int32 bit patterns),
 including the leading device axis of size 1 on the gathered candidate
-tables and ``ct_totals``; ``inv_decode`` decodes the invertible sketches
-at a window close. ``fleet_export`` copies the window's sketches in the
-fleet array catalog (``fleet/codec.py``) and ``snapshot_host`` reads the
-snapshot back in one copy (``snapshot_flat_dispatch`` / ``_finish``).
+tables and ``ct_totals``, every leaf a view of one flat buffer that one
+launch of K17 writes (``snapshot_flat_dispatch``); ``inv_decode`` decodes
+the invertible sketches at a window close. ``fleet_export`` copies the
+window's sketches in the fleet array catalog (``fleet/codec.py``) and
+``snapshot_host`` reads the flat snapshot back in one copy
+(``snapshot_flat_dispatch`` / ``_finish``).
 State has no device axis. Multi-card sharding (NCCL collectives) is a
 later slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
 import torch
 
+from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState, TelemetryPipeline
+from retina_tpu_torch.ops.conntrack import active_connections_plain
+from retina_tpu_torch.ops.hyperloglog import estimate_plain
 from retina_tpu_torch.ops.invertible import decode_verified
 from retina_tpu_torch.u32 import M32, narrow, to_numpy, widen
 
@@ -63,32 +69,48 @@ class Telemetry:
         return self.pipeline.end_window(state, z_thresh)
 
     def snapshot(self, state: PipelineState, now_s: int) -> dict[str, Any]:
-        """Scrape-time readout; every leaf is a copy, so later in-place
-        steps do not change it."""
+        """Scrape-time readout: one launch of K17 writes the flat buffer,
+        and every leaf is a view of it, so later in-place steps do not
+        change it."""
+        return _unflatten(*self.snapshot_flat_dispatch(state, now_s))
+
+    @staticmethod
+    def readout_jobs(state: PipelineState) -> list[tuple[tuple, tuple, tuple, torch.dtype]]:
+        """(key path, readout job, shape, dtype) of every snapshot leaf, in
+        the reference's leaf order (sorted keys, depth first): the leaves
+        the snapshot copies ("copy"; the gathered candidate tables and
+        ``ct_totals`` with a leading device axis of 1), the HLL estimates
+        ("hll") and the live connections ("live")."""
         s = state
 
-        def hh(sk):
-            return {"keys": sk.table.key_rows[None].clone(),
-                    "counts": sk.table.counts[None].clone()}
+        def copy(t, lead=False):
+            return ("copy", t), (1,) * lead + tuple(t.shape), t.dtype
 
-        return {
-            "pod_forward": s.pod_forward.clone(),
-            "pod_drop": s.pod_drop.clone(),
-            "pod_tcpflags": s.pod_tcpflags.clone(),
-            "pod_dns": s.pod_dns.clone(),
-            "pod_retrans": s.pod_retrans.clone(),
-            "node_counters": s.node_counters.clone(),
-            "totals": s.totals.clone(),
-            "ct_totals": s.ct_totals[None].clone(),
-            "lat_hist": s.lat_hist.clone(),
-            "hll_flows": s.hll_flows.estimate(),
-            "hll_src_per_reason": s.hll_src_per_reason.estimate(),
-            "hll_src_per_pod": s.hll_src_per_pod.estimate(),
+        def hh(sk):
+            return {"keys": copy(sk.table.key_rows, True), "counts": copy(sk.table.counts, True)}
+
+        def hll(bank):
+            return ("hll", bank.registers), (bank.n_groups,), torch.float32
+
+        tree = {
+            "pod_forward": copy(s.pod_forward),
+            "pod_drop": copy(s.pod_drop),
+            "pod_tcpflags": copy(s.pod_tcpflags),
+            "pod_dns": copy(s.pod_dns),
+            "pod_retrans": copy(s.pod_retrans),
+            "node_counters": copy(s.node_counters),
+            "totals": copy(s.totals),
+            "ct_totals": copy(s.ct_totals, True),
+            "lat_hist": copy(s.lat_hist),
+            "hll_flows": hll(s.hll_flows),
+            "hll_src_per_reason": hll(s.hll_src_per_reason),
+            "hll_src_per_pod": hll(s.hll_src_per_pod),
             "flow_hh": hh(s.flow_hh),
             "svc_hh": hh(s.svc_hh),
             "dns_hh": hh(s.dns_hh),
-            "active_conns": s.conntrack.active_connections(now_s),
+            "active_conns": (("live", s.conntrack.keys, s.conntrack.vals), (), torch.int32),
         }
+        return [(path, *leaf) for path, leaf in _sorted_leaves(tree)]
 
     def fleet_export(self, state: PipelineState) -> dict[str, torch.Tensor]:
         """The window's sketches for the fleet tier and the time-travel
@@ -130,13 +152,14 @@ class Telemetry:
 
     def snapshot_flat_dispatch(self, state: PipelineState,
                                now_s: int) -> tuple[torch.Tensor, FlatLayout]:
-        """The snapshot as one flat int32 buffer on the card: every leaf
-        (int32 or float32), in the reference's leaf order (sorted keys,
-        depth first), bitcast to int32 and flattened; and the leaf layout
-        that ``snapshot_flat_finish`` needs to cut it up again."""
-        leaves = _sorted_leaves(self.snapshot(state, now_s))
-        layout = [(path, tuple(t.shape), t.dtype) for path, t in leaves]
-        return torch.cat([t.reshape(-1).view(torch.int32) for _, t in leaves]), layout
+        """The snapshot as one flat int32 buffer on the card, written by one
+        launch of K17: every leaf (int32 or float32), in the reference's
+        leaf order (sorted keys, depth first), bitcast to int32 and
+        flattened; and the leaf layout that ``snapshot_flat_finish`` needs
+        to cut it up again."""
+        leaves = self.readout_jobs(state)
+        flat = kops.snapshot_flat([job for _, job, _, _ in leaves], now_s)
+        return flat, [(path, shape, dtype) for path, _, shape, dtype in leaves]
 
     @staticmethod
     def snapshot_flat_finish(flat: torch.Tensor | np.ndarray,
@@ -146,19 +169,7 @@ class Telemetry:
         and dtypes."""
         if isinstance(flat, np.ndarray):
             flat = torch.from_numpy(np.ascontiguousarray(flat).view(np.int32))
-        else:
-            flat = flat.cpu()
-        out: dict[str, Any] = {}
-        off = 0
-        for path, shape, dtype in layout:
-            n = int(np.prod(shape)) if shape else 1
-            chunk = flat[off: off + n].view(dtype).reshape(shape)
-            off += n
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = chunk
-        return out
+        return _unflatten(flat.cpu(), layout)
 
     def snapshot_host(self, state: PipelineState, now_s: int) -> dict[str, Any]:
         """The snapshot read back to the host in one copy (CPU tensors)."""
@@ -182,8 +193,40 @@ class Telemetry:
         return {"keys": keys, "est": est, "ok": ok, "tier": tier}
 
 
-def _sorted_leaves(d: dict, prefix: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
-    """(key path, tensor) of a nested dict, keys sorted at every level."""
+def _unflatten(flat: torch.Tensor, layout: FlatLayout) -> dict[str, Any]:
+    """The snapshot dict of a flat buffer: each leaf a view of it."""
+    out: dict[str, Any] = {}
+    chunks = flat.split([math.prod(shape) for _, shape, _ in layout])
+    for (path, shape, dtype), chunk in zip(layout, chunks):
+        if dtype != torch.int32:
+            chunk = chunk.view(dtype)
+        chunk = chunk.view(shape)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = chunk
+    return out
+
+
+def readout_plain(jobs: list[tuple], plan: kops.ReadoutPlan, now_s: int) -> torch.Tensor:
+    """Plain version of K17's readout (``kops.snapshot_flat``): a fresh flat
+    int32 buffer holding, at each job's offset in ``plan``, the words of a
+    ("copy", leaf), the estimates of a ("hll", registers) bitcast to int32
+    and the live count of a ("live", keys, vals) at ``now_s``."""
+    flat = torch.empty((plan.total,), dtype=torch.int32, device=jobs[0][1].device)
+    for job, off, n in zip(jobs, plan.offsets, plan.words):
+        if job[0] == "copy":
+            words = job[1].reshape(-1).view(torch.int32)
+        elif job[0] == "hll":
+            words = estimate_plain(job[1]).view(torch.int32)
+        else:
+            words = active_connections_plain(job[1], job[2], now_s).reshape(1)
+        flat[off: off + n] = words
+    return flat
+
+
+def _sorted_leaves(d: dict, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """(key path, leaf) of a nested dict, keys sorted at every level."""
     out = []
     for k in sorted(d):
         v = d[k]

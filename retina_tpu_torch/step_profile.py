@@ -8,6 +8,7 @@
     python3 -m retina_tpu_torch.step_profile --fold
     python3 -m retina_tpu_torch.step_profile --hll-inv
     python3 -m retina_tpu_torch.step_profile --ingest
+    python3 -m retina_tpu_torch.step_profile --readout
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
 agent: conntrack on, low aggregation; or the configuration ``--config``
@@ -116,6 +117,31 @@ padded with id-0 rows), and "path 2 known", the known-side dispatch at bench
 sizing on a quantum fed again, both captured at the wrapper and replayed;
 the known side's batches beside ``index_select`` + copy. It too runs
 unchanged in a copy of an older tree.
+
+With ``--readout`` it times the window close (K16) and the scrape's readout
+(K17 and the copies around it), each call 10 times after 2 warm-ups, by its
+device time by kernel, copy and fill in torch.profiler (every one that one
+call launches), back to back and with the L2 flushed by a 128 MiB write
+before each call, beside the launches of one call, the CUDA-event span of
+one call (each call synchronised alone), the host cost (span less device
+time) and the sector bound (``readout_sector_bytes``: K16's row read and
+written once; the readout's copied leaves, HLL banks, conntrack keys and
+the 32-byte sectors of resident slots' value rows read once, the flat
+buffer written once), with the launch floor (a one-word fill) and
+``torch.cat`` of the copied leaves (the readout's library call) beside.
+The batches: "close" (``Telemetry.end_window`` on DEPLOYED_CONFIG after one
+window of the bench stream, K16 at (3, 4096), the histogram restored
+before each call), "collapse" (each group's mass in one bucket), "dense"
+(every bucket nonzero), "K max" (K = 16384, the wrapper's limit) through
+``kops.window_close``; "bits" (``kops.entropy_bits`` on a histogram
+summed over 32 windows, the range query's call); and ``Telemetry.snapshot``
+and ``snapshot_flat_dispatch`` on the same state ("scrape", the conntrack
+table filled), on a zero state ("empty": every HLL group counts linearly)
+and on INVERTIBLE_CONFIG's state after one window ("invertible scrape").
+In a tree whose wrappers have the knobs ``kops.ENTROPY_SLICES`` and
+``kops.READOUT_BLOCK_BYTES``, it also times the designs measured on the
+way: K16 at 1 to 48 blocks a group, the readout at 4 to 64 KiB a block. It
+too runs unchanged in a copy of an older tree.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -872,6 +898,303 @@ def ingest(dev) -> dict:
     return result
 
 
+def _drain_profiler() -> None:
+    """One empty profiling session: the card's activity records that a
+    session before it delivered late land here and are dropped."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+
+
+def _device_ops(run, reps: int) -> dict[str, tuple[float, float]]:
+    """{name: (device ms, launches)} of one ``run()``, from torch.profiler
+    over ``reps`` runs, after a drained session. An empty trace is taken
+    again, at most four times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out: dict[str, tuple[float, float]] = {}
+    for _ in range(4):
+        _drain_profiler()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)  # the tracer is on before the first run
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                ms, n = out.get(e.key, (0.0, 0.0))
+                out[e.key] = (ms + e.self_device_time_total / 1e3 / reps, n + e.count / reps)
+        if out:
+            break
+    return out
+
+
+def call_names(fn, prep=None, reps: int = 10) -> dict[str, float]:
+    """{name: launches a call} of the kernels, copies and fills that a call
+    of ``fn`` runs on the card: those of ``reps`` runs of ``prep()`` then
+    ``fn()``, less the names that ``prep()`` alone runs."""
+    prep_names = set(_device_ops(prep, reps)) if prep is not None else set()
+
+    def both():
+        if prep is not None:
+            prep()
+        fn()
+
+    both()
+    return {k: v[1] for k, v in _device_ops(both, reps).items() if k not in prep_names}
+
+
+def call_profile(fn, prep=None, reps: int = 10, names=None) -> dict[str, tuple[float, float]]:
+    """{name: (device ms, launches)} of one call of ``fn``, from
+    torch.profiler over ``reps`` calls after 2 warm-ups, each call after
+    ``prep()``. Only the kernels, copies and fills named in ``names`` count
+    (all, if None), so that ``prep``'s own device work is left out."""
+    def once():
+        if prep is not None:
+            prep()
+        fn()
+
+    for _ in range(2):
+        once()
+    return {k: v for k, v in _device_ops(once, reps).items() if names is None or k in names}
+
+
+def span_ms(fn, prep=None, reps: int = 10) -> float:
+    """The CUDA-event span of one call of ``fn``, each call after ``prep()``
+    and synchronised alone (the events bracket ``fn`` only), the mean of
+    ``reps`` calls after 2 warm-ups."""
+    import torch
+
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for i in range(reps + 2):
+        if prep is not None:
+            prep()
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        if i >= 2:
+            total += e0.elapsed_time(e1)
+    return total / reps
+
+
+def copied_leaves(state) -> list:
+    """The state leaves the scrape's snapshot copies as they are, in the
+    flat buffer's order."""
+    s = state
+    return [s.ct_totals, s.dns_hh.table.counts, s.dns_hh.table.key_rows,
+            s.flow_hh.table.counts, s.flow_hh.table.key_rows, s.lat_hist, s.node_counters,
+            s.pod_dns, s.pod_drop, s.pod_forward, s.pod_retrans, s.pod_tcpflags,
+            s.svc_hh.table.counts, s.svc_hh.table.key_rows, s.totals]
+
+
+def readout_sector_bytes(state) -> dict[str, int]:
+    """The sector bound of the scrape's readout of ``state``: the copied
+    leaves read once, the three HLL banks read once, the conntrack keys
+    read once and the 32-byte sectors of the value rows of resident slots
+    (keys not 0; two 16-byte rows a sector), and the flat buffer written
+    once (the copies, an estimate a group, the live count)."""
+    s = state
+    copied = copied_leaves(s)
+    banks = [s.hll_flows.registers, s.hll_src_per_reason.registers,
+             s.hll_src_per_pod.registers]
+    keys, vals = s.conntrack.keys, s.conntrack.vals
+    resident = (keys != 0).any(dim=1)
+    n = resident.shape[0]
+    sectors = int(resident[: n - n % 2].view(-1, 2).any(dim=1).sum()) + int(
+        n % 2 and bool(resident[-1]))
+    out = {"copied": sum(t.numel() * 4 for t in copied),
+           "hll banks": sum(t.numel() * 4 for t in banks),
+           "conntrack keys": keys.numel() * 4,
+           "conntrack value sectors": sectors * 32,
+           "conntrack value sectors, all slots": vals.numel() * 4}
+    out["flat written"] = out["copied"] + 4 * (sum(t.shape[0] for t in banks) + 1)
+    out["total"] = (out["copied"] + out["hll banks"] + out["conntrack keys"]
+                    + out["conntrack value sectors"] + out["flat written"])
+    return out
+
+
+def readout_inputs(dev, recs, ident) -> dict:
+    """The inputs of the readout batches: "state" (DEPLOYED_CONFIG's after
+    one window of ``recs``, not closed; "tel" its Telemetry), "counts" (the
+    (3, 4096) histograms of K16's batches by label: the state's "close",
+    "collapse", "dense" and the (3, 16384) "K max"), "merged" (the
+    histogram summed over 32 one-step windows, as a range query reads it),
+    "invertible" (INVERTIBLE_CONFIG's Telemetry and state after one window)
+    and "empty" (a zero DEPLOYED_CONFIG state)."""
+    import numpy as np
+    import torch
+
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, INVERTIBLE_CONFIG
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    def window(cfg):
+        t = Telemetry(cfg, device=dev)
+        st = t.init_state()
+        for i in range(STEPS):
+            st, _ = t.step(st, recs[i % 2], recs[i % 2].shape[0], 2, ident)
+        return t, st
+
+    tel, st = window(DEPLOYED_CONFIG)
+    c0 = st.entropy.counts.clone()
+    g, k = c0.shape
+    t32 = Telemetry(DEPLOYED_CONFIG, device=dev)
+    s32 = t32.init_state()
+    merged = torch.zeros_like(c0)
+    for w in range(32):
+        s32, _ = t32.step(s32, recs[w % 2], recs[w % 2].shape[0], 2 + w, ident)
+        merged += s32.entropy.counts
+        s32, _ = t32.end_window(s32)
+    rng = np.random.default_rng(14)
+    collapse = torch.zeros_like(c0)
+    for j in range(g):
+        collapse[j, (977 * j + 5) % k] = float(1 << 20)
+    dense = torch.from_numpy(rng.integers(1, 1 << 10, (g, k)).astype(np.float32)).to(dev)
+    kmax = torch.from_numpy(rng.integers(1, 1 << 10, (g, 1 << 14)).astype(np.float32)).to(dev)
+    return {"tel": tel, "state": st, "merged": merged, "invertible": window(INVERTIBLE_CONFIG),
+            "empty": tel.init_state(),
+            "counts": {"close": c0, "collapse": collapse, "dense": dense, "K max": kmax}}
+
+
+def k16_bytes(g: int, k: int, close: bool = True) -> int:
+    """K16's sector bound: the (g, k) row read once (and written once by the
+    close); mean, var and n_obs read and written, bits, z and a flag byte
+    written: 33 bytes a group."""
+    return 2 * g * k * 4 + 33 * g if close else g * k * 4 + g * 4
+
+
+def readout(dev, recs, ident) -> dict:
+    """K16 and the scrape's readout (K17 and what surrounds it) on the
+    batches of ``--readout``: device time by kernel back to back and with the
+    L2 flushed, the launches of a call, the CUDA-event span of a call, the
+    host cost, the sector bound; the launch floor; the library call of the
+    readout's copies."""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    floor = call_profile(lambda: l2[:1].zero_(), reps=50)
+    floor = {k: v for k, v in floor.items() if "Fill" in k}
+    floor_ms = sum(v[0] for v in floor.values())
+    print(f"launch floor (a one-word fill, device time): {floor_ms:.4f} ms", flush=True)
+    inp = readout_inputs(dev, recs, ident)
+    tel, st, c0 = inp["tel"], inp["state"], inp["counts"]["close"]
+
+    def close_batch(counts):
+        """kops.window_close on a copy of ``counts`` restored before each call."""
+        c = counts.clone()
+        ewma = [torch.zeros(counts.shape[0], device=dev) for _ in range(3)]
+        return (lambda: kops.window_close(c, *ewma, 0.1, 4.0, 10)), (lambda: c.copy_(counts))
+
+    batches = [  # (label, fn, prep, bytes)
+        ("K16 close", lambda: tel.end_window(st), lambda: st.entropy.counts.copy_(c0),
+         k16_bytes(*c0.shape)),
+        *((f"K16 {label}", *close_batch(inp["counts"][label]),
+           k16_bytes(*inp["counts"][label].shape)) for label in ("collapse", "dense", "K max")),
+        ("K16 bits", lambda: kops.entropy_bits(inp["merged"]), None,
+         k16_bytes(*c0.shape, close=False)),
+    ]
+    inv_tel, inv_st = inp["invertible"]
+    empty_st = inp["empty"]
+    for label, t, s in (("scrape", tel, st), ("empty", tel, empty_st),
+                        ("invertible scrape", inv_tel, inv_st)):
+        nb = readout_sector_bytes(s)
+        print(f"readout bytes ({label}): " + ", ".join(f"{a} {b}" for a, b in nb.items()),
+              flush=True)
+        batches += [(f"snapshot {label}", lambda t=t, s=s: t.snapshot(s, 3), None, nb["total"]),
+                    (f"snapshot_flat_dispatch {label}",
+                     lambda t=t, s=s: t.snapshot_flat_dispatch(s, 3), None, nb["total"])]
+
+    result: dict = {"launch_floor_ms": floor_ms}
+    for label, fn, prep, nbytes in batches:
+        names = call_names(fn, prep)
+        launches = round(sum(names.values()), 2)
+        warm = call_profile(fn, prep, names=names)
+        dev_ms = sum(v[0] for v in warm.values())
+        cold = call_profile(fn, (lambda p=prep: (p is not None and p(), l2.zero_())),
+                            names=names)
+        cold_ms = sum(v[0] for v in cold.values())
+        span = span_ms(fn, prep)
+        bound = nbytes / 3.35e12 * 1e3
+        result[label] = {"device_ms": dev_ms, "flushed_ms": cold_ms, "span_ms": span,
+                         "host_ms": span - dev_ms, "bound_ms": bound, "bytes": nbytes,
+                         "launches": launches}
+        print(f"{label}: device time {dev_ms:.4f} ms back to back, {cold_ms:.4f} ms L2 "
+              f"flushed ({', '.join(f'{n[:50]} {v[0]:.4f}' for n, v in cold.items())}); "
+              f"{launches} launches a call; CUDA-event span {span:.4f} ms; host cost "
+              f"{span - dev_ms:.4f} ms a call; sector bound {bound:.4f} ms ({nbytes} bytes); "
+              f"{cold_ms / bound:.2f}x the bound L2 flushed", flush=True)
+
+    # The library call of the readout's copy part: one torch.cat of the
+    # copied leaves, by device time.
+    flat = [x.reshape(-1) for x in copied_leaves(st)]
+    cat = lambda: torch.cat(flat)  # noqa: E731
+    names = call_names(cat)
+    cat_ms = sum(v[0] for v in call_profile(cat, names=names).values())
+    cat_cold = sum(v[0] for v in call_profile(cat, lambda: l2.zero_(), names=names).values())
+    result["torch.cat"] = {"device_ms": cat_ms, "flushed_ms": cat_cold}
+    print(f"library: torch.cat of the {len(flat)} copied leaves ({sum(x.numel() for x in flat)} "
+          f"words): device time {cat_ms:.4f} ms back to back, {cat_cold:.4f} ms L2 flushed",
+          flush=True)
+
+    # The designs measured on the way (only in a tree that has their knobs):
+    # K16's blocks a group and the readout's bytes a block.
+    if hasattr(kops, "ENTROPY_SLICES") and hasattr(kops, "READOUT_BLOCK_BYTES"):
+        designs = {}
+        for label, fn, prep, _ in batches[:4]:
+            for slices in (1, 4, 8, 16, 32, 48):
+                saved, kops.ENTROPY_SLICES = kops.ENTROPY_SLICES, slices
+                try:
+                    names = call_names(fn, prep)
+                    ms = sum(v[0] for v in call_profile(
+                        fn, (lambda p=prep: (p(), l2.zero_())), names=names).values())
+                finally:
+                    kops.ENTROPY_SLICES = saved
+                designs[f"{label} slices {slices}"] = ms
+                print(f"design {label}, {slices} blocks a group: {ms:.4f} ms L2 flushed",
+                      flush=True)
+        for label, t, s in (("scrape", tel, st), ("empty", tel, empty_st)):
+            for per in (4 << 10, 8 << 10, 16 << 10, 32 << 10, 64 << 10):
+                saved, kops.READOUT_BLOCK_BYTES = kops.READOUT_BLOCK_BYTES, per
+                try:
+                    fn = lambda t=t, s=s: t.snapshot_flat_dispatch(s, 3)  # noqa: E731
+                    names = call_names(fn)
+                    ms = sum(v[0] for v in call_profile(fn, lambda: l2.zero_(),
+                                                        names=names).values())
+                finally:
+                    kops.READOUT_BLOCK_BYTES = saved
+                designs[f"readout {label} {per} bytes a block"] = ms
+                print(f"design readout {label}, {per} bytes a block: {ms:.4f} ms L2 flushed",
+                      flush=True)
+        # The readout's parts, each alone in a launch of its own.
+        jobs = [job for _, job, _, _ in Telemetry.readout_jobs(st)]
+        parts = {"copies": [j for j in jobs if j[0] == "copy"],
+                 "hll, a block a group": [j for j in jobs if j[0] == "hll"
+                                          and j[1].shape[1] > 128],
+                 "hll, lanes a group": [j for j in jobs if j[0] == "hll"
+                                        and j[1].shape[1] <= 128],
+                 "live": [j for j in jobs if j[0] == "live"]}
+        for part, sub in parts.items():
+            fn = lambda sub=sub: kops.snapshot_flat(sub, 3)  # noqa: E731
+            names = call_names(fn)
+            warm = sum(v[0] for v in call_profile(fn, names=names).values())
+            cold = sum(v[0] for v in call_profile(fn, lambda: l2.zero_(), names=names).values())
+            designs[f"readout part {part}"] = [warm, cold]
+            print(f"design readout scrape, {part} alone: {warm:.4f} ms back to back, "
+                  f"{cold:.4f} ms L2 flushed", flush=True)
+        result["designs"] = designs
+    return result
+
+
 def device_rows(prof) -> tuple[list, list]:
     """(kernel rows, torch-op rows) of a profile as (device us, calls, name),
     largest first. A device row is one kernel, memcpy or memset; an aten row
@@ -962,6 +1285,9 @@ def main() -> int:
     ap.add_argument("--ingest", action="store_true",
                     help="time K7's three entries by device time and CUDA events on the "
                     "default-flush, bench and feed-path batches")
+    ap.add_argument("--readout", action="store_true",
+                    help="time K16 and the scrape's readout (K17) by device time and CUDA "
+                    "events, back to back and with the L2 flushed")
     ap.add_argument("--hll-inv", action="store_true",
                     help="time K3 and K6 at the invertible step's calls and at batches that "
                     "separate their costs")
@@ -1012,6 +1338,9 @@ def main() -> int:
         return 0
     if args.rows:
         print(json.dumps(rows_profile(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
+    if args.readout:
+        print(json.dumps(readout(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
         return 0
     if args.hll_inv:
         print(json.dumps(hll_inv(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))

@@ -359,6 +359,85 @@ def test_fold_many_lays_out_one_record_an_array(monkeypatch):
                       for v in (x.data_ptr(), o.numel(), kops.FOLD_OPS[op], o.data_ptr())]
 
 
+def test_snapshot_flat_lays_out_one_job_a_leaf(monkeypatch):
+    """K17's one-launch readout without a card: the launch is caught where
+    it would enter C, and its table (csrc/snapshot_readout.cu's Table, read
+    back through ``kops._ReadoutTable``) is read: a job a snapshot leaf in
+    ``_sorted_leaves`` order, each at the offset of its leaf in the flat
+    layout, blocks in proportion to its bytes, the live count's clock and
+    lifetimes; the table's size matches the kernel's static_assert. A
+    second readout of the same state reuses the plan."""
+    import ctypes
+
+    from retina_tpu_torch.ops.conntrack import (
+        CLOCK_SKEW_SLACK,
+        CT_NON_TCP_LIFETIME,
+        CT_TCP_LIFETIME,
+    )
+    from retina_tpu_torch.ops.hyperloglog import _alpha
+    from retina_tpu_torch.parallel.telemetry import _sorted_leaves
+
+    src = (REPO / "retina_tpu_torch/kernels/csrc/snapshot_readout.cu").read_text()
+    assert f"kMaxJobs = {kops.READOUT_MAX_JOBS};" in src
+    assert ctypes.sizeof(kops._ReadoutJob) == 48 and "sizeof(Job) == 48" in src
+    assert ctypes.sizeof(kops._ReadoutTable) == 40 + 48 * kops.READOUT_MAX_JOBS
+    assert "sizeof(Table) == 40 + 48 * kMaxJobs" in src
+    seen = []
+
+    def launch(name, dev, ptr, n_launches=1):
+        t = kops._ReadoutTable.from_address(ptr)
+        seen.append((name, t.out, t.now, t.tcp_life, t.other_life, t.wrap_floor, t.n_blocks,
+                     [(j.kind, j.block0, j.dst, j.n, j.src, j.src2, j.m, j.alpha_mm)
+                      for j in t.jobs[:t.n_jobs]]))
+
+    tel = Telemetry(DEPLOYED_CUT, device="cpu")
+    state = _run_steps(tel.pipeline, "cpu")
+    paths = [p for p, _ in _sorted_leaves(tel.snapshot(state, 77))]
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    monkeypatch.setattr(kops, "_stream_key", lambda dev: (0, 0))
+    monkeypatch.setattr(kops, "_ct_scratch", {})
+    flat, layout = tel.snapshot_flat_dispatch(state, 77)
+    tel.snapshot_flat_dispatch(state, 78)
+    (name, out, now, tcp, other, floor, n_blocks, jobs), again = seen
+    assert (name, out, now, tcp, other, floor) == (
+        "snapshot_flat", flat.data_ptr(), 77, CT_TCP_LIFETIME, CT_NON_TCP_LIFETIME,
+        0xFFFF - CLOCK_SKEW_SLACK)
+    assert again[2] == 78 and again[7] == jobs
+    leaves = tel.readout_jobs(state)
+    assert [p for p, *_ in leaves] == paths
+    assert [(p, shape, dtype) for p, _, shape, dtype in leaves] == layout
+    off = block0 = 0
+    for (kind, b0, dst, n, ptr, ptr2, m, alpha_mm), (_, job, shape, _) in zip(jobs, leaves):
+        t = job[1]
+        assert (b0, dst, ptr) == (block0, off, t.data_ptr())
+        if job[0] == "copy":
+            assert (kind, n) == (0, t.numel())
+            words = t.numel()
+        elif job[0] == "hll":
+            g, mm = t.shape
+            assert (kind, n, m) == (2 if 4 <= mm <= 128 else 1, g, mm)
+            assert alpha_mm == pytest.approx(_alpha(mm) * mm * mm, rel=1e-6)
+            words = g
+        else:
+            assert (kind, n, ptr2) == (3, t.shape[0], job[2].data_ptr())
+            words = 1
+        # Blocks in proportion to the bytes read and written, within the
+        # job's parallelism: a block a 1024 words copied, a group (a block
+        # a group) or 1024 / m groups (m / 4 lanes a group),
+        # READOUT_LIVE_BLOCKS.
+        nbytes = {"copy": 8 * words, "hll": 4 * t.numel() + 4 * words,
+                  "live": 24 * t.shape[0] + 4}[job[0]]
+        cap = {0: -(-words // 1024), 1: words, 2: -(-words * m // 1024),
+               3: kops.READOUT_LIVE_BLOCKS}[kind]
+        blocks = kops.readout_plan([job]).blocks[0]
+        assert blocks == max(1, min(cap, -(-nbytes // kops.READOUT_BLOCK_BYTES)))
+        block0 += blocks
+        off += words
+    assert n_blocks == block0 and flat.shape == (off,)
+    assert int(np.prod(layout[0][1])) == 1 and layout[0][0] == ("active_conns",)
+
+
 def test_conntrack_wrapper_keeps_its_batch_scratch(monkeypatch):
     """K5's scratch without a card: 2B key slots (the next power of two, at
     least two chunks' worth) of 32 bytes, each free (zero accumulators, the
@@ -986,7 +1065,7 @@ def test_pipeline_on_card_matches_cpu(card):
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
                       "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0,
                       "latency_update": 2, "inv_decode": 0, "window_close": 0,
-                      "entropy_bits": 0, "hll_estimate": 0, "ct_active": 0}
+                      "entropy_bits": 0, "snapshot_flat": 0, "hll_estimate": 0, "ct_active": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
     from retina_tpu_torch.convert import tensor_leaves
 
@@ -1631,6 +1710,60 @@ def test_window_close_bits_and_z_equal_plain_bit_for_bit(card):
             assert torch.equal(x, y)
 
 
+def _slice_windows(rng, g, k, case, n=12):
+    """n windows of (g, k) integer-valued histograms for K16's slice edges:
+    "bench" random draws over part of the row, "dense" every bucket
+    nonzero, "one bucket" each group's mass in one bucket (a different one
+    a group), "collapse" the bench draws until group 0 collapses into one
+    bucket in the last two windows."""
+    for w in range(n):
+        if case == "dense":
+            counts = rng.integers(1, 1 << 12, (g, k)).astype(np.float32)
+        elif case == "one bucket":
+            counts = np.zeros((g, k), np.float32)
+            counts[np.arange(g), (977 * np.arange(g) + w) % k] = float(rng.integers(1, 1 << 20))
+        else:
+            counts = np.stack([np.bincount(rng.integers(0, max(1, int(rng.integers(k // 4, k + 1))),
+                                                        int(rng.integers(500, 4000))),
+                                           minlength=k).astype(np.float32) for _ in range(g)])
+            if case == "collapse" and w >= n - 2:
+                counts[0] = 0.0
+                counts[0, 5] = 4000.0
+        yield counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,k,case,slices", [
+    (3, 4096, "bench", 32), (3, 4095, "bench", 32), (2, 1000, "bench", 7), (5, 1, "bench", 32),
+    (1, 33, "dense", 32), (3, 16384, "dense", 32), (3, 16384, "bench", 48),
+    (3, 4096, "one bucket", 32), (3, 4096, "collapse", 1), (4, 4096, "dense", 16)])
+def test_window_close_matches_plain_at_slice_edges(card, monkeypatch, g, k, case, slices):
+    """K16 at the edges of its G x S grid (a bucket count not a multiple of
+    the slice, slices past the row's end, K = 1, K = 16384, one nonzero
+    bucket a group, one block a group), its EWMA carried over 12 windows
+    beside the plain version's: bits, flags, z, mean, var and n_obs equal
+    bit for bit, the histogram zero after each close, the read-only entry's
+    bits equal, and every group's ticket back at 0 after every call."""
+    monkeypatch.setattr(kops, "ENTROPY_SLICES", slices)
+    rng = np.random.default_rng(k + g + slices)
+    ewma = [torch.zeros(g, device=card) for _ in range(3)]
+    ref_ewma = [torch.zeros(g, device=card) for _ in range(3)]
+    for counts in _slice_windows(rng, g, k, case):
+        c = torch.from_numpy(counts).to(card)
+        c_ref = c.clone()
+        bits_only = kops.entropy_bits(c)
+        out = kops.window_close(c, *ewma, 0.1, 4.0, 10)
+        with kops.plain_versions():
+            ref = kops.window_close(c_ref, *ref_ewma, 0.1, 4.0, 10)
+        torch.cuda.synchronize()
+        assert torch.equal(bits_only, ref[0])
+        for x, y in zip([*out, *ewma], [*ref, *ref_ewma]):
+            assert torch.equal(x, y)
+        assert not c.any()
+        assert not kops._close_scratch[kops._stream_key(card)][1].any()
+    assert int(ewma[2][0]) == 12
+
+
 def _readout_banks(rng):
     for g, m in ((1, 4096), (16, 4096), (4096, 64)):
         yield np.where(rng.random((g, m)) < 0.05, rng.integers(1, 6, (g, m)), 0).astype(np.uint32)
@@ -1649,6 +1782,24 @@ def test_hll_estimate_kernel_matches_plain_on_the_three_banks(card):
         before = kops.launch_counts()["hll_estimate"]
         got = kops.hll_estimate(r)
         assert kops.launch_counts()["hll_estimate"] == before + 1
+        with kops.plain_versions():
+            want = kops.hll_estimate(r)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,m", [(3, 2), (33, 4), (100, 16), (9, 128), (7, 256), (5, 1024)])
+def test_hll_estimate_kernel_matches_plain_at_other_widths(card, g, m):
+    """K17's estimate at bank widths beside the deployed ones, on both sides
+    of the lane-group job's range (4 <= m <= 128) and with a group count
+    that leaves a pass part empty: sparse, full and all-zero registers,
+    within rtol 1e-5."""
+    rng = np.random.default_rng(g * m)
+    for regs in (np.where(rng.random((g, m)) < 0.05, rng.integers(1, 6, (g, m)), 0),
+                 rng.integers(1, 24, (g, m)), np.zeros((g, m))):
+        r = from_numpy(regs.astype(np.uint32), card)
+        got = kops.hll_estimate(r)
         with kops.plain_versions():
             want = kops.hll_estimate(r)
         torch.cuda.synchronize()
@@ -1697,29 +1848,80 @@ def test_ct_active_kernel_is_exact_and_resets_its_ticket(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["deployed", "invertible", "zero"])
+def test_readout_matches_snapshot_flat_dispatch_plain(card, which):
+    """K17's one-launch readout against ``snapshot_flat_dispatch`` under
+    ``plain_versions()`` on DEPLOYED_CONFIG's and INVERTIBLE_CONFIG's state
+    after four batches of a 100k-flow stream and on a zero state (every
+    HLL group counting linearly): one launch, the same layout, every int
+    leaf bit for bit, the estimates within rtol 1e-5, at clocks across the
+    16-bit wrap; the live count's ticket back at 0."""
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG, INVERTIBLE_CONFIG
+
+    tel = Telemetry(INVERTIBLE_CONFIG if which == "invertible" else DEPLOYED_CONFIG,
+                    device=card)
+    state = tel.init_state()
+    if which != "zero":
+        gen = TrafficGen(n_flows=100_000, n_pods=2048, seed=5)
+        ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 2048)}, n_slots=1 << 16,
+                                       device=card)
+        for i in range(4):
+            state, _ = tel.step(state, from_numpy(gen.batch(1 << 18), card), 1 << 18, 2 + i,
+                                ident)
+    for now in (5, 40, 0xFFFF + 3, 0xFFFFFFFF):
+        before = kops.launch_counts()
+        flat, layout = tel.snapshot_flat_dispatch(state, now)
+        after = kops.launch_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+            "snapshot_flat": 1}
+        with kops.plain_versions():
+            ref, ref_layout = tel.snapshot_flat_dispatch(state, now)
+        torch.cuda.synchronize()
+        assert layout == ref_layout and flat.shape == ref.shape
+        got, want = (Telemetry.snapshot_flat_finish(x, layout) for x in (flat, ref))
+        for (path, a), (_, b) in zip(_leaves(got), _leaves(want)):
+            if a.dtype == torch.float32:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=0, msg=str(path))
+            else:
+                assert torch.equal(a, b), path
+        assert not kops._ct_scratch[kops._stream_key(card)].any()
+    if which != "zero":
+        assert int(got["active_conns"]) > 0
+
+
+def _leaves(d, prefix=()):
+    out = []
+    for k in sorted(d):
+        out += _leaves(d[k], prefix + (k,)) if isinstance(d[k], dict) else [(prefix + (k,), d[k])]
+    return out
+
+
+@pytest.mark.gpu
 def test_close_and_snapshot_on_card_launch_k16_and_k17(card):
     """end_window is one launch of K16 and no plain op; Telemetry.snapshot
-    takes four launches of K17 (three banks, one count); both equal the CPU
-    run of the same steps."""
+    is one launch of K17's readout (the copies, the three banks' estimates
+    and the live count) and no plain op; both equal the CPU run of the same
+    steps."""
     from retina_tpu_torch.models import pipeline as tpipeline
-    from retina_tpu_torch.ops import hyperloglog as thll
+    from retina_tpu_torch.parallel import telemetry as ttelemetry
 
     on_card, on_cpu = Telemetry(DEPLOYED_CUT, device=card), Telemetry(DEPLOYED_CUT, device="cpu")
     st_card = _run_steps(on_card.pipeline, card)
     st_cpu = _run_steps(on_cpu.pipeline, "cpu")
     plain, called = tpipeline.end_window_plain, []
     tpipeline.end_window_plain = lambda *a: called.append(a)
-    est_plain, thll.estimate_plain = thll.estimate_plain, lambda *a: called.append(a)
+    readout_plain, ttelemetry.readout_plain = (ttelemetry.readout_plain,
+                                               lambda *a: called.append(a))
     try:
         kops.reset_launch_counts()
         st_card, win = on_card.end_window(st_card)
         snap = on_card.snapshot(st_card, 41)
         counts = kops.launch_counts()
     finally:
-        tpipeline.end_window_plain, thll.estimate_plain = plain, est_plain
+        tpipeline.end_window_plain, ttelemetry.readout_plain = plain, readout_plain
     assert not called
-    assert counts["window_close"] == 1 and counts["hll_estimate"] == 3
-    assert counts["ct_active"] == 1
+    assert counts["window_close"] == 1 and counts["snapshot_flat"] == 1
+    assert sum(counts.values()) == 2
     st_cpu, ref = on_cpu.end_window(st_cpu)
     ref_snap = on_cpu.snapshot(st_cpu, 41)
     torch.cuda.synchronize()

@@ -108,6 +108,63 @@ def test_end_window_matches_reference_over_45_windows():
     assert kops.launch_counts() == {name: 0 for name in kops.launch_counts()}
 
 
+def _edge_rows(rng: np.random.Generator, case: str, k: int) -> np.ndarray:
+    """(3, k) integer-valued float32 histograms of one window for K16's
+    edges: "collapse" each group's mass in one bucket (a different one a
+    group), "dense" every bucket nonzero (counts below a bound drawn for
+    each window, so that the entropy varies from window to window as
+    traffic's does), "bench" random draws over part of the row (the K max
+    and uneven-slice rows)."""
+    if case == "collapse":
+        counts = np.zeros((3, k), np.float32)
+        counts[np.arange(3), (977 * np.arange(3) + 5) % k] = float(rng.integers(1, 1 << 20))
+        return counts
+    if case == "dense":
+        return rng.integers(1, 2 ** rng.integers(1, 11, (3, 1)), (3, k)).astype(np.float32)
+    return np.stack([np.bincount(rng.integers(0, int(rng.integers(k // 4, k + 1)),
+                                              int(rng.integers(500, 4000))),
+                                 minlength=k).astype(np.float32) for _ in range(3)])
+
+
+@pytest.mark.parametrize("case,k", [("collapse", 4096), ("dense", 4096), ("bench", 1 << 14),
+                                    ("dense", 1 << 14), ("bench", 4095), ("dense", 1000)])
+def test_end_window_plain_matches_reference_at_the_kernel_edges(case, k):
+    """K16's plain version against the reference's end_window over 14
+    windows (past the EWMA's warm-up) on the rows the kernel's grid treats
+    apart: each group's mass in one bucket, every bucket nonzero, K = 16384
+    (the wrapper's limit) and rows that 16 blocks a group split into slices
+    of uneven length (4095 and 1000 buckets); the bits, z-scores, flags and
+    EWMA state at the module's tolerances, the histogram zero after each
+    close, and no launch."""
+    kw = dict(SMALL, entropy_buckets=k)
+    jp = JPipeline(JConfig(**kw))
+    jstate = jp.init_state()
+    end = jp.jitted_end_window()
+    tp = TelemetryPipeline(PipelineConfig(**kw), device="cpu")
+    tstate = tp.init_state()
+    rng = np.random.default_rng(k + len(case))
+    kops.reset_launch_counts()
+    for _ in range(14):
+        counts = _edge_rows(rng, case, k)
+        jstate = dataclasses.replace(jstate, entropy=dataclasses.replace(
+            jstate.entropy, counts=jnp.asarray(counts)))
+        tstate.entropy.counts.copy_(torch.from_numpy(counts))
+        jstate, jout = end(jstate)
+        tstate, tout = tp.end_window(tstate)
+        np.testing.assert_allclose(tout["entropy_bits"].numpy(),
+                                   np.asarray(jout["entropy_bits"]), rtol=1e-5)
+        np.testing.assert_allclose(tout["zscore"].numpy(), np.asarray(jout["zscore"]),
+                                   rtol=1e-5, atol=1e-4)
+        np.testing.assert_array_equal(tout["anomaly"].numpy(), np.asarray(jout["anomaly"]))
+        a, ja = tstate.anomaly, jstate.anomaly
+        np.testing.assert_array_equal(a.n_obs.numpy(), np.asarray(ja.n_obs))
+        np.testing.assert_allclose(a.mean.numpy(), np.asarray(ja.mean), rtol=1e-5)
+        np.testing.assert_allclose(a.var.numpy(), np.asarray(ja.var), rtol=1e-5, atol=1e-6)
+        assert not tstate.entropy.counts.any()
+    assert tstate.anomaly.n_obs.tolist() == [14.0, 14.0, 14.0]
+    assert kops.launch_counts() == {name: 0 for name in kops.launch_counts()}
+
+
 def _banks(rng: np.random.Generator) -> dict[str, list[np.ndarray]]:
     """The snapshot's three banks at the deployed widths: mostly-empty
     registers (linear counting), full ones (the raw estimate), all zero."""

@@ -170,6 +170,98 @@ def test_live_conntrack_and_invertible_state_carried_mid_stream(cut):
         compare_states(js, ts)
 
 
+def _random_state(ref, port, seed):
+    """A random reference state (ShardedTelemetry, one device) and the same
+    state carried into the port: counters and candidate tables of random
+    words, HLL registers 0-20 (some groups all 0), conntrack slots a quarter
+    empty with idle times across the lifetimes and the 16-bit wrap."""
+    rng = np.random.default_rng(seed)
+    js = ref.init_state()
+    leaves, treedef = jax.tree_util.tree_flatten(js)
+    tmpl = port.init_state()
+    names = [n for n, _ in _named(tmpl)]
+    out = []
+    for name, leaf in zip(names, leaves):
+        shape, dtype = leaf.shape, np.dtype(leaf.dtype)
+        if name.startswith("hll"):
+            x = rng.integers(0, 21, shape)
+            x[..., ::7, :] = 0
+        elif name == "conntrack.keys":
+            x = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+            x[rng.random(shape[:-1]) < 0.25] = 0
+        elif name == "conntrack.vals":
+            x = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+            x[..., 0] = (rng.integers(0, 1 << 16, shape[:-1])
+                         | (rng.integers(0, 2, shape[:-1]) << 31))
+        elif dtype == np.float32:
+            x = rng.random(shape) * 100
+        else:
+            x = rng.integers(0, 1 << 32, shape, dtype=np.uint64)
+        out.append(np.asarray(x).astype(dtype))
+    js = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(x) for x in out])
+    return js, state_from_numpy([x[0] for x in out], tmpl)
+
+
+def _named(state, prefix=""):
+    """(dotted name, tensor) of a port state's leaves, in leaf order."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append((f"{prefix}{f.name}", v))
+        elif dataclasses.is_dataclass(v):
+            out += _named(v, f"{prefix}{f.name}.")
+    return out
+
+
+@pytest.mark.parametrize("now", [5, 0xFFFF + 9])
+def test_flat_snapshot_layout_and_offsets_match_reference_snapshot_flat(now):
+    """At DEPLOYED_CONFIG's widths with a 2^10-slot conntrack table, on a
+    random state carried from the reference: the readout's jobs lie in
+    ``_sorted_leaves``' order of the snapshot, the layout's shapes and
+    dtypes equal the reference ``snapshot_flat``'s leaves (u32 as int32),
+    the plan's offsets are the running sums of the reference's leaf sizes,
+    and the flat buffer and ``Telemetry.snapshot`` equal the reference's
+    (integer words exactly, estimates within rtol 1e-5)."""
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import DEPLOYED_CONFIG
+    from retina_tpu_torch.parallel.telemetry import _sorted_leaves
+
+    kw = {f.name: getattr(DEPLOYED_CONFIG, f.name)
+          for f in __import__("dataclasses").fields(DEPLOYED_CONFIG)}
+    kw["conntrack_slots"] = 1 << 10
+    ref = ShardedTelemetry(JConfig(**kw), make_mesh(jax.devices()[:1]))
+    port = Telemetry(PipelineConfig(**kw), device="cpu")
+    js, ts = _random_state(ref, port, 61 + now % 7)
+    jflat = np.asarray(ref.snapshot_flat_dispatch(js, now))
+    _, jleaves, _ = ref._snapshot_flat
+    flat, layout = port.snapshot_flat_dispatch(ts, now)
+    leaves = port.readout_jobs(ts)
+    snap = port.snapshot(ts, now)
+    assert [p for p, *_ in leaves] == [p for p, _ in _sorted_leaves(snap)]
+    assert [tuple(x.shape) for x in jleaves] == [shape for _, shape, _ in layout]
+    assert [torch.float32 if np.dtype(x.dtype) == np.float32 else torch.int32
+            for x in jleaves] == [dtype for *_, dtype in layout]
+    sizes = [int(np.prod(x.shape)) for x in jleaves]
+    plan = kops.readout_plan([job for _, job, _, _ in leaves])
+    assert list(plan.offsets) == [sum(sizes[:i]) for i in range(len(sizes))]
+    assert plan.total == sum(sizes) == flat.numel() == jflat.size
+    words = flat.numpy().view(np.uint32)
+    for (path, shape, dtype), off, n in zip(layout, plan.offsets, sizes):
+        a, b = words[off:off + n], jflat[off:off + n]
+        if dtype == torch.float32:
+            np.testing.assert_allclose(a.view(np.float32), b.view(np.float32), rtol=1e-5,
+                                       err_msg=str(path))
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=str(path))
+    _compare_snapshots(ref.snapshot(js, now), snap)
+    assert 0 < int(snap["active_conns"]) < 1 << 10
+    est = snap["hll_src_per_pod"]
+    assert (est[::7] == 0).all() and (est[1::7] > 0).all()  # the groups all 0 count 0
+
+
 @pytest.mark.parametrize("cut", ["deployed", "invertible"])
 def test_fleet_export_seeds_and_snapshot_host_match_sharded_telemetry(cut):
     """State stepped by the reference is carried into the port (convert.py);
