@@ -155,9 +155,20 @@ whose kernels take microseconds, by their device time in
 torch.profiler (the summed durations of what the calls ran on the card),
 with the CUDA-event span of the same calls beside it. K11-K13 are held
 against their plain versions at the tap's largest shapes (2^16 flow keys,
-and a padded 2^6), estimates and entropy within a relative 1e-5, K13 bit
-for bit. The pairwise merges are timed by device time beside their
-bounds.
+a padded 2^6, and 2^16 keys whose sources share one hash-group, so every
+register update of K11's cluster lands in one block), estimates and
+entropy within a relative 1e-5, K13 bit for bit. The pairwise merges are
+timed by device time beside their bounds.
+
+K10 (the Count-Min query; several jobs and ``decode_verified``'s filter in
+one launch) is held bit for bit against its plain versions at a window
+close's shape (the invertible path's two regions in one launch, at
+min_weight 0, at one that rejects decoded keys, at 2^31 and with an
+all-false mask; see ``verify_phase``) and at the fleet path's (the union of
+the nodes' candidate tables with the merged epoch's two decoded regions in
+one launch). Every node close of the fleet and time-travel paths, and the
+invertible path's close, must launch K10 once and K15 twice; K10's
+launches are printed by path (node close, rollup, range query).
 
 K16 (the window close: 16 blocks a group, one launch a close) and K17's
 readout (one launch writes the scrape's whole flat snapshot: the copied
@@ -621,6 +632,10 @@ def main() -> int:
     # The invertible decode verifies its keys through the CMS query, K10.
     run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
                          k1_k5 + close_snap + ["inv_update", "cms_query", "inv_decode"])
+    # One window closed, one decode: K15 once a region, K10 once for both.
+    check(launches["cms_query"] == 1 and launches["inv_decode"] == 2,
+          f"invertible path: a close launched K10 {launches['cms_query']} and K15 "
+          f"{launches['inv_decode']} times (want 1 and 2)")
     dec = run["decs"][-1]
     ok = dec["ok"]
     found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
@@ -631,6 +646,7 @@ def main() -> int:
             r["launches"] = launches["inv_update"]
     inv_decode_phase(dev, run["state"], time_ms, report, equal_int)
     results[-1]["launches"] = launches["inv_decode"]
+    verify_phase(dev, run["state"], equal_int)
 
     path("production path", PipelineConfig(), 1, STEPS, k1_k5 + close_snap)
     path("no-conntrack path", NO_CONNTRACK_CONFIG, 1, STEPS,
@@ -688,7 +704,7 @@ def main() -> int:
     host_ms = time_ms(lambda: t.snapshot_host(st, 2))
     for name, ms, nbytes in (("snapshot (K17, one launch; its leaves views of the buffer)",
                               snap_ms, ro_bytes),
-                             ("inv_decode (K15 and K10 a region, torch glue)", dec_ms,
+                             ("inv_decode (K15 a region, K10 once, torch glue)", dec_ms,
                               dec_bytes),
                              ("fleet_export", export_ms, 2 * export_bytes),
                              ("snapshot_flat (K17, one launch)", flat_ms, ro_bytes),
@@ -1648,6 +1664,61 @@ def inv_decode_phase(dev, state, time_ms, report, equal_int) -> None:
            d * w_ * (nb * 2 + (inv.n_key_cols + 1) * HASH_OPS), None, 0.0)
 
 
+def verify_phase(dev, state, equal_int) -> None:
+    """K10's many-job entry at a window close's shape: the query and
+    ``decode_verified``'s filter of both regions of the invertible path's
+    state in one launch, bit for bit against the plain versions at min_weight
+    0, at one that rejects some decoded keys and at 2^31 (the compare is
+    unsigned), and with an all-false mask; then its device time beside the
+    plain version's and the library call's (``torch.gather`` + ``amin`` on
+    indices computed beforehand)."""
+    import torch
+
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.ops.countmin import indices
+
+    cms = state.flow_hh.cms
+    decoded = [(list(c), ok) for c, ok in (
+        kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        for inv in (state.inv_flow, state.inv_hi))]
+
+    def verify(min_weight, masks=None):
+        return kops.cms_query_many([(cms.table, cms.seed, c, ok if masks is None else masks[i],
+                                     min_weight) for i, (c, ok) in enumerate(decoded)])
+
+    est0, ok0 = verify(0)
+    verified = torch.unique(est0[ok0])
+    check(verified.numel() >= 2, "K10 verify: fewer than two verified estimates")
+    rejecting = int(verified[verified.numel() // 2])
+    none = [torch.zeros_like(ok) for _, ok in decoded]
+    for label, mw, masks in (("min_weight 0", 0, None), (f"min_weight {rejecting}", rejecting,
+                                                         None),
+                             ("min_weight 2^31", 1 << 31, None), ("all-false mask", 0, none)):
+        kops.reset_launch_counts()
+        est, ok = verify(mw, masks)
+        check(kops.launch_counts()["cms_query"] == 1, f"K10 verify ({label}): not one launch")
+        with kops.plain_versions():
+            ref_est, ref_ok = verify(mw, masks)
+        torch.cuda.synchronize()
+        equal_int(est, ref_est, f"K10 verify est ({label})")
+        check(torch.equal(ok, ref_ok), f"K10 verify ok ({label}): kernel != plain")
+        print(f"K10 verify of both regions ({label}): {int(ok.sum())} of {ok.numel()} rows "
+              "verified; est and ok equal to the plain versions", flush=True)
+    ms = device_ms(lambda: verify(0), kernel="query_kernel")
+
+    def plain():
+        with kops.plain_versions():
+            verify(0)
+
+    plain_ms = device_ms(plain)
+    cols = [torch.cat([c[j] for c, _ in decoded]) for j in range(len(decoded[0][0]))]
+    idx = indices(cms.table, cms.seed, cols)
+    lib_ms = device_ms(lambda: torch.gather(cms.table, 1, idx).amin(dim=0))
+    print(f"K10 at a close's shape ({ok0.numel()} rows, both regions, one launch): device time "
+          f"{ms:.4f} ms (back to back), plain {plain_ms:.4f} ms, torch.gather + amin on "
+          f"indices computed beforehand {lib_ms:.4f} ms", flush=True)
+
+
 TT_WINDOWS = 34  # windows closed on the time-travel path: the 32-slot ring evicts two
 FLEET_NODES, NODE_EVENTS, FLEET_EPOCH = 64, 1 << 18, 7
 QUERY_TOPK = 32  # k of a range query: the reference agent's default
@@ -1729,10 +1800,14 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     eng = SketchEngine(tcfg, device=dev)
     eng.update_identities(pods)
     ring = eng.timetravel_ring
+    close_k10 = [0]
+
     def feed_and_close():
         for i in range(TT_WINDOWS):
             eng.flush(quanta[i % 3], 300 + i)
+            before = kops.launch_counts()["cms_query"]
             eng.close_window(epoch=i)
+            close_k10[0] += kops.launch_counts()["cms_query"] - before
             check(ring.drain(60.0), f"ring readback of window {i}")
 
     _, feed_ms = sync_ms(feed_and_close)
@@ -1748,6 +1823,9 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         print(f"time-travel query over {n} windows: {ms:.3f} ms (first call)", flush=True)
     tt_launches = kops.launch_counts()
     print(f"time-travel path launches: {tt_launches}", flush=True)
+    check(close_k10[0] == TT_WINDOWS, f"time-travel path: {close_k10[0]} K10 launches in "
+          f"{TT_WINDOWS} closes (one a close)")
+    query_k10 = tt_launches["cms_query"] - close_k10[0]
     check_sketch_launches(tt_launches, "time-travel path")
     for name in INVERTIBLE_ENGINE_KERNELS + EXTRACT_KERNELS:
         check(tt_launches[name] > 0, f"{name} was not launched on the time-travel path")
@@ -1827,13 +1905,20 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         # A fresh node, one engine reused; made on the engine's stream.
         eng.state = eng._proxy.run(eng.telemetry.init_state)
         eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 500)
+        before = kops.launch_counts()
         epoch, arrays, window_s, seeds = eng.close_window(epoch=FLEET_EPOCH)["export"]
+        after = kops.launch_counts()
+        check(after["cms_query"] - before["cms_query"] == 1
+              and after["inv_decode"] - before["inv_decode"] == 2,
+              f"fleet node {i}: a close launched K10 {after['cms_query'] - before['cms_query']}"
+              f" and K15 {after['inv_decode'] - before['inv_decode']} times (want 1 and 2)")
         first_half = i < FLEET_NODES // 2
         frames.append(encode_snapshot(FleetSnapshot(
             node=f"node-{i:02d}", tenant="tenant-a" if first_half else "tenant-b",
             priority=int(first_half), epoch=epoch, seq=1, window_s=window_s, seeds=seeds,
             arrays=host_arrays(arrays))))
     nodes_s = time.perf_counter() - t0
+    node_k10 = kops.launch_counts()["cms_query"]
     late = encode_snapshot(dataclasses.replace(decode_snapshot(frames[1]),
                                                epoch=FLEET_EPOCH - 1))
     print(f"fleet path: {FLEET_NODES} nodes of {NODE_EVENTS} events fed, closed and encoded in "
@@ -1980,6 +2065,31 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         want = kops.cms_query(table, seed, cols)
     torch.cuda.synchronize()
     check(torch.equal(out, want), "K10: kernel != plain")
+    # The rollup's jobs in one launch: the union (a row-major (R, 4) tensor),
+    # and the merged epoch's two decoded regions with their masks, at
+    # min_weight 0 and 2^31.
+    regions = []
+    for name in ("inv_flow", "inv_hi"):
+        planes, weights = merged64[f"{name}_planes"], merged64[f"{name}_weights"]
+        c, ok = kops.inv_decode(planes, weights, snaps[0].seeds[name],
+                                planes.shape[2] // 32 - 1)
+        regions.append((list(c), ok))
+    for mw in (0, 1 << 31):
+        jobs = [(table, seed, cols, None, 0)] + [(table, seed, c, ok, mw) for c, ok in regions]
+        kops.reset_launch_counts()
+        est, ok = kops.cms_query_many(jobs)
+        check(kops.launch_counts()["cms_query"] == 1, "K10: cms_query_many took more than a launch")
+        with kops.plain_versions():
+            ref_est, ref_ok = kops.cms_query_many(jobs)
+        torch.cuda.synchronize()
+        check(torch.equal(est, ref_est) and torch.equal(ok, ref_ok),
+              f"K10 cms_query_many (the union and the epoch's regions, min_weight {mw}): "
+              "kernel != plain")
+        check(torch.equal(est[: union.shape[0]], out), "K10: the union's job != cms_query")
+        print(f"K10 cms_query_many, the union and the merged epoch's two regions in one launch "
+              f"(min_weight {mw}): {int(ok[union.shape[0]:].sum())} decoded keys verified; "
+              "equal to the plain versions", flush=True)
+
     def query():
         return kops.cms_query(table, seed, cols)
 
@@ -1996,14 +2106,19 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     # (a 512 KiB table stays in L2 while its rows are gathered).
     report("cms_query", "retina_tpu_torch/kernels/csrc/cms_query.cu",
            "retina_tpu/timetravel/fold.py:163", ms, plain_ms,
-           r * c * 4 + min(d * w, r * d) * 4 + r * 4, r * d * c * HASH_OPS, None, 0.0)
+           r * c * 4 + min(d * w, r * d) * 4 + r * 4, r * d * c * HASH_OPS, gather_ms, 0.0)
     results[-1]["launches"] = fleet_launches["cms_query"]
     print(f"cms_query: CUDA-event span of a call {time_ms(query):.4f} ms, plain "
           f"{plain_span:.4f}", flush=True)
     print(f"K10 note: {r} candidate rows of {FLEET_NODES} nodes; torch.gather + amin on "
           f"indices computed beforehand, device time {gather_ms:.4f} ms (two calls)",
           flush=True)
-
+    rollup_k10 = fleet_launches["cms_query"] - node_k10
+    print(f"cms_query launches by path: node close {node_k10} over {FLEET_NODES} closes "
+          f"(fleet path), rollup {rollup_k10} (the fleet path's merge of one epoch), range "
+          f"query {query_k10} over {len(docs)} queries (time-travel path, besides its "
+          f"{close_k10[0]} closes); the kernels line counts the fleet path's "
+          f"{fleet_launches['cms_query']}", flush=True)
 
 
 DET_WINDOW = 1 << 16  # benign events a window on the detection path: the tap's cap
@@ -2078,9 +2193,16 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     # -- K11, K12, K13 at the tap's largest shapes -----------------------------
     scan = bench_gen(**preset_params("portscan"))
     k11_in = {}
-    for label, n in (("P = 2^16", DET_WINDOW), ("P = 2^6, padded", 40)):
-        keys, w = features.padded_flow_keys(scan.batch(n))
+    one = scan.batch(DET_WINDOW)
+    one[:, F.SRC_IP] = 0x0A000001  # every source in one hash-group: one block's registers
+    for label, rows in (("P = 2^16", scan.batch(DET_WINDOW)), ("P = 2^6, padded", scan.batch(40)),
+                        ("P = 2^16, one group", one)):
+        keys, w = features.padded_flow_keys(rows)
         k11_in[label] = (from_numpy(keys, dev), from_numpy(w, dev))
+    for label, (keys, _) in k11_in.items():
+        blocks = kops.portscan_cluster(programs.PORTSCAN_GROUPS, programs.PORTSCAN_PRECISION,
+                                       keys.shape[0])
+        print(f"K11 {label}: a cluster of {blocks} blocks", flush=True)
     hist = from_numpy(features.qname_length_hist(
         bench_gen(**preset_params("dns_flood")).batch(DET_WINDOW)), dev)
     lanes = from_numpy(features.tcpflag_lanes(
@@ -2111,9 +2233,23 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     keys, w = k11_in["P = 2^16"]
     p_rows = keys.shape[0]
     p = hist / hist.sum()
+    # K11's library call: scatter_reduce_ amax of each row's rank into a zero
+    # register bank at its (group, register), both computed beforehand.
+    from retina_tpu_torch.ops.hashing import _mul32, hash_cols
+    from retina_tpu_torch.u32 import widen
+
+    m = 1 << programs.PORTSCAN_PRECISION
+    hk = widen(hash_cols([keys[:, 3]], (0xC0FFEE + programs.PORTSCAN_SEED) & 0xFFFFFFFF))
+    grp = _mul32(widen(keys[:, 0]), programs.GROUP_MUL) % programs.PORTSCAN_GROUPS
+    rest = hk >> programs.PORTSCAN_PRECISION
+    hsb = torch.where(rest > 0, torch.floor(torch.log2(rest.double().clamp(min=1))).long(), -1)
+    flat = (grp * m + (hk & (m - 1)))[w > 0]
+    rank = (32 - programs.PORTSCAN_PRECISION - hsb).to(torch.int32)[w > 0]
+    bank = torch.zeros(programs.PORTSCAN_GROUPS * m, dtype=torch.int32, device=dev)
     for name, fn, kernel, nbytes, ops, lib in (
             ("portscan_score", lambda: programs.portscan_program(keys, w), "portscan_kernel",
-             p_rows * 20 + programs.PORTSCAN_GROUPS * 4, p_rows * (HASH_OPS + 12), None),
+             p_rows * 20 + programs.PORTSCAN_GROUPS * 4, p_rows * (HASH_OPS + 12),
+             lambda: bank.zero_().scatter_reduce_(0, flat, rank, "amax")),
             ("dnstunnel_score", lambda: programs.dnstunnel_program(hist), "dnstunnel_kernel",
              hist.numel() * 4 + 8, hist.numel() * 6,
              lambda: torch.special.entr(p).sum()),
@@ -2129,8 +2265,10 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
                 "synflood_score": "retina_tpu/detect/programs.py:100"}[name],
                ms, plain_ms, nbytes, ops, lib_ms, errs[name])
         print(f"{name}: CUDA-event span of a call {time_ms(fn):.4f} ms", flush=True)
-    print("K11 library: none (no PyTorch call computes a grouped HLL); K12 library: "
-          "torch.special.entr + sum on p computed beforehand, two calls", flush=True)
+    print("K11 library: scatter_reduce_ amax of the ranks into a zeroed register bank at "
+          "(group, register) computed beforehand, two calls (no PyTorch call computes the "
+          "estimate); K12 library: torch.special.entr + sum on p computed beforehand, two calls",
+          flush=True)
 
     # -- the closed loop at the deployed width -------------------------------------------
     windows, attack_at, attack_rows = detection_schedule(bench_gen())

@@ -48,8 +48,8 @@ _ARGTYPES = {
     "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
     "fold": [_VP, _INT, _LL],
     "topk_join": [_VP, _VP, _LL, _LL, _INT, _VP, _VP],
-    "cms_query": [_VP, _INT, _INT, _U32] + _COLS + [_LL, _VP],
-    "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _VP],
+    "cms_query": [_VP],
+    "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _INT, _VP],
     "dnstunnel_score": [_VP, _INT, _VP],
     "synflood_score": [_VP, _VP],
     "latency_update": [_VP, _VP, _VP, _VP, _INT, _VP, _INT],
@@ -814,42 +814,118 @@ def topk_join(keys, counts):
     return out_keys, out_counts
 
 
-def cms_query(table, seed, key_cols):
-    """The Count-Min point query (K10): (R,) int32 u32 estimates, the
-    minimum over the depth rows of the table at the keys' columns."""
-    dev = table.device
+CMS_QUERY_MAX_JOBS = 8  # kMaxJobs in csrc/cms_query.cu
+CMS_QUERY_THREADS = 256  # kThreads there
+
+
+class _QueryJob(ctypes.Structure):
+    """``Job`` of csrc/cms_query.cu."""
+
+    _fields_ = [("table", _VP), ("col", _VP * 4), ("est", _VP),
+                ("ok_in", _VP), ("ok_out", _VP), ("n", _LL), ("stride", _INT * 4),
+                ("wmask", _U32), ("seed", _U32), ("min_weight", _U32), ("depth", _INT),
+                ("n_cols", _INT), ("block0", _INT)]
+
+
+class _QueryTable(ctypes.Structure):
+    """``Table`` of csrc/cms_query.cu: passed by value to the kernel."""
+
+    _fields_ = [("n_jobs", _INT), ("n_blocks", _INT),
+                ("jobs", _QueryJob * CMS_QUERY_MAX_JOBS)]
+
+
+def _query_check(job, dev: torch.device) -> int:
+    table, _, key_cols, ok = job[:4]
     _state(table, "cms table", dev)
-    if table.dim() != 2:
-        raise ValueError(f"cms table must be (depth, width), got {tuple(table.shape)}")
-    d, w = table.shape
-    _pow2(w, "cms width")
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError(f"cms table must be (depth >= 1, width), got {tuple(table.shape)}")
+    _pow2(table.shape[1], "cms width")
     if not key_cols:
         raise ValueError("1 to 4 key columns, got 0")
     r = key_cols[0].shape[0] if key_cols[0].dim() == 1 else -1
     _key_cols(key_cols, r, dev)
-    if not _on_card(dev):
-        from retina_tpu_torch.ops.countmin import query_plain
-        from retina_tpu_torch.u32 import narrow
+    if any(not 0 <= c.stride(0) <= 0x7FFFFFFF for c in key_cols):
+        raise ValueError("key column strides must lie in [0, 2^31)")
+    if ok is not None:
+        _state(ok, "ok mask", dev, dtype=torch.bool, shape=(r,))
+    return r
 
-        return narrow(query_plain(table, seed, key_cols))
-    out = torch.empty((r,), dtype=torch.int32, device=dev)
-    if r:
-        _launch("cms_query", dev, table.data_ptr(), d, w, int(seed) & 0xFFFFFFFF,
-                *_col_args(key_cols), r, out.data_ptr())
-    return out
+
+def cms_query_many(jobs):
+    """The Count-Min point query (K10) of several jobs in one launch. Each
+    job is (table, seed, key_cols, ok, min_weight): a (depth, width) int32
+    table, 1 to 4 (R,) int32 key columns and an (R,) bool mask or None (all
+    true). Per row: est = the u32 minimum over the depth rows at the key's
+    columns, ok' = ok & (est >= min_weight, unsigned), est' = est where ok'
+    else 0 (``decode_verified``'s filter). Returns (est (sum R,) int32, ok
+    (sum R,) bool), the jobs' rows end to end in job order."""
+    if not 1 <= len(jobs) <= CMS_QUERY_MAX_JOBS:
+        raise ValueError(f"1 to {CMS_QUERY_MAX_JOBS} query jobs, got {len(jobs)}")
+    dev = jobs[0][0].device
+    rows = [_query_check(job, dev) for job in jobs]
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.countmin import query_many_plain
+
+        return query_many_plain(jobs)
+    total = sum(rows)
+    est = torch.empty((total,), dtype=torch.int32, device=dev)
+    ok = torch.empty((total,), dtype=torch.bool, device=dev)
+    if not total:
+        return est, ok
+    table = _QueryTable()
+    table.n_jobs = len(jobs)
+    block0 = off = 0
+    for e, (t, seed, key_cols, mask, min_weight), r in zip(table.jobs, jobs, rows):
+        e.table, e.n, e.depth = t.data_ptr(), r, t.shape[0]
+        e.wmask, e.seed = t.shape[1] - 1, int(seed) & 0xFFFFFFFF
+        e.min_weight = int(min_weight) & 0xFFFFFFFF
+        e.n_cols, e.block0 = len(key_cols), block0
+        if r:
+            for j, c in enumerate(key_cols):
+                e.col[j], e.stride[j] = c.data_ptr(), c.stride(0)
+            e.est, e.ok_out = est.data_ptr() + 4 * off, ok.data_ptr() + off
+            e.ok_in = None if mask is None else mask.data_ptr()
+        block0 += -(-r // CMS_QUERY_THREADS)
+        off += r
+    table.n_blocks = block0
+    _launch("cms_query", dev, ctypes.addressof(table))
+    return est, ok
+
+
+def cms_query(table, seed, key_cols):
+    """The Count-Min point query (K10) of one set of key columns: (R,) int32
+    u32 estimates, the minimum over the depth rows of the table at the keys'
+    columns: ``cms_query_many``'s one job, without a mask, at min_weight 0."""
+    return cms_query_many([(table, seed, key_cols, None, 0)])[0]
 
 
 # ---------------------------------------------------------------------------
 # K11, K12, K13: the detector programs
 
-SHARED_BYTES = 48 * 1024  # K11's registers stay in static-limit shared memory
+SHARED_BYTES = 64 * 1024  # K11's registers, all of them in every block's shared memory
+PORTSCAN_CLUSTER = 16  # K11's cluster size at most (16 the largest; non-portable above 8)
+PORTSCAN_BLOCK_ROWS = 4096  # rows a block of K11 takes at least (4 a thread)
+
+
+def portscan_cluster(groups: int, precision: int, n_rows: int) -> int:
+    """K11's cluster size for ``n_rows`` keys: a block a PORTSCAN_BLOCK_ROWS
+    rows, at least 1 and at most PORTSCAN_CLUSTER (the launch caps it again
+    by the largest cluster the card can schedule). Every block holds all
+    ``groups`` HLL groups of 2^precision registers; raises ValueError where
+    they pass SHARED_BYTES."""
+    bank = groups * (4 << int(precision))
+    if groups < 1 or bank > SHARED_BYTES:
+        raise ValueError(f"{groups} groups of 2^{precision} registers ({bank} bytes) do not fit "
+                         f"a block's {SHARED_BYTES} bytes of shared memory")
+    return max(1, min(PORTSCAN_CLUSTER, -(-n_rows // PORTSCAN_BLOCK_ROWS)))
 
 
 def portscan_score(keys, weights, groups, precision, seed):
     """The portscan program (K11): (P, 4) int32 flow keys [src, dst, proto,
     dst port] and (P,) float32 weights -> (groups,) float32 HLL estimates
     of the distinct dst ports of the keys of weight > 0 in each source
-    hash-group, group = (src * 2654435761) mod groups in u32."""
+    hash-group, group = (src * 2654435761) mod groups in u32. On the card,
+    one launch of a cluster of ``portscan_cluster`` blocks."""
     dev = keys.device
     _state(keys, "flow keys", dev)
     if keys.dim() != 2 or keys.shape[1] != 4:
@@ -858,19 +934,19 @@ def portscan_score(keys, weights, groups, precision, seed):
     _state(weights, "weights", dev, dtype=torch.float32, shape=(n,))
     if not 4 <= int(precision) <= 16:
         raise ValueError(f"precision must be in [4, 16], got {precision}")
-    if groups < 1 or groups * 4 << int(precision) > SHARED_BYTES:
-        raise ValueError(f"{groups} groups of 2^{precision} registers do not fit "
-                         f"{SHARED_BYTES} bytes of shared memory")
+    blocks = portscan_cluster(int(groups), int(precision), n)
     if not _on_card(dev):
         from retina_tpu_torch.detect.programs import portscan_plain
 
         return portscan_plain(keys, weights, groups, precision, seed)
+    if keys.data_ptr() % 16:
+        raise ValueError("flow keys must be 16-byte aligned (a row a 16-byte load)")
     from retina_tpu_torch.ops.hyperloglog import _alpha
 
     m = 1 << int(precision)
     out = torch.empty((groups,), dtype=torch.float32, device=dev)
     _launch("portscan_score", dev, keys.data_ptr(), weights.data_ptr(), n, groups,
-            int(precision), (0xC0FFEE + int(seed)) & 0xFFFFFFFF, _alpha(m) * m * m,
+            int(precision), (0xC0FFEE + int(seed)) & 0xFFFFFFFF, _alpha(m) * m * m, blocks,
             out.data_ptr())
     return out
 

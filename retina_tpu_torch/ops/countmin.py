@@ -4,7 +4,10 @@ State is a (depth, width) int32 table of u32 counts. ``update_plain`` and
 ``query_plain`` are the Count-Min half of the plain version of K2
 (``kernels/csrc/hh_update.cu``), which the pipeline reaches through
 ``HeavyHitterSketch.update``. ``CountMinSketch.query`` goes through K10
-(``kernels/csrc/cms_query.cu``), whose plain version is ``query_plain``;
+(``kernels/csrc/cms_query.cu``), whose plain version is ``query_plain``,
+and so do the verified decodes (``kops.cms_query_many``: several queries
+and ``decode_verified``'s filter in one launch), whose plain version is
+``query_many_plain``;
 ``CountMinSketch.update`` and ``cms_update_jit`` (row 12 of the device
 programs, the reference's standalone jitted update) through K2's add phase
 alone (``cms_update`` in ``kernels/csrc/hh_update.cu``), whose plain
@@ -48,6 +51,23 @@ def query_plain(table: torch.Tensor, seed: int, key_cols: list[torch.Tensor]) ->
     """(B,) int64 point estimates: min over the rows."""
     cols = indices(table, seed, key_cols)
     return widen(torch.gather(table, 1, cols)).min(dim=0).values
+
+
+def query_many_plain(jobs) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``kops.cms_query_many``: per job (table, seed,
+    key_cols, ok, min_weight) the point estimates, then ``decode_verified``'s
+    filter (ok & est >= min_weight, unsigned; est where ok, else 0) with a
+    missing mask taken as all true; (est int32, ok bool) of the jobs end to
+    end."""
+    ests, oks = [], []
+    for table, seed, key_cols, ok, min_weight in jobs:
+        est = query_plain(table, seed, key_cols)
+        keep = est >= (int(min_weight) & M32)
+        if ok is not None:
+            keep = ok & keep
+        ests.append(narrow(torch.where(keep, est, 0)))
+        oks.append(keep)
+    return torch.cat(ests), torch.cat(oks)
 
 
 @dataclasses.dataclass

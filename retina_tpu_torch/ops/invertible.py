@@ -15,7 +15,8 @@ or a range query. A bucket where one key owns a strict majority of the
 weight yields that key bit by bit (majorities compared as u32); it is
 accepted only if its checksum matches and it re-hashes to its own bucket.
 ``merge`` adds two sketches of one seed (torch ops, wrapping);
-``decode_verified`` counts through the CMS query, K10.
+``decode_verified`` counts and filters its keys through one job of the CMS
+query, K10 (``kops.cms_query_many``).
 """
 
 from __future__ import annotations
@@ -169,8 +170,9 @@ def decode_verified(inv: InvertibleSketch, cms, min_weight: int = 0,
     """Decode, then verify against a CMS over the same key columns: the
     count is the CMS point estimate, and keys whose estimate is under
     ``min_weight`` are rejected. Returns (key_cols, est int32 (D*W,),
-    ok (D*W,))."""
-    cols, _, ok = inv.decode()
-    est = cms.query(cols)
-    ok = ok & (est >= (int(min_weight) & M32))
-    return cols, narrow(torch.where(ok, est, 0)), ok
+    ok (D*W,)). The query and the filter are one job of K10
+    (``kops.cms_query_many``)."""
+    cols, ok = kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+    cols = list(cols)
+    est, ok = kops.cms_query_many([(cms.table, cms.seed, cols, ok, min_weight)])
+    return cols, est, ok

@@ -29,7 +29,6 @@ from retina_tpu_torch.models.identity import IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState, TelemetryPipeline
 from retina_tpu_torch.ops.conntrack import active_connections_plain
 from retina_tpu_torch.ops.hyperloglog import estimate_plain
-from retina_tpu_torch.ops.invertible import decode_verified
 from retina_tpu_torch.u32 import M32, narrow, to_numpy, widen
 
 # (key path, shape, dtype) of each leaf of a flat snapshot, in buffer order.
@@ -181,15 +180,18 @@ class Telemetry:
         ``keys`` (M, C) int32, ``est`` (M,) int32, ``ok`` (M,) bool and
         ``tier`` (M,) int32 (0 the main region, 1 the priority region),
         M = D*W_flow + D*W_hi. Rows with ``ok`` false are noise; a key can
-        decode from up to D buckets."""
-        regions = []
-        for tier, inv in enumerate((state.inv_flow, state.inv_hi)):
-            cols, est, ok = decode_verified(inv, state.flow_hh.cms, min_weight)
-            regions.append((cols, est, ok, torch.full(est.shape, tier, dtype=torch.int32,
-                                                      device=est.device)))
-        (f_cols, *f), (h_cols, *h) = regions
-        keys = torch.stack([torch.cat([a, b]) for a, b in zip(f_cols, h_cols)], dim=1)
-        est, ok, tier = (torch.cat([a, b]) for a, b in zip(f, h))
+        decode from up to D buckets. Each region decodes through K15; the
+        query and ``decode_verified``'s filter of both regions are one
+        launch of K10 (``kops.cms_query_many``), which writes ``est`` and
+        ``ok`` end to end."""
+        cms = state.flow_hh.cms
+        cols = [kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+                for inv in (state.inv_flow, state.inv_hi)]
+        est, ok = kops.cms_query_many([(cms.table, cms.seed, list(c), k, min_weight)
+                                       for c, k in cols])
+        keys = torch.cat([c.t() for c, _ in cols])
+        tier = torch.ones(est.shape, dtype=torch.int32, device=est.device)
+        tier[: cols[0][0].shape[1]] = 0
         return {"keys": keys, "est": est, "ok": ok, "tier": tier}
 
 

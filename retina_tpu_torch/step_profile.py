@@ -9,6 +9,7 @@
     python3 -m retina_tpu_torch.step_profile --hll-inv
     python3 -m retina_tpu_torch.step_profile --ingest
     python3 -m retina_tpu_torch.step_profile --readout
+    python3 -m retina_tpu_torch.step_profile --detect-query
 
 Runs the port's main path (Telemetry.step at DEPLOYED_CONFIG, the deployed
 agent: conntrack on, low aggregation; or the configuration ``--config``
@@ -142,6 +143,32 @@ In a tree whose wrappers have the knobs ``kops.ENTROPY_SLICES`` and
 ``kops.READOUT_BLOCK_BYTES``, it also times the designs measured on the
 way: K16 at 1 to 48 blocks a group, the readout at 4 to 64 KiB a block. It
 too runs unchanged in a copy of an older tree.
+
+With ``--detect-query`` it times the portscan score (K11) and the Count-Min
+query (K10) by device time by kernel in torch.profiler, back to back and
+with the L2 flushed before each call, beside the launches of a call, the
+CUDA-event span of a call and the sector bound. K11's batches: the tap's
+2^16 keys of a portscan-regime window ("2^16"), 40 rows padded to 64
+("padded 64"), every source in one hash-group ("one group": every register
+update lands in one group's registers) and a benign 2^16-row window with the
+detection path's 24-port sweep in it (2^15 rows of each: "sweep"). K10's
+batches: a window close's verify of both invertible regions (the query and
+``decode_verified``'s filter after K15's decode, on INVERTIBLE_CONFIG's state
+after one window of the bench stream: "close"), the fleet union of 131,072
+candidate rows (a row-major (R, 4) tensor, "union"), one row ("1 row") and
+65,536 and 262,144 rows;
+beside them ``torch.gather`` + ``amin`` on indices computed beforehand (the
+library call). End to end, each by the host clock around calls synchronised
+alone: ``Telemetry.inv_decode`` on that state (its span, device time and
+launches); the detector bank's close of the sweep window, whole and split
+into the portscan feature build, the copies to the card, the K11-K13 calls
+and the anomaly EWMA (each stage synchronised; the rest is the host's
+reading of the scores and the bank's bookkeeping); a warm merge of 64
+nodes' frames (``FleetAggregator``: 64 engines' closes of 2^18 events each,
+as chip_smoke.py's fleet path) and a warm 32-window range query
+(``QueryService._query`` over the ring of 34 closed windows of 2^21 events).
+Before it measures, it keeps the card busy for 3 s, so that its clocks have
+risen. It too runs unchanged in a copy of an older tree.
 
 Needs a CUDA card; exits non-zero without one.
 """
@@ -1195,6 +1222,299 @@ def readout(dev, recs, ident) -> dict:
     return result
 
 
+def detect_query_inputs(dev, recs, ident) -> dict:
+    """The inputs of ``--detect-query``: K11's (keys, weights) by label, and
+    INVERTIBLE_CONFIG's Telemetry and state after one window of ``recs``
+    ("tel", "state") with the regions' decodes ("decoded": (cols, ok) of
+    inv_flow and inv_hi), the union's table, seed and (R, 4) rows."""
+    import numpy as np
+
+    from retina_tpu_torch.detect import features
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.events.synthetic import TrafficGen, preset_params
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.models.pipeline import INVERTIBLE_CONFIG
+    from retina_tpu_torch.parallel.telemetry import Telemetry
+    from retina_tpu_torch.u32 import from_numpy
+
+    def gen(seed=42, **kw):
+        return TrafficGen(n_flows=1_000_000, n_pods=2048, seed=seed, **kw)
+
+    scan = gen(**preset_params("portscan"))
+    sweep = np.concatenate([gen(seed=43).batch(1 << 15),
+                            gen(seed=44).portscan_batch(1 << 15, n_scanners=4, n_ports=24)])
+    one = scan.batch(1 << 16)
+    one[:, F.SRC_IP] = 0x0A000001
+    k11 = {}
+    for label, rows in (("2^16", scan.batch(1 << 16)), ("padded 64", scan.batch(40)),
+                        ("one group", one), ("sweep", sweep)):
+        keys, w = features.padded_flow_keys(rows)
+        k11[label] = (from_numpy(keys, dev), from_numpy(w, dev))
+    tel = Telemetry(INVERTIBLE_CONFIG, device=dev)
+    st = tel.init_state()
+    for i in range(STEPS):
+        st, _ = tel.step(st, recs[i % 2], recs[i % 2].shape[0], 2, ident)
+    decoded = [kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+               for inv in (st.inv_flow, st.inv_hi)]
+    rng = np.random.default_rng(15)
+    rows = from_numpy(rng.integers(0, 1 << 32, (262_144, 4), dtype=np.uint64)
+                      .astype(np.uint32), dev)
+    table = from_numpy(rng.integers(0, 1 << 12, (4, 1 << 15)).astype(np.uint32), dev)
+    return {"k11": k11, "tel": tel, "state": st, "decoded": decoded, "union": rows[:131_072],
+            "rows": rows, "table": table, "sweep": sweep}
+
+
+def fleet_and_range(dev) -> dict:
+    """The warm 64-node merge and the warm 32-window range query, host ms
+    around calls synchronised alone, as chip_smoke.py's fleet and time-travel
+    paths run them (64 engines' closes of 2^18 events of TrafficGen(seed=i)
+    into FleetAggregator; 34 windows of one 2^21-event quantum each into the
+    engine's ring, then QueryService._query over the newest 32)."""
+    import numpy as np
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
+    from retina_tpu_torch.fleet.aggregator import FleetAggregator
+    from retina_tpu_torch.fleet.codec import FleetSnapshot, encode_snapshot
+    from retina_tpu_torch.timetravel.fold import host_arrays
+    from retina_tpu_torch.timetravel.query import QueryService
+
+    pods = {pod_ip(i): i for i in range(1, 2048)}
+
+    def synced_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    eng = SketchEngine(Config(heavy_keys_source="invertible", fleet_enabled=True), device=dev)
+    eng.update_identities(pods)
+    frames = []
+    for i in range(64):
+        eng.state = eng._proxy.run(eng.telemetry.init_state)
+        eng.flush(np.split(TrafficGen(n_flows=1_000_000, n_pods=2048, seed=i).batch(1 << 18),
+                           32), 500)
+        epoch, arrays, window_s, seeds = eng.close_window(epoch=7)["export"]
+        frames.append(encode_snapshot(FleetSnapshot(
+            node=f"node-{i:02d}", tenant="tenant-a" if i < 32 else "tenant-b",
+            priority=int(i < 32), epoch=epoch, seq=1, window_s=window_s, seeds=seeds,
+            arrays=host_arrays(arrays))))
+    eng.stop()
+    acfg = Config(fleet_expected_nodes=64)
+
+    def merge():
+        agg = FleetAggregator(acfg, device=dev)
+        for f in frames:
+            agg.ingest(f)
+        assert agg.epochs_merged == 1
+
+    merge_ms = [synced_ms(merge) for _ in range(3)][1:]
+    gen = TrafficGen(n_flows=1_000_000, n_pods=2048, seed=42)
+    quanta = [np.split(gen.batch(1 << 21), 256) for _ in range(3)]
+    tcfg = Config(heavy_keys_source="invertible", timetravel_enabled=True)
+    eng = SketchEngine(tcfg, device=dev)
+    eng.update_identities(pods)
+    for i in range(34):
+        eng.flush(quanta[i % 3], 300 + i)
+        eng.close_window(epoch=i)
+        eng.timetravel_ring.drain(60.0)
+    svc = QueryService(tcfg, device=dev)
+    svc.add_ring(eng.timetravel_ring)
+    query_ms = [synced_ms(lambda: svc._query(eng.timetravel_ring, 2, 34, 32, "flow"))
+                for _ in range(3)][1:]
+    eng.stop()
+    print(f"fleet merge of 64 frames (warm): {', '.join(f'{x:.3f}' for x in merge_ms)} ms; "
+          f"32-window range query (warm): {', '.join(f'{x:.3f}' for x in query_ms)} ms",
+          flush=True)
+    return {"merge_64_ms": merge_ms, "query_32_ms": query_ms}
+
+
+def bank_close(dev, sweep) -> dict:
+    """The detector bank's close of one window (``sweep``, 2^16 rows): ms
+    of the whole close (the card synchronised before and after), then the
+    close split by stage, each stage synchronised: the portscan feature
+    build (``padded_flow_keys``, host), the copies to the card, the K11-K13
+    calls and the anomaly EWMA's observe; the rest is the host's reading of
+    the scores, the arbitration and the metrics."""
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.detect import build_default_bank, detectors, features, programs
+    from retina_tpu_torch.ops import entropy
+
+    def close_ms(bank, epoch) -> float:
+        """Observe one window, then close it (``flush``: the next observe
+        starts a window of its own)."""
+        bank.observe(epoch, sweep, now_s=float(epoch))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bank.flush(now_s=float(epoch))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    bank = build_default_bank(Config(), device=dev)
+    whole = [close_ms(bank, e) for e in range(12)]
+    whole = whole[2:]
+    stages = {"features": 0.0, "copies": 0.0, "kernels": 0.0, "ewma": 0.0}
+    saved = []
+
+    def timed(obj, name, stage):
+        fn = getattr(obj, name)
+        saved.append((obj, name, fn))
+
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[stage] += time.perf_counter() - t0
+            return out
+
+        setattr(obj, name, wrapper)
+
+    timed(features, "padded_flow_keys", "features")
+    timed(detectors, "from_numpy", "copies")
+    for name in ("portscan_program", "dnstunnel_program", "synflood_program"):
+        timed(programs, name, "kernels")
+    timed(entropy.AnomalyEWMA, "observe", "ewma")
+    try:
+        split = [close_ms(bank, e) for e in range(12, 22)]
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+    n = len(split)
+    out = {k: v * 1e3 / n for k, v in stages.items()}
+    out["rest"] = sum(split) / n - sum(out.values())
+    out["whole_ms"] = whole
+    out["whole_instrumented_ms"] = sum(split) / n
+    print(f"bank close (sweep window, {len(sweep)} rows): "
+          f"{', '.join(f'{x:.3f}' for x in whole)} ms; instrumented "
+          f"{out['whole_instrumented_ms']:.3f} ms = "
+          + ", ".join(f"{k} {out[k]:.3f}" for k in ("features", "copies", "kernels", "ewma",
+                                                      "rest")), flush=True)
+    return out
+
+
+def detect_query(dev, recs, ident) -> dict:
+    """K11 and K10 on the batches of ``--detect-query``: device time by
+    kernel back to back and with the L2 flushed, launches and span of a call,
+    the sector bound; the library call; the end-to-end stages."""
+    import torch
+
+    from retina_tpu_torch.detect import programs
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.ops.countmin import indices
+    from retina_tpu_torch.u32 import narrow
+
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    floor = call_profile(lambda: l2[:1].zero_(), reps=50)
+    floor_ms = sum(v[0] for k, v in floor.items() if "Fill" in k)
+    print(f"launch floor (a one-word fill, device time): {floor_ms:.4f} ms", flush=True)
+    inp = detect_query_inputs(dev, recs, ident)
+    tel, st = inp["tel"], inp["state"]
+    cms = st.flow_hh.cms
+    regions = [(list(c), ok) for c, ok in inp["decoded"]]
+
+    def verify(min_weight=0):
+        """The verify of both regions after their decode: one launch of the
+        many-job query, or, in an older tree, decode_verified's query and
+        filter a region."""
+        if hasattr(kops, "cms_query_many"):
+            return kops.cms_query_many([(cms.table, cms.seed, c, ok, min_weight)
+                                        for c, ok in regions])
+        out = []
+        for c, ok in regions:
+            est = cms.query(c)
+            ok = ok & (est >= min_weight)
+            out.append((narrow(torch.where(ok, est, 0)), ok))
+        return out
+
+    union = inp["union"]
+    ucols = [union[:, j] for j in range(4)]
+    one = [union[:1, j] for j in range(4)]
+    table = inp["table"]
+    r_close = sum(ok.shape[0] for _, ok in regions)
+    batches = [(f"K11 {label}", lambda k=k, w=w: programs.portscan_program(k, w), None,
+                k.shape[0] * 20 + programs.PORTSCAN_GROUPS * 4)
+               for label, (k, w) in inp["k11"].items()]
+    batches += [  # key words and masks read once, answers written once, the table's
+        # words gathered at most once
+        ("K10 close (both regions)", verify, None, r_close * (16 + 1 + 4 + 1)
+         + 4 * min(cms.table.numel(), 4 * r_close)),
+        ("K10 union", lambda: kops.cms_query(table, 7, ucols), None,
+         union.shape[0] * (16 + 4) + 4 * min(table.numel(), 4 * union.shape[0])),
+        ("K10 1 row", lambda: kops.cms_query(table, 7, one), None, 16 + 4 + 16),
+    ]
+    for r in (65_536, 262_144):  # either side of the union: where the depth loop's form changes
+        cols_r = [inp["rows"][:r, j] for j in range(4)]
+        batches.append((f"K10 {r} rows", lambda c=cols_r: kops.cms_query(table, 7, c), None,
+                        r * (16 + 4) + 4 * min(table.numel(), 4 * r)))
+    result: dict = {"launch_floor_ms": floor_ms}
+
+    def measure(label, fn, prep, nbytes, names=None):
+        names = names or call_names(fn, prep)
+        launches = round(sum(names.values()), 2)
+        warm = call_profile(fn, prep, names=names)
+        cold = call_profile(fn, (lambda p=prep: (p is not None and p(), l2.zero_())),
+                            names=names)
+        dev_ms = sum(v[0] for v in warm.values())
+        cold_ms = sum(v[0] for v in cold.values())
+        kern = {"K11": "portscan", "K10": "query_kernel"}.get(label[:3])
+        k_warm = sum(v[0] for k, v in warm.items() if kern and kern in k)
+        k_cold = sum(v[0] for k, v in cold.items() if kern and kern in k)
+        span = span_ms(fn, prep)
+        bound = nbytes / 3.35e12 * 1e3
+        result[label] = {"device_ms": dev_ms, "flushed_ms": cold_ms, "kernel_ms": k_warm,
+                         "kernel_flushed_ms": k_cold, "span_ms": span, "bound_ms": bound,
+                         "bytes": nbytes, "launches": launches}
+        print(f"{label}: device time {dev_ms:.4f} ms back to back, {cold_ms:.4f} ms L2 "
+              f"flushed (the kernel {k_warm:.4f}, {k_cold:.4f}; "
+              f"{', '.join(f'{n[:40]} {v[0]:.4f}' for n, v in cold.items())}); {launches} "
+              f"launches a call; CUDA-event span {span:.4f} ms; sector bound {bound:.4f} ms "
+              f"({nbytes} bytes)", flush=True)
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 3.0:  # the clocks up before the first reading
+        for _ in range(50):
+            l2.zero_()
+        torch.cuda.synchronize()
+    for label, fn, prep, nbytes in batches:
+        measure(label, fn, prep, nbytes)
+    # The library call: torch.gather + amin on indices computed beforehand.
+    for label, cols_, tab in (("union", ucols, table),
+                              ("close", [torch.cat([c[j] for c, _ in regions])
+                                         for j in range(4)], cms.table)):
+        idx = indices(tab, 7, cols_)
+
+        def lib(idx=idx, tab=tab):
+            return torch.gather(tab, 1, idx).amin(dim=0)
+
+        names = call_names(lib)
+        warm = sum(v[0] for v in call_profile(lib, names=names).values())
+        cold = sum(v[0] for v in call_profile(lib, lambda: l2.zero_(), names=names).values())
+        result[f"library K10 {label}"] = {"device_ms": warm, "flushed_ms": cold}
+        print(f"library: torch.gather + amin at the {label} ({idx.shape[1]} rows): device "
+              f"time {warm:.4f} ms back to back, {cold:.4f} ms L2 flushed", flush=True)
+
+    # End to end: a close's inv_decode, the bank's close, the merge and query.
+    dec = lambda: tel.inv_decode(st)  # noqa: E731
+    names = call_names(dec)
+    warm = call_profile(dec, names=names)
+    result["inv_decode"] = {"device_ms": sum(v[0] for v in warm.values()),
+                            "launches": round(sum(names.values()), 2),
+                            "span_ms": span_ms(dec)}
+    print(f"Telemetry.inv_decode: {result['inv_decode']['launches']} launches, device time "
+          f"{result['inv_decode']['device_ms']:.4f} ms, span {result['inv_decode']['span_ms']:.4f}"
+          f" ms ({', '.join(f'{n[:40]} {v[1]:.0f}x {v[0]:.4f}' for n, v in warm.items())})",
+          flush=True)
+    result["bank_close"] = bank_close(dev, inp["sweep"])
+    result |= fleet_and_range(dev)
+    return result
+
+
 def device_rows(prof) -> tuple[list, list]:
     """(kernel rows, torch-op rows) of a profile as (device us, calls, name),
     largest first. A device row is one kernel, memcpy or memset; an aten row
@@ -1288,6 +1608,9 @@ def main() -> int:
     ap.add_argument("--readout", action="store_true",
                     help="time K16 and the scrape's readout (K17) by device time and CUDA "
                     "events, back to back and with the L2 flushed")
+    ap.add_argument("--detect-query", action="store_true",
+                    help="time K11 and K10 by device time, back to back and with the L2 "
+                    "flushed, and the close, merge and query around them")
     ap.add_argument("--hll-inv", action="store_true",
                     help="time K3 and K6 at the invertible step's calls and at batches that "
                     "separate their costs")
@@ -1344,6 +1667,10 @@ def main() -> int:
         return 0
     if args.hll_inv:
         print(json.dumps(hll_inv(dev, recs, ident) | {"device": torch.cuda.get_device_name(0)}))
+        return 0
+    if args.detect_query:
+        print(json.dumps(detect_query(dev, recs, ident)
+                         | {"device": torch.cuda.get_device_name(0)}))
         return 0
     cfg = {"deployed": DEPLOYED_CONFIG, "no-conntrack": NO_CONNTRACK_CONFIG,
            "production": PipelineConfig(), "invertible": INVERTIBLE_CONFIG}[args.config]

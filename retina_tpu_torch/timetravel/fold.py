@@ -35,7 +35,7 @@ from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.ops.entropy import EntropyWindow
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
-from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_verified
+from retina_tpu_torch.ops.invertible import InvertibleSketch
 from retina_tpu_torch.u32 import M32, from_numpy, narrow, to_numpy, widen
 
 # Ring slots follow the fleet array catalog (fleet/codec.py).
@@ -241,23 +241,26 @@ def decode_regions(arrays: dict[str, torch.Tensor], seeds: dict[str, int],
                    cms: CountMinSketch) -> dict[str, Any] | None:
     """The invertible decode of the ``inv_flow`` (tier 0) and ``inv_hi``
     (tier 1) regions of a merged snapshot (tensors), verified against
-    ``cms`` (K10), ranked by ``rank_decoded``; None when no region is
-    present."""
-    all_keys, all_est, all_tier = [], [], []
+    ``cms`` (one launch of K10 for the regions present), ranked by
+    ``rank_decoded``; None when no region is present."""
+    decoded = []
     for region, tier in (("inv_flow", 0), ("inv_hi", 1)):
         if f"{region}_planes" not in arrays:
             continue
         inv = InvertibleSketch(planes=arrays[f"{region}_planes"],
                                weights=arrays[f"{region}_weights"],
                                seed=int(seeds.get(region, 0)))
-        cols, est, ok = decode_verified(inv, cms)
-        okh = ok.cpu().numpy()
-        all_keys.append(np.stack([to_numpy(c) for c in cols], axis=1)[okh])
-        all_est.append(to_numpy(est)[okh].astype(np.uint64))
-        all_tier.append(np.full(int(okh.sum()), tier, np.uint32))
-    if not all_keys:
+        cols, ok = kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        decoded.append((cols, ok, tier))
+    if not decoded:
         return None
-    return rank_decoded(all_keys, all_est, all_tier)
+    est, ok = kops.cms_query_many([(cms.table, cms.seed, list(cols), okr, 0)
+                                   for cols, okr, _ in decoded])
+    okh = ok.cpu().numpy()
+    keys = to_numpy(torch.cat([cols.t() for cols, _, _ in decoded]))[okh]
+    tiers = np.concatenate([np.full(cols.shape[1], tier, np.uint32)
+                            for cols, _, tier in decoded])[okh]
+    return rank_decoded([keys], [to_numpy(est)[okh].astype(np.uint64)], [tiers])
 
 
 def range_decode(merged: dict[str, np.ndarray], seeds: dict[str, int],

@@ -601,7 +601,9 @@ def test_detector_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="shape"):
         kops.portscan_score(keys, w[:10], 32, 8, 0)
     with pytest.raises(ValueError, match="shared memory"):
-        kops.portscan_score(keys, w, 64, 8, 0)  # 64 KB of registers
+        kops.portscan_score(keys, w, 32, 14, 0)  # 2 MB of registers: more than a block holds
+    with pytest.raises(ValueError, match="shared memory"):
+        kops.portscan_score(keys, w, 65, 8, 0)  # 65 KB: one group more than a block holds
     with pytest.raises(ValueError, match="precision"):
         kops.portscan_score(keys, w, 32, 2, 0)
     with pytest.raises(ValueError, match="1, nbins"):
@@ -615,6 +617,109 @@ def test_detector_wrappers_reject_what_the_kernels_do_not_take():
     assert kops.dnstunnel_score(torch.zeros((1, 64))).shape == (2,)
     assert kops.synflood_score(torch.zeros(9)).shape == (3,)
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+
+
+def test_cms_query_many_lays_out_one_job_a_query(monkeypatch):
+    """K10's many-job entry without a card: the launch is caught where it
+    would enter C, and its table (csrc/cms_query.cu's Table, read back
+    through ``kops._QueryTable``) is read: a job a query in order, each
+    writing its rows end to end into the one est and ok buffer, a block a
+    256 rows, each key column's address and stride (row-major (R, 4) and (R,
+    2) tensors alike), the mask where given, the min_weight as u32; a job of 0 rows takes no block; the sizes match the
+    kernel's static_asserts. ``cms_query`` is one job without a mask."""
+    import ctypes
+
+    src = (REPO / "retina_tpu_torch/kernels/csrc/cms_query.cu").read_text()
+    assert f"kMaxJobs = {kops.CMS_QUERY_MAX_JOBS};" in src
+    assert f"kThreads = {kops.CMS_QUERY_THREADS};" in src
+    assert ctypes.sizeof(kops._QueryJob) == 112 and "sizeof(Job) == 112" in src
+    assert ctypes.sizeof(kops._QueryTable) == 8 + 112 * kops.CMS_QUERY_MAX_JOBS
+    seen = []
+
+    def launch(name, dev, ptr, n_launches=1):
+        t = kops._QueryTable.from_address(ptr)
+        seen.append((name, t.n_blocks, [
+            (j.table, list(j.col)[:j.n_cols], list(j.stride)[:j.n_cols], j.n, j.est,
+             j.ok_in, j.ok_out, j.wmask, j.seed, j.min_weight, j.depth, j.n_cols, j.block0)
+            for j in t.jobs[:t.n_jobs]]))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    table = torch.zeros((4, 1 << 10), dtype=torch.int32)
+    deep = torch.zeros((3, 1 << 6), dtype=torch.int32)
+    rows4 = torch.zeros((70_000, 4), dtype=torch.int32)
+    rows2 = torch.zeros((300, 2), dtype=torch.int32)
+    wide = torch.zeros((1000, 5), dtype=torch.int32)  # strided columns
+    mask = torch.ones(1000, dtype=torch.bool)
+    jobs = [(table, 3, [rows4[:, j] for j in range(4)], None, 0),
+            (table, 3, [rows2[:, j] for j in range(2)], None, 0),
+            (deep, -1, [wide[:, j] for j in range(3)], mask, 1 << 31),
+            (table, 5, [rows4[:0, 0]], None, 0),
+            (table, 6, [rows4[:1, 0].clone()], mask[:1], 7)]
+    est, ok = kops.cms_query_many(jobs)
+    assert est.shape == ok.shape == (71_301,) and est.dtype == torch.int32
+    (name, n_blocks, got), = seen
+    assert name == "cms_query" and len(got) == len(jobs)
+    off = block0 = 0
+    for (t, seed, cols, m, mw), g in zip(jobs, got):
+        r = cols[0].shape[0]
+        want = (t.data_ptr(), [c.data_ptr() for c in cols] if r else [None] * len(cols),
+                [c.stride(0) for c in cols] if r else [0] * len(cols), r,
+                est.data_ptr() + 4 * off if r else None,
+                m.data_ptr() if m is not None and r else None,
+                ok.data_ptr() + off if r else None, t.shape[1] - 1, seed & 0xFFFFFFFF,
+                mw & 0xFFFFFFFF, t.shape[0], len(cols), block0)
+        assert tuple(x or None if i in (4, 5, 6) else x for i, x in enumerate(g)) == want
+        block0 += -(-r // kops.CMS_QUERY_THREADS)
+        off += r
+    assert n_blocks == block0 == 274 + 2 + 4 + 1
+    seen.clear()
+    out = kops.cms_query(table, 3, [wide[:, j] for j in range(4)])
+    (name, n_blocks, ((*_, n, e, ok_in, ok_out, _, _, mw, _, _, _),)), = seen
+    assert (n, e, ok_in, mw, n_blocks) == (1000, out.data_ptr(), None, 0, 4) and ok_out
+
+
+def test_cms_query_many_rejects_what_the_kernel_does_not_take():
+    table = torch.zeros((4, 64), dtype=torch.int32)
+    col = torch.zeros(10, dtype=torch.int32)
+    job = (table, 0, [col], None, 0)
+    with pytest.raises(ValueError, match="1 to 8 query jobs"):
+        kops.cms_query_many([])
+    with pytest.raises(ValueError, match="1 to 8 query jobs"):
+        kops.cms_query_many([job] * 9)
+
+    with pytest.raises(TypeError, match="bool"):
+        kops.cms_query_many([(table, 0, [col], col, 0)])
+    with pytest.raises(ValueError, match="shape"):
+        kops.cms_query_many([(table, 0, [col], torch.ones(9, dtype=torch.bool), 0)])
+    with pytest.raises(ValueError, match="depth >= 1"):
+        kops.cms_query_many([(table[:0], 0, [col], None, 0)])
+    with pytest.raises(ValueError, match="power of two"):
+        kops.cms_query_many([job, (torch.zeros((4, 48), dtype=torch.int32), 0, [col], None, 0)])
+    kops.reset_launch_counts()
+    est, ok = kops.cms_query_many([(table, 0, [col[:0]], None, 0)])
+    assert est.shape == ok.shape == (0,)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+
+
+@pytest.mark.parametrize("groups, precision, n_rows, want", [
+    (32, 8, 1 << 16, 16), (32, 8, 8 << 12, 8), (32, 8, 1 << 12, 1), (32, 8, 64, 1),
+    (32, 8, 4097, 2), (32, 8, 0, 1), (3, 8, 1 << 20, 16), (64, 8, 4 << 12, 4),
+    (1, 13, 1 << 16, 16), (65, 8, 1 << 16, None), (3, 13, 64, None)])
+def test_portscan_cluster_size(groups, precision, n_rows, want):
+    """K11's blocks: one a PORTSCAN_BLOCK_ROWS rows, at least one, at most
+    PORTSCAN_CLUSTER (the kernel's kMaxCluster); every block holds all the
+    registers, so more than SHARED_BYTES of them (kMaxBankBytes) is an error
+    whatever the rows."""
+    src = (REPO / "retina_tpu_torch/kernels/csrc/detect.cu").read_text()
+    assert f"kMaxCluster = {kops.PORTSCAN_CLUSTER};" in src
+    assert f"kMaxBankBytes = {kops.SHARED_BYTES // 1024} * 1024;" in src
+    if want is None:
+        with pytest.raises(ValueError, match="shared memory"):
+            kops.portscan_cluster(groups, precision, n_rows)
+        return
+    assert kops.portscan_cluster(groups, precision, n_rows) == want
+    assert groups * (4 << precision) <= kops.SHARED_BYTES
 
 
 # -- on the card ----------------------------------------------------------------
@@ -1447,6 +1552,198 @@ def test_detect_portscan_kernel_matches_plain(card, p):
     assert out.shape == ref.shape == (programs.PORTSCAN_GROUPS,)
     assert torch.allclose(out, ref, rtol=1e-5, atol=0)
     assert float(out.max()) >= 12.0  # the sweep is seen
+
+
+def _portscan_case(case: str):
+    """(keys, weights) of a K11 edge: "one group" (every row's source in one
+    hash-group, so every remote atomic lands in one block), "top bit" (every
+    source with its top bit set: the group product wraps), "zero weights"
+    (every row padding), "ragged" (P = 16 * 1024 * 4 + 777 rows, not a
+    multiple of a cluster's rows a pass)."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    keys, w = _portscan_keys(1 << 16, 90)
+    if case == "one group":
+        keys[:, 0] = 0x0A000001
+        keys[:, 3] = rng.integers(0, 1 << 16, len(keys))
+        w[:] = 1.0
+    elif case == "top bit":
+        keys[:, 0] |= np.uint32(0x80000000)
+    elif case == "zero weights":
+        w[:] = 0.0
+    elif case == "ragged":
+        keys, w = _portscan_keys(1 << 17, 91)
+        keys, w = keys[: 16 * 1024 * 4 + 777], w[: 16 * 1024 * 4 + 777]
+    return np.ascontiguousarray(keys), np.ascontiguousarray(w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one group", "top bit", "zero weights", "ragged"])
+def test_detect_portscan_kernel_at_its_edges(card, case):
+    from retina_tpu_torch.detect import programs
+
+    keys, w = _portscan_case(case)
+    k, wt = from_numpy(keys, card), from_numpy(w, card)
+    before = kops.launch_counts()["portscan_score"]
+    out = programs.portscan_program(k, wt)
+    assert kops.launch_counts()["portscan_score"] == before + 1
+    with kops.plain_versions():
+        ref = programs.portscan_program(k, wt)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, ref, rtol=1e-5, atol=0)
+    if case == "one group":
+        assert int((out > 0).sum()) == 1 and float(out.max()) > 10_000
+    if case == "zero weights":
+        assert not out.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", range(1, 17))
+def test_detect_portscan_kernel_at_every_cluster_size(card, blocks):
+    """Every cluster size the wrapper may choose (1 to 16 blocks, a block a
+    PORTSCAN_BLOCK_ROWS rows) at 32, 3 and 64 groups. The rows of a one-block
+    window, repeated ``blocks`` times and shuffled, raise the same registers
+    (each a maximum), so every estimate is bit-equal to the one-block
+    window's (the groups' f32 sums add in one order whatever the cluster)
+    and within a relative 1e-5 of the plain version."""
+    keys, w = _portscan_keys(kops.PORTSCAN_BLOCK_ROWS, 92)
+    order = np.random.default_rng(blocks).permutation(blocks * len(keys))
+    many_keys = np.ascontiguousarray(np.tile(keys, (blocks, 1))[order])
+    many_w = np.ascontiguousarray(np.tile(w, blocks)[order])
+    k1, w1 = from_numpy(keys, card), from_numpy(w, card)
+    k, wt = from_numpy(many_keys, card), from_numpy(many_w, card)
+    for groups, precision in ((32, 8), (3, 8), (64, 8)):
+        assert kops.portscan_cluster(groups, precision, len(keys)) == 1
+        assert kops.portscan_cluster(groups, precision, len(many_keys)) == blocks
+        one = kops.portscan_score(k1, w1, groups, precision, 5)
+        out = kops.portscan_score(k, wt, groups, precision, 5)
+        with kops.plain_versions():
+            ref = kops.portscan_score(k, wt, groups, precision, 5)
+        torch.cuda.synchronize()
+        assert torch.equal(out, one), (groups, blocks)
+        assert torch.allclose(out, ref, rtol=1e-5, atol=0), (groups, blocks)
+        assert float(out.max()) > 0
+
+
+def _query_jobs(card, n_jobs: int, rng):
+    """``n_jobs`` K10 jobs over one deployed-width table (depth 4, 2^15) of
+    different R (0, 1 and more), key columns of 1 to 4 words: the columns of
+    row-major (R, 4) and (R, 2) tensors, strided columns of an (R, 5) tensor
+    and contiguous columns; masks where the job has one;
+    min_weight 0, a middling one and 2^31 and past (an unsigned compare)."""
+    table = from_numpy(_stack(rng, (4, 1 << 15), high=1 << 12), card)
+    table[:, ::2] = -0x40000000  # 0xC0000000: a key on even columns counts past 2^31
+    kinds = ["row4", "col1", "row2", "strided3", "contig4"]
+    sizes = [5000, 0, 1, 70_000, 777]
+    weights = [0, 0, 1 << 31, 2000, 0xC0000000]
+    jobs = []
+    for j in range(n_jobs):
+        kind, r = kinds[j % 5], sizes[(j + n_jobs) % 5] if n_jobs > 1 else 131_072
+        data = from_numpy(_stack(rng, (r, 5)), card)
+        if r:
+            data[::7] = data[0].clone()  # repeated keys
+        if kind == "row4":
+            base = data[:, :4].contiguous()
+            cols = [base[:, c] for c in range(4)]
+        elif kind == "row2":
+            base = data[:, :2].contiguous()
+            cols = [base[:, c] for c in range(2)]
+        elif kind == "strided3":
+            cols = [data[:, c] for c in range(3)]
+        elif kind == "contig4":
+            cols = [data[:, c].contiguous() for c in range(4)]
+        else:
+            cols = [data[:, 0].contiguous()]
+        mask = (None if j % 2 == 0 else
+                torch.from_numpy(rng.random(r) < 0.7).to(card))
+        jobs.append((table, 40 + j, cols, mask, weights[j % 5]))
+    return jobs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_jobs", [1, 2, 5])
+def test_cms_query_many_kernel_matches_plain(card, n_jobs):
+    rng = np.random.default_rng(100 + n_jobs)
+    jobs = _query_jobs(card, n_jobs, rng)
+    before = kops.launch_counts()["cms_query"]
+    est, ok = kops.cms_query_many(jobs)
+    assert kops.launch_counts()["cms_query"] == before + 1
+    with kops.plain_versions():
+        ref_est, ref_ok = kops.cms_query_many(jobs)
+    torch.cuda.synchronize()
+    assert torch.equal(est, ref_est) and torch.equal(ok, ref_ok)
+    assert ok.any() and (n_jobs == 1 or not ok.all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8192, 65_536, 131_072, 262_144])
+def test_cms_query_kernel_at_the_fixed_shape(card, rows):
+    """Depth 4 and 4 key columns, the shape every config's query has: below
+    3 blocks a SM the depth rows' gathers issue together, from there the
+    depth rows run in order. Two jobs of ``rows`` rows each (strided and
+    contiguous columns, one masked at a middling min_weight), est and ok
+    bit-equal to the plain versions."""
+    rng = np.random.default_rng(rows)
+    table = from_numpy(_stack(rng, (4, 1 << 15), high=1 << 12), card)
+    data = from_numpy(_stack(rng, (rows, 4)), card)
+    flat = from_numpy(_stack(rng, (4, rows)), card)
+    mask = torch.from_numpy(rng.random(rows) < 0.7).to(card)
+    for jobs in ([(table, 3, [data[:, c] for c in range(4)], None, 0)],
+                 [(table, 3, [data[:, c] for c in range(4)], None, 0),
+                  (table, 9, [flat[c] for c in range(4)], mask, 2000)]):
+        est, ok = kops.cms_query_many(jobs)
+        with kops.plain_versions():
+            ref_est, ref_ok = kops.cms_query_many(jobs)
+        torch.cuda.synchronize()
+        assert torch.equal(est, ref_est) and torch.equal(ok, ref_ok)
+        assert ok[:rows].all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["all false", "min weight 2^31", "depth 3"])
+def test_cms_query_many_kernel_at_its_edges(card, case):
+    """An all-false mask (every row rejected, est 0), min_weight 2^31 (the
+    compare is unsigned: the estimates past it pass) and a depth-3 table
+    (the instance that reads its depth), est and ok bit-equal to the plain
+    versions."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    jobs = _query_jobs(card, 5, rng)
+    if case == "all false":
+        jobs = [(t, s, c, None if c[0].shape[0] == 0 else
+                 torch.zeros(c[0].shape[0], dtype=torch.bool, device=card), mw)
+                for t, s, c, _, mw in jobs]
+    elif case == "min weight 2^31":
+        jobs = [(t, s, c, m, 1 << 31) for t, s, c, m, _ in jobs]
+    elif case == "depth 3":
+        jobs = [(t[:3].contiguous(), s, c, m, mw) for t, s, c, m, mw in jobs]
+    est, ok = kops.cms_query_many(jobs)
+    with kops.plain_versions():
+        ref_est, ref_ok = kops.cms_query_many(jobs)
+    torch.cuda.synchronize()
+    assert torch.equal(est, ref_est) and torch.equal(ok, ref_ok)
+    if case == "all false":
+        assert not ok.any() and not est.any()
+    if case == "min weight 2^31":
+        assert ok.any() and bool((est.view(torch.int32) < 0)[ok].all())
+
+
+@pytest.mark.gpu
+def test_inv_decode_verifies_both_regions_in_one_launch(card):
+    """A window close's decode on the card: one K15 launch a region and one
+    K10 launch for both regions' query and filter, equal to the CPU run of
+    the same steps at min_weight 0 and at one that rejects keys."""
+    cfg = INVERTIBLE_CUT
+    on_card = _run_steps(Telemetry(cfg, device=card).pipeline, card, n_steps=3)
+    on_cpu = _run_steps(Telemetry(cfg, device="cpu").pipeline, "cpu", n_steps=3)
+    for min_weight in (0, 5):
+        kops.reset_launch_counts()
+        got = Telemetry(cfg, device=card).inv_decode(on_card, min_weight)
+        counts = kops.launch_counts()
+        assert counts["inv_decode"] == 2 and counts["cms_query"] == 1
+        want = Telemetry(cfg, device="cpu").inv_decode(on_cpu, min_weight)
+        torch.cuda.synchronize()
+        for key in want:
+            assert torch.equal(got[key].cpu(), want[key]), key
+        assert bool(got["ok"].any())
 
 
 @pytest.mark.gpu
