@@ -167,8 +167,22 @@ min_weight 0, at one that rejects decoded keys, at 2^31 and with an
 all-false mask; see ``verify_phase``) and at the fleet path's (the union of
 the nodes' candidate tables with the merged epoch's two decoded regions in
 one launch). Every node close of the fleet and time-travel paths, and the
-invertible path's close, must launch K10 once and K15 twice; K10's
-launches are printed by path (node close, rollup, range query).
+invertible path's close, must launch K10 once and K15 once (both regions
+in one launch), and one call of the close's ``Telemetry.inv_decode`` must
+run exactly those two kernels on the card; K10's launches are printed by
+path (node close, rollup, range query).
+
+K15 (the invertible decode, both regions of a close or a range query in one
+launch) is held bit for bit against its plain version on the invertible
+path's state, on a sketch whose buckets weigh 2^31 and more and on the
+32-window fold's span-summed planes, and timed by device time on the
+invertible path's two regions, back to back and with the L2 flushed (see
+``inv_decode_phase``). K9 (the candidate-table join, the three families of
+a fold in one launch) is held bit for bit against its plain version on the
+32-window fold's stacked tables and on the 64-node epoch's, and timed by
+device time on the epoch's three families, back to back and with the L2
+flushed; one ``fold_stacked`` call, a range query's or a fleet merge's,
+must launch K9 once.
 
 K16 (the window close: 16 blocks a group, one launch a close) and K17's
 readout (one launch writes the scrape's whole flat snapshot: the copied
@@ -257,6 +271,34 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
         time.sleep(0.1)
     check(us > 0, f"the profiler saw no device time{f' in {kernel}' if kernel else ''}")
     return us / 1e3 / reps
+
+
+def device_launches(fn, reps: int = 10) -> dict[str, int]:
+    """{name: launches a call} of the kernels, copies and fills that a call
+    of ``fn`` runs on the card, from torch.profiler over ``reps`` calls after
+    a warm-up and an empty session. A trace that is empty, or whose counts
+    are not whole launches a call (the profiler has lost single records on
+    the chip machine), is taken again, at most eight times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(8):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)  # the tracer is on before the first call
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+        if ran and all(n % reps == 0 for n in ran.values()):
+            return {k: n // reps for k, n in ran.items()}
+        time.sleep(0.1)
+    raise CheckFailed(f"the profiler saw no whole launches a call: {ran}")
 
 
 def named_leaves(obj, prefix: str = ""):
@@ -632,10 +674,10 @@ def main() -> int:
     # The invertible decode verifies its keys through the CMS query, K10.
     run, launches = path("invertible path", INVERTIBLE_CONFIG, 1, STEPS,
                          k1_k5 + close_snap + ["inv_update", "cms_query", "inv_decode"])
-    # One window closed, one decode: K15 once a region, K10 once for both.
-    check(launches["cms_query"] == 1 and launches["inv_decode"] == 2,
+    # One window closed, one decode: K15 once and K10 once for both regions.
+    check(launches["cms_query"] == 1 and launches["inv_decode"] == 1,
           f"invertible path: a close launched K10 {launches['cms_query']} and K15 "
-          f"{launches['inv_decode']} times (want 1 and 2)")
+          f"{launches['inv_decode']} times (want 1 and 1)")
     dec = run["decs"][-1]
     ok = dec["ok"]
     found = {tuple(int(x) for x in row) for row in to_numpy(dec["keys"][ok])}
@@ -704,7 +746,7 @@ def main() -> int:
     host_ms = time_ms(lambda: t.snapshot_host(st, 2))
     for name, ms, nbytes in (("snapshot (K17, one launch; its leaves views of the buffer)",
                               snap_ms, ro_bytes),
-                             ("inv_decode (K15 a region, K10 once, torch glue)", dec_ms,
+                             ("inv_decode (K15 once, K10 once)", dec_ms,
                               dec_bytes),
                              ("fleet_export", export_ms, 2 * export_bytes),
                              ("snapshot_flat (K17, one launch)", flat_ms, ro_bytes),
@@ -1612,27 +1654,37 @@ def latency_phase(dev, host, recs, tel, k1, time_ms, report, equal_int) -> None:
 
 
 def inv_decode_phase(dev, state, time_ms, report, equal_int) -> None:
-    """K15 against its plain version on the invertible path's state after
-    its window (both regions) and on a constructed sketch whose buckets
-    weigh 2^31 and more; timed on the inv_flow region by device time. (The
-    span-summed fold is checked on the time-travel path.)"""
+    """K15 against its plain version on the invertible path's state after its
+    window (both regions in one launch, and each region alone) and on a
+    constructed sketch whose buckets weigh 2^31 and more; a close's
+    ``Telemetry.inv_decode`` runs K15 and K10 once each and no other kernel;
+    both regions timed by device time, back to back and with the L2
+    flushed. (The span-summed fold is checked on the time-travel path.)"""
     import torch
 
     from retina_tpu_torch.kernels import ops as kops
-    from retina_tpu_torch.ops.invertible import InvertibleSketch, decode_plain
+    from retina_tpu_torch.models.pipeline import INVERTIBLE_CONFIG
+    from retina_tpu_torch.ops.invertible import InvertibleSketch
+    from retina_tpu_torch.parallel.telemetry import Telemetry
     from retina_tpu_torch.u32 import from_numpy
 
-    def same(inv, label):
-        cols, ok = kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
-        ref_cols, ref_ok = decode_plain(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+    def same(invs, label):
+        regions = [(inv.planes, inv.weights, inv.seed, t) for t, inv in enumerate(invs)]
+        before = kops.launch_counts()["inv_decode"]
+        out = kops.inv_decode_many(regions)
+        check(kops.launch_counts()["inv_decode"] == before + 1, f"K15 ({label}): not one launch")
+        with kops.plain_versions():
+            ref = kops.inv_decode_many(regions)
         torch.cuda.synchronize()
-        equal_int(cols, ref_cols, f"K15 key words ({label})")
-        equal_int(ok, ref_ok, f"K15 ok ({label})")
-        print(f"K15 {label}: {int(ok.sum())} of {ok.numel()} buckets decode", flush=True)
-        return int(ok.sum())
+        for name, a, b in zip(("keys", "ok", "tier"), out, ref):
+            equal_int(a, b, f"K15 {name} ({label})")
+        print(f"K15 {label}: {int(out[1].sum())} of {out[1].numel()} buckets decode", flush=True)
+        return int(out[1].sum())
 
-    same(state.inv_flow, "invertible path, inv_flow")
-    same(state.inv_hi, "invertible path, inv_hi")
+    regions = (state.inv_flow, state.inv_hi)
+    same(regions, "invertible path, both regions")
+    same(regions[:1], "invertible path, inv_flow")
+    same(regions[1:], "invertible path, inv_hi")
     rng = np.random.default_rng(SEED + 15)
     big = InvertibleSketch.zeros(2, 1 << 12, n_key_cols=4, seed=9, device=dev)
     keys = from_numpy(rng.integers(0, 1 << 32, (1 << 16, 4), dtype=np.uint64)
@@ -1641,27 +1693,45 @@ def inv_decode_phase(dev, state, time_ms, report, equal_int) -> None:
     w[:512] = -0x40000000  # 0xC0000000: heavy keys past 2^31
     big.update([keys[:, j] for j in range(4)], w)
     check(bool((big.weights.view(torch.int32) < 0).any()), "K15: no bucket weighs 2^31")
-    check(same(big, "buckets of 2^31 and more") > 0, "K15: the heavy keys did not decode")
+    check(same((big, state.inv_hi), "buckets of 2^31 and more, and inv_hi") > 0,
+          "K15: the heavy keys did not decode")
+
+    # A close's decode runs K15 and K10 once each, and nothing else on the card.
+    tel = Telemetry(INVERTIBLE_CONFIG, device=dev)
+    ran = device_launches(lambda: tel.inv_decode(state))
+    print(f"Telemetry.inv_decode on the card: {ran}", flush=True)
+    check(sorted(ran.values()) == [1, 1] and any("decode_kernel" in k for k in ran)
+          and any("query_kernel" in k for k in ran),
+          f"a close's inv_decode ran {ran} on the card (want K15 and K10 once each)")
 
     # A call's device time is microseconds, below the wrapper's host time:
-    # timed, as K8-K13, by device time in torch.profiler.
-    inv = state.inv_flow
+    # timed, as K8-K13, by device time in torch.profiler, back to back and
+    # with the L2 flushed by a 128 MiB write before each call.
+    jobs = [(inv.planes, inv.weights, inv.seed, t) for t, inv in enumerate(regions)]
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
 
     def k15():
-        return kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        return kops.inv_decode_many(jobs)
 
     def plain():
-        return decode_plain(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+        from retina_tpu_torch.ops.invertible import decode_many_plain
 
-    ms = device_ms(k15, kernel="decode_kernel")
+        return decode_many_plain(jobs)
+
+    warm = device_ms(k15, kernel="decode_kernel")
+    ms = device_ms(lambda: (l2.zero_(), k15()), kernel="decode_kernel")
     plain_ms = device_ms(plain)
-    print(f"inv_decode: CUDA-event span of a call {time_ms(k15):.4f} ms, plain "
-          f"{time_ms(plain):.4f} ms", flush=True)
-    d, w_, nb = inv.planes.shape
+    print(f"inv_decode_many (both regions, one launch): device time {warm:.4f} ms back to "
+          f"back, {ms:.4f} ms L2 flushed; CUDA-event span of a call {time_ms(k15):.4f} ms, "
+          f"plain {time_ms(plain):.4f} ms", flush=True)
+    n_rows = sum(inv.weights.numel() for inv in regions)
+    c = regions[0].n_key_cols
     report("inv_decode", "retina_tpu_torch/kernels/csrc/inv_decode.cu",
            "retina_tpu/ops/invertible.py:167", ms, plain_ms,
-           4 * d * w_ * (nb + 1) + d * w_ * (4 * inv.n_key_cols + 1),
-           d * w_ * (nb * 2 + (inv.n_key_cols + 1) * HASH_OPS), None, 0.0)
+           sum(4 * (inv.planes.numel() + inv.weights.numel()) for inv in regions)
+           + n_rows * (4 * c + 1 + 4),
+           sum(inv.planes.numel() * 2 for inv in regions) + n_rows * 2 * (c + 1) * HASH_OPS,
+           None, 0.0)
 
 
 def verify_phase(dev, state, equal_int) -> None:
@@ -1857,20 +1927,32 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         _, topk_ms = sync_ms(lambda: range_topk(merged, seeds, k=k, est=extras["flow_est"],
                                                 device=dev))
         _, query_ms = sync_ms(lambda: svc._query(ring, TT_WINDOWS - 32, TT_WINDOWS, k, "flow"))
-    # K15 on the span-summed planes of the 32-window fold.
-    from retina_tpu_torch.ops.invertible import decode_plain
-
-    for region in ("inv_flow", "inv_hi"):
-        planes = from_numpy(merged[f"{region}_planes"], dev)
-        weights = from_numpy(merged[f"{region}_weights"], dev)
-        n_cols = planes.shape[2] // 32 - 1
-        cols, ok = kops.inv_decode(planes, weights, seeds[region], n_cols)
-        ref_cols, ref_ok = decode_plain(planes, weights, seeds[region] & 0xFFFFFFFF, n_cols)
-        torch.cuda.synchronize()
-        check(torch.equal(cols, ref_cols) and torch.equal(ok, ref_ok),
-              f"K15 != plain on the 32-window fold's {region}")
-        print(f"K15 on the 32-window fold's {region}: {int(ok.sum())} buckets decode, heaviest "
-              f"bucket {int(merged[f'{region}_weights'].max())}", flush=True)
+    # K15 on the span-summed planes of the 32-window fold: both regions in one
+    # launch, as range_decode runs it.
+    span_regions = [(from_numpy(merged[f"{region}_planes"], dev),
+                     from_numpy(merged[f"{region}_weights"], dev), seeds[region], tier)
+                    for tier, region in enumerate(("inv_flow", "inv_hi"))]
+    out = kops.inv_decode_many(span_regions)
+    with kops.plain_versions():
+        ref = kops.inv_decode_many(span_regions)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          "K15 != plain on the 32-window fold's two regions")
+    print(f"K15 on the 32-window fold's two regions: {int(out[1].sum())} of {out[1].numel()} "
+          f"buckets decode, heaviest bucket "
+          f"{max(int(merged[f'{r}_weights'].max()) for r in ('inv_flow', 'inv_hi'))}", flush=True)
+    # K9 on the 32-window fold's stacked candidate tables, the three families
+    # in one launch.
+    fams32 = [(stacked32[f"{fam}_keys"], stacked32[f"{fam}_counts"])
+              for fam in ("flow", "svc", "dns")]
+    out = kops.topk_join_many(fams32)
+    with kops.plain_versions():
+        ref = kops.topk_join_many(fams32)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(out, ref)),
+          "K9 != plain on the 32-window fold's three families")
+    print("K9 on the 32-window fold's three families (slots, key columns): "
+          f"{[tuple(k.shape[1:]) for k, _ in fams32]}: equal to the plain version", flush=True)
     stacked_bytes = sum(x.numel() * x.element_size() for x in stacked32.values())
     # totals are cumulative over the engine's life: the newest slot holds every
     # event fed, and the fold their sum over the 32 slots.
@@ -1909,9 +1991,9 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
         epoch, arrays, window_s, seeds = eng.close_window(epoch=FLEET_EPOCH)["export"]
         after = kops.launch_counts()
         check(after["cms_query"] - before["cms_query"] == 1
-              and after["inv_decode"] - before["inv_decode"] == 2,
+              and after["inv_decode"] - before["inv_decode"] == 1,
               f"fleet node {i}: a close launched K10 {after['cms_query'] - before['cms_query']}"
-              f" and K15 {after['inv_decode'] - before['inv_decode']} times (want 1 and 2)")
+              f" and K15 {after['inv_decode'] - before['inv_decode']} times (want 1 and 1)")
         first_half = i < FLEET_NODES // 2
         frames.append(encode_snapshot(FleetSnapshot(
             node=f"node-{i:02d}", tenant="tenant-a" if first_half else "tenant-b",
@@ -1985,6 +2067,10 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
 
     check(tt_launches["fold"] == len(docs),
           f"K8: {tt_launches['fold']} launches for {len(docs)} range queries (one a fold)")
+    check(tt_launches["topk_join"] == len(docs),
+          f"K9: {tt_launches['topk_join']} launches for {len(docs)} range queries (one a fold)")
+    check(fleet_launches["topk_join"] == 1,
+          f"K9: {fleet_launches['topk_join']} launches for the fleet path's one merge")
     rng = np.random.default_rng(SEED)
     for label, stacked, n_slots, launches in (
             (f"fold ({len(arrays32)} ring slots)", stacked32, len(arrays32), tt_launches["fold"]),
@@ -2035,26 +2121,35 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
               f"{len(ops)} one-array calls {time_ms(per_array):.4f}, plain {plain_span:.4f}, "
               f"library {time_ms(library):.4f}", flush=True)
 
-    keys, counts = stacked64["flow_keys"], stacked64["flow_counts"]
-    out = kops.topk_join(keys, counts)
+    # K9 on the 64-node epoch's three families, in one launch; timed by device
+    # time back to back and with the L2 flushed by a 128 MiB write.
+    fams64 = [(stacked64[f"{fam}_keys"], stacked64[f"{fam}_counts"])
+              for fam in ("flow", "svc", "dns")]
+    out = kops.topk_join_many(fams64)
     with kops.plain_versions():
-        want = kops.topk_join(keys, counts)
+        want = kops.topk_join_many(fams64)
     torch.cuda.synchronize()
-    check(torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]), "K9: kernel != plain")
-    def join():
-        return kops.topk_join(keys, counts)
+    check(all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(out, want)),
+          "K9: kernel != plain on the 64-node epoch's three families")
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
 
-    ms = device_ms(join, kernel="join_kernel")
+    def join():
+        return kops.topk_join_many(fams64)
+
+    warm = device_ms(join, kernel="join_kernel")
+    ms = device_ms(lambda: (l2.zero_(), join()), kernel="join_kernel")
     with kops.plain_versions():
         plain_ms = device_ms(join)
         plain_span = time_ms(join)
-    n, s, c = keys.shape
     report("topk_join", "retina_tpu_torch/kernels/csrc/topk_join.cu",
-           "retina_tpu/ops/topk.py:107", ms, plain_ms, 4 * s * (c + 1) * (n + 1),
-           n * s * (c + 1), None, 0.0)
+           "retina_tpu/ops/topk.py:107", ms, plain_ms,
+           sum(4 * s * (c + 1) * (n + 1) for n, s, c in (k.shape for k, _ in fams64)),
+           sum(n * s * (c + 1) for n, s, c in (k.shape for k, _ in fams64)), None, 0.0)
     results[-1]["launches"] = fleet_launches["topk_join"]
-    print(f"topk_join: CUDA-event span of a call {time_ms(join):.4f} ms, plain "
-          f"{plain_span:.4f}", flush=True)
+    print(f"topk_join_many (the three families of {FLEET_NODES} nodes, one launch): device "
+          f"time {warm:.4f} ms back to back, {ms:.4f} ms L2 flushed; CUDA-event span of a call "
+          f"{time_ms(join):.4f} ms, plain {plain_span:.4f}", flush=True)
+    del l2
 
     cand = [sn.arrays["flow_keys"][sn.arrays["flow_counts"] > 0] for sn in snaps]
     union = from_numpy(np.unique(np.concatenate(cand), axis=0), dev)

@@ -47,13 +47,13 @@ _ARGTYPES = {
     "ingest_new": [_VP, _LL, _VP, _LL, _VP, _U32, _U32, _VP, _LL, _VP],
     "ingest_known": [_VP, _LL, _INT, _INT, _VP, _LL, _U32, _U32, _U32, _VP, _LL, _VP],
     "fold": [_VP, _INT, _LL],
-    "topk_join": [_VP, _VP, _LL, _LL, _INT, _VP, _VP],
+    "topk_join": [_VP],
     "cms_query": [_VP],
     "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _INT, _VP],
     "dnstunnel_score": [_VP, _INT, _VP],
     "synflood_score": [_VP, _VP],
     "latency_update": [_VP, _VP, _VP, _VP, _INT, _VP, _INT],
-    "inv_decode": [_VP, _VP, _LL, _INT, _INT, _U32, _VP, _VP],
+    "inv_decode": [_VP],
     "window_close": [_VP, _INT, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP,
                      _VP, _VP],
     "entropy_bits": [_VP, _INT, _INT, _INT, _VP, _VP, _VP],
@@ -67,10 +67,12 @@ _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": 
             "synflood_score": "detect", "latency_update": "latency",
             "entropy_bits": "window_close", "snapshot_flat": "snapshot_readout",
             "hll_estimate": "snapshot_readout", "ct_active": "snapshot_readout"}
-# The C function of a wrapper, where it is not the wrapper's own name: the
-# readout's three wrappers launch one kernel on tables of their own.
+# The C function of a launch count, where it is not the count's own name:
+# the readout's three wrappers launch one kernel on tables of their own; K9
+# and K15 count under their one-job wrappers' names.
 _SYMBOL = {"snapshot_flat": "snapshot_readout", "hll_estimate": "snapshot_readout",
-           "ct_active": "snapshot_readout"}
+           "ct_active": "snapshot_readout", "topk_join": "topk_join_many",
+           "inv_decode": "inv_decode_many"}
 
 # Kernel launches per C function since the last reset (a call of
 # hh_update counts its three phases, for up to three sketches; one of
@@ -790,28 +792,66 @@ def fold_many(items):
     return outs
 
 
-def topk_join(keys, counts):
-    """The N-way candidate-table join (K9): per slot the greatest (count,
-    key row) under the unsigned lexicographic order of TopKTable.merge.
-    ``keys`` (N, S, C) and ``counts`` (N, S) -> new (S, C) and (S,)."""
-    dev = keys.device
-    _state(keys, "candidate keys", dev)
-    if keys.dim() != 3 or keys.shape[0] < 1:
-        raise ValueError(f"candidate keys must be (N >= 1, S, C), got {tuple(keys.shape)}")
-    n, s, c = keys.shape
-    _state(counts, "candidate counts", dev, shape=(n, s))
-    if not 1 <= c <= 0x7FFFFFFF:
-        raise ValueError(f"candidate keys need at least one column, got {c}")
+TOPK_JOIN_MAX_JOBS = 3  # kMaxJobs in csrc/topk_join.cu: the families of a fold
+TOPK_JOIN_SLOTS = 32  # kSlots there: slots a block
+
+
+class _JoinJob(ctypes.Structure):
+    """``Job`` of csrc/topk_join.cu."""
+
+    _fields_ = [("keys", _VP), ("counts", _VP), ("out_keys", _VP), ("out_counts", _VP),
+                ("n_tables", _LL), ("n_slots", _LL), ("n_cols", _INT), ("block0", _INT)]
+
+
+class _JoinTable(ctypes.Structure):
+    """``Table`` of csrc/topk_join.cu: passed by value to the kernel."""
+
+    _fields_ = [("n_jobs", _INT), ("n_blocks", _INT), ("jobs", _JoinJob * TOPK_JOIN_MAX_JOBS)]
+
+
+def topk_join_many(families):
+    """The N-way candidate-table join (K9) of several families in one launch:
+    per slot of each family the greatest (count, key row) under the unsigned
+    lexicographic order of TopKTable.merge. Each family is (keys (N, S, C),
+    counts (N, S)), C from 1 to 4; the result is the list of new ((S, C),
+    (S,)) pairs in the families' order."""
+    if not 1 <= len(families) <= TOPK_JOIN_MAX_JOBS:
+        raise ValueError(f"1 to {TOPK_JOIN_MAX_JOBS} candidate families, got {len(families)}")
+    dev = families[0][0].device
+    for keys, counts in families:
+        _state(keys, "candidate keys", dev)
+        if keys.dim() != 3 or keys.shape[0] < 1:
+            raise ValueError(f"candidate keys must be (N >= 1, S, C), got {tuple(keys.shape)}")
+        n, s, c = keys.shape
+        _state(counts, "candidate counts", dev, shape=(n, s))
+        if not 1 <= c <= 4:
+            raise ValueError(f"candidate keys need 1 to 4 columns, got {c}")
     if not _on_card(dev):
         from retina_tpu_torch.ops.topk import topk_join_plain
 
-        return topk_join_plain(keys, counts)
-    out_keys = torch.empty((s, c), dtype=torch.int32, device=dev)
-    out_counts = torch.empty((s,), dtype=torch.int32, device=dev)
-    if s:
-        _launch("topk_join", dev, keys.data_ptr(), counts.data_ptr(), n, s, c,
-                out_keys.data_ptr(), out_counts.data_ptr())
-    return out_keys, out_counts
+        return [topk_join_plain(keys, counts) for keys, counts in families]
+    outs = [(torch.empty(k.shape[1:], dtype=torch.int32, device=dev),
+             torch.empty(k.shape[1:2], dtype=torch.int32, device=dev)) for k, _ in families]
+    table = _JoinTable()
+    table.n_jobs = len(families)
+    block0 = 0
+    for e, (keys, counts), (out_keys, out_counts) in zip(table.jobs, families, outs):
+        n, s, c = keys.shape
+        e.keys, e.counts = keys.data_ptr(), counts.data_ptr()
+        e.out_keys, e.out_counts = out_keys.data_ptr(), out_counts.data_ptr()
+        e.n_tables, e.n_slots, e.n_cols, e.block0 = n, s, c, block0
+        block0 += -(-s // TOPK_JOIN_SLOTS)
+    table.n_blocks = block0
+    if block0:
+        _launch("topk_join", dev, ctypes.addressof(table))
+    return outs
+
+
+def topk_join(keys, counts):
+    """The N-way candidate-table join (K9) of one family: ``keys`` (N, S,
+    C) and ``counts`` (N, S) -> new (S, C) and (S,); ``topk_join_many``'s one
+    job."""
+    return topk_join_many([(keys, counts)])[0]
 
 
 CMS_QUERY_MAX_JOBS = 8  # kMaxJobs in csrc/cms_query.cu
@@ -1054,33 +1094,86 @@ def latency_update(lat_key, lat_ts, lat_hist, records, mask, apiserver_ip):
 # K15: the invertible decode
 
 
-def inv_decode(planes, weights, seed, n_key_cols):
-    """The invertible decode (K15) of bit planes (D, W, 32(C+1)) and bucket
-    weights (D, W): (cols (C, D*W) int32 key words, ok (D*W,) bool) where
-    ``ok`` marks buckets of weight != 0 whose majority key passed its
-    checksum and re-hashes to its own bucket."""
-    dev = planes.device
+INV_DECODE_MAX_JOBS = 2  # kMaxJobs in csrc/inv_decode.cu: a close's two regions
+INV_DECODE_WARPS = 8  # kWarps there: buckets a block, a warp each
+
+
+class _DecodeJob(ctypes.Structure):
+    """``Job`` of csrc/inv_decode.cu."""
+
+    _fields_ = [("planes", _VP), ("weights", _VP), ("n", _LL), ("row0", _LL),
+                ("seed", _U32), ("width_log2", _INT), ("tier", _INT), ("block0", _INT)]
+
+
+class _DecodeTable(ctypes.Structure):
+    """``Table`` of csrc/inv_decode.cu: passed by value to the kernel."""
+
+    _fields_ = [("keys", _VP), ("ok", _VP), ("tier", _VP), ("n_jobs", _INT),
+                ("n_cols", _INT), ("n_blocks", _INT), ("pad", _INT),
+                ("jobs", _DecodeJob * INV_DECODE_MAX_JOBS)]
+
+
+def _decode_cols(planes: torch.Tensor, weights: torch.Tensor, dev: torch.device) -> int:
+    """Checks one region's planes (D, W, 32(C+1)) and weights (D, W); its C."""
     _state(planes, "invertible planes", dev)
     if planes.dim() != 3:
         raise ValueError(f"invertible planes must be (D, W, planes), got {tuple(planes.shape)}")
     d, w, nb = planes.shape
     _pow2(w, "invertible width")
+    if nb % 32 or not 1 <= nb // 32 - 1 <= 4:
+        raise ValueError(f"{nb} planes do not fit 1 to 4 key columns")
+    _state(weights, "invertible weights", dev, shape=(d, w))
+    return nb // 32 - 1
+
+
+def inv_decode_many(regions):
+    """The invertible decode (K15) of one or two regions in one launch. Each
+    region is (planes (D, W, 32(C+1)), weights (D, W), seed, tier), every
+    region of the same C. Returns (keys (M, C) int32 key words, ok (M,)
+    bool, tier (M,) int32), the regions' D*W buckets end to end in order:
+    ``ok`` marks buckets of weight != 0 whose majority key passed its
+    checksum and re-hashes to its own bucket, ``tier`` is the region's."""
+    if not 1 <= len(regions) <= INV_DECODE_MAX_JOBS:
+        raise ValueError(f"1 to {INV_DECODE_MAX_JOBS} decode regions, got {len(regions)}")
+    dev = regions[0][0].device
+    n_cols = {_decode_cols(planes, weights, dev) for planes, weights, _, _ in regions}
+    if len(n_cols) != 1:
+        raise ValueError(f"decode regions differ in key columns: {sorted(n_cols)}")
+    c = n_cols.pop()
+    if not _on_card(dev):
+        from retina_tpu_torch.ops.invertible import decode_many_plain
+
+        return decode_many_plain(regions)
+    rows = [weights.numel() for _, weights, _, _ in regions]
+    keys = torch.empty((sum(rows), c), dtype=torch.int32, device=dev)
+    ok = torch.empty((sum(rows),), dtype=torch.bool, device=dev)
+    tier = torch.empty((sum(rows),), dtype=torch.int32, device=dev)
+    table = _DecodeTable()
+    table.keys, table.ok, table.tier = keys.data_ptr(), ok.data_ptr(), tier.data_ptr()
+    table.n_jobs, table.n_cols = len(regions), c
+    block0 = row0 = 0
+    for e, (planes, weights, seed, t), n in zip(table.jobs, regions, rows):
+        e.planes, e.weights, e.n, e.row0 = planes.data_ptr(), weights.data_ptr(), n, row0
+        e.seed, e.width_log2 = int(seed) & 0xFFFFFFFF, planes.shape[1].bit_length() - 1
+        e.tier, e.block0 = int(t), block0
+        block0 += -(-n // INV_DECODE_WARPS)
+        row0 += n
+    table.n_blocks = block0
+    if block0:
+        _launch("inv_decode", dev, ctypes.addressof(table))
+    return keys, ok, tier
+
+
+def inv_decode(planes, weights, seed, n_key_cols):
+    """The invertible decode (K15) of one region, ``inv_decode_many``'s one
+    job: (cols (C, D*W) int32 key words, a transposed view of its keys,
+    ok (D*W,) bool)."""
     if not 1 <= int(n_key_cols) <= 4:
         raise ValueError(f"1 to 4 key columns, got {n_key_cols}")
-    if nb != 32 * (int(n_key_cols) + 1):
-        raise ValueError(f"{nb} planes do not fit {n_key_cols} key columns")
-    _state(weights, "invertible weights", dev, shape=(d, w))
-    seed = int(seed) & 0xFFFFFFFF
-    if not _on_card(dev):
-        from retina_tpu_torch.ops.invertible import decode_plain
-
-        return decode_plain(planes, weights, seed, int(n_key_cols))
-    cols = torch.empty((int(n_key_cols), d * w), dtype=torch.int32, device=dev)
-    ok = torch.empty((d * w,), dtype=torch.bool, device=dev)
-    if d * w:
-        _launch("inv_decode", dev, planes.data_ptr(), weights.data_ptr(), d * w, w,
-                int(n_key_cols), seed, cols.data_ptr(), ok.data_ptr())
-    return cols, ok
+    if planes.dim() == 3 and planes.shape[2] != 32 * (int(n_key_cols) + 1):
+        raise ValueError(f"{planes.shape[2]} planes do not fit {n_key_cols} key columns")
+    keys, ok, _ = inv_decode_many([(planes, weights, seed, 0)])
+    return keys.t(), ok
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,12 @@ retina_tpu/ops/invertible.py).
 ``update`` is K6 (``kernels/csrc/inv_update.cu``; plain version
 ``update_plain``); ``update_pair`` runs it once for two sketches of a batch
 whose rows a selector lane splits (plain version ``update_pair_plain``).
-``decode`` is K15 (``kernels/csrc/inv_decode.cu``; plain
-version ``decode_plain``): one pass over the D·W buckets at a window close
-or a range query. A bucket where one key owns a strict majority of the
-weight yields that key bit by bit (majorities compared as u32); it is
-accepted only if its checksum matches and it re-hashes to its own bucket.
+``decode`` is K15 (``kernels/csrc/inv_decode.cu``; plain version
+``decode_plain``, and ``decode_many_plain`` for its entry that decodes a
+window close's or a range query's regions in one launch): one pass over the
+D·W buckets. A bucket where one key owns a strict majority of the weight
+yields that key bit by bit (majorities compared as u32); it is accepted
+only if its checksum matches and it re-hashes to its own bucket.
 ``merge`` adds two sketches of one seed (torch ops, wrapping);
 ``decode_verified`` counts and filters its keys through one job of the CMS
 query, K10 (``kops.cms_query_many``).
@@ -105,6 +106,22 @@ def decode_plain(planes: torch.Tensor, weights: torch.Tensor, seed: int,
     bucket_pos = torch.arange(w, device=p.device).repeat(d)
     ok = (weights.reshape(-1) != 0) & check_ok & (own_idx == bucket_pos)
     return narrow(torch.stack(cols)), ok
+
+
+def decode_many_plain(regions: list[tuple[torch.Tensor, torch.Tensor, int, int]],
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K15's many-region entry: each region (planes,
+    weights, seed, tier) decoded by ``decode_plain``, end to end as (keys
+    (M, C) int32, ok (M,) bool, tier (M,) int32); see
+    kernels.ops.inv_decode_many."""
+    keys, oks, tiers = [], [], []
+    for planes, weights, seed, tier in regions:
+        n_key_cols = planes.shape[2] // 32 - 1
+        cols, ok = decode_plain(planes, weights, int(seed) & M32, n_key_cols)
+        keys.append(cols.t())
+        oks.append(ok)
+        tiers.append(torch.full(ok.shape, int(tier), dtype=torch.int32, device=ok.device))
+    return torch.cat(keys), torch.cat(oks), torch.cat(tiers)
 
 
 @dataclasses.dataclass

@@ -180,18 +180,16 @@ class Telemetry:
         ``keys`` (M, C) int32, ``est`` (M,) int32, ``ok`` (M,) bool and
         ``tier`` (M,) int32 (0 the main region, 1 the priority region),
         M = D*W_flow + D*W_hi. Rows with ``ok`` false are noise; a key can
-        decode from up to D buckets. Each region decodes through K15; the
-        query and ``decode_verified``'s filter of both regions are one
-        launch of K10 (``kops.cms_query_many``), which writes ``est`` and
-        ``ok`` end to end."""
+        decode from up to D buckets. Both regions decode in one launch of
+        K15 (``kops.inv_decode_many``), which writes ``keys``, ``ok`` and
+        ``tier``; the query and ``decode_verified``'s filter of all M rows
+        are one launch of K10 (``kops.cms_query_many``), reading the key
+        columns at their stride, which writes ``est`` and ``ok``."""
         cms = state.flow_hh.cms
-        cols = [kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
-                for inv in (state.inv_flow, state.inv_hi)]
-        est, ok = kops.cms_query_many([(cms.table, cms.seed, list(c), k, min_weight)
-                                       for c, k in cols])
-        keys = torch.cat([c.t() for c, _ in cols])
-        tier = torch.ones(est.shape, dtype=torch.int32, device=est.device)
-        tier[: cols[0][0].shape[1]] = 0
+        keys, ok, tier = kops.inv_decode_many([
+            (inv.planes, inv.weights, inv.seed, t)
+            for t, inv in enumerate((state.inv_flow, state.inv_hi))])
+        est, ok = kops.cms_query_many([(cms.table, cms.seed, list(keys.t()), ok, min_weight)])
         return {"keys": keys, "est": est, "ok": ok, "tier": tier}
 
 

@@ -78,7 +78,14 @@ epoch: the arrays ``fold_stacked`` sums or maxes (the fleet catalog of
 and fleet paths export it, less the candidate tables), stacked 32 and 64
 deep with random contents, by the device time of the fold kernels of one
 ``fold_stacked`` call and their launches, beside one ``sum``/``amax`` call
-an array. It too runs unchanged in a copy of an older tree.
+an array. Then the candidate-table join (K9) of the catalog's three
+families (flow, svc, dns) at the same depths (random keys, counts below
+2^16, a fifth of the slots empty in every table): the device time of its
+kernels for all three families, back to back and with the L2 flushed by a
+128 MiB write before each call, its launches in a ``fold_stacked`` call,
+the plain version by CUDA events, and the bound (every table and count
+read once, the result written once). It too runs unchanged in a copy of an
+older tree (one ``topk_join`` call a family there).
 
 With ``--hll-inv`` it times the HLL banks (K3) and the invertible sketches
 (K6) as the step calls them: the K3 and K6 calls of the 8th step of a fresh
@@ -144,10 +151,13 @@ In a tree whose wrappers have the knobs ``kops.ENTROPY_SLICES`` and
 way: K16 at 1 to 48 blocks a group, the readout at 4 to 64 KiB a block. It
 too runs unchanged in a copy of an older tree.
 
-With ``--detect-query`` it times the portscan score (K11) and the Count-Min
-query (K10) by device time by kernel in torch.profiler, back to back and
-with the L2 flushed before each call, beside the launches of a call, the
-CUDA-event span of a call and the sector bound. K11's batches: the tap's
+With ``--detect-query`` it times the portscan score (K11), the invertible
+decode (K15) and the Count-Min query (K10) by device time by kernel in
+torch.profiler, back to back and with the L2 flushed before each call,
+beside the launches of a call, the CUDA-event span of a call and the sector
+bound. K15's batch: a window close's decode of both regions of
+INVERTIBLE_CONFIG's state after one window of the bench stream ("close":
+one launch, or one a region in an older tree). K11's batches: the tap's
 2^16 keys of a portscan-regime window ("2^16"), 40 rows padded to 64
 ("padded 64"), every source in one hash-group ("one group": every register
 update lands in one group's registers) and a benign 2^16-row window with the
@@ -541,8 +551,19 @@ def rows_profile(dev, recs, ident) -> dict:
     return result
 
 
+def join_call(families):
+    """One call of K9 over ``families`` [(keys, counts)]: the many-family
+    entry, or, in an older tree, one ``topk_join`` call a family."""
+    from retina_tpu_torch.kernels import ops as kops
+
+    if hasattr(kops, "topk_join_many"):
+        return kops.topk_join_many(families)
+    return [kops.topk_join(k, c) for k, c in families]
+
+
 def fold(dev) -> dict:
-    """K8 of fold_stacked at 32 and 64 slots, beside the library calls."""
+    """K8 of fold_stacked at 32 and 64 slots, beside the library calls; K9
+    for the three families at the same depths."""
     import numpy as np
     import torch
 
@@ -552,9 +573,11 @@ def fold(dev) -> dict:
     from retina_tpu_torch.timetravel.fold import fold_stacked, host_arrays
 
     eng = SketchEngine(Config(heavy_keys_source="invertible"), device=dev)
-    arrays = {k: v for k, v in host_arrays(eng.telemetry.fleet_export(eng.state)).items()
-              if not k.endswith(("_keys", "_counts"))}
+    exported = host_arrays(eng.telemetry.fleet_export(eng.state))
     eng.stop()
+    arrays = {k: v for k, v in exported.items() if not k.endswith(("_keys", "_counts"))}
+    fams = [fam for fam in ("flow", "svc", "dns") if f"{fam}_keys" in exported]
+    l2 = torch.empty(32 << 20, dtype=torch.int32, device=dev)
     rng = np.random.default_rng(0)
     result: dict = {}
     for n in (32, 64):
@@ -583,7 +606,37 @@ def fold(dev) -> dict:
               f"of the fold kernels of one fold_stacked call {ms:.4f} ms in {launches} "
               f"launches; library (one sum or amax an array) {lib:.4f} ms; bound {bound:.4f} "
               f"ms", flush=True)
-        del stacked
+        # K9: the families' candidate tables, counts below 2^16 with a fifth of
+        # the slots empty in every table (there every table ties and K9 reads
+        # every key row).
+        joins, nbytes = [], 0
+        for fam in fams:
+            s, c = exported[f"{fam}_keys"].shape
+            keys = rng.integers(0, 1 << 32, (n, s, c), dtype=np.uint64).astype(np.uint32)
+            counts = rng.integers(1, 1 << 16, (n, s)).astype(np.uint32)
+            empty = rng.random(s) < 0.2
+            keys[:, empty], counts[:, empty] = 0, 0
+            joins.append((torch.from_numpy(keys.view(np.int32)).to(dev),
+                          torch.from_numpy(counts.view(np.int32)).to(dev)))
+            stacked[f"{fam}_keys"], stacked[f"{fam}_counts"] = joins[-1]
+            nbytes += 4 * s * (c + 1) * (n + 1)
+        before = kops.launch_counts()["topk_join"]
+        fold_stacked(stacked)
+        k9_launches = kops.launch_counts()["topk_join"] - before
+        warm = sum(v for k, v in kernel_ms(lambda: join_call(joins)).items()
+                   if "join_kernel" in k)
+        cold = sum(v for k, v in kernel_ms(lambda: (l2.zero_(), join_call(joins))).items()
+                   if "join_kernel" in k)
+        with kops.plain_versions():
+            plain = cuda_ms(lambda: join_call(joins))
+        k9_bound = nbytes / 3.35e12 * 1e3
+        result |= {f"k9_{n}_ms": warm, f"k9_{n}_flushed_ms": cold, f"k9_{n}_plain_ms": plain,
+                   f"k9_{n}_launches": k9_launches, f"k9_{n}_bound_ms": k9_bound}
+        print(f"K9 at {n} slots, {len(joins)} families ({', '.join(fams)}): device time of the "
+              f"join kernels of one call {warm:.4f} ms back to back, {cold:.4f} ms L2 flushed; "
+              f"{k9_launches} launches a fold_stacked call; plain {plain:.4f} ms; bound "
+              f"{k9_bound:.4f} ms ({nbytes} bytes)", flush=True)
+        del stacked, joins
     return result
 
 
@@ -1399,7 +1452,7 @@ def bank_close(dev, sweep) -> dict:
 
 
 def detect_query(dev, recs, ident) -> dict:
-    """K11 and K10 on the batches of ``--detect-query``: device time by
+    """K11, K15 and K10 on the batches of ``--detect-query``: device time by
     kernel back to back and with the L2 flushed, launches and span of a call,
     the sector bound; the library call; the end-to-end stages."""
     import torch
@@ -1432,6 +1485,17 @@ def detect_query(dev, recs, ident) -> dict:
             out.append((narrow(torch.where(ok, est, 0)), ok))
         return out
 
+    invs = (st.inv_flow, st.inv_hi)
+
+    def decode():
+        """Both regions' decode: one launch of the many-region entry, or, in
+        an older tree, one ``inv_decode`` call a region."""
+        if hasattr(kops, "inv_decode_many"):
+            return kops.inv_decode_many([(inv.planes, inv.weights, inv.seed, t)
+                                         for t, inv in enumerate(invs)])
+        return [kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
+                for inv in invs]
+
     union = inp["union"]
     ucols = [union[:, j] for j in range(4)]
     one = [union[:1, j] for j in range(4)]
@@ -1440,6 +1504,10 @@ def detect_query(dev, recs, ident) -> dict:
     batches = [(f"K11 {label}", lambda k=k, w=w: programs.portscan_program(k, w), None,
                 k.shape[0] * 20 + programs.PORTSCAN_GROUPS * 4)
                for label, (k, w) in inp["k11"].items()]
+    # K15: planes and weights read once; key words, ok and tier written once.
+    batches.append(("K15 close (both regions)", decode, None, sum(
+        4 * (inv.planes.numel() + inv.weights.numel())
+        + inv.weights.numel() * (4 * inv.n_key_cols + 1 + 4) for inv in invs)))
     batches += [  # key words and masks read once, answers written once, the table's
         # words gathered at most once
         ("K10 close (both regions)", verify, None, r_close * (16 + 1 + 4 + 1)
@@ -1462,7 +1530,7 @@ def detect_query(dev, recs, ident) -> dict:
                             names=names)
         dev_ms = sum(v[0] for v in warm.values())
         cold_ms = sum(v[0] for v in cold.values())
-        kern = {"K11": "portscan", "K10": "query_kernel"}.get(label[:3])
+        kern = {"K11": "portscan", "K10": "query_kernel", "K15": "decode_kernel"}.get(label[:3])
         k_warm = sum(v[0] for k, v in warm.items() if kern and kern in k)
         k_cold = sum(v[0] for k, v in cold.items() if kern and kern in k)
         span = span_ms(fn, prep)

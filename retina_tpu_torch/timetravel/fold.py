@@ -14,9 +14,10 @@ Each array of the selected slots is copied once into one host buffer
 (pinned when the device is a card) and from there once to the card. The
 fold's result comes back as host numpy in the catalog's dtypes (uint32,
 float32). The queries over a folded snapshot (``range_extract``,
-``range_topk``, ``range_decode``, ...) run the port's torch ops for the
-HLL estimate, the entropy bits and the invertible decode, and every
-Count-Min point query goes through K10 (``kernels/csrc/cms_query.cu``).
+``range_topk``, ``range_decode``, ...) run K17 for the HLL estimate, K16
+for the entropy bits and K15 (``kernels/csrc/inv_decode.cu``, both regions
+in one launch) for the invertible decode, and every Count-Min point query
+goes through K10 (``kernels/csrc/cms_query.cu``).
 
 The reference caches one compiled executable per span length and array
 signature, in memory and on disk (``fold.py:43-88``). Nothing here is
@@ -84,15 +85,18 @@ def fold_stacked(stacked: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     over stacked arrays on one device: ``hll_*`` by u32 max, the
     ``<fam>_keys``/``<fam>_counts`` pairs by the candidate-table join, every
     other array by sum (f32 for float arrays, u32 wrapping otherwise). The
-    sums and maxes take one launch of K8 (``kops.fold_many``) in all."""
+    sums and maxes take one launch of K8 (``kops.fold_many``) in all, the
+    joins of the families present one launch of K9 (``kops.topk_join_many``)."""
     items = {name: (arr, "max_u32" if name.startswith("hll_") else
                     "sum_f32" if arr.dtype == torch.float32 else "sum_u32")
              for name, arr in stacked.items() if not name.endswith(("_keys", "_counts"))}
     out = dict(zip(items, kops.fold_many(list(items.values()))))
-    for fam in HH_FAMILIES:
-        kname, cname = f"{fam}_keys", f"{fam}_counts"
-        if kname in stacked:
-            out[kname], out[cname] = kops.topk_join(stacked[kname], stacked[cname])
+    fams = [fam for fam in HH_FAMILIES if f"{fam}_keys" in stacked]
+    if fams:
+        joined = kops.topk_join_many([(stacked[f"{fam}_keys"], stacked[f"{fam}_counts"])
+                                      for fam in fams])
+        for fam, (keys, counts) in zip(fams, joined):
+            out[f"{fam}_keys"], out[f"{fam}_counts"] = keys, counts
     return out
 
 
@@ -240,27 +244,20 @@ def rank_decoded(all_keys: list[np.ndarray], all_est: list[np.ndarray],
 def decode_regions(arrays: dict[str, torch.Tensor], seeds: dict[str, int],
                    cms: CountMinSketch) -> dict[str, Any] | None:
     """The invertible decode of the ``inv_flow`` (tier 0) and ``inv_hi``
-    (tier 1) regions of a merged snapshot (tensors), verified against
-    ``cms`` (one launch of K10 for the regions present), ranked by
-    ``rank_decoded``; None when no region is present."""
-    decoded = []
-    for region, tier in (("inv_flow", 0), ("inv_hi", 1)):
-        if f"{region}_planes" not in arrays:
-            continue
-        inv = InvertibleSketch(planes=arrays[f"{region}_planes"],
-                               weights=arrays[f"{region}_weights"],
-                               seed=int(seeds.get(region, 0)))
-        cols, ok = kops.inv_decode(inv.planes, inv.weights, inv.seed, inv.n_key_cols)
-        decoded.append((cols, ok, tier))
-    if not decoded:
+    (tier 1) regions of a merged snapshot (tensors), the regions present in
+    one launch of K15, verified against ``cms`` (one launch of K10), ranked
+    by ``rank_decoded``; None when no region is present."""
+    regions = [(arrays[f"{region}_planes"], arrays[f"{region}_weights"],
+                int(seeds.get(region, 0)), tier)
+               for region, tier in (("inv_flow", 0), ("inv_hi", 1))
+               if f"{region}_planes" in arrays]
+    if not regions:
         return None
-    est, ok = kops.cms_query_many([(cms.table, cms.seed, list(cols), okr, 0)
-                                   for cols, okr, _ in decoded])
+    keys, ok, tiers = kops.inv_decode_many(regions)
+    est, ok = kops.cms_query_many([(cms.table, cms.seed, list(keys.t()), ok, 0)])
     okh = ok.cpu().numpy()
-    keys = to_numpy(torch.cat([cols.t() for cols, _, _ in decoded]))[okh]
-    tiers = np.concatenate([np.full(cols.shape[1], tier, np.uint32)
-                            for cols, _, tier in decoded])[okh]
-    return rank_decoded([keys], [to_numpy(est)[okh].astype(np.uint64)], [tiers])
+    return rank_decoded([to_numpy(keys)[okh]], [to_numpy(est)[okh].astype(np.uint64)],
+                        [to_numpy(tiers)[okh]])
 
 
 def range_decode(merged: dict[str, np.ndarray], seeds: dict[str, int],

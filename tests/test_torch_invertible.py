@@ -230,3 +230,90 @@ def test_decode_wrapper_rejects_what_the_kernel_does_not_take():
         kops.inv_decode(inv.planes.transpose(0, 1), inv.weights, 0, 2)
     with pytest.raises(ValueError, match="unsupported device"):
         kops.inv_decode(inv.planes.to("meta"), inv.weights.to("meta"), 0, 2)
+    # The many-region entry: one or two regions of one C on one device.
+    region = (inv.planes, inv.weights, 0, 0)
+    with pytest.raises(ValueError, match="1 to 2 decode regions"):
+        kops.inv_decode_many([])
+    with pytest.raises(ValueError, match="1 to 2 decode regions"):
+        kops.inv_decode_many([region] * 3)
+    other = InvertibleSketch.zeros(2, 1 << 4, n_key_cols=3, device="cpu")
+    with pytest.raises(ValueError, match="differ in key columns"):
+        kops.inv_decode_many([region, (other.planes, other.weights, 0, 1)])
+    with pytest.raises(ValueError, match="is on meta"):
+        kops.inv_decode_many([region, (inv.planes.to("meta"), inv.weights.to("meta"), 0, 1)])
+    with pytest.raises(ValueError, match="expected \\(2, 16\\)"):
+        kops.inv_decode_many([region, (inv.planes, inv.weights[:, :8].contiguous(), 0, 1)])
+    with pytest.raises(ValueError, match="do not fit"):
+        kops.inv_decode_many([(torch.zeros((2, 16, 100), dtype=torch.int32), inv.weights, 0, 0)])
+    with pytest.raises(ValueError, match="do not fit"):
+        kops.inv_decode_many([(torch.zeros((2, 16, 32 * 6), dtype=torch.int32), inv.weights,
+                               0, 0)])
+    with pytest.raises(TypeError, match="int32"):
+        kops.inv_decode_many([region, (inv.planes, inv.weights.float(), 0, 1)])
+    kops.reset_launch_counts()
+    keys, ok, tier = kops.inv_decode_many([(inv.planes[:0], inv.weights[:0], 0, 0)])
+    assert keys.shape == (0, 2) and ok.shape == tier.shape == (0,)
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+
+
+def _edge_sketches(case, n_cols, rng, seed):
+    """(reference, port) sketches of one edge case of ``_edge_arrays``."""
+    planes, weights, keys, wts = _edge_arrays(case, n_cols, rng)
+    if keys is None:
+        return (JInv(planes=jnp.asarray(planes), weights=jnp.asarray(weights), seed=seed),
+                InvertibleSketch(planes=from_numpy(planes, "cpu"),
+                                 weights=from_numpy(weights, "cpu"), seed=seed))
+    return _pair(2, 1 << 6, n_cols, seed, [keys], [wts])
+
+
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["heavy_2_31", "tie", "top_bit", "empty"])
+def test_decode_many_plain_matches_reference_at_the_edges(case, n_cols):
+    """K15's many-region entry on the CPU (its plain version): an edge-case
+    region (tier 0) and a region of heavy keys over noise (tier 1, another
+    width and seed) decode end to end to the reference's decode of each,
+    keys row-major, and verify through K10's plain version to the
+    reference's decode_verified, at min_weight 0 and 2^31; the one-region
+    form and ``decode`` give the same rows. No launch."""
+    rng = np.random.default_rng(30 + n_cols)
+    ref_a, port_a = _edge_sketches(case, n_cols, rng, seed=5)
+    heavy = _keys(rng, 40, n_cols)
+    ref_b, port_b = _pair(2, 1 << 4, n_cols, 6, [heavy],
+                          [rng.integers(1, 60, 40).astype(np.uint32)])
+    kops.reset_launch_counts()
+    keys, ok, tier = kops.inv_decode_many([(p.planes, p.weights, p.seed, i)
+                                           for i, p in enumerate((port_a, port_b))])
+    assert keys.dtype == tier.dtype == torch.int32 and ok.dtype == torch.bool
+    want_keys, want_ok = [], []
+    for ref in (ref_a, ref_b):
+        jcols, _, jok = ref.decode()
+        want_keys.append(np.stack([np.asarray(c) for c in jcols], axis=1))
+        want_ok.append(np.asarray(jok))
+    np.testing.assert_array_equal(to_numpy(keys), np.concatenate(want_keys))
+    np.testing.assert_array_equal(ok.numpy(), np.concatenate(want_ok))
+    np.testing.assert_array_equal(tier.numpy(), np.repeat([0, 1], [port_a.weights.numel(),
+                                                                  port_b.weights.numel()]))
+    if case == "heavy_2_31":
+        assert (to_numpy(port_a.weights) >= 1 << 31).any() and ok.any()
+    if case == "empty":
+        assert not ok[: port_a.weights.numel()].any()
+    flat = np.concatenate([heavy, _keys(rng, 60, n_cols)])
+    jcms = JCMS.zeros(depth=4, width=1 << 8, seed=2).update(
+        [jnp.asarray(flat[:, i]) for i in range(n_cols)], jnp.asarray(np.full(100, 7, np.uint32)))
+    cms = CountMinSketch.zeros(depth=4, width=1 << 8, seed=2, device="cpu").update(
+        [from_numpy(flat[:, i], "cpu") for i in range(n_cols)],
+        from_numpy(np.full(100, 7, np.uint32), "cpu"))
+    for min_weight in (0, 1 << 31):
+        est, vok = kops.cms_query_many([(cms.table, cms.seed, list(keys.t()), ok, min_weight)])
+        want = [jdecode_verified(r, jcms, min_weight=min_weight) for r in (ref_a, ref_b)]
+        np.testing.assert_array_equal(to_numpy(est), np.concatenate([np.asarray(e)
+                                                                      for _, e, _ in want]))
+        np.testing.assert_array_equal(vok.numpy(), np.concatenate([np.asarray(o)
+                                                                   for _, _, o in want]))
+    one_keys, one_ok, one_tier = kops.inv_decode_many([(port_b.planes, port_b.weights, 6, 1)])
+    n_a = port_a.weights.numel()
+    assert torch.equal(one_keys, keys[n_a:]) and torch.equal(one_ok, ok[n_a:])
+    assert torch.equal(one_tier, tier[n_a:])
+    cols, _, dok = port_a.decode()
+    assert torch.equal(torch.stack(cols, dim=1), keys[:n_a]) and torch.equal(dok, ok[:n_a])
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}

@@ -585,9 +585,24 @@ def test_fold_join_and_query_wrappers_reject_what_the_kernels_do_not_take():
         kops.cms_query(table, 0, [col, col[:5]])
     with pytest.raises(TypeError, match="int32"):
         kops.cms_query(table, 0, [col.long()])
+    fam = (keys, torch.zeros((3, 16), dtype=torch.int32))
+    with pytest.raises(ValueError, match="1 to 3 candidate families"):
+        kops.topk_join_many([])
+    with pytest.raises(ValueError, match="1 to 3 candidate families"):
+        kops.topk_join_many([fam] * 4)
+    with pytest.raises(ValueError, match="1 to 4 columns"):
+        kops.topk_join_many([fam, (torch.zeros((3, 16, 5), dtype=torch.int32), fam[1])])
+    with pytest.raises(ValueError, match="expected \\(3, 16\\)"):
+        kops.topk_join_many([fam, (keys[:, :, :2].contiguous(), fam[1][:, :8].contiguous())])
+    with pytest.raises(ValueError, match="is on meta"):
+        kops.topk_join_many([fam, (keys.to("meta"), fam[1].to("meta"))])
+    with pytest.raises(ValueError, match="contiguous"):
+        kops.topk_join_many([(keys.transpose(1, 2).contiguous().transpose(1, 2), fam[1])])
     kops.reset_launch_counts()
     assert kops.cms_query(table, 0, [col[:0]]).shape == (0,)
     assert kops.fold(torch.zeros((3, 0), dtype=torch.int32), "sum_u32").shape == (0,)
+    (ek, ec), = kops.topk_join_many([(keys[:, :0].contiguous(), fam[1][:, :0].contiguous())])
+    assert ek.shape == (0, 4) and ec.shape == (0,)
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
 
 
@@ -700,6 +715,140 @@ def test_cms_query_many_rejects_what_the_kernel_does_not_take():
     est, ok = kops.cms_query_many([(table, 0, [col[:0]], None, 0)])
     assert est.shape == ok.shape == (0,)
     assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+
+
+def test_topk_join_many_lays_out_one_job_a_family(monkeypatch):
+    """K9's many-family entry without a card: the launch is caught where it
+    would enter C, and its table (csrc/topk_join.cu's Table, read back
+    through ``kops._JoinTable``) is read: a job a family in order, each with
+    its inputs, its own outputs, N, S and C, and a block a 32 slots from its
+    first block; a family of 0 slots takes no block; the sizes match the
+    kernel's static_asserts. ``topk_join`` is one job."""
+    import ctypes
+
+    src = (REPO / "retina_tpu_torch/kernels/csrc/topk_join.cu").read_text()
+    assert f"kMaxJobs = {kops.TOPK_JOIN_MAX_JOBS};" in src
+    assert f"kSlots = {kops.TOPK_JOIN_SLOTS};" in src
+    assert ctypes.sizeof(kops._JoinJob) == 56 and "sizeof(Job) == 56" in src
+    assert ctypes.sizeof(kops._JoinTable) == 8 + 56 * kops.TOPK_JOIN_MAX_JOBS
+    seen = []
+
+    def launch(name, dev, ptr, n_launches=1):
+        t = kops._JoinTable.from_address(ptr)
+        seen.append((name, t.n_blocks, [
+            (j.keys, j.counts, j.out_keys, j.out_counts, j.n_tables, j.n_slots, j.n_cols,
+             j.block0) for j in t.jobs[:t.n_jobs]]))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    fams = [(torch.zeros((64, 2048, 4), dtype=torch.int32),
+             torch.zeros((64, 2048), dtype=torch.int32)),
+            (torch.zeros((5, 0, 2), dtype=torch.int32), torch.zeros((5, 0), dtype=torch.int32)),
+            (torch.zeros((1, 100, 1), dtype=torch.int32), torch.zeros((1, 100), dtype=torch.int32))]
+    outs = kops.topk_join_many(fams)
+    assert [(k.shape, c.shape) for k, c in outs] == [((2048, 4), (2048,)), ((0, 2), (0,)),
+                                                     ((100, 1), (100,))]
+    (name, n_blocks, got), = seen
+    assert name == "topk_join" and n_blocks == 64 + 0 + 4
+    want = []
+    block0 = 0
+    for (k, c), (ok_, oc) in zip(fams, outs):
+        n, s, cols = k.shape
+        want.append((k.data_ptr() or None, c.data_ptr() or None, ok_.data_ptr() or None,
+                     oc.data_ptr() or None, n, s, cols, block0))
+        block0 += -(-s // kops.TOPK_JOIN_SLOTS)
+    assert [tuple(x or None if i < 4 else x for i, x in enumerate(g)) for g in got] == want
+    seen.clear()
+    k1, c1 = kops.topk_join(*fams[2])
+    assert seen[0][1] == 4 and seen[0][2][0][2] == k1.data_ptr()
+
+
+def test_inv_decode_many_lays_out_one_job_a_region(monkeypatch):
+    """K15's many-region entry without a card: the launch is caught where it
+    would enter C, and its table (csrc/inv_decode.cu's Table, read back
+    through ``kops._DecodeTable``) is read: the one keys, ok and tier output
+    of all regions, a job a region in order with its planes, weights, bucket
+    count, first output row, seed as u32, log2 of its width, tier and first
+    block (a block a 8 buckets); the sizes match the kernel's
+    static_asserts. ``inv_decode`` is one job of tier 0, its key columns a
+    transposed view of the keys."""
+    import ctypes
+
+    src = (REPO / "retina_tpu_torch/kernels/csrc/inv_decode.cu").read_text()
+    assert f"kMaxJobs = {kops.INV_DECODE_MAX_JOBS};" in src
+    assert f"kWarps = {kops.INV_DECODE_WARPS};" in src
+    assert ctypes.sizeof(kops._DecodeJob) == 48 and "sizeof(Job) == 48" in src
+    assert ctypes.sizeof(kops._DecodeTable) == 40 + 48 * kops.INV_DECODE_MAX_JOBS
+    seen = []
+
+    def launch(name, dev, ptr, n_launches=1):
+        t = kops._DecodeTable.from_address(ptr)
+        seen.append((name, t.keys, t.ok, t.tier, t.n_cols, t.n_blocks, [
+            (j.planes, j.weights, j.n, j.row0, j.seed, j.width_log2, j.tier, j.block0)
+            for j in t.jobs[:t.n_jobs]]))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    flow = InvertibleSketch.zeros(2, 1 << 12, n_key_cols=4, seed=3, device="cpu")
+    hi = InvertibleSketch.zeros(2, 1 << 9, n_key_cols=4, seed=-1, device="cpu")
+    keys, ok, tier = kops.inv_decode_many([(flow.planes, flow.weights, 3, 0),
+                                           (hi.planes, hi.weights, -1, 1)])
+    assert keys.shape == (9216, 4) and ok.shape == tier.shape == (9216,)
+    assert keys.is_contiguous() and ok.dtype == torch.bool and tier.dtype == torch.int32
+    (name, k, o, t, n_cols, n_blocks, jobs), = seen
+    assert (name, k, o, t, n_cols, n_blocks) == (
+        "inv_decode", keys.data_ptr(), ok.data_ptr(), tier.data_ptr(), 4, 1024 + 128)
+    assert jobs == [(flow.planes.data_ptr(), flow.weights.data_ptr(), 8192, 0, 3, 12, 0, 0),
+                    (hi.planes.data_ptr(), hi.weights.data_ptr(), 1024, 8192, 0xFFFFFFFF, 9, 1,
+                     1024)]
+    seen.clear()
+    small = InvertibleSketch.zeros(1, 1 << 2, n_key_cols=1, seed=7, device="cpu")
+    cols, ok1 = kops.inv_decode(small.planes, small.weights, 7, 1)
+    (_, k, _, _, n_cols, n_blocks, jobs), = seen
+    assert cols.shape == (1, 4) and cols.stride() == (1, 1) and k == cols.data_ptr()
+    assert (n_cols, n_blocks, jobs[0][2:]) == (1, 1, (4, 0, 7, 2, 0, 0))
+
+
+def test_fold_and_close_decode_launch_k9_and_k15_once(monkeypatch):
+    """Without a card, the launches caught where they would enter C: one
+    ``fold_stacked`` call over a catalog with the three candidate families
+    launches K8 once and K9 once (all three families in one table), and a
+    window close's ``Telemetry.inv_decode`` launches K15 once (both regions)
+    and K10 once (one job over all rows, at the key columns' stride)."""
+    from retina_tpu_torch.timetravel.fold import fold_stacked
+
+    seen = []
+
+    def launch(name, dev, *args, n_launches=1):
+        if name == "topk_join":
+            t = kops._JoinTable.from_address(args[0])
+            seen.append((name, t.n_jobs, [j.n_cols for j in t.jobs[:t.n_jobs]]))
+        elif name == "inv_decode":
+            seen.append((name, kops._DecodeTable.from_address(args[0]).n_jobs))
+        elif name == "cms_query":
+            t = kops._QueryTable.from_address(args[0])
+            seen.append((name, t.n_jobs, list(t.jobs[0].stride)[:t.jobs[0].n_cols],
+                         t.jobs[0].n))
+        else:
+            seen.append((name,))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    stacked = {"flow_cms": torch.zeros((32, 4, 64), dtype=torch.int32),
+               "hll_flows": torch.zeros((32, 1, 64), dtype=torch.int32),
+               "entropy": torch.zeros((32, 3, 64))}
+    for fam, c in (("flow", 4), ("svc", 2), ("dns", 1)):
+        stacked[f"{fam}_keys"] = torch.zeros((32, 256, c), dtype=torch.int32)
+        stacked[f"{fam}_counts"] = torch.zeros((32, 256), dtype=torch.int32)
+    out = fold_stacked(stacked)
+    assert sorted(out) == sorted(stacked)
+    assert seen == [("fold",), ("topk_join", 3, [4, 2, 1])]
+    seen.clear()
+    tel = Telemetry(INVERTIBLE_CUT, device="cpu")
+    dec = tel.inv_decode(tel.init_state())
+    m = 2 * (INVERTIBLE_CUT.inv_width + INVERTIBLE_CUT.inv_hi_width)
+    assert seen == [("inv_decode", 2), ("cms_query", 1, [4] * 4, m)]
+    assert dec["keys"].shape == (m, 4) and dec["tier"].shape == (m,)
 
 
 @pytest.mark.parametrize("groups, precision, n_rows, want", [
@@ -1200,7 +1349,7 @@ def test_conntrack_pipeline_on_card_matches_cpu(card, cfg):
         before = kops.launch_counts()["inv_decode"]
         dec = [Telemetry(cfg, device=d).inv_decode(s) for d, s in ((card, on_card),
                                                                     ("cpu", on_cpu))]
-        assert kops.launch_counts()["inv_decode"] == before + 2  # two regions on the card
+        assert kops.launch_counts()["inv_decode"] == before + 1  # both regions, one launch
         for key in dec[0]:
             assert torch.equal(dec[0][key].cpu(), dec[1][key]), key
 
@@ -1480,6 +1629,63 @@ def test_topk_join_kernel_matches_chained_merges(card, n_tables):
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
 
 
+def _join_family(rng, n, s, c):
+    """A family of n stacked (s, c) candidate tables on the CPU: counts 0 to
+    5 (many ties), empty slots, whole-row ties that reach the last column,
+    keys that differ only in a top bit and keys with the top bit set."""
+    keys = _stack(rng, (n, s, c))
+    counts = _stack(rng, (n, s), high=6)
+    counts[:, :8], keys[:, :8] = 0, 0
+    keys[:, 8:40] = keys[0, 8:40]
+    keys[1:, 24:40, c - 1] ^= np.uint32(1 << 31)
+    keys[:, 40:56, 0] |= np.uint32(0x80000000)
+    return from_numpy(keys, "cpu"), from_numpy(counts, "cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fams", [1, 2, 3])
+@pytest.mark.parametrize("n_tables", [1, 2, 3, 32, 64])
+def test_topk_join_many_kernel_matches_plain(card, n_tables, n_fams):
+    """K9's many-family entry: one launch for 1 to 3 families (flow C = 4 at
+    2048 slots, svc C = 2 at 100, dns C = 1 at 2047: slot counts that are
+    and are not a multiple of the block's 32), bit-equal to the plain
+    chained merges."""
+    rng = np.random.default_rng(90 + 4 * n_tables + n_fams)
+    fams = [_join_family(rng, n_tables, s, c) for s, c in ((2048, 4), (100, 2), (2047, 1))]
+    fams = [(k.to(card), c.to(card)) for k, c in fams[:n_fams]]
+    before = kops.launch_counts()["topk_join"]
+    out = kops.topk_join_many(fams)
+    assert kops.launch_counts()["topk_join"] == before + 1
+    with kops.plain_versions():
+        ref = kops.topk_join_many(fams)
+    torch.cuda.synchronize()
+    for (k, c), (rk, rc) in zip(out, ref):
+        assert torch.equal(k, rk) and torch.equal(c, rc)
+
+
+@pytest.mark.gpu
+def test_fold_stacked_on_card_launches_k8_and_k9_once(card):
+    """A range query's or fleet merge's fold on the card: one launch of K8
+    and one of K9 for the three families, equal to the plain versions."""
+    from retina_tpu_torch.timetravel.fold import fold_stacked
+
+    rng = np.random.default_rng(95)
+    stacked = {"flow_cms": from_numpy(_stack(rng, (32, 4, 1 << 10)), card),
+               "hll_flows": from_numpy(_stack(rng, (32, 1, 1 << 10), high=34), card)}
+    for fam, c in (("flow", 4), ("svc", 2), ("dns", 1)):
+        k, n = _join_family(rng, 32, 2048, c)
+        stacked[f"{fam}_keys"], stacked[f"{fam}_counts"] = k.to(card), n.to(card)
+    kops.reset_launch_counts()
+    out = fold_stacked(stacked)
+    assert {k: v for k, v in kops.launch_counts().items() if v} == {"fold": 1, "topk_join": 1}
+    with kops.plain_versions():
+        ref = fold_stacked(stacked)
+    torch.cuda.synchronize()
+    assert sorted(out) == sorted(ref)
+    for name in ref:
+        assert torch.equal(out[name], ref[name]), name
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_cols", [1, 2, 4])
 def test_cms_query_kernel_matches_plain(card, n_cols):
@@ -1728,9 +1934,10 @@ def test_cms_query_many_kernel_at_its_edges(card, case):
 
 @pytest.mark.gpu
 def test_inv_decode_verifies_both_regions_in_one_launch(card):
-    """A window close's decode on the card: one K15 launch a region and one
-    K10 launch for both regions' query and filter, equal to the CPU run of
-    the same steps at min_weight 0 and at one that rejects keys."""
+    """A window close's decode on the card: one K15 launch for both regions
+    and one K10 launch for their query and filter, and no other kernel of
+    the port, equal to the CPU run of the same steps at min_weight 0 and at
+    one that rejects keys."""
     cfg = INVERTIBLE_CUT
     on_card = _run_steps(Telemetry(cfg, device=card).pipeline, card, n_steps=3)
     on_cpu = _run_steps(Telemetry(cfg, device="cpu").pipeline, "cpu", n_steps=3)
@@ -1738,7 +1945,7 @@ def test_inv_decode_verifies_both_regions_in_one_launch(card):
         kops.reset_launch_counts()
         got = Telemetry(cfg, device=card).inv_decode(on_card, min_weight)
         counts = kops.launch_counts()
-        assert counts["inv_decode"] == 2 and counts["cms_query"] == 1
+        assert {k: v for k, v in counts.items() if v} == {"inv_decode": 1, "cms_query": 1}
         want = Telemetry(cfg, device="cpu").inv_decode(on_cpu, min_weight)
         torch.cuda.synchronize()
         for key in want:
@@ -1925,6 +2132,46 @@ def test_inv_decode_kernel_matches_plain(card, n_cols, heavy_weight):
         assert cols.shape == ref_cols.shape == (n_cols, wc.numel())
         assert torch.equal(cols, ref_cols) and torch.equal(ok, ref_ok)
     assert bool(kops.inv_decode(planes.to(card), weights.to(card), 9, n_cols)[1].any())
+
+
+def _decode_region(rng, case, n_cols, width):
+    """(planes, weights) of one decode case on the CPU: "heavy" keys over
+    noise, "2^31" heavy keys whose buckets weigh 2^31 and more, "tie" (p ==
+    w - p in a third of the planes) and "empty"."""
+    if case == "empty":
+        return (torch.zeros((2, width, 32 * (n_cols + 1)), dtype=torch.int32),
+                torch.zeros((2, width), dtype=torch.int32))
+    planes, weights = _decode_inputs(rng, n_cols, width, 0xC0000000 if case == "2^31" else 60)
+    if case == "tie":
+        w = torch.full_like(weights, 1 << 20)
+        pick = torch.from_numpy(rng.random(planes.shape) < 0.3)
+        planes = torch.where(pick, 1 << 19, planes % (1 << 20))
+        return planes.contiguous(), w
+    return planes, weights
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_regions", [1, 2])
+@pytest.mark.parametrize("n_cols", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", ["heavy", "2^31", "tie", "empty"])
+def test_inv_decode_many_kernel_matches_plain(card, case, n_cols, n_regions):
+    """K15's many-region entry: one launch for one region (INVERTIBLE_CONFIG's
+    inv_flow width) or two (and inv_hi's, another seed and tier 1), keys,
+    ok and tier bit-equal to the plain version."""
+    rng = np.random.default_rng(120 + 8 * n_cols + n_regions)
+    regions = [(p.to(card), w.to(card), seed, tier) for (p, w), seed, tier in zip(
+        (_decode_region(rng, case, n_cols, 1 << 12), _decode_region(rng, case, n_cols, 1 << 9)),
+        (9, -3), (0, 1))][:n_regions]
+    before = kops.launch_counts()["inv_decode"]
+    keys, ok, tier = kops.inv_decode_many(regions)
+    assert kops.launch_counts()["inv_decode"] == before + 1
+    with kops.plain_versions():
+        ref = kops.inv_decode_many(regions)
+    torch.cuda.synchronize()
+    assert keys.shape == ref[0].shape == (sum(w.numel() for _, w, _, _ in regions), n_cols)
+    assert torch.equal(keys, ref[0]) and torch.equal(ok, ref[1]) and torch.equal(tier, ref[2])
+    if case in ("heavy", "2^31"):
+        assert bool(ok.any())
 
 
 # -- K16 and K17: the window close and the snapshot readout ---------------------

@@ -298,3 +298,62 @@ def test_topk_join_plain_is_the_per_slot_maximum_and_the_reference_fold(n):
                               seed=1))
     assert_u32(got_keys, ref.key_rows)
     assert_u32(got_counts, ref.counts)
+
+
+def _families(rng, n, shapes=((128, 4), (64, 2), (100, 1))):
+    """The three candidate families of a fold (flow C = 4, svc C = 2, dns C =
+    1) stacked n deep, at slot counts that are and are not a multiple of
+    K9's 32-slot tile: counts 0 to 2 (many ties), whole-row ties, keys that
+    differ only in the last column's top bit, and slots empty in every
+    table."""
+    fams = []
+    for s, c in shapes:
+        keys = np.stack([topk_arrays(rng, s=s, c=c)[0] for _ in range(n)])
+        counts = EDGES[rng.integers(0, 3, (n, s))]
+        keys[:, :16] = keys[0, :16]  # the tie reaches the last column
+        keys[1:, 16:32, c - 1] ^= np.uint32(1 << 31)
+        keys[:, 32:40], counts[:, 32:40] = 0, 0
+        fams.append((keys, counts))
+    return fams
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 32, 64])
+def test_topk_join_many_plain_matches_the_reference_chained_merges(n):
+    """K9's many-family entry on the CPU (its plain version): each family's
+    result equals the reference's TopKTable.merge chained over the n tables
+    (fold.py, aggregator.py) and the one-family ``topk_join``; no launch."""
+    rng = np.random.default_rng(70 + n)
+    fams = _families(rng, n)
+    kops.reset_launch_counts()
+    got = kops.topk_join_many([(t(k), t(c)) for k, c in fams])
+    assert kops.launch_counts() == {k: 0 for k in kops.launch_counts()}
+    assert len(got) == len(fams)
+    for (keys, counts), (got_keys, got_counts) in zip(fams, got):
+        assert got_keys.shape == keys.shape[1:] and got_counts.shape == counts.shape[1:]
+        assert got_keys.dtype == got_counts.dtype == torch.int32
+        ref = JTopK(key_rows=jnp.asarray(keys[0]), counts=jnp.asarray(counts[0]), seed=1)
+        for k in range(1, n):
+            ref = ref.merge(JTopK(key_rows=jnp.asarray(keys[k]),
+                                  counts=jnp.asarray(counts[k]), seed=1))
+        assert_u32(got_keys, ref.key_rows)
+        assert_u32(got_counts, ref.counts)
+        one_keys, one_counts = kops.topk_join(t(keys), t(counts))
+        assert torch.equal(one_keys, got_keys) and torch.equal(one_counts, got_counts)
+
+
+@pytest.mark.parametrize("n", [1, 3, 32])
+def test_range_fold_of_three_families_matches_the_reference(n):
+    """The port's RangeFold (``fold_stacked``: K8 for the sums, one K9 call
+    for the three families) equals the reference's range fold over the same
+    slots, every array exactly."""
+    rng = np.random.default_rng(80 + n)
+    fams = _families(rng, n)
+    slots = [{"flow_cms": u32(rng, (4, 64)), "totals": u32(rng, (6,))} for _ in range(n)]
+    for name, (keys, counts) in zip(("flow", "svc", "dns"), fams):
+        for i, slot in enumerate(slots):
+            slot[f"{name}_keys"], slot[f"{name}_counts"] = keys[i], counts[i]
+    ref = JRangeFold().fold(slots, {"flow": 3})
+    port = RangeFold(device="cpu").fold(slots, {"flow": 3})
+    assert sorted(port) == sorted(ref)
+    for name in ref:
+        np.testing.assert_array_equal(port[name], ref[name], err_msg=name)

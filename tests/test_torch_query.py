@@ -183,3 +183,34 @@ def test_inv_decode_matches_sharded_telemetry_on_traffic(kind):
     assert n_ok > 0
     if kind == "rejecting":
         assert n_ok < int(np.asarray(base["ok"]).sum())
+
+
+@pytest.mark.parametrize("kind", ["zero", "rejecting"])
+def test_inv_decode_many_plain_matches_sharded_telemetry_regions(kind):
+    """K15's many-region entry over the step's two regions (inv_flow tier 0,
+    inv_hi tier 1) on TrafficGen traffic gives the reference's
+    ``ShardedTelemetry.inv_decode`` keys and tiers, and, through one job of
+    K10's plain version over all its rows, the reference's est and ok."""
+    kw = SMALL_CUTS["invertible"]
+    ref = ShardedTelemetry(JConfig(**kw), make_mesh(jax.devices()[:1]))
+    port = Telemetry(PipelineConfig(**kw), device="cpu")
+    js, ts = ref.init_state(), port.init_state()
+    ji = JIdentityMap.build_host(PODS, n_slots=1 << 8)
+    ti = IdentityMap.build_host(PODS, n_slots=1 << 8, device="cpu")
+    for i, rec in enumerate(traffic(62, 3)):
+        js, _ = ref.step(js, rec[None], np.array([B], np.uint32), clock(0, i), ji,
+                         apiserver_ip=API)
+        ts, _ = port.step(ts, from_numpy(rec, "cpu"), B, clock(0, i), ti, apiserver_ip=API)
+    base = ref.inv_decode(js, 0)
+    min_weight = 0 if kind == "zero" else _rejecting_weight(np.asarray(base["est"]),
+                                                           np.asarray(base["ok"]))
+    want = ref.inv_decode(js, min_weight)
+    keys, ok, tier = kops.inv_decode_many([(inv.planes, inv.weights, inv.seed, i)
+                                           for i, inv in enumerate((ts.inv_flow, ts.inv_hi))])
+    np.testing.assert_array_equal(to_numpy(keys), np.asarray(want["keys"]))
+    np.testing.assert_array_equal(to_numpy(tier), np.asarray(want["tier"]))
+    cms = ts.flow_hh.cms
+    est, vok = query_many_plain([(cms.table, cms.seed, list(keys.t()), ok, min_weight)])
+    np.testing.assert_array_equal(to_numpy(est), np.asarray(want["est"]))
+    np.testing.assert_array_equal(vok.numpy(), np.asarray(want["ok"]))
+    assert int(vok.sum()) > 0
