@@ -88,8 +88,8 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
 - the detection path: the closed loop of the reference daemon on
   Config(heavy_keys_source="invertible", timetravel_enabled=True), wired
   as the reference daemon wires it with its detectors and autocapture on:
-  the engine's record tap feeds the detector bank (K11-K13 at each window
-  close), whose winner and the engine's entropy anomaly flags notify
+  the engine's record tap feeds the detector bank (K11 and one bank_close
+  launch at each window close, no AnomalyEWMA.observe call), whose winner and the engine's entropy anomaly flags notify
   AutoCapture, which range-queries
   the ring around the window (K8-K10), attributes sources by the invertible
   decode and writes a replay capture of only the attributed hosts. 24
@@ -153,11 +153,16 @@ descriptor table and zero claims after every call. K1-K6 are timed by
 CUDA events around 10 calls after 2 warm-ups; K7-K17,
 whose kernels take microseconds, by their device time in
 torch.profiler (the summed durations of what the calls ran on the card),
-with the CUDA-event span of the same calls beside it. K11-K13 are held
-against their plain versions at the tap's largest shapes (2^16 flow keys,
-a padded 2^6, and 2^16 keys whose sources share one hash-group, so every
-register update of K11's cluster lands in one block), estimates and
-entropy within a relative 1e-5, K13 bit for bit. The pairwise merges are
+with the CUDA-event span of the same calls beside it. K11 is held against
+its plain version at the tap's largest shapes (2^16 flow keys, a padded
+2^6, and 2^16 keys whose sources share one hash-group, so every register
+update of K11's cluster lands in one block), estimates within a relative
+1e-5; the bank's close (K12, K13 and the three detectors' EWMA in one
+launch) over 8 closes of the dns_flood histogram, the syn_storm lanes and
+K11's estimates of a 2^16-row sweep window, perturbed from a seed, the
+last an outlier: flags equal, z within 1e-4, the scores and the EWMA mean
+within a relative 1e-5, its variance within 1e-6; K12 and K13 alone (its
+one-slot forms) within a relative 1e-5 and bit for bit. The pairwise merges are
 timed by device time beside their bounds.
 
 K10 (the Count-Min query; several jobs and ``decode_verified``'s filter in
@@ -2224,9 +2229,9 @@ DET_ATTACKS = (  # (detector expected to win, TrafficGen attack method, events, 
     ("synflood", "ddos_batch", 98_304, {"n_sources": 48}),  # the dryrun's burst
 )
 # Every kernel the detection path launches: those of the time-travel and
-# fleet paths and the bank's (K11-K13).
-DETECTION_KERNELS = INVERTIBLE_ENGINE_KERNELS + ("portscan_score", "dnstunnel_score",
-                                                 "synflood_score")
+# fleet paths and the bank's (K11 and the bank's close).
+DETECTION_KERNELS = INVERTIBLE_ENGINE_KERNELS + ("portscan_score", "bank_close")
+BANK_KNOBS = (8.0, 3, 0.1)  # the bank's z_thresh, min_windows and EWMA alpha (Config())
 CAPTURE_ATTACK_ROWS = 768  # attack rows in each block of the live stream a capture reads
 ATTACK_NET = {"portscan": 0xC9, "dnstunnel": 0xCA, "synflood": 0xC0}  # the attack sources' /8
 
@@ -2255,8 +2260,8 @@ def detection_schedule(gen):
 
 
 def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
-    """The detection path: K11-K13 against their plain versions at the
-    tap's largest shapes, then the closed loop at the deployed width (the
+    """The detection path: K11, the bank's close and K12, K13 alone against
+    their plain versions at the tap's largest shapes, then the closed loop at the deployed width (the
     engine's record tap -> the detector bank -> arbitration -> AutoCapture
     -> range decode -> a replay capture of the attributed hosts) with
     kernels and under the plain versions, and the tap's share of a
@@ -2274,6 +2279,7 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     from retina_tpu_torch.events.schema import F, u32_to_ip
     from retina_tpu_torch.events.synthetic import TrafficGen, preset_params
     from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.ops import entropy
     from retina_tpu_torch.parallel.combine import combine_blocks
     from retina_tpu_torch.sources.pcapdecode import _decode_pcap_numpy
     from retina_tpu_torch.timetravel.autocapture import AutoCapture
@@ -2285,7 +2291,7 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     def bench_gen(seed=SEED, **kw):
         return TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=seed, **kw)
 
-    # -- K11, K12, K13 at the tap's largest shapes -----------------------------
+    # -- K11, the bank's close, K12 and K13 at the tap's largest shapes --------
     scan = bench_gen(**preset_params("portscan"))
     k11_in = {}
     one = scan.batch(DET_WINDOW)
@@ -2298,10 +2304,10 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
         blocks = kops.portscan_cluster(programs.PORTSCAN_GROUPS, programs.PORTSCAN_PRECISION,
                                        keys.shape[0])
         print(f"K11 {label}: a cluster of {blocks} blocks", flush=True)
-    hist = from_numpy(features.qname_length_hist(
-        bench_gen(**preset_params("dns_flood")).batch(DET_WINDOW)), dev)
-    lanes = from_numpy(features.tcpflag_lanes(
-        bench_gen(**preset_params("syn_storm")).batch(DET_WINDOW)), dev)
+    hist_np = features.qname_length_hist(
+        bench_gen(**preset_params("dns_flood")).batch(DET_WINDOW))
+    lanes_np = features.tcpflag_lanes(bench_gen(**preset_params("syn_storm")).batch(DET_WINDOW))
+    hist, lanes = from_numpy(hist_np, dev), from_numpy(lanes_np, dev)
     errs = {}
     for label, (keys, w) in k11_in.items():
         out = programs.portscan_program(keys, w)
@@ -2315,19 +2321,69 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     out = programs.dnstunnel_program(hist)
     with kops.plain_versions():
         ref = programs.dnstunnel_program(hist)
-    check(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)), "K12: kernel != plain")
-    errs["dnstunnel_score"] = float((out - ref).abs().max())
-    print(f"K12 dns_flood histogram: {out.tolist()} (kernel), {ref.tolist()} (plain)", flush=True)
+    check(bool(torch.allclose(out, ref, rtol=1e-5, atol=0)), "K12 alone: kernel != plain")
+    print(f"K12 alone, dns_flood histogram: {out.tolist()} (kernel), {ref.tolist()} (plain)",
+          flush=True)
     out = programs.synflood_program(lanes)
     with kops.plain_versions():
         ref = programs.synflood_program(lanes)
-    check(bool(torch.equal(out, ref)), "K13: kernel != plain (must be bit-equal)")
-    errs["synflood_score"] = 0.0
-    print(f"K13 syn_storm lanes: {out.tolist()}", flush=True)
+    check(bool(torch.equal(out, ref)), "K13 alone: kernel != plain (must be bit-equal)")
+    print(f"K13 alone, syn_storm lanes: {out.tolist()}", flush=True)
+
+    # The bank's close: 8 closes of the three built-ins from a zero state,
+    # the features perturbed from a seed, the last an outlier in every slot.
+    sweep = np.concatenate([bench_gen(seed=SEED + 3).batch(DET_WINDOW // 2),
+                            bench_gen(seed=SEED + 4).portscan_batch(
+                                DET_WINDOW // 2, n_scanners=4, n_ports=24)])
+    skeys, sw = features.padded_flow_keys(sweep)
+    est = programs.portscan_program(from_numpy(skeys, dev), from_numpy(sw, dev))
+    rng = np.random.default_rng(SEED)
+
+    def bank_slots(h, e, lanes_):
+        return [(kops.BANK_DNSTUNNEL, h, *BANK_KNOBS), (kops.BANK_PORTSCAN, e, *BANK_KNOBS),
+                (kops.BANK_SYNFLOOD, lanes_, *BANK_KNOBS)]
+
+    io = kops.BankCloseIO(dev)
+    state = [torch.zeros(3, device=dev) for _ in range(3)]
+    ref_state = [torch.zeros(3, device=dev) for _ in range(3)]
+    flagged = []
+    errs["bank_close"] = 0.0
+    for t in range(8):
+        h = np.round(hist_np * rng.uniform(0.8, 1.2, hist_np.shape)).astype(np.float32)
+        l_t = lanes_np.copy()
+        l_t[1] = np.round(l_t[1] * rng.uniform(0.9, 1.1))
+        e_t = est * float(rng.uniform(0.9, 1.1))
+        if t == 7:
+            h = np.full_like(hist_np, np.round(hist_np.sum() / hist_np.size))
+            l_t[1] *= 20
+            e_t = e_t * 10
+        slots = bank_slots(h, e_t, l_t)
+        got = kops.bank_close(slots, *state, io=io)
+        with kops.plain_versions():
+            want = kops.bank_close(slots, *ref_state)
+        torch.cuda.synchronize()
+        check(torch.equal(got[2], want[2]), f"bank close {t}: flags {got[2]} != {want[2]}")
+        check(bool(torch.allclose(got[0], want[0], rtol=1e-5, atol=0)),
+              f"bank close {t}: scores {got[0]} != {want[0]}")
+        check(float((got[1] - want[1]).abs().max()) <= 1e-4,
+              f"bank close {t}: z {got[1]} != {want[1]}")
+        check(bool(torch.allclose(state[0], ref_state[0], rtol=1e-5, atol=0))
+              and float((state[1] - ref_state[1]).abs().max()) <= 1e-6
+              and torch.equal(state[2], ref_state[2]),
+              f"bank close {t}: EWMA state {state} != {ref_state}")
+        errs["bank_close"] = max(errs["bank_close"], float((got[0] - want[0]).abs().max()),
+                                 float((got[1] - want[1]).abs().max()))
+        flagged.append(got[2].tolist())
+    check(flagged[-1] == [True] * 3 and not any(any(f) for f in flagged[:-1]),
+          f"bank close: flags by close {flagged} (only the outlier must flag)")
+    print(f"bank close: 8 closes equal to the plain version's (max abs err "
+          f"{errs['bank_close']}), scores {got[0].tolist()}, z {got[1].tolist()} at the "
+          f"outlier", flush=True)
 
     keys, w = k11_in["P = 2^16"]
     p_rows = keys.shape[0]
     p = hist / hist.sum()
+    bank_in = bank_slots(hist_np, est, lanes_np)
     # K11's library call: scatter_reduce_ amax of each row's rank into a zero
     # register bank at its (group, register), both computed beforehand.
     from retina_tpu_torch.ops.hashing import _mul32, hash_cols
@@ -2345,24 +2401,24 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
             ("portscan_score", lambda: programs.portscan_program(keys, w), "portscan_kernel",
              p_rows * 20 + programs.PORTSCAN_GROUPS * 4, p_rows * (HASH_OPS + 12),
              lambda: bank.zero_().scatter_reduce_(0, flat, rank, "amax")),
-            ("dnstunnel_score", lambda: programs.dnstunnel_program(hist), "dnstunnel_kernel",
-             hist.numel() * 4 + 8, hist.numel() * 6,
-             lambda: torch.special.entr(p).sum()),
-            ("synflood_score", lambda: programs.synflood_program(lanes), "synflood_kernel",
-             9 * 4 + 3 * 4, 4, None)):
+            ("bank_close", lambda: kops.bank_close(bank_in, *state, io=io), "bank_close_kernel",
+             # the features and the EWMA state read once, the state and rows written once
+             4 * (hist.numel() + 9 + est.numel()) + 2 * 3 * 3 * 4 + 3 * kops.BANK_ROW * 4,
+             hist.numel() * 6 + 9 + est.numel() + 3 * 16,
+             lambda: torch.special.entr(p).sum())):
         ms = device_ms(fn, kernel=kernel)
         with kops.plain_versions():
             plain_ms = device_ms(fn)
         lib_ms = device_ms(lib) if lib else None
         report(name, "retina_tpu_torch/kernels/csrc/detect.cu",
                {"portscan_score": "retina_tpu/detect/programs.py:51",
-                "dnstunnel_score": "retina_tpu/detect/programs.py:78",
-                "synflood_score": "retina_tpu/detect/programs.py:100"}[name],
+                "bank_close": "retina_tpu/detect/programs.py:78 and :100"}[name],
                ms, plain_ms, nbytes, ops, lib_ms, errs[name])
         print(f"{name}: CUDA-event span of a call {time_ms(fn):.4f} ms", flush=True)
     print("K11 library: scatter_reduce_ amax of the ranks into a zeroed register bank at "
           "(group, register) computed beforehand, two calls (no PyTorch call computes the "
-          "estimate); K12 library: torch.special.entr + sum on p computed beforehand, two calls",
+          "estimate); bank close library: torch.special.entr + sum on p computed beforehand, "
+          "two calls (the dnstunnel score alone; no PyTorch call computes the close)",
           flush=True)
 
     # -- the closed loop at the deployed width -------------------------------------------
@@ -2402,12 +2458,21 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
         ac.start()
         bank = build_default_bank(cfg, sink=ac.notify, device=dev)
         close = bank._close
-        t = {"tap": 0.0, "close": [], "scores": []}
+        t = {"tap": 0.0, "close": [], "scores": [], "ewma_calls": 0}
+        observe = entropy.AnomalyEWMA.observe
 
         def timed_close(epoch, now_s):
+            """The close, timed, with its AnomalyEWMA.observe calls counted."""
+            calls = []
+            entropy.AnomalyEWMA.observe = lambda *a, **kw: (calls.append(1),
+                                                            observe(*a, **kw))[1]
             t0 = time.perf_counter()
-            got = close(epoch, now_s)
+            try:
+                got = close(epoch, now_s)
+            finally:
+                entropy.AnomalyEWMA.observe = observe
             t["close"].append(time.perf_counter() - t0)
+            t["ewma_calls"] += len(calls)
             t["scores"].append(dict(bank.detector_score))
             return got
 
@@ -2474,6 +2539,13 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
     check_sketch_launches(det_launches, "detection path")
     for name in DETECTION_KERNELS:
         check(det_launches[name] > 0, f"{name} was not launched on the detection path")
+    judged = len(run["t"]["close"])
+    check(det_launches["bank_close"] <= judged and det_launches["dnstunnel_score"] == 0
+          and det_launches["synflood_score"] == 0 and run["t"]["ewma_calls"] == 0,
+          f"detection path: {det_launches['bank_close']} bank_close launches over {judged} "
+          f"closes, K12 alone {det_launches['dnstunnel_score']}, K13 alone "
+          f"{det_launches['synflood_score']}, AnomalyEWMA.observe "
+          f"{run['t']['ewma_calls']} (must be at most 1 a close, 0, 0, 0)")
     ref = loop_run(plain=True)
     check(all(v == 0 for v in ref["launches"].values()),
           f"the plain detection run launched kernels: {ref['launches']}")
@@ -2555,9 +2627,12 @@ def detection_loop(dev, quanta, pods, time_ms, report, results) -> None:
               f"{np.mean(r['t']['close']) * 1e3:.3f} ms mean over {len(r['t']['close'])} closes; "
               f"notify to last capture done per attack (ms) {lat}; busy drops "
               f"{r['ac'].autocapture_suppressed['busy']}", flush=True)
-    judged = len(run["t"]["close"])
+    print(f"bank close: {det_launches['bank_close']} bank_close launches and "
+          f"{run['t']['ewma_calls']} AnomalyEWMA.observe calls over {judged} closes with "
+          f"kernels; the plain run's closes called observe {ref['t']['ewma_calls']} times",
+          flush=True)
     for r in results:
-        if r["name"] in ("portscan_score", "dnstunnel_score", "synflood_score"):
+        if r["name"] in ("portscan_score", "bank_close"):
             r["launches"] = det_launches[r["name"]]
             print(f"{r['name']}: {det_launches[r['name']]} launches over {judged} window "
                   f"closes", flush=True)

@@ -10,10 +10,14 @@ floored by ``min_score``.
 The ``DetectorBank`` closes a window when the epoch rolls over, applies
 each detector's cooldown, arbitrates simultaneous firings by priority (the
 capture queue is one deep, so one detection a window reaches the sink),
-and hands the winner to the sink (``AutoCapture.notify``). The
-reference's Prometheus series are set through ``metrics.get_metrics()`` as
-the reference sets them, and kept besides as plain counters on the bank,
-under the reference's names.
+and hands the winner to the sink (``AutoCapture.notify``). It judges the
+built-in detectors (``BATCHED``, by exact class) together: their scores
+and anomaly EWMA are one ``kops.bank_close`` call a close with one host
+wait (one launch for up to eight of them), on a state the bank owns (one
+tensor a field; each such detector's ``_ewma`` is a view of its slot).
+Every other detector is judged alone. The reference's Prometheus series
+are set through ``metrics.get_metrics()`` as the reference sets them, and
+kept besides as plain counters on the bank, under the reference's names.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from retina_tpu_torch._device import resolve_device
+from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.ops.entropy import AnomalyEWMA
 
@@ -36,6 +41,12 @@ _log = logging.getLogger("retina_tpu_torch.detect")
 
 # Records accumulated per window at most (the record tap's memory bound).
 MAX_WINDOW_RECORDS = 1 << 16
+# The detector classes the bank judges in one kops.bank_close, by exact
+# class (a subclass may override ``score`` and is judged alone): class ->
+# the kernel's slot kind. Each has ``bank_input()``: its window's features
+# for the kernel, or None where ``score`` would return None.
+BATCHED: dict[type, int] = {}
+_JUDGE, _FAILED = object(), object()  # a detector to judge alone; one that raised
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,12 +98,20 @@ class Detector:
         s = self.score()
         if s is None:
             return None
-        self._ewma, flags, z = self._ewma.observe(
+        new, flags, z = self._ewma.observe(
             torch.tensor([s], dtype=torch.float32, device=self.device),
             z_thresh=self.z_thresh, min_windows=self.min_windows)
+        # In place: ``_ewma`` may view the state of a bank.
+        for dst, src in ((self._ewma.mean, new.mean), (self._ewma.var, new.var),
+                         (self._ewma.n_obs, new.n_obs)):
+            dst.copy_(src)
+        return self._verdict(epoch, s, float(z[0]), bool(flags[0]))
+
+    def _verdict(self, epoch: int, s: float, z: float, flag: bool) -> Detection | None:
+        """Record the judged score and z; the detection if it fires."""
         self.last_score = float(s)
-        self.last_z = float(z[0])
-        fired = s >= self.fire_thresh or (bool(flags[0]) and s >= self.min_score)
+        self.last_z = z
+        fired = s >= self.fire_thresh or (flag and s >= self.min_score)
         if not fired:
             return None
         return Detection(detector=self.name, epoch=int(epoch), score=self.last_score,
@@ -151,6 +170,18 @@ class DetectorBank:
         self.detector_fired: collections.Counter = collections.Counter()
         self.detector_suppressed: collections.Counter = collections.Counter()
         self.detector_last_epoch: dict[str, int] = {}
+        # The batched detectors: those of BATCHED on the first one's device.
+        batched = [d for d in self.detectors if type(d) in BATCHED]
+        self._batched = [d for d in batched if d.device == batched[0].device]
+        self._state: tuple[torch.Tensor, ...] = ()
+        self._io = None
+        if self._batched:
+            self._state = tuple(torch.cat([getattr(d._ewma, f) for d in self._batched])
+                                for f in ("mean", "var", "n_obs"))
+            for i, d in enumerate(self._batched):
+                d._ewma = AnomalyEWMA(*(t[i:i + 1] for t in self._state), alpha=d._ewma.alpha)
+            if self._state[0].device.type == "cuda":
+                self._io = kops.BankCloseIO(self._state[0].device, len(self._batched))
 
     def observe(self, epoch: int, records: np.ndarray | None, extras: Optional[dict] = None,
                 now_s: float | None = None) -> list[Detection]:
@@ -189,12 +220,17 @@ class DetectorBank:
         now = float(now_s) if now_s is not None else time.time()
         m = get_metrics()
         cands: list[Detection] = []
+        judged = self._judge_batched(epoch)
         for d in self.detectors:
-            try:
-                det = d.judge(epoch)
-            except Exception:
-                _log.exception("detector %s failed", d.name)
+            det = judged.get(id(d), _JUDGE)
+            if det is _FAILED:
                 continue
+            if det is _JUDGE:
+                try:
+                    det = d.judge(epoch)
+                except Exception:
+                    _log.exception("detector %s failed", d.name)
+                    continue
             self.detector_score[d.name] = d.last_score
             self.detector_zscore[d.name] = d.last_z
             m.detector_score.labels(detector=d.name).set(d.last_score)
@@ -229,6 +265,35 @@ class DetectorBank:
                 _log.exception("detector sink failed")
         return [winner]
 
+    def _judge_batched(self, epoch: int) -> dict[int, Any]:
+        """Judge the batched detectors in one ``kops.bank_close``: {id(d):
+        detection, None, or _FAILED for a detector whose features or the
+        call raised (logged)}."""
+        out: dict[int, Any] = {}
+        if not self._batched:
+            return out
+        inputs = []
+        for d in self._batched:
+            try:
+                inputs.append(d.bank_input())
+            except Exception:
+                _log.exception("detector %s failed", d.name)
+                inputs.append(None)
+                out[id(d)] = _FAILED
+        slots = [(BATCHED[type(d)], x, d.z_thresh, d.min_windows, d._ewma.alpha)
+                 for d, x in zip(self._batched, inputs)]
+        try:
+            score, z, flag = kops.bank_close(slots, *self._state, io=self._io)
+        except Exception:
+            for d in self._batched:
+                if id(d) not in out:
+                    _log.exception("detector %s failed", d.name)
+            return {id(d): _FAILED for d in self._batched}
+        for d, x, s, zs, f in zip(self._batched, inputs, score.tolist(), z.tolist(),
+                                  flag.tolist()):
+            if id(d) not in out:
+                out[id(d)] = None if x is None else d._verdict(epoch, s, zs, f)
+        return out
 
     def _suppress(self, m, name: str, reason: str) -> None:
         self.detector_suppressed[(name, reason)] += 1

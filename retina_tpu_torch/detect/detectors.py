@@ -3,7 +3,8 @@
 Thresholds, priorities, dims and ``extras`` paths are the reference's:
 every benign preset of the generator scores far below each
 ``fire_thresh``; each matching attack regime far above it. Scores run on
-the detector's device through K11-K13 (``programs.py``).
+the detector's device through K11-K13 (``programs.py``); a bank judges the
+three together (``bank_input`` and ``kops.bank_close``, ``base.BATCHED``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from retina_tpu_torch.detect import features, programs
-from retina_tpu_torch.detect.base import Detector, register
+from retina_tpu_torch.detect.base import BATCHED, Detector, register
+from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.u32 import from_numpy
 
 
@@ -39,11 +41,15 @@ class SynFloodDetector(Detector):
         else:
             self._lanes += features.tcpflag_lanes(rec)
 
+    def bank_input(self) -> np.ndarray | None:
+        """The window's (9,) tcpflag lanes; None below MIN_TCP packets."""
+        return None if self._lanes[8] < self.MIN_TCP else self._lanes
+
     def score(self) -> float | None:
-        if self._lanes[8] < self.MIN_TCP:
+        lanes = self.bank_input()
+        if lanes is None:
             return None
-        out = programs.synflood_program(from_numpy(self._lanes, self.device))
-        return float(out[0])
+        return float(programs.synflood_program(from_numpy(lanes, self.device))[0])
 
 
 @register
@@ -64,16 +70,21 @@ class PortScanDetector(Detector):
     def add_records(self, rec: np.ndarray, extras: Optional[dict] = None) -> None:
         self._blocks.append(np.asarray(rec))
 
-    def score(self) -> float | None:
+    def bank_input(self) -> torch.Tensor | None:
+        """K11's (groups,) estimates of the window on the detector's device
+        (launched, not waited for); None with no records."""
         if not self._blocks:
             return None
         rec = self._blocks[0] if len(self._blocks) == 1 else np.concatenate(self._blocks)
         if not len(rec):
             return None
         keys, w = features.padded_flow_keys(rec)
-        est = programs.portscan_program(from_numpy(keys, self.device),
-                                        from_numpy(w, self.device))
-        return float(torch.max(est))
+        return programs.portscan_program(from_numpy(keys, self.device),
+                                         from_numpy(w, self.device))
+
+    def score(self) -> float | None:
+        est = self.bank_input()
+        return None if est is None else float(torch.max(est))
 
 
 @register
@@ -97,8 +108,17 @@ class DnsTunnelDetector(Detector):
         else:
             self._hist = self._hist + features.qname_length_hist(rec)
 
+    def bank_input(self) -> np.ndarray | None:
+        """The window's (1, nbins) qname-length histogram; None below
+        MIN_DNS queries."""
+        return None if float(self._hist.sum()) < self.MIN_DNS else self._hist
+
     def score(self) -> float | None:
-        if float(self._hist.sum()) < self.MIN_DNS:
+        hist = self.bank_input()
+        if hist is None:
             return None
-        out = programs.dnstunnel_program(from_numpy(self._hist, self.device))
-        return float(out[0])
+        return float(programs.dnstunnel_program(from_numpy(hist, self.device))[0])
+
+
+BATCHED.update({SynFloodDetector: kops.BANK_SYNFLOOD, PortScanDetector: kops.BANK_PORTSCAN,
+                DnsTunnelDetector: kops.BANK_DNSTUNNEL})

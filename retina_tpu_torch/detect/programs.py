@@ -5,9 +5,11 @@ device (``kernels/csrc/detect.cu``, through ``kernels/ops.py``): the
 portscan program is an HLL bank keyed by source hash-group (K11), the
 dnstunnel program the plug-in entropy of a qname-length histogram (K12),
 the synflood program a SYN:ACK asymmetry over the tcpflag lanes (K13).
-Their inputs are tiny host-built features (``features.py``). Each has its
-plain PyTorch version beside it, which the kernel wrapper runs for CPU
-tensors.
+Their inputs are tiny host-built features (``features.py``). The bank's
+close scores its built-in detectors and steps their anomaly EWMA in one
+launch (``kops.bank_close``; K12 and K13 alone are one-slot launches of
+it). Each has its plain PyTorch version beside it, which the kernel
+wrapper runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from retina_tpu_torch.kernels import ops as kops
-from retina_tpu_torch.ops.entropy import entropy_bits_plain
+from retina_tpu_torch.ops.entropy import AnomalyEWMA, entropy_bits_plain
 from retina_tpu_torch.ops.hashing import _mul32
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog, estimate_plain, update_plain
 from retina_tpu_torch.u32 import narrow, widen
@@ -80,3 +82,33 @@ def synflood_plain(lanes: torch.Tensor) -> torch.Tensor:
     syn, ack, total = lanes[1], lanes[4], lanes[8]  # TCP_SYN = 1 << 1, TCP_ACK = 1 << 4
     return torch.stack([syn / torch.clamp(ack, min=1.0), syn / torch.clamp(total, min=1.0),
                         syn])
+
+
+def bank_close_plain(slots, mean, var, n_obs):
+    """Plain version of the bank's close (``kops.bank_close``): for each
+    active slot in order, its score (``dnstunnel_plain``'s bits,
+    ``synflood_plain``'s ratio or the maximum of K11's estimates), then
+    ``AnomalyEWMA.observe`` of it on the slot's state, written back into
+    ``mean``, ``var`` and ``n_obs`` in place. Returns (score, z, flag) (S,)
+    on the host; 0 for inactive slots."""
+    dev = mean.device
+    n = len(slots)
+    score, z, flag = torch.zeros(n), torch.zeros(n), torch.zeros(n, dtype=torch.bool)
+    for i, (kind, x, z_thresh, min_windows, alpha) in enumerate(slots):
+        if x is None:
+            continue
+        x = torch.as_tensor(x, device=dev)
+        if kind == kops.BANK_DNSTUNNEL:
+            h = dnstunnel_plain(x)[:1]
+        elif kind == kops.BANK_SYNFLOOD:
+            h = synflood_plain(x)[:1]
+        else:
+            h = torch.max(x).reshape(1)
+        state = AnomalyEWMA(mean=mean[i:i + 1], var=var[i:i + 1], n_obs=n_obs[i:i + 1],
+                            alpha=alpha)
+        new, f, zs = state.observe(h, z_thresh=z_thresh, min_windows=min_windows)
+        for dst, src in ((state.mean, new.mean), (state.var, new.var),
+                         (state.n_obs, new.n_obs)):
+            dst.copy_(src)
+        score[i], z[i], flag[i] = h[0].cpu(), zs[0].cpu(), f[0].cpu()
+    return score, z, flag

@@ -1,11 +1,12 @@
 // K11-K13: the scoring programs of the detector bank.
 //
-// Replace retina_tpu/detect/programs.py:51 detect.portscan, :78
-// detect.dnstunnel and :100 detect.synflood. Their inputs are small
+// K11 portscan_kernel replaces retina_tpu/detect/programs.py:51
+// detect.portscan; bank_close_kernel (below) replaces :78 detect.dnstunnel
+// and :100 detect.synflood with the bank's EWMA step. Their inputs are small
 // feature arrays the bank builds on the host at each window close (at most
 // 2^16 flow keys, a 64-bin histogram, 9 lanes), so every kernel is one
 // launch. The plain versions are retina_tpu_torch/detect/programs.py
-// portscan_plain, dnstunnel_plain and synflood_plain.
+// portscan_plain and bank_close_plain (dnstunnel_plain, synflood_plain).
 //
 // K11 portscan_score: per source hash-group g = (src * 2654435761) mod G
 // (u32 arithmetic, so a product with the top bit set wraps as the
@@ -39,17 +40,44 @@
 // a global bank at their non-zero registers, the last block by a ticket
 // estimating (the ticket's round trip and the bank's L2 traffic).
 //
-// K12 dnstunnel_score: [entropy bits, total] of a (1, nbins) f32
-// histogram, the plug-in entropy of entropy.py:71. One block of 64
-// threads: shuffles and two shared words sum n, then p log2 p over the
-// bins with p > 0. The sums group otherwise than XLA's: equal within a
-// relative 1e-5.
-//
-// K13 synflood_score: [syn / max(ack, 1), syn / max(total, 1), syn] of the
-// 9 tcpflag lanes. One thread; the divisions are IEEE-rounded (no
-// fast-math), so the result equals the reference bit for bit.
+// The bank's close (K12, K13 and the three detectors' EWMA):
+// bank_close_kernel. Replaces retina_tpu/detect/programs.py:78
+// detect.dnstunnel and :100 detect.synflood, with retina_tpu/detect/base.py:86
+// Detector.judge's AnomalyEWMA.observe (ops/entropy.py:113) for each
+// built-in detector. The plain version is retina_tpu_torch/detect/programs.py
+// bank_close_plain. A window close of the bank scores every active built-in
+// detector and steps its EWMA in one launch: a warp a slot of a
+// __grid_constant__ table (kops._BankTable), each slot
+//   dnstunnel: [bits, total] of a (nbins,) f32 qname-length histogram, the
+//     plug-in entropy of entropy.py:71, summed in f64 as K16 sums it (n
+//     exactly; p = c / max(n, 1), p * log2(p) IEEE-rounded, no fused
+//     multiply-add) and rounded to f32 once, so the bits equal
+//     dnstunnel_plain's but at a rounding tie;
+//   synflood: [syn / max(ack, 1), syn / max(total, 1), syn] of the 9
+//     tcpflag lanes, IEEE-rounded divisions, equal to the reference bit for
+//     bit;
+//   portscan: the maximum of K11's (G,) estimates, read where K11 wrote them
+//     on the same stream;
+// then, where the slot names a state, the EWMA of its score (ewma.cuh) on
+// mean/var/n_obs[state] in place. A slot's row is [score vector (3), z,
+// flag], written wherever the table points: the bank's page-locked buffer
+// through its device address, or a tensor on the card (dnstunnel_score and
+// synflood_score: one slot, no EWMA). The histograms and lanes travel in
+// the table itself (a launch's parameter block), or are read from a tensor
+// on the card. On the H100 this took 0.0032-0.0034 ms; reading them from a
+// page-locked buffer through its device address took 0.0049-0.0050 (a read
+// across PCIe) and one copy in and one out 0.0054-0.0058 (PERF.md). A bank
+// with more slots than a table holds (kBankMaxSlots, kBankFeatures) takes a
+// launch a table. Bound: bytes, ~0.6 KB a close (the features, the
+// estimates and the state read once, the state and rows written once), so
+// the launch floor. Design: one block of a warp a slot, every load of a
+// slot issued before its first sum (a lane holds up to kBinsPerLane bins in
+// registers), warp shuffles, and lane 0 of each warp steps its slot's EWMA
+// and writes its row. No atomic, no memset; the wrapper waits on one
+// event.
 #include <cooperative_groups.h>
 
+#include "ewma.cuh"
 #include "hash.cuh"
 
 namespace cg = cooperative_groups;
@@ -60,7 +88,11 @@ constexpr int kPortscanThreads = 1024;
 constexpr int kMaxCluster = 16;  // PORTSCAN_CLUSTER in kernels/ops.py
 constexpr int kMaxBankBytes = 64 * 1024;  // SHARED_BYTES in kernels/ops.py
 constexpr int kPortscanRows = 4;  // rows a thread loads before it hashes any
-constexpr int kDnsThreads = 64;
+constexpr int kBankMaxSlots = 8;  // BANK_MAX_SLOTS in kernels/ops.py
+constexpr int kBinsPerLane = 8;  // BANK_MAX_BINS = 32 * kBinsPerLane in kernels/ops.py
+constexpr int kBankRow = 5;  // BANK_ROW in kernels/ops.py: score vector (3), z, flag
+constexpr int kBankFeatures = 512;  // BANK_TABLE_FEATURES in kernels/ops.py
+enum Kind { kDnsTunnel = 0, kSynFlood = 1, kPortScan = 2 };  // BANK_* in kernels/ops.py
 constexpr uint32_t kGroupMul = 2654435761u;
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -181,39 +213,109 @@ __global__ void __launch_bounds__(kPortscanThreads)
   estimate_groups(bank + g0 * m, own, p, alpha_mm, out + g0);
 }
 
-__global__ void __launch_bounds__(kDnsThreads)
-    dnstunnel_kernel(const float* __restrict__ hist, int nbins, float* __restrict__ out) {
-  __shared__ float part[kDnsThreads / 32];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float n = 0.f;
-  for (int i = threadIdx.x; i < nbins; i += kDnsThreads) n += hist[i];
-  n = warp_sum(n);
-  if (lane == 0) part[warp] = n;
-  __syncthreads();
-  n = part[0] + part[1];
-  __syncthreads();
-  const float denom = fmaxf(n, 1.f);
-  float t = 0.f;
-  for (int i = threadIdx.x; i < nbins; i += kDnsThreads) {
-    const float p = hist[i] / denom;
-    if (p > 0.f) t += p * log2f(fmaxf(p, 1e-30f));
-  }
-  t = warp_sum(t);
-  if (lane == 0) part[warp] = t;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    out[0] = -(part[0] + part[1]);
-    out[1] = n;
-  }
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, off);
+  return v;
 }
 
-__global__ void synflood_kernel(const float* __restrict__ lanes, float* __restrict__ out) {
-  const float syn = lanes[1];  // TCP_SYN = 1 << 1
-  const float ack = lanes[4];  // TCP_ACK = 1 << 4
-  const float total = lanes[8];
-  out[0] = syn / fmaxf(ack, 1.f);
-  out[1] = syn / fmaxf(total, 1.f);
-  out[2] = syn;
+struct BankSlot {
+  const float* x;  // the features (the (n,) histogram, the 9 lanes or the (n,) estimates),
+                   // or null: they are feat[off, off + n) of the table
+  float* out;  // kBankRow floats
+  int kind;
+  int n;  // bins, lanes or groups
+  int state;  // the slot's EWMA state in mean/var/n_obs, or -1: no EWMA step
+  int off;
+  float z_thresh;
+  float min_windows;
+  float alpha;
+  int pad;
+};
+
+struct BankTable {
+  float* mean;
+  float* var;
+  float* n_obs;
+  int n_slots;
+  int pad;
+  BankSlot slot[kBankMaxSlots];
+  float feat[kBankFeatures];  // features that travel with the launch
+};
+
+static_assert(sizeof(BankSlot) == 48, "BankSlot must match kernels/ops.py _BankSlot");
+static_assert(sizeof(BankTable) == 32 + kBankMaxSlots * 48 + kBankFeatures * 4,
+              "BankTable must match _BankTable");
+
+// Warp w scores slot w; its lane 0 steps the slot's EWMA and writes its row.
+__global__ void __launch_bounds__(kBankMaxSlots * 32)
+    bank_close_kernel(const __grid_constant__ BankTable t) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (w >= t.n_slots) return;
+  const BankSlot& s = t.slot[w];
+  const float* x = s.x ? s.x : t.feat + s.off;
+  float m0 = 0.f, v0 = 0.f, k0 = 0.f;  // in flight while the features load
+  if (lane == 0 && s.state >= 0) {
+    m0 = t.mean[s.state];
+    v0 = t.var[s.state];
+    k0 = t.n_obs[s.state];
+  }
+  float v[3] = {0.f, 0.f, 0.f};
+  if (s.kind == kDnsTunnel) {
+    float c[kBinsPerLane];
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      const int i = lane + 32 * j;
+      c[j] = i < s.n ? x[i] : 0.f;
+    }
+    double n = 0.0;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) n += c[j];
+    n = warp_sum(n);  // exact, in every lane
+    const double denom = fmax(n, 1.0);
+    double sum = 0.0;
+#pragma unroll
+    for (int j = 0; j < kBinsPerLane; ++j) {
+      if (c[j] > 0.f) {  // p > 0 exactly where c > 0
+        const double p = __ddiv_rn(c[j], denom);
+        sum = __dadd_rn(sum, __dmul_rn(p, log2(fmax(p, 1e-30))));
+      }
+    }
+    sum = warp_sum(sum);
+    v[0] = __double2float_rn(-sum);
+    v[1] = __double2float_rn(n);
+  } else if (s.kind == kSynFlood) {
+    if (lane == 0) {
+      const float syn = x[1];  // TCP_SYN = 1 << 1
+      const float ack = x[4];  // TCP_ACK = 1 << 4
+      const float total = x[8];
+      v[0] = __fdiv_rn(syn, fmaxf(ack, 1.f));
+      v[1] = __fdiv_rn(syn, fmaxf(total, 1.f));
+      v[2] = syn;
+    }
+  } else {
+    float m = __int_as_float(0xFF800000);  // -inf
+    for (int i = lane; i < s.n; i += 32) m = fmaxf(m, x[i]);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, off));
+    v[0] = m;
+  }
+  if (lane != 0) return;
+  float z = 0.f, flag = 0.f;
+  if (s.state >= 0) {
+    const rt::EwmaStep r =
+        rt::ewma_step(v[0], true, m0, v0, k0, s.alpha, s.z_thresh, s.min_windows);
+    t.mean[s.state] = r.mean;
+    t.var[s.state] = r.var;
+    t.n_obs[s.state] = r.n_obs;
+    z = r.z;
+    flag = r.flag ? 1.f : 0.f;
+  }
+  s.out[0] = v[0];
+  s.out[1] = v[1];
+  s.out[2] = v[2];
+  s.out[3] = z;
+  s.out[4] = flag;
 }
 
 // The largest cluster of portscan_kernel the current device can schedule
@@ -288,14 +390,17 @@ extern "C" int portscan_score(const void* keys, const void* weights, long long n
   return (int)cudaGetLastError();
 }
 
-extern "C" int dnstunnel_score(const void* hist, int nbins, void* out, void* stream) {
-  dnstunnel_kernel<<<1, kDnsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(hist), nbins, static_cast<float*>(out));
+// One launch for the 1 to kBankMaxSlots slots of ``table`` (a BankTable),
+// a warp a slot.
+extern "C" int bank_close(const void* table, void* stream) {
+  const BankTable& t = *static_cast<const BankTable*>(table);
+  if (t.n_slots < 1 || t.n_slots > kBankMaxSlots) return (int)cudaErrorInvalidValue;
+  bank_close_kernel<<<1, 32 * t.n_slots, 0, static_cast<cudaStream_t>(stream)>>>(t);
   return (int)cudaGetLastError();
 }
 
-extern "C" int synflood_score(const void* lanes, void* out, void* stream) {
-  synflood_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(lanes), static_cast<float*>(out));
-  return (int)cudaGetLastError();
+// The device address of page-locked host memory at ``host`` (the bank's
+// rows, which the kernel writes).
+extern "C" int host_device_pointer(void* host, void** device) {
+  return (int)cudaHostGetDevicePointer(device, host, 0);
 }

@@ -37,8 +37,8 @@
 // have read the row by then) reads the partials in one round trip, adds
 // them in block order, so the bits do not depend on which block finished
 // last, rounds them to f32 once, applies the EWMA (its state loaded at the
-// kernel's start, beside the row) with IEEE-rounded operations in the plain
-// version's order (__fmul_rn/__fadd_rn keep nvcc from fusing them), zeroes
+// kernel's start, beside the row; ewma.cuh, IEEE-rounded operations in the
+// plain version's order), zeroes
 // the row and puts the ticket back to 0 for the next call on the stream.
 // The bits are summed in f64 (n exactly; p, log2 and their products
 // IEEE-rounded, no fused multiply-add) and rounded to f32 once, as the
@@ -50,6 +50,8 @@
 // tolerance a float comparison could hold it to.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ewma.cuh"
 
 namespace {
 
@@ -77,30 +79,6 @@ __device__ __forceinline__ double block_sum(double v, double* part) {
 
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// The EWMA of group g given its bits h, whether its row saw traffic and its
-// state m0, v0, k0 (loaded at the kernel's start), and the outputs;
-// IEEE-rounded f32 in the plain version's order.
-__device__ __forceinline__ void ewma(int g, float h, bool active, float m0, float v0, float k0,
-                                     float* mean, float* var, float* n_obs, float alpha,
-                                     float z_thresh, float min_windows, uint8_t* flag_out,
-                                     float* z_out) {
-  const bool warm = k0 >= min_windows;
-  const float sd = sqrtf(fmaxf(v0, 1e-12f));
-  const float delta = __fadd_rn(h, -m0);
-  const float z = warm && active ? delta / fmaxf(sd, 1e-3f) : 0.f;
-  const bool flag = warm && active && fabsf(z) > z_thresh;
-  const bool first = k0 == 0.f;
-  const float a = (flag || !active) ? 0.f : (first ? 1.f : alpha);
-  mean[g] = __fadd_rn(m0, __fmul_rn(a, delta));
-  var[g] = (first && active)
-               ? 0.f
-               : __fmul_rn(__fadd_rn(1.f, -a),
-                           __fadd_rn(v0, __fmul_rn(__fmul_rn(a, delta), delta)));
-  n_obs[g] = __fadd_rn(k0, active ? 1.f : 0.f);
-  flag_out[g] = flag;
-  z_out[g] = z;
 }
 
 constexpr int kMaxSlices = 64;
@@ -176,9 +154,14 @@ __global__ void __launch_bounds__(kThreads)
   tickets[g] = 0u;  // for the next call on this stream
   const float h = __double2float_rn(-sum);
   bits_out[g] = h;
-  if (close)
-    ewma(g, h, n > 0.0, m0, v0, k0, mean, var, n_obs, alpha, z_thresh, min_windows, flag_out,
-         z_out);
+  if (close) {
+    const rt::EwmaStep r = rt::ewma_step(h, n > 0.0, m0, v0, k0, alpha, z_thresh, min_windows);
+    mean[g] = r.mean;
+    var[g] = r.var;
+    n_obs[g] = r.n_obs;
+    flag_out[g] = r.flag;
+    z_out[g] = r.z;
+  }
 }
 
 int launch(int G, int K, int S, int close, float* counts, float* mean, float* var,

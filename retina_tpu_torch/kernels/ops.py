@@ -25,6 +25,7 @@ import contextlib
 import ctypes
 from typing import Iterator, NamedTuple
 
+import numpy as np
 import torch
 
 from retina_tpu_torch.kernels import build
@@ -50,8 +51,9 @@ _ARGTYPES = {
     "topk_join": [_VP],
     "cms_query": [_VP],
     "portscan_score": [_VP, _VP, _LL, _INT, _INT, _U32, _FLT, _INT, _VP],
-    "dnstunnel_score": [_VP, _INT, _VP],
-    "synflood_score": [_VP, _VP],
+    "bank_close": [_VP],
+    "dnstunnel_score": [_VP],
+    "synflood_score": [_VP],
     "latency_update": [_VP, _VP, _VP, _VP, _INT, _VP, _INT],
     "inv_decode": [_VP],
     "window_close": [_VP, _INT, _INT, _INT, _VP, _VP, _VP, _FLT, _FLT, _FLT, _VP, _VP, _VP,
@@ -63,16 +65,18 @@ _ARGTYPES = {
 }
 # The library of each C function, where it is not the function's own name.
 _LIBRARY = {"cms_update": "hh_update", "ingest_packed": "ingest", "ingest_new": "ingest", "ingest_known": "ingest",
-            "portscan_score": "detect", "dnstunnel_score": "detect",
+            "portscan_score": "detect", "bank_close": "detect", "dnstunnel_score": "detect",
             "synflood_score": "detect", "latency_update": "latency",
             "entropy_bits": "window_close", "snapshot_flat": "snapshot_readout",
             "hll_estimate": "snapshot_readout", "ct_active": "snapshot_readout"}
 # The C function of a launch count, where it is not the count's own name:
 # the readout's three wrappers launch one kernel on tables of their own; K9
-# and K15 count under their one-job wrappers' names.
+# and K15 count under their one-job wrappers' names; K12 and K13 alone are
+# one-slot launches of the bank's close.
 _SYMBOL = {"snapshot_flat": "snapshot_readout", "hll_estimate": "snapshot_readout",
            "ct_active": "snapshot_readout", "topk_join": "topk_join_many",
-           "inv_decode": "inv_decode_many"}
+           "inv_decode": "inv_decode_many", "dnstunnel_score": "bank_close",
+           "synflood_score": "bank_close"}
 
 # Kernel launches per C function since the last reset (a call of
 # hh_update counts its three phases, for up to three sketches; one of
@@ -991,9 +995,179 @@ def portscan_score(keys, weights, groups, precision, seed):
     return out
 
 
+# The bank's close (K12, K13 and the detectors' EWMA): csrc/detect.cu
+# bank_close_kernel.
+
+BANK_MAX_SLOTS = 8  # kBankMaxSlots in csrc/detect.cu: slots a launch
+BANK_MAX_BINS = 256  # 32 * kBinsPerLane there: histogram bins a slot
+BANK_ROW = 5  # kBankRow there: a slot's row, [score vector (3), z, flag]
+BANK_TABLE_FEATURES = 512  # kBankFeatures there: features a launch's table carries
+BANK_DNSTUNNEL, BANK_SYNFLOOD, BANK_PORTSCAN = 0, 1, 2  # enum Kind there
+
+
+class _BankSlot(ctypes.Structure):
+    """``BankSlot`` of csrc/detect.cu."""
+
+    _fields_ = [("x", _VP), ("out", _VP), ("kind", _INT), ("n", _INT), ("state", _INT),
+                ("off", _INT), ("z_thresh", _FLT), ("min_windows", _FLT), ("alpha", _FLT),
+                ("pad", _INT)]
+
+
+class _BankTable(ctypes.Structure):
+    """``BankTable`` of csrc/detect.cu: passed by value to the kernel."""
+
+    _fields_ = [("mean", _VP), ("var", _VP), ("n_obs", _VP), ("n_slots", _INT),
+                ("pad", _INT), ("slots", _BankSlot * BANK_MAX_SLOTS),
+                ("feat", _FLT * BANK_TABLE_FEATURES)]
+
+
+def _host_device_pointer(t: torch.Tensor) -> int:
+    """The device address of the page-locked tensor ``t``
+    (cudaHostGetDevicePointer)."""
+    fn = build.load("detect")["host_device_pointer"]
+    fn.argtypes, fn.restype = [_VP, ctypes.POINTER(_VP)], ctypes.c_int
+    out = _VP()
+    rc = fn(t.data_ptr(), ctypes.byref(out))
+    if rc != 0 or not out.value:
+        raise RuntimeError(f"cudaHostGetDevicePointer: CUDA error {rc}")
+    return out.value
+
+
+class BankCloseIO:
+    """The page-locked rows of one detector bank's closes on one card
+    (``out``: n_slots * BANK_ROW float32, which the kernel writes through
+    the buffer's device address) and the event a close waits on. A close
+    launches, then reads ``out`` after the event: its owner must not start
+    another close before (the bank's lock orders them)."""
+
+    def __init__(self, device: torch.device | str, n_slots: int = BANK_MAX_SLOTS) -> None:
+        self.device = torch.device(device)
+        self.out = torch.zeros(max(1, n_slots) * BANK_ROW, dtype=torch.float32, pin_memory=True)
+        self.out_np = self.out.numpy()
+        with torch.cuda.device(self.device):
+            self.event = torch.cuda.Event()
+            self.out_dev = _host_device_pointer(self.out)
+
+
+def _bank_slots_check(slots, dev: torch.device) -> list[int]:
+    """The features' lengths of ``slots`` (0 where a slot is inactive)."""
+    if not slots:
+        raise ValueError("no bank slots")
+    sizes = []
+    for i, (kind, x, *_knobs) in enumerate(slots):
+        if kind not in (BANK_DNSTUNNEL, BANK_SYNFLOOD, BANK_PORTSCAN):
+            raise ValueError(f"slot {i}: unknown kind {kind}")
+        if x is None:
+            sizes.append(0)
+            continue
+        if kind == BANK_PORTSCAN:
+            _state(x, f"slot {i} estimates", dev, dtype=torch.float32)
+            if x.dim() != 1 or x.shape[0] < 1:
+                raise ValueError(f"slot {i} estimates must be (groups,), got {tuple(x.shape)}")
+            sizes.append(x.shape[0])
+            continue
+        if not isinstance(x, np.ndarray) or x.dtype != np.float32:
+            raise TypeError(f"slot {i} features must be a float32 numpy array")
+        n = x.size
+        if kind == BANK_SYNFLOOD and x.shape != (9,):
+            raise ValueError(f"slot {i} tcpflag lanes must be (9,), got {x.shape}")
+        if kind == BANK_DNSTUNNEL and (x.shape != (1, n) or not 1 <= n <= BANK_MAX_BINS):
+            raise ValueError(f"slot {i} histogram must be (1, nbins), 1 <= nbins <= "
+                             f"{BANK_MAX_BINS}, got {x.shape}")
+        sizes.append(n)
+    return sizes
+
+
+def _bank_tables(slots, sizes, mean, var, n_obs, io) -> list[_BankTable]:
+    """The kernel's tables of the active slots of ``slots``, in order: a
+    table holds at most BANK_MAX_SLOTS slots and BANK_TABLE_FEATURES floats
+    of histograms and lanes (end to end in its ``feat``; a portscan slot
+    points at its estimates), so a bank of the three built-ins is one
+    table. Slot i writes row i of ``io.out`` and steps state i."""
+    tables: list[_BankTable] = []
+    off = BANK_TABLE_FEATURES
+    for i, ((kind, x, z_thresh, min_windows, alpha), n) in enumerate(zip(slots, sizes)):
+        if not n:
+            continue
+        carried = 0 if kind == BANK_PORTSCAN else n
+        if (not tables or tables[-1].n_slots == BANK_MAX_SLOTS
+                or off + carried > BANK_TABLE_FEATURES):
+            table = _BankTable()
+            table.mean, table.var, table.n_obs = mean.data_ptr(), var.data_ptr(), n_obs.data_ptr()
+            tables.append(table)
+            off = 0
+        table = tables[-1]
+        e = table.slots[table.n_slots]
+        table.n_slots += 1
+        if kind == BANK_PORTSCAN:
+            e.x = x.data_ptr()
+        else:
+            src = np.ascontiguousarray(x)
+            ctypes.memmove(ctypes.addressof(table.feat) + 4 * off, src.ctypes.data, 4 * n)
+            e.off = off
+            off += n
+        e.out = io.out_dev + 4 * BANK_ROW * i
+        e.kind, e.n, e.state = kind, n, i
+        e.z_thresh, e.min_windows, e.alpha = float(z_thresh), float(min_windows), float(alpha)
+    return tables
+
+
+def bank_close(slots, mean, var, n_obs, io=None):
+    """The bank's close (K12, K13 and the EWMA of K11's maximum): a window's
+    scores of the detectors of ``slots`` and their anomaly EWMA on the card,
+    one launch for up to BANK_MAX_SLOTS active slots whose histograms and
+    lanes fit BANK_TABLE_FEATURES floats (the three built-ins; more take a
+    launch each such group) and one wait. Slot i is (kind, x, z_thresh,
+    min_windows, alpha): x is a (1, nbins) float32 numpy histogram
+    (BANK_DNSTUNNEL), the (9,) float32 numpy tcpflag lanes (BANK_SYNFLOOD),
+    K11's (G,) float32 estimates on the state's device (BANK_PORTSCAN), or
+    None: inactive, no score and no EWMA step. Slot i's EWMA state is
+    ``mean``, ``var``, ``n_obs`` [i] ((S,) float32 on the device the close
+    runs on), updated in place. Returns (score, z, flag) (S,) on the host
+    (float32, float32, bool; 0 for inactive slots), after one wait on
+    ``io``'s event (a BankCloseIO of at least S rows; a fresh one if
+    None)."""
+    dev = mean.device
+    n_slots = len(slots)
+    for t, name in ((mean, "ewma mean"), (var, "ewma var"), (n_obs, "ewma n_obs")):
+        _state(t, name, dev, dtype=torch.float32, shape=(n_slots,))
+    sizes = _bank_slots_check(slots, dev)
+    if not _on_card(dev):
+        from retina_tpu_torch.detect.programs import bank_close_plain
+
+        return bank_close_plain(slots, mean, var, n_obs)
+    if not any(sizes):
+        return torch.zeros(n_slots), torch.zeros(n_slots), torch.zeros(n_slots, dtype=torch.bool)
+    io = io if io is not None else BankCloseIO(dev, n_slots)
+    if io.out_np.size < n_slots * BANK_ROW:
+        raise ValueError(f"the bank's rows hold {io.out_np.size // BANK_ROW} slots, not "
+                         f"{n_slots}")
+    for table in _bank_tables(slots, sizes, mean, var, n_obs, io):
+        _launch("bank_close", dev, ctypes.addressof(table))
+    io.event.record(torch.cuda.current_stream(dev))
+    io.event.synchronize()
+    rows = np.where(np.array(sizes)[:, None] > 0, io.out_np.reshape(-1, BANK_ROW)[:n_slots], 0)
+    return (torch.from_numpy(rows[:, 0].copy()), torch.from_numpy(rows[:, 3].copy()),
+            torch.from_numpy(rows[:, 4] != 0))
+
+
+def _one_slot(name, kind, x, n):
+    """K12 or K13 alone: a one-slot launch of the bank's close with no EWMA
+    step, its row written to a tensor on the card."""
+    dev = x.device
+    out = torch.empty((BANK_ROW,), dtype=torch.float32, device=dev)
+    table = _BankTable()
+    table.n_slots = 1
+    e = table.slots[0]
+    e.x, e.out, e.kind, e.n, e.state = x.data_ptr(), out.data_ptr(), kind, n, -1
+    _launch(name, dev, ctypes.addressof(table))
+    return out
+
+
 def dnstunnel_score(hist):
     """The dnstunnel program (K12): a (1, nbins) float32 qname-length
-    histogram -> (2,) float32 [entropy bits, total]."""
+    histogram -> (2,) float32 [entropy bits, total]. On the card a one-slot
+    launch of the bank's close (nbins <= BANK_MAX_BINS)."""
     dev = hist.device
     _state(hist, "histogram", dev, dtype=torch.float32)
     if hist.dim() != 2 or hist.shape[0] != 1 or not 1 <= hist.shape[1] <= 0x7FFFFFFF:
@@ -1002,23 +1176,23 @@ def dnstunnel_score(hist):
         from retina_tpu_torch.detect.programs import dnstunnel_plain
 
         return dnstunnel_plain(hist)
-    out = torch.empty((2,), dtype=torch.float32, device=dev)
-    _launch("dnstunnel_score", dev, hist.data_ptr(), hist.shape[1], out.data_ptr())
-    return out
+    if hist.shape[1] > BANK_MAX_BINS:
+        raise ValueError(f"{hist.shape[1]} histogram bins do not fit the kernel (at most "
+                         f"{BANK_MAX_BINS})")
+    return _one_slot("dnstunnel_score", BANK_DNSTUNNEL, hist, hist.shape[1])[:2]
 
 
 def synflood_score(lanes):
     """The synflood program (K13): (9,) float32 tcpflag lanes -> (3,)
-    float32 [syn / max(ack, 1), syn / max(total, 1), syn]."""
+    float32 [syn / max(ack, 1), syn / max(total, 1), syn]. On the card a
+    one-slot launch of the bank's close."""
     dev = lanes.device
     _state(lanes, "tcpflag lanes", dev, dtype=torch.float32, shape=(9,))
     if not _on_card(dev):
         from retina_tpu_torch.detect.programs import synflood_plain
 
         return synflood_plain(lanes)
-    out = torch.empty((3,), dtype=torch.float32, device=dev)
-    _launch("synflood_score", dev, lanes.data_ptr(), out.data_ptr())
-    return out
+    return _one_slot("synflood_score", BANK_SYNFLOOD, lanes, 9)[:3]
 
 
 # ---------------------------------------------------------------------------

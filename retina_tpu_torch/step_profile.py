@@ -168,12 +168,16 @@ after one window of the bench stream: "close"), the fleet union of 131,072
 candidate rows (a row-major (R, 4) tensor, "union"), one row ("1 row") and
 65,536 and 262,144 rows;
 beside them ``torch.gather`` + ``amin`` on indices computed beforehand (the
-library call). End to end, each by the host clock around calls synchronised
-alone: ``Telemetry.inv_decode`` on that state (its span, device time and
-launches); the detector bank's close of the sweep window, whole and split
-into the portscan feature build, the copies to the card, the K11-K13 calls
-and the anomaly EWMA (each stage synchronised; the rest is the host's
-reading of the scores and the bank's bookkeeping); a warm merge of 64
+library call). The bank's close kernel (``kops.bank_close``) on the sweep
+window's features, a close of the three built-in detectors, by device time
+and by the host's wall time of a call, beside ``torch.special.entr`` +
+``sum`` (the library call). End to end, each by the host clock around
+calls synchronised alone: ``Telemetry.inv_decode`` on that state (its span,
+device time and launches); the detector bank's close of the sweep window,
+whole, its launches, host syncs and device time a close from
+torch.profiler, and split into the portscan feature build, the copies to
+the card, K11, and the scores and EWMA (``kops.bank_close``) (each stage
+synchronised; the rest is the host's judging and the bank's bookkeeping); a warm merge of 64
 nodes' frames (``FleetAggregator``: 64 engines' closes of 2^18 events each,
 as chip_smoke.py's fleet path) and a warm 32-window range query
 (``QueryService._query`` over the ring of 34 closed windows of 2^21 events).
@@ -1385,18 +1389,53 @@ def fleet_and_range(dev) -> dict:
     return {"merge_64_ms": merge_ms, "query_32_ms": query_ms}
 
 
+# The CUDA runtime calls that make the host wait for the card.
+HOST_SYNCS = ("cudaStreamSynchronize", "cudaEventSynchronize", "cudaDeviceSynchronize",
+              "cudaMemcpy")
+
+
+def close_counts(close, reps: int = 10) -> dict:
+    """A close's work on the card and the host's waits for it, from
+    torch.profiler over ``reps`` calls of ``close()`` (each observes a window
+    and flushes it): {"launches": kernels, copies and fills a close on the
+    card, "host_syncs": HOST_SYNCS calls a close, "device_ms": device time a
+    close, "by_name": {name: (device ms, launches) a close}}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    close()
+    for _ in range(4):
+        _drain_profiler()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)  # the tracer is on before the first close
+            for _ in range(reps):
+                close()
+        by_name, syncs = {}, 0
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                by_name[e.key] = (e.self_device_time_total / 1e3 / reps, e.count / reps)
+            elif e.key in HOST_SYNCS:
+                syncs += e.count
+        if by_name:
+            break
+    return {"launches": sum(v[1] for v in by_name.values()), "host_syncs": syncs / reps,
+            "device_ms": sum(v[0] for v in by_name.values()), "by_name": by_name}
+
+
 def bank_close(dev, sweep) -> dict:
     """The detector bank's close of one window (``sweep``, 2^16 rows): ms
-    of the whole close (the card synchronised before and after), then the
-    close split by stage, each stage synchronised: the portscan feature
-    build (``padded_flow_keys``, host), the copies to the card, the K11-K13
-    calls and the anomaly EWMA's observe; the rest is the host's reading of
-    the scores, the arbitration and the metrics."""
+    of the whole close (the card synchronised before and after); its
+    launches, host syncs and device time by kernel (``close_counts``); then
+    the close split by stage, each stage synchronised: the portscan feature
+    build (``padded_flow_keys``, host), the copies to the card
+    (``from_numpy``), K11, and the scores and EWMA (``kops.bank_close``);
+    the rest is the host's judging, arbitration and metrics."""
     import torch
 
     from retina_tpu_torch.config import Config
     from retina_tpu_torch.detect import build_default_bank, detectors, features, programs
-    from retina_tpu_torch.ops import entropy
+    from retina_tpu_torch.kernels import ops as kops
 
     def close_ms(bank, epoch) -> float:
         """Observe one window, then close it (``flush``: the next observe
@@ -1411,7 +1450,17 @@ def bank_close(dev, sweep) -> dict:
     bank = build_default_bank(Config(), device=dev)
     whole = [close_ms(bank, e) for e in range(12)]
     whole = whole[2:]
-    stages = {"features": 0.0, "copies": 0.0, "kernels": 0.0, "ewma": 0.0}
+    epoch = [100]
+
+    def one_close():
+        bank.observe(epoch[0], sweep, now_s=float(epoch[0]))
+        bank.flush(now_s=float(epoch[0]))
+        epoch[0] += 1
+
+    counts = close_counts(one_close)
+    stage_of = [(features, "padded_flow_keys", "features"), (detectors, "from_numpy", "copies"),
+                (programs, "portscan_program", "K11"), (kops, "bank_close", "scores and EWMA")]
+    stages = {stage: 0.0 for _, _, stage in stage_of}
     saved = []
 
     def timed(obj, name, stage):
@@ -1428,11 +1477,8 @@ def bank_close(dev, sweep) -> dict:
 
         setattr(obj, name, wrapper)
 
-    timed(features, "padded_flow_keys", "features")
-    timed(detectors, "from_numpy", "copies")
-    for name in ("portscan_program", "dnstunnel_program", "synflood_program"):
-        timed(programs, name, "kernels")
-    timed(entropy.AnomalyEWMA, "observe", "ewma")
+    for obj, name, stage in stage_of:
+        timed(obj, name, stage)
     try:
         split = [close_ms(bank, e) for e in range(12, 22)]
     finally:
@@ -1443,11 +1489,59 @@ def bank_close(dev, sweep) -> dict:
     out["rest"] = sum(split) / n - sum(out.values())
     out["whole_ms"] = whole
     out["whole_instrumented_ms"] = sum(split) / n
+    out |= {k: counts[k] for k in ("launches", "host_syncs", "device_ms")}
     print(f"bank close (sweep window, {len(sweep)} rows): "
-          f"{', '.join(f'{x:.3f}' for x in whole)} ms; instrumented "
-          f"{out['whole_instrumented_ms']:.3f} ms = "
-          + ", ".join(f"{k} {out[k]:.3f}" for k in ("features", "copies", "kernels", "ewma",
-                                                      "rest")), flush=True)
+          f"{', '.join(f'{x:.3f}' for x in whole)} ms; {counts['launches']:.1f} launches "
+          f"(kernels, copies, fills), {counts['host_syncs']:.1f} host syncs "
+          f"({'/'.join(HOST_SYNCS)}), device time {counts['device_ms']:.4f} ms a close ("
+          + ", ".join(f"{k[:40]} {v[1]:.0f}x {v[0]:.4f}" for k, v in counts["by_name"].items())
+          + f"); instrumented {out['whole_instrumented_ms']:.3f} ms = "
+          + ", ".join(f"{k} {out[k]:.3f}" for k in (*stages, "rest")), flush=True)
+    return out
+
+
+def bank_close_kernel(dev, sweep, measure, l2) -> dict:
+    """The bank's close kernel alone on the sweep window's features (its
+    histogram, lanes and K11's estimates, made beforehand), a close of the
+    three built-ins from a warm state: device time back to back and L2
+    flushed (``measure``), and the host's wall time of a call (the
+    wrapper waits for its rows), the mean of 200 after 20."""
+    import torch
+
+    from retina_tpu_torch.detect import features, programs
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.u32 import from_numpy
+
+    hist = features.qname_length_hist(sweep)
+    lanes = features.tcpflag_lanes(sweep)
+    keys, w = features.padded_flow_keys(sweep)
+    est = programs.portscan_program(from_numpy(keys, dev), from_numpy(w, dev))
+    slots = [(kops.BANK_DNSTUNNEL, hist, 8.0, 3, 0.1), (kops.BANK_PORTSCAN, est, 8.0, 3, 0.1),
+             (kops.BANK_SYNFLOOD, lanes, 8.0, 3, 0.1)]
+    # The features and the state read once, the state and rows written once.
+    nbytes = 4 * (hist.size + lanes.size + est.numel()) + 2 * 3 * 3 * 4 + 3 * kops.BANK_ROW * 4
+    out = {}
+    io = kops.BankCloseIO(dev, 3)
+    state = [torch.zeros(3, device=dev) for _ in range(3)]
+    fn = lambda: kops.bank_close(slots, *state, io=io)  # noqa: E731
+    label = "bank close"
+    measure(label, fn, None, nbytes)
+    for _ in range(20):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    out[label] = (time.perf_counter() - t0) / 200 * 1e3
+    print(f"{label}: host wall time of a call {out[label]:.4f} ms", flush=True)
+    p = torch.from_numpy(hist).to(dev) / float(hist.sum())
+    lib = lambda: torch.special.entr(p).sum()  # noqa: E731
+    names = call_names(lib)
+    out["library"] = sum(v[0] for v in call_profile(lib, names=names).values())
+    out["library_flushed"] = sum(v[0] for v in call_profile(
+        lib, lambda: l2.zero_(), names=names).values())
+    print(f"library: torch.special.entr + sum on p computed beforehand, device time "
+          f"{out['library']:.4f} ms back to back, {out['library_flushed']:.4f} ms L2 flushed",
+          flush=True)
     return out
 
 
@@ -1530,7 +1624,8 @@ def detect_query(dev, recs, ident) -> dict:
                             names=names)
         dev_ms = sum(v[0] for v in warm.values())
         cold_ms = sum(v[0] for v in cold.values())
-        kern = {"K11": "portscan", "K10": "query_kernel", "K15": "decode_kernel"}.get(label[:3])
+        kern = {"K11": "portscan", "K10": "query_kernel", "K15": "decode_kernel",
+                "ban": "bank_close_kernel"}.get(label[:3])
         k_warm = sum(v[0] for k, v in warm.items() if kern and kern in k)
         k_cold = sum(v[0] for k, v in cold.items() if kern and kern in k)
         span = span_ms(fn, prep)
@@ -1567,6 +1662,7 @@ def detect_query(dev, recs, ident) -> dict:
         print(f"library: torch.gather + amin at the {label} ({idx.shape[1]} rows): device "
               f"time {warm:.4f} ms back to back, {cold:.4f} ms L2 flushed", flush=True)
 
+    result["bank_close_kernel"] = bank_close_kernel(dev, inp["sweep"], measure, l2)
     # End to end: a close's inv_decode, the bank's close, the merge and query.
     dec = lambda: tel.inv_decode(st)  # noqa: E731
     names = call_names(dec)

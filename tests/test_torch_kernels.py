@@ -1317,7 +1317,8 @@ def test_pipeline_on_card_matches_cpu(card):
                       "entropy_update": 2,
                       "conntrack": 0, "inv_update": 0, "ingest_packed": 0, "ingest_new": 0,
                       "ingest_known": 0, "fold": 0, "topk_join": 0, "cms_query": 0,
-                      "portscan_score": 0, "dnstunnel_score": 0, "synflood_score": 0,
+                      "portscan_score": 0, "bank_close": 0, "dnstunnel_score": 0,
+                      "synflood_score": 0,
                       "latency_update": 2, "inv_decode": 0, "window_close": 0,
                       "entropy_bits": 0, "snapshot_flat": 0, "hll_estimate": 0, "ct_active": 0}
     on_cpu = _run_steps(TelemetryPipeline(CFG, device="cpu"), "cpu")
@@ -1986,6 +1987,183 @@ def test_detect_synflood_kernel_is_exact(card):
             ref = programs.synflood_program(x)
         torch.cuda.synchronize()
         assert torch.equal(out, ref)
+
+
+# The bank's close: three slots in the bank's order (dnstunnel, portscan,
+# synflood), each with its own (z_thresh, min_windows, alpha).
+BANK_KINDS = (kops.BANK_DNSTUNNEL, kops.BANK_PORTSCAN, kops.BANK_SYNFLOOD)
+BANK_KNOBS = ((8.0, 3, 0.1), (4.0, 2, 0.1), (3.0, 5, 0.25))
+BANK_CASES = ("first", "warmup", "flagged", "inactive", "ack_zero", "total_zero",
+              "zero_hist", "one_bin", "mixed")
+
+
+def bank_windows(case: str) -> list[list]:
+    """The features of a sequence of window closes of the bank's three
+    slots, made from a seed with numpy: each window [hist (1, 64), estimates
+    (32,), lanes (9,)] float32, or None for an inactive slot. "first": one
+    window; "warmup": noisy benign windows up to and past every slot's
+    min_windows; "flagged": benign windows, one outlier in every slot (it
+    must not enter the baseline), benign again; "inactive": each slot
+    inactive in every third window; "ack_zero", "total_zero": lanes with no
+    ACK, all-zero lanes; "zero_hist", "one_bin": an all-zero and a one-bin
+    histogram, among benign windows; "mixed": all of them."""
+    rng = np.random.default_rng(BANK_CASES.index(case) + 70)
+
+    def benign():
+        hist = np.zeros((1, 64), np.float32)
+        hist[0, 8:17] = rng.integers(20, 300, 9)
+        est = rng.uniform(1.0, 5.0, 32).astype(np.float32)
+        lanes = np.zeros(9, np.float32)
+        lanes[8] = rng.integers(5000, 9000)
+        lanes[4] = lanes[8] - rng.integers(0, 200)
+        lanes[1] = rng.integers(100, 600)
+        return [hist, est, lanes]
+
+    def outlier():
+        hist = rng.integers(0, 500, (1, 64)).astype(np.float32)
+        est = rng.uniform(1.0, 5.0, 32).astype(np.float32)
+        est[7] = 40.0
+        lanes = np.array([0, 9000, 0, 0, 300, 0, 0, 0, 9400], np.float32)
+        return [hist, est, lanes]
+
+    n = {"first": 1, "warmup": 8, "flagged": 14, "inactive": 12, "mixed": 16}.get(case, 8)
+    windows = [benign() for _ in range(n)]
+    if case in ("flagged", "mixed"):
+        windows[9] = outlier()
+    if case in ("inactive", "mixed"):
+        for t, w in enumerate(windows):
+            for j in range(3):
+                if (t + j) % 3 == 0:
+                    w[j] = None
+    if case in ("ack_zero", "mixed"):
+        windows[5][2] = np.array([0, 700, 0, 0, 0, 0, 0, 0, 700], np.float32)
+    if case in ("total_zero", "mixed"):
+        windows[6][2] = np.zeros(9, np.float32)
+    if case in ("zero_hist", "mixed"):
+        windows[4][0] = np.zeros((1, 64), np.float32)
+    if case in ("one_bin", "mixed"):
+        windows[7][0] = np.zeros((1, 64), np.float32)
+        windows[7][0][0, 11] = 321.0
+    return windows
+
+
+def bank_slots(window, device) -> list:
+    """``kops.bank_close``'s slots of one window of ``bank_windows``: the
+    estimates as a tensor on ``device``."""
+    return [(kind, None if x is None else (torch.from_numpy(x).to(device)
+                                           if kind == kops.BANK_PORTSCAN else x), *knobs)
+            for kind, x, knobs in zip(BANK_KINDS, window, BANK_KNOBS)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BANK_CASES)
+def test_bank_close_kernel_matches_plain(card, case):
+    """The bank's close on the card against its plain version, window by
+    window from the same state: one launch a close (none when every slot
+    is inactive), scores (synflood and portscan exact, dnstunnel rtol
+    1e-5), flags equal, z atol 1e-4, mean rtol 1e-5, var atol 1e-6, n_obs
+    equal."""
+    io = kops.BankCloseIO(card, 3)
+    state = [torch.zeros(3, device=card) for _ in range(3)]
+    ref = [torch.zeros(3, device=card) for _ in range(3)]
+    for window in bank_windows(case):
+        slots = bank_slots(window, card)
+        before = kops.launch_counts()["bank_close"]
+        score, z, flag = kops.bank_close(slots, *state, io=io)
+        active = any(x is not None for x in window)
+        assert kops.launch_counts()["bank_close"] == before + active
+        with kops.plain_versions():
+            r_score, r_z, r_flag = kops.bank_close(slots, *ref)
+        torch.cuda.synchronize()
+        assert torch.equal(flag, r_flag)
+        torch.testing.assert_close(score[0], r_score[0], rtol=1e-5, atol=0)
+        assert torch.equal(score[1:], r_score[1:])
+        torch.testing.assert_close(z, r_z, rtol=0, atol=1e-4)
+        torch.testing.assert_close(state[0], ref[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(state[1], ref[1], rtol=0, atol=1e-6)
+        assert torch.equal(state[2], ref[2])
+
+
+@pytest.mark.gpu
+def test_bank_close_kernel_over_several_tables(card):
+    """More slots than one launch's table holds: twelve slots of the
+    "mixed" windows, the histograms widened to 256 bins, so a table a
+    launch (3 dnstunnel slots fill 512 floats past a table's slot count of
+    8) and one wait; each slot against the plain version at the same
+    tolerances."""
+    io = kops.BankCloseIO(card, 12)
+    state = [torch.zeros(12, device=card) for _ in range(3)]
+    ref = [torch.zeros(12, device=card) for _ in range(3)]
+    rng = np.random.default_rng(29)
+    for window in bank_windows("mixed"):
+        slots = []
+        for rep in range(4):
+            for (kind, x, *knobs) in bank_slots(window, card):
+                if kind == kops.BANK_DNSTUNNEL and x is not None:
+                    x = np.concatenate([x, rng.integers(0, 50, (1, 192)).astype(np.float32)],
+                                       axis=1)
+                slots.append((kind, x, *knobs))
+        sizes = kops._bank_slots_check(slots, state[0].device)
+        want = len(kops._bank_tables(slots, sizes, *state, io))
+        before = kops.launch_counts()["bank_close"]
+        score, z, flag = kops.bank_close(slots, *state, io=io)
+        assert kops.launch_counts()["bank_close"] == before + want
+        with kops.plain_versions():
+            r_score, r_z, r_flag = kops.bank_close(slots, *ref)
+        torch.cuda.synchronize()
+        dns = torch.tensor([k == kops.BANK_DNSTUNNEL for k, *_ in slots])
+        assert torch.equal(flag, r_flag)
+        torch.testing.assert_close(score[dns], r_score[dns], rtol=1e-5, atol=0)
+        assert torch.equal(score[~dns], r_score[~dns])
+        torch.testing.assert_close(z, r_z, rtol=0, atol=1e-4)
+        torch.testing.assert_close(state[0], ref[0], rtol=1e-5, atol=0)
+        torch.testing.assert_close(state[1], ref[1], rtol=0, atol=1e-6)
+        assert torch.equal(state[2], ref[2])
+
+
+@pytest.mark.gpu
+def test_bank_close_on_card_matches_cpu_bank(card):
+    """A default bank on the card against one on the CPU over benign and
+    attack windows: the same firings, scores and z; each close on the card
+    one K11 and one bank_close launch, no K12 or K13 alone and no
+    AnomalyEWMA.observe call; ``Detector.judge`` alone steps the bank's
+    state (its ``_ewma`` views it)."""
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.detect import build_default_bank
+    from retina_tpu_torch.ops import entropy
+
+    gens = {m: TrafficGen(n_flows=100_000, n_pods=2048, mode=m, seed=83)
+            for m in ("mix", "syn_storm", "dns_flood", "portscan")}
+    banks = [build_default_bank(Config(detector_min_windows=2), device=d) for d in (card, "cpu")]
+    calls = []
+    observe = entropy.AnomalyEWMA.observe
+    entropy.AnomalyEWMA.observe = lambda *a, **kw: (calls.append(1), observe(*a, **kw))[1]
+    try:
+        for e, mode in enumerate(["mix"] * 4 + ["syn_storm", "mix", "dns_flood", "portscan"]):
+            rec = gens[mode].batch(1 << 14)
+            for b in banks:
+                b.observe(e, rec, now_s=float(e))
+            calls.clear()
+            kops.reset_launch_counts()
+            got = banks[0].flush(now_s=float(e))
+            assert not calls
+            counts = {k: v for k, v in kops.launch_counts().items() if v}
+            assert counts == {"portscan_score": 1, "bank_close": 1}, counts
+            want = banks[1].flush(now_s=float(e))
+            assert [(d.detector, d.epoch) for d in got] == [(d.detector, d.epoch) for d in want]
+            for name, score in banks[1].detector_score.items():
+                np.testing.assert_allclose(banks[0].detector_score[name], score, rtol=1e-5)
+                np.testing.assert_allclose(banks[0].detector_zscore[name],
+                                           banks[1].detector_zscore[name], atol=1e-4)
+    finally:
+        entropy.AnomalyEWMA.observe = observe
+    assert banks[0].fired, "no attack window fired"
+    syn = next(d for d in banks[0].detectors if d.name == "synflood")
+    syn.add_records(gens["syn_storm"].batch(1 << 14))
+    n_obs = float(banks[0]._state[2][2])
+    syn.judge(100)
+    assert float(banks[0]._state[2][2]) == n_obs + 1
+    assert syn._ewma.n_obs.data_ptr() == banks[0]._state[2][2:].data_ptr()
 
 
 API = 0x7F000001
