@@ -127,6 +127,20 @@ copy a side, K7 ingest, one step a window), over three distinct quanta of
   document. It prints the GET time and its split into snapshot, publish
   and render, the exposition's size and the queries' latency (see
   ``scrape_surface``).
+- the supervision path: the deployed ``Config()`` under a ``Supervisor``
+  (watchdog deadline 5 s): a quantum flushed and checkpointed, an injected
+  transfer fault on an asynchronous dispatch, degraded drop-and-count, the
+  crash-only recovery from the checkpoint and its zero-row probe (K7 and
+  the step's kernels), two quanta, a close and a snapshot after it, held
+  against a second engine that loaded the checkpoint and took the same
+  quanta under the plain versions; a torn checkpoint quarantined; the
+  checkpoint's save and load times at DEPLOYED_CONFIG and
+  INVERTIBLE_CONFIG. Then the script starts itself as a child
+  (``--sticky-child``) that runs the lanes on the card, poisons the CUDA
+  context with a device-side assert and must end, within its bound, with
+  ``recovery_failed`` set and the state still on the card (see
+  ``supervision_phase`` and ``sticky_child``). Each runtime run also prints
+  the flight recorder's stage report and its seconds by thread and stage.
 
 Each path's launch counts are set to 0 just before it and read just after,
 and every kernel of the path must have launched. The state, step summaries,
@@ -1031,6 +1045,7 @@ def main() -> int:
     cms_update_phase(dev, host[0], time_ms, report, results, equal_int, row12_set)
     runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     scrape_surface(dev, quanta, time_ms, report, results)
+    supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -2916,6 +2931,20 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
               f"stages {({k: round(v, 3) for k, v in st.items()})}; per worker busy "
               f"{[round(x['busy_s'], 3) for x in fs['per_worker']]}; overload "
               f"{fs['overload']['state']}; launches {launches}", flush=True)
+        # The flight recorder's spans of the run (host clock): by stage, and
+        # the seconds each thread spent in each stage (the proxy's are the
+        # transfer and device_step spans: its host time issuing them).
+        rep = eng._recorder.stage_report()
+        print(f"{label}: recorder stage_report (count, total s, p50 ms, p99 ms): " + "; ".join(
+            f"{k} {v['count']} {v['total_s']:.3f} {v['p50_s'] * 1e3:.3f} "
+            f"{v['p99_s'] * 1e3:.3f}" for k, v in rep.items()), flush=True)
+        by_thread: dict = {}
+        for span in eng._recorder.spans():
+            th = by_thread.setdefault(span["thread"], {})
+            th[span["stage"]] = th.get(span["stage"], 0.0) + span["t1"] - span["t0"]
+        print(f"{label}: recorder seconds by thread and stage " + str(
+            {t: {k: round(v, 3) for k, v in st.items()} for t, st in sorted(by_thread.items())}),
+            flush=True)
         check(eng.errors == {}, f"{label}: errors {dict(eng.errors)}")
         check(not eng.lost_events.get("dispatch") and not eng.lost_events.get("device"),
               f"{label}: the dispatch thread lost events {dict(eng.lost_events)}")
@@ -3444,5 +3473,302 @@ def scrape_surface(dev, quanta, time_ms, report, results) -> None:
     print(f"scrape phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+
+SUP_DEADLINE_S = 5.0  # the phase's watchdog deadline (and the recovery's fence bound)
+SUP_WAIT_S = 120.0  # the bound on each wait of the supervision phase
+STICKY_TIMEOUT_S = 240  # the bound on the sticky-error child, its start included
+
+
+def supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any
+                      ) -> None:
+    """The supervised runtime at the deployed width (``Config()``:
+    DEPLOYED_CONFIG) on the card, under a ``Supervisor`` whose watchdog
+    deadline is 5 s:
+
+    1. checkpoint and fault: one quantum of bench.py's traffic flushed
+       synchronously, the state saved (``save_snapshot_state``), then
+       ``transfer:raise@1,recover:hang30`` armed and one asynchronous
+       dispatch submitted;
+    2. degraded mode: ``degraded`` and ``degraded_mode`` 1, and a second
+       asynchronous dispatch dropped and counted under
+       ``lost_events["degraded"]``;
+    3. recovery: the hang released; ``restarts``, ``engine_restarts`` 1,
+       ``recovery_failed`` unset, ``degraded_mode`` 0;
+    4. the probe (K7's packed side and the step's kernels, by the wrappers'
+       counts) and two quanta flushed after it, with a close and a snapshot
+       (K7's new side, K1-K5, K14, K16, K17); a second engine that loaded the
+       same checkpoint takes the same quanta, and the two states, windows
+       and snapshots must be equal (integers exactly, floats by the
+       module's rules); totals[0] is the checkpointed packets plus those fed
+       after the recovery;
+    5. a torn checkpoint (``checkpoint:corrupt@1``): a fresh engine's load
+       returns False, the file is quarantined to ``.bad`` and the state is
+       zero, on the card.
+
+    Prints the checkpoint's save and load times at DEPLOYED_CONFIG and at
+    INVERTIBLE_CONFIG, ``recovery_seconds`` and the probe's launches. Then
+    the sticky-error child (``sticky_child``) in a subprocess: its JSON line
+    and exit code must show ``recovery_failed`` set within its bound, the
+    state still on the card."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.convert import tensor_leaves
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.metrics import get_metrics
+    from retina_tpu_torch.runtime import faults
+    from retina_tpu_torch.runtime.supervisor import Supervisor
+    from retina_tpu_torch.u32 import to_numpy
+
+    t_phase = time.perf_counter()
+    m = get_metrics()
+
+    def wait(pred, what: str) -> None:
+        deadline = time.monotonic() + SUP_WAIT_S
+        while not pred():
+            check(time.monotonic() < deadline, f"supervision: timed out waiting for {what}")
+            time.sleep(0.01)
+
+    def packets(blocks) -> int:
+        return sum(int(b[:, F.PACKETS].astype(np.uint64).sum()) for b in blocks)
+
+    def async_dispatch(eng, blocks, now_s) -> int:
+        """One quantum's first batch, submitted as the dispatch thread does;
+        its events."""
+        _, sb, now, n = eng._build_quantum(blocks, sum(len(b) for b in blocks), now_s)[0]
+        eng._dispatch_sharded(sb, now, n, sync=False)
+        return int(sb.events) + int(sb.lost)
+
+    tmp = tempfile.mkdtemp(prefix="retina-supervision-")
+    # -- the checkpoint's cost at the two configurations ------------------
+    for label, cfg in (("DEPLOYED_CONFIG", Config()),
+                       ("INVERTIBLE_CONFIG", Config(heavy_keys_source="invertible"))):
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        eng.flush(quanta[0], 100)
+        torch.cuda.synchronize()
+        path = os.path.join(tmp, f"{label}.npz")
+        save_ms, load_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.save_snapshot_state(path)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+            other = SketchEngine(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            check(other.load_snapshot_state(path), f"supervision: {label} did not resume")
+            torch.cuda.synchronize()
+            load_ms.append((time.perf_counter() - t0) * 1e3)
+            for (leaf, a), (_, b) in zip(named_leaves(eng.state), named_leaves(other.state)):
+                check(b.device == a.device, f"supervision: {label} loaded {leaf} off the card")
+                check(bool(torch.equal(a, b)), f"supervision: {label} leaf {leaf} did not "
+                      "round-trip")
+            other.stop()
+        leaves = sum(t.numel() * t.element_size() for t in tensor_leaves(eng.state))
+        print(f"checkpoint at {label}: {leaves / 2 ** 20:.2f} MiB of leaves, file "
+              f"{os.path.getsize(path) / 2 ** 20:.2f} MiB (npz, compressed); save ms "
+              f"{[round(x, 1) for x in save_ms]}, load ms {[round(x, 1) for x in load_ms]} "
+              "(host clock, the file warm in the page cache)", flush=True)
+        eng.stop()
+
+    # -- 1. checkpoint and fault --------------------------------------------
+    cfg = Config(snapshot_dir=tmp, watchdog_deadline_s=SUP_DEADLINE_S, watchdog_interval_s=0.1)
+    sup = Supervisor(deadline_s=cfg.watchdog_deadline_s, interval_s=cfg.watchdog_interval_s)
+    sup.start()
+    eng = SketchEngine(cfg, device=dev, supervisor=sup)
+    eng.update_identities(pods)
+    eng.flush(quanta[0], 100)
+    checkpointed = packets(quanta[0])
+    eng.save_snapshot_state(eng._snapshot_path)
+    check(int(to_numpy(eng.state.totals)[0]) == checkpointed & 0xFFFFFFFF,
+          "supervision: totals[0] != the checkpointed packets")
+    restarts0 = m.engine_restarts._value
+    try:
+        faults.configure("transfer:raise@1,recover:hang30")
+        async_dispatch(eng, quanta[1], 101)
+        # -- 2. degraded mode ---------------------------------------------
+        wait(lambda: eng.degraded, "degraded mode")
+        check(m.degraded_mode._value == 1, "supervision: degraded_mode is not 1")
+        n_dropped = async_dispatch(eng, quanta[2], 102)
+        check(eng.lost_events["degraded"] == n_dropped > 0,
+              f"supervision: {eng.lost_events['degraded']} degraded drops, not {n_dropped}")
+        print(f"supervision: degraded after the injected transfer fault; {n_dropped} events "
+              "of the second dispatch dropped and counted", flush=True)
+        # -- 3. recovery ---------------------------------------------------
+        kops.reset_launch_counts()
+        t_rel = time.perf_counter()
+        faults.release_hangs()
+        wait(lambda: not eng.degraded, "the recovery")
+        released_s = time.perf_counter() - t_rel
+    finally:
+        faults.clear()
+    probe = kops.launch_counts()
+    check(eng.restarts == 1 and m.engine_restarts._value - restarts0 == 1,
+          f"supervision: restarts {eng.restarts}")
+    check(not eng.recovery_failed.is_set(), "supervision: recovery_failed is set")
+    check(m.degraded_mode._value == 0, "supervision: degraded_mode is not 0")
+    check(eng._last_resume_src.startswith("resumed"), f"supervision: {eng._last_resume_src}")
+    rec_s = {s: v for s, _, v in m.recovery_seconds.samples()}
+    print(f"supervision: recovered ({eng._last_resume_src}); recovery_seconds sum "
+          f"{rec_s['_sum']:.3f} s over {int(rec_s['_count'])} recoveries, the injected hang "
+          f"included; {released_s:.3f} s from the hang's release to the end of degraded mode "
+          f"(fence, rebuild from the checkpoint, probe); the probe's launches "
+          f"{ {k: v for k, v in probe.items() if v} }", flush=True)
+    for k in ("ingest_packed", "step_rows"):
+        check(probe[k] >= 1, f"supervision: the probe did not launch {k}")
+    # -- 4. the steps after the probe, against the checkpoint's replay ------
+    other = SketchEngine(Config(), device=dev)
+    other.update_identities(pods)
+    check(other.load_snapshot_state(eng._snapshot_path), "supervision: the replay did not resume")
+    kops.reset_launch_counts()
+    outs = []
+    for e in (eng, other):
+        ctx = contextlib.nullcontext() if e is eng else kops.plain_versions()
+        with ctx:
+            for i, q in enumerate(quanta[1:]):
+                e.flush(q, 110 + i)
+            win = e.close_window(epoch=7)
+            snap = e.snapshot(max_age_s=0, now_s=120)
+        # The engines' own counts (steps, events since the engine began)
+        # differ by construction; the state's are compared.
+        snap = {k: v for k, v in snap.items() if k not in ("steps", "events_in")}
+        outs.append((win, snap))
+        if e is eng:
+            after = kops.launch_counts()
+    for k in ("ingest_new", "step_rows", "hh_update", "hll_update", "entropy_update",
+              "conntrack", "latency_update", "window_close", "snapshot_flat"):
+        check(after[k] > 0, f"supervision: {k} was not launched after the recovery")
+    check(kops.launch_counts() == after, "supervision: the plain replay launched kernels")
+    for (leaf, a), (_, b) in zip(named_leaves(eng.state), named_leaves(other.state)):
+        if a.dtype == torch.int32:
+            equal_int(a, b, f"supervision state {leaf}")
+        elif leaf == "entropy.counts":
+            close_counts(a, b, "supervision entropy counts")
+        else:
+            close_float(a, b, f"supervision state {leaf}")
+    equal_any(outs[0][0], outs[1][0], "supervision window")
+    equal_any(outs[0][1], outs[1][1], "supervision snapshot")
+    fed = checkpointed + packets(quanta[1]) + packets(quanta[2])
+    check(int(to_numpy(eng.state.totals)[0]) == fed & 0xFFFFFFFF,
+          "supervision: totals[0] != the checkpointed packets plus those fed after recovery")
+    print(f"supervision: after the probe, 2 quanta and a close: state, window and snapshot "
+          f"equal to the checkpoint's plain replay; totals[0] {fed}; launches {after}",
+          flush=True)
+    eng.stop()
+    other.stop()
+    sup.stop()
+    # -- 5. a torn checkpoint -----------------------------------------------
+    torn = os.path.join(tmp, "torn.npz")
+    try:
+        faults.configure("checkpoint:corrupt@1")
+        eng.save_snapshot_state(torn)
+    finally:
+        faults.clear()
+    fresh = SketchEngine(Config(), device=dev)
+    check(fresh.load_snapshot_state(torn) is False, "supervision: the torn checkpoint resumed")
+    check(not os.path.exists(torn) and os.path.exists(torn + ".bad"),
+          "supervision: the torn checkpoint was not quarantined")
+    for leaf, t in named_leaves(fresh.state):
+        check(t.device.type == dev.type and not bool(t.any()),
+              f"supervision: the cold start's {leaf} is not zero on the card")
+    fresh.stop()
+    print("supervision: the torn checkpoint was quarantined to .bad; cold start on the card",
+          flush=True)
+    # -- the sticky-error child ---------------------------------------------
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--sticky-child"], capture_output=True,
+                          text=True, timeout=STICKY_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"sticky"')]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"supervision: the sticky child exited {proc.returncode}: {proc.stdout[-2000:]} "
+          f"{proc.stderr[-3000:]}")
+    res = json.loads(lines[0])["sticky"]
+    check(res["poisoned"] and res["stepped_before"] and res["recovery_failed"]
+          and res["state_device"].startswith("cuda") and res["restarts"] == 0
+          and res["attempts"] == 2 and res["degraded"] and res["lanes_stopped"],
+          f"supervision: the sticky child {res}")
+    print(f"supervision: the sticky-error child: {res}; exit {proc.returncode} after "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"supervision phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def sticky_child() -> int:
+    """(``chip_smoke.py --sticky-child``.) The lanes (``SketchEngine.start``,
+    inline feed) on the card, fed one block through the sink; then the
+    card's context is poisoned with a device-side assert (an out-of-range
+    index on a CUDA tensor, run through the device proxy) and more blocks
+    are fed. The next dispatch fails on the lost context, which is fatal;
+    every recovery attempt fails on it too (restart_max_failures 2, a 50 ms
+    backoff), so the circuit opens and ``recovery_failed`` latches, the
+    state left on the card. Prints one JSON line and leaves with
+    ``os._exit`` (the lost context makes torch's own teardown unsafe)."""
+    import os
+    import threading
+
+    import torch
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
+
+    t0 = time.perf_counter()
+    out: dict = {"poisoned": "", "recovery_failed": False, "state_device": "", "restarts": -1}
+    try:
+        cfg = Config(restart_max_failures=2, restart_backoff_base_s=0.05,
+                     restart_backoff_jitter=0.0, watchdog_deadline_s=SUP_DEADLINE_S,
+                     feed_workers=1)
+        eng = SketchEngine(cfg, device=torch.device("cuda"))
+        eng.update_identities({pod_ip(i): i for i in range(1, 64)})
+        gen = TrafficGen(n_flows=10_000, n_pods=64, seed=SEED)
+        stop = threading.Event()
+        lanes = threading.Thread(target=eng.start, args=(stop,), daemon=True)
+        lanes.start()
+
+        def wait(pred, bound: float) -> bool:
+            deadline = time.monotonic() + bound
+            while not pred() and time.monotonic() < deadline:
+                time.sleep(0.01)
+            return pred()
+
+        eng.sink.write_records(gen.batch(BLOCK), "gen")
+        out["stepped_before"] = wait(lambda: eng.counts.events >= BLOCK, 60)
+
+        def poison():
+            x = torch.zeros(4, device="cuda")
+            x[torch.tensor([1 << 20], device="cuda")].sum()
+            torch.cuda.synchronize()
+
+        try:
+            eng._proxy.run(poison)
+        except Exception as e:  # the assert surfaces at the synchronize
+            out["poisoned"] = str(e).splitlines()[0]
+        deadline = time.monotonic() + 120
+        while not eng.recovery_failed.is_set() and time.monotonic() < deadline:
+            eng.sink.write_records(gen.batch(BLOCK), "gen")
+            time.sleep(0.05)
+        stop.set()
+        lanes.join(90)
+        out.update(recovery_failed=eng.recovery_failed.is_set(),
+                   state_device=str(eng.state.totals.device), restarts=eng.restarts,
+                   attempts=eng.errors["recovery"], degraded=eng.degraded,
+                   lanes_stopped=not lanes.is_alive(), errors=dict(eng.errors),
+                   lost_events=dict(eng.lost_events),
+                   seconds=round(time.perf_counter() - t0, 3))
+    except Exception as e:
+        out["error"] = repr(e)[:500]
+    print(json.dumps({"sticky": out}), flush=True)
+    sys.stderr.flush()
+    os._exit(0 if "error" not in out else 1)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--sticky-child"]:
+        sys.exit(sticky_child())
     sys.exit(main())

@@ -6,16 +6,19 @@ pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
 coalescing, transfer buckets and the wire format), the window, and the
 time-travel ring and its query route, the fleet rollup tier, the detector
-bank and the closed-loop capture, the /metrics render cache, and the
-runtime lanes (the feed loop's flush policy, the feed workers, the dispatch
-pipeline's depth, the harvest bound and the overload controller). The reference's layering (YAML file, ``RETINA_*``
-environment) and its daemon, transport, supervisor-restart and checkpoint
-fields are not copied: the port has no daemon yet.
+bank and the closed-loop capture, the /metrics render cache, the runtime
+lanes (the feed loop's flush policy, the feed workers, the dispatch
+pipeline's depth, the harvest bound and the overload controller), and the
+supervised runtime (checkpoints, the watchdog, the restart policy, fault
+injection and the flight recorder). The reference's layering (YAML file,
+``RETINA_*`` environment) and its daemon, transport and profiling fields
+are not copied: the port has no daemon yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 AGG_LOW = "low"
 AGG_HIGH = "high"
@@ -74,9 +77,31 @@ class Config:
     # Slots of the card's descriptor table (48 B each).
     flow_dict_slots: int = 1 << 18
 
-    # --- the runtime lanes ---
+    snapshot_dir: str = ""  # sketch-state checkpoint dir ("" = off)
+    snapshot_interval_s: float = 0.0  # 0 = only on shutdown
+
+    # --- the supervised runtime (runtime/supervisor.py) ---
+    # A registered thread that neither beats nor parks for this long is a
+    # stall: counted in watchdog_stalls and escalated (a hung harvest
+    # thread is replaced). Also the bound on the recovery path's fence.
+    watchdog_deadline_s: float = 30.0
+    watchdog_interval_s: float = 0.5  # the watchdog's scan cadence
     # The bound on draining the harvest at shutdown.
     harvest_timeout_s: float = 30.0
+    # Restart policy: exponential backoff base/cap with multiplicative
+    # jitter; after restart_max_failures consecutive crashes inside
+    # restart_window_s the circuit OPENS (the thread is no longer
+    # restarted; engine recovery latches recovery_failed) and half-open
+    # probes run every circuit_half_open_s until one stays healthy.
+    restart_backoff_base_s: float = 0.2
+    restart_backoff_max_s: float = 30.0
+    restart_backoff_jitter: float = 0.2
+    restart_max_failures: int = 5
+    restart_window_s: float = 60.0
+    circuit_half_open_s: float = 30.0
+    # Deterministic fault injection (runtime/faults.py), e.g.
+    # "transfer:raise@3,recover:hang30". Empty = disarmed.
+    fault_spec: str = ""
 
     # --- adaptive overload control (runtime/overload.py) ---
     overload_enabled: bool = True
@@ -165,6 +190,13 @@ class Config:
     detector_z_thresh: float = 8.0  # adaptive (EWMA z-flag) threshold
     detector_min_windows: int = 3  # EWMA warmup before z-flags count
 
+    # --- the flight recorder (obs/recorder.py) ---
+    # Always-on span recorder over every pipeline stage; off only for A/B
+    # overhead measurement.
+    trace_enabled: bool = True
+    trace_sample_every: int = 1  # record 1 span in this many per thread
+    trace_ring_spans: int = 4096  # per-thread span ring capacity
+
     def validate(self) -> None:
         """The reference's checks on these fields."""
         if self.data_aggregation_level not in (AGG_LOW, AGG_HIGH):
@@ -200,8 +232,27 @@ class Config:
                 f"invertible_min_weight must be >= 0, "
                 f"got {self.invertible_min_weight}"
             )
-        if self.harvest_timeout_s <= 0:
-            raise ValueError(f"harvest_timeout_s must be > 0, got {self.harvest_timeout_s}")
+        for f in ("watchdog_deadline_s", "watchdog_interval_s", "harvest_timeout_s",
+                  "restart_backoff_base_s", "restart_backoff_max_s", "restart_window_s",
+                  "circuit_half_open_s"):
+            if getattr(self, f) <= 0:
+                raise ValueError(f"{f} must be > 0, got {getattr(self, f)}")
+        if self.restart_max_failures < 1:
+            raise ValueError(
+                f"restart_max_failures must be >= 1, got {self.restart_max_failures}")
+        if self.restart_backoff_jitter < 0:
+            raise ValueError(
+                f"restart_backoff_jitter must be >= 0, got {self.restart_backoff_jitter}")
+        # The fault grammar at config load, not mid-flight in a hook (the
+        # pattern of faults._ENTRY).
+        for raw in self.fault_spec.split(","):
+            raw = raw.strip()
+            if raw and not re.match(
+                r"^[\w.\-]+:(raise|corrupt|hang(\d+(\.\d+)?)?"
+                r"|press(\d+(\.\d+)?)?)(@\d+)?$",
+                raw,
+            ):
+                raise ValueError(f"bad fault_spec entry {raw!r}")
         if self.overload_sample_k < 1:
             raise ValueError(f"overload_sample_k must be >= 1, got {self.overload_sample_k}")
         if self.overload_exempt_packets < 0:
@@ -250,6 +301,9 @@ class Config:
                   "timetravel_query_cache_ttl_s"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
+        for f in ("trace_sample_every", "trace_ring_spans"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
         if self.detector_z_thresh <= 0:
             raise ValueError(f"detector_z_thresh must be > 0, got {self.detector_z_thresh}")
         if self.autocapture_duration_s <= 0:

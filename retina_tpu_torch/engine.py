@@ -54,6 +54,27 @@ them for the caller to encode; then the invertible decode; then
 epoch. The lanes' close offers to the ring alike; the fleet shipper is not
 ported, so they hand no export out.
 
+Crash-only supervision, as the reference's: with a ``Supervisor`` every
+long-lived lane thread (``engine-feed``, ``engine-dispatch``,
+``window-harvest``, the feed workers, ``engine-recover``) beats a heartbeat
+and parks it around its waits; a hung harvest thread is superseded
+(``_restart_harvest``). A fatal device error on an asynchronous dispatch or
+close (``_fatal_device_error``: a CUDA error, an out-of-memory error, a
+wrapper's launch error or an injected fault) puts the engine in degraded
+mode: asynchronous dispatches drop and count under
+``lost_events["degraded"]`` and closes defer, while the ``engine-recover``
+thread fences the proxy, rebuilds the state on the card from the last
+checkpoint (``snapshot_dir``) or zeros, probes with a zero-row dispatch
+through the real copy, ingest and step, and resumes; retries follow the
+restart policy, whose open circuit latches ``recovery_failed``. Checkpoints
+(``save_snapshot_state``, ``load_snapshot_state``, ``checkpoint.py``) copy
+the state to the host on the proxy, in order with the steps, and write
+the file on the caller's thread. The flight recorder
+(``obs/recorder.py``) takes the reference's spans (``wire_build``,
+``transfer``, ``device_step``, ``window_close``, ``harvest``, ``publish``,
+``combine``, ``generator_emit``, and the workers' ``feed_fill`` and
+``staging_handoff``) into ``stage_seconds``.
+
 The two hooks of the reference engine close the detection loop:
 ``record_hook(records, now_s)`` sees every block ``_dispatch`` steps and
 every quantum's post-combine rows in ``_build_quantum``, before sampling
@@ -62,14 +83,17 @@ gets the flagged entropy dims of a close (``AutoCapture.notify``). A hook
 or observer that raises is counted in ``errors`` under its name and never
 propagates. ``snapshot`` reads the state back in one copy
 (``Telemetry.snapshot_host``), cached for ``max_age_s``. The method names
-are the reference's, so each has its counterpart there. The reference's
-metrics are plain counters (``errors``, ``lost_events``, ``windows``,
-``lane_s``, ``feed_stats()``). Left out, for later slices: the supervisor
-and its restarts and crash-only recovery, the metrics registry and the
-flight recorder, checkpoints, the fleet shipper, multi-card partitioning,
-and the background warm and AOT caches: torch compiles nothing ahead of
-time, so a cold close never defers (``windows["deferred"]`` counts only
-closes refused because both close slots were in flight).
+are the reference's, so each has its counterpart there. The engine's own
+accounting is plain counters (``errors``, ``lost_events``, ``windows``,
+``lane_s``, ``feed_stats()``); the supervision series (``engine_restarts``,
+``watchdog_stalls``, ``thread_restarts``, ``degraded_mode``,
+``recovery_seconds``, ``stage_seconds``) are the registry's
+(``metrics.get_metrics()``). Left out, for later slices: the fleet shipper,
+multi-card partitioning, the managers that own the supervisor and run the
+periodic checkpointer (``ControllerManager``), and the background warm and
+AOT caches: torch compiles nothing ahead of time, so a cold close never
+defers (``windows["deferred"]`` counts closes refused because both close
+slots were in flight, and closes during a recovery).
 """
 
 from __future__ import annotations
@@ -89,12 +113,14 @@ import torch
 
 from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.config import Config
-from retina_tpu_torch.events.schema import VERDICT_FORWARDED, F
+from retina_tpu_torch.convert import tensor_leaves
+from retina_tpu_torch.events.schema import NUM_FIELDS, VERDICT_FORWARDED, F
 from retina_tpu_torch.fleet.shipper import window_epoch
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.models.identity import HostIdentityTable, IdentityMap
 from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState
+from retina_tpu_torch.obs.recorder import FlightRecorder, initialize_recorder
 from retina_tpu_torch.parallel.combine import combine_blocks
 from retina_tpu_torch.parallel.feed import FeedWorkerPool, TransferMux, TransferQueue
 from retina_tpu_torch.parallel.flowdict import flow_dict_stats, make_flow_dict
@@ -109,8 +135,12 @@ from retina_tpu_torch.parallel.wire import (
     pack_records,
 )
 from retina_tpu_torch.plugins.api import QueueSink
+from retina_tpu_torch.runtime import faults
 from retina_tpu_torch.runtime.overload import OverloadController
+from retina_tpu_torch.runtime.supervisor import Heartbeat, Supervisor, policy_from_config
 from retina_tpu_torch.timetravel.ring import SnapshotRing
+from retina_tpu_torch.u32 import to_numpy
+from retina_tpu_torch.utils import metric_names as mn
 from retina_tpu_torch.utils.device_proxy import PinnedStaging, proxy_for, to_host
 
 _log = logging.getLogger("retina_tpu_torch.engine")
@@ -158,15 +188,22 @@ class FeedStages:
     completed, so at most ``MAX_PENDING`` pairs of events are held. Stages
     run on several threads (feed workers, the dispatch thread, the proxy): the
     totals are summed under a lock, so a host stage of parallel workers
-    counts each worker's seconds."""
+    counts each worker's seconds. With a flight recorder, the stages in
+    ``SPANS`` also record the recorder's span of the same stretch (host
+    clock), with the wall clock's window epoch as its trace id."""
 
     HOST = ("combine", "partition", "dict and wire")
     CARD = ("copy", "ingest", "steps")
+    SPANS = {"combine": mn.STAGE_COMBINE, "dict and wire": mn.STAGE_WIRE_BUILD,
+             "steps": mn.STAGE_DEVICE_STEP}
     MAX_PENDING = 64
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, recorder: FlightRecorder | None = None,
+                 window_s: float = 1.0):
         self._cuda = device.type == "cuda"
         self._lock = threading.Lock()
+        self._recorder = recorder
+        self._window_s = window_s
         self.reset()
 
     def reset(self) -> None:
@@ -175,19 +212,24 @@ class FeedStages:
 
     @contextlib.contextmanager
     def __call__(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
         if self._cuda and name in self.CARD:
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             yield
             e1.record()
+            t1 = time.perf_counter()
             with self._lock:
                 self._events.append((name, e0, e1))
                 self._fold(wait=False)
         else:
-            t0 = time.perf_counter()
             yield
+            t1 = time.perf_counter()
             with self._lock:
-                self._s[name] += time.perf_counter() - t0
+                self._s[name] += t1 - t0
+        span = self.SPANS.get(name)
+        if span is not None and self._recorder is not None:
+            self._recorder.record(span, t0, window_epoch(self._window_s), t1=t1)
 
     def _fold(self, wait: bool) -> None:
         """Add finished card spans to the totals, oldest first; wait for the
@@ -220,9 +262,16 @@ class FeedCounts:
 class SketchEngine:
     """The feed path, the lanes and the state of one node agent on one card."""
 
-    def __init__(self, cfg: Config, device: torch.device | str | None = None):
+    def __init__(self, cfg: Config, device: torch.device | str | None = None,
+                 supervisor: Supervisor | None = None):
         cfg.validate()
         self.cfg = cfg
+        self._supervisor = supervisor
+        # The flight recorder: rebuild the process singleton from the config
+        # so every span site (here and the feed workers) shares its rings.
+        self._recorder = initialize_recorder(
+            capacity=cfg.trace_ring_spans, sample_every=cfg.trace_sample_every,
+            enabled=cfg.trace_enabled)
         self.pcfg = pipeline_config_from(cfg)
         self.device = resolve_device(device)
         self.sink = QueueSink(max_blocks=1024)
@@ -278,7 +327,7 @@ class SketchEngine:
         self._ident_dict: dict[int, int] = {}
         # Entries dropped from overfull identity and filter maps.
         self.lost_table_entries = {"identity": 0, "filter": 0}
-        self.stages = FeedStages(self.device)
+        self.stages = FeedStages(self.device, self._recorder, cfg.window_seconds)
         self.counts = FeedCounts()
         # The detection loop's hooks (see the module docstring), the
         # observers (fn(records, plugin), name: the shed stage that skips
@@ -332,6 +381,19 @@ class SketchEngine:
         self._snap_cache: dict[str, Any] | None = None
         self._snap_time = 0.0
         self.started = threading.Event()
+        # Crash-only recovery: while _degraded is set, asynchronous
+        # dispatches drop and count (lost_events["degraded"]) and closes
+        # defer; recovery_failed latches when the recovery's circuit opens
+        # (unhealthy until the orchestrator restarts the agent).
+        self._degraded = threading.Event()
+        self._recover_lock = threading.Lock()
+        self._recovering = False
+        self._recover_thread: threading.Thread | None = None  # guarded by _recover_lock
+        self.recovery_failed = threading.Event()
+        self.restarts = 0
+        self._last_resume_src = ""
+        self._snapshot_path = (os.path.join(cfg.snapshot_dir, "sketch_state.npz")
+                               if cfg.snapshot_dir else None)
 
     @property
     def timetravel_ring(self) -> SnapshotRing | None:
@@ -345,9 +407,150 @@ class SketchEngine:
         return self.counts.events
 
     def stop(self) -> None:
-        """Stop the ring's readback thread."""
+        """Stop the ring's readback thread, join a recovery in flight (for
+        at most its fence bound and a backoff) and deregister the harvest's
+        heartbeat (the other lanes deregister theirs as they end)."""
         if self._tt_ring is not None:
             self._tt_ring.stop()
+        with self._recover_lock:
+            rt = self._recover_thread
+        if rt is not None:
+            rt.join(timeout=self.cfg.watchdog_deadline_s + self.cfg.restart_backoff_max_s)
+        self._deregister_hb("window-harvest")
+
+    # -- supervision helpers -----------------------------------------------
+    def _register_hb(self, name: str, deadline_s: float | None = None,
+                     on_stall: Callable[[], None] | None = None) -> Heartbeat:
+        """The supervisor's heartbeat cell for ``name``, or a detached one
+        (watched by nobody) when the engine runs without a supervisor."""
+        dl = deadline_s or self.cfg.watchdog_deadline_s
+        if self._supervisor is not None:
+            return self._supervisor.register(name, dl, on_stall)
+        return Heartbeat(name, dl, on_stall)
+
+    def _deregister_hb(self, name: str) -> None:
+        if self._supervisor is not None:
+            self._supervisor.deregister(name)
+
+    # -- crash-only recovery -----------------------------------------------
+    @property
+    def degraded(self) -> bool:
+        return self._degraded.is_set()
+
+    @staticmethod
+    def _fatal_device_error(e: BaseException) -> bool:
+        """Classify a step, copy or close failure: fatal (the card or its
+        context: the resident state is suspect, rebuild it) or a bad batch
+        (already dropped and counted; carry on). Fatal: an injected fault,
+        an out-of-memory error, and the CUDA errors torch raises ("CUDA
+        error: ...") and the wrappers raise ("<kernel>: CUDA error <rc> at
+        launch"). A kernel's error is asynchronous: it may surface at a
+        later launch, an event wait or the probe."""
+        if isinstance(e, (faults.InjectedFault, torch.cuda.OutOfMemoryError)):
+            return True
+        return "CUDA error" in str(e)
+
+    def _request_recovery(self, reason: str) -> None:
+        """Enter degraded drop-and-count mode and start the recovery
+        thread. Idempotent: concurrent fatal errors fold into the one
+        recovery in flight."""
+        with self._recover_lock:
+            if self._recovering or self.recovery_failed.is_set():
+                return
+            self._recovering = True
+        self._degraded.set()
+        get_metrics().degraded_mode.set(1)
+        _log.error("engine entering DEGRADED mode (crash-only recovery): %s", reason)
+        t = threading.Thread(target=self._recover, name="engine-recover", daemon=True)
+        with self._recover_lock:
+            self._recover_thread = t
+        t.start()
+
+    def _recover(self) -> None:
+        """Crash-only recovery: fence the proxy, rebuild the card's state
+        from the last checkpoint (zeros when there is none), probe with a
+        zero-row dispatch, then leave degraded mode. Retries under the
+        restart policy; an open circuit latches ``recovery_failed``."""
+        t0 = time.monotonic()
+        hb = self._register_hb("engine-recover")
+        policy = policy_from_config(self.cfg, seed_key="engine-recover")
+        m = get_metrics()
+        attempt = 0
+        try:
+            while True:
+                attempt += 1
+                hb.beat()
+                policy.note_start()
+                try:
+                    self._recover_once(hb)
+                    break
+                except Exception:
+                    self._count(self.errors, "recovery")
+                    _log.exception("engine recovery attempt %d failed", attempt)
+                    delay = policy.record_failure()
+                    if delay is None:
+                        _log.error("engine recovery crash-looping; giving up (unhealthy "
+                                   "until the orchestrator restarts the agent)")
+                        self.recovery_failed.set()
+                        return
+                    hb.park()
+                    time.sleep(delay)
+            self._degraded.clear()
+            m.degraded_mode.set(0)
+            m.engine_restarts.inc()
+            self.restarts += 1
+            dt = time.monotonic() - t0
+            m.recovery_seconds.observe(dt)
+            _log.warning("engine recovered in %.2fs (attempt %d, %s)", dt, attempt,
+                         self._last_resume_src)
+        finally:
+            with self._recover_lock:
+                self._recovering = False
+            self._deregister_hb("engine-recover")
+
+    def _recover_once(self, hb: Heartbeat) -> None:
+        # The chaos site: recover:hangN holds the engine degraded, and
+        # recover:raise fails an attempt.
+        faults.inject("recover")
+        # 1) Drain the proxy: no stale closure may touch the state about to
+        #    be replaced. Bounded: a wedged proxy fails this attempt.
+        hb.park()
+        if not self._proxy.fence(timeout=self.cfg.watchdog_deadline_s):
+            raise RuntimeError("device proxy did not drain for recovery")
+        hb.beat()
+        path = self._snapshot_path
+
+        def rebuild() -> bool:
+            # The descriptor table is made anew by the next dispatch; the
+            # host dictionary clears with it (the epoch bump drops queued
+            # batches of before the recovery).
+            with self._fd_lock:
+                self._desc_table = None
+                self._desc_winner = None
+                if self._flow_dict is not None:
+                    self._flow_dict.clear()
+                    self._fd_epoch += 1
+            if path:
+                from retina_tpu_torch.checkpoint import load_state
+
+                state, resumed = load_state(path, self.telemetry, self.pcfg)
+            else:
+                state, resumed = self.telemetry.init_state(), False
+            self.state = state
+            with self._snap_lock:
+                self._snap_cache = None
+            return resumed
+
+        hb.park()
+        resumed = self._proxy.run(rebuild)
+        hb.beat()
+        self._last_resume_src = f"resumed from {path}" if resumed else "cold start"
+        # 2) Probe: one zero-row dispatch through the real copy, ingest and
+        #    step proves the card works before asynchronous traffic is
+        #    readmitted.
+        hb.park()
+        self._dispatch(np.zeros((0, NUM_FIELDS), np.uint32), now_s=int(time.time()))
+        hb.beat()
 
     def _count(self, counter: collections.Counter, key: str, n: int = 1) -> None:
         with self._count_lock:
@@ -565,7 +768,10 @@ class SketchEngine:
                resync: bool = False) -> None:
         """Run one dispatch's card work on the proxy: waiting for it
         (``sync``: errors reach the caller), or fire-and-forget, bounded by
-        the in-flight semaphore, its failure counted and its events lost."""
+        the in-flight semaphore, its failure counted and its events lost; a
+        fatal failure starts the crash-only recovery. A failure that is not
+        fatal (a bad batch) may leave the step half applied: the state is
+        updated in place, kernel by kernel."""
         if sync:
             self._proxy.run(fn)
             return
@@ -573,7 +779,7 @@ class SketchEngine:
         def safe() -> None:
             try:
                 fn()
-            except Exception:
+            except Exception as e:
                 self._count(self.errors, "device_step")
                 self._count(self.lost_events, "device", n_events)
                 _log.exception("device step failed")
@@ -581,6 +787,8 @@ class SketchEngine:
                     # The host dictionary may no longer match the table:
                     # rebuild both; queued batches of this epoch drop.
                     self._flowdict_resync()
+                if self._fatal_device_error(e):
+                    self._request_recovery(repr(e))
             finally:
                 with self._busy_lock:
                     self._inflight_busy -= 1
@@ -591,7 +799,15 @@ class SketchEngine:
         self._lane("inflight_wait", time.perf_counter() - t0)
         with self._busy_lock:
             self._inflight_busy += 1
-        self._proxy.submit(safe)
+        try:
+            self._proxy.submit(safe)
+        except BaseException:
+            # Not queued (a lost CUDA context fails the caller's event):
+            # give the slot back.
+            with self._busy_lock:
+                self._inflight_busy -= 1
+            self._inflight.release()
+            raise
 
     def _note_latency(self, t0: float) -> None:
         """(Proxy.) The overload signal: EWMA of a dispatch's host seconds."""
@@ -660,6 +876,7 @@ class SketchEngine:
         n_events = int(sb.events)
 
         def xfer_and_step() -> None:
+            faults.inject("transfer")
             if self._fd_epoch != epoch:
                 # A resync after this batch was built dropped the table its
                 # ids name.
@@ -677,6 +894,7 @@ class SketchEngine:
                 if n_known:
                     sides.append(self._ingest_known(bk, known_dev, ts_flag, base_lo, base_hi,
                                                     n_known))
+            self._recorder.record(mn.STAGE_TRANSFER, t0, window_epoch(self.cfg.window_seconds))
             self._step_windows(sides, now_s, sb.lost, sb.sample_k)
             self.counts.new_rows += n_new
             self.counts.known_rows += n_known
@@ -694,13 +912,21 @@ class SketchEngine:
 
         With the flow dictionary and at least ``transfer_min_bucket`` rows
         the batch takes the dictionary wire; a smaller flush is cheaper as
-        one packed transfer and leaves the dictionary untouched."""
+        one packed transfer and leaves the dictionary untouched.
+
+        While a crash-only recovery rebuilds the state, asynchronous
+        dispatches drop here, counted under ``lost_events["degraded"]``;
+        synchronous ones (the recovery's probe, direct callers who want the
+        error) pass through."""
+        if not sync and self._degraded.is_set():
+            self._count(self.lost_events, "degraded", int(sb.events) + int(sb.lost))
+            return
         if sb.lost:
             self._count(self.lost_events, "partition", int(sb.lost))
         if self._flow_dict is not None and int(sb.n_valid.sum()) >= self.cfg.transfer_min_bucket:
             try:
                 self._dispatch_flowdict(sb, now_s, n_raw, sync)
-            except Exception:
+            except Exception as e:
                 # A failure after lookup_or_assign may leave descriptors
                 # registered whose lanes never reached the table: rebuild
                 # both sides, then report the failure.
@@ -710,6 +936,10 @@ class SketchEngine:
                 self._count(self.errors, "flowdict_dispatch")
                 self._count(self.lost_events, "dispatch", int(sb.events))
                 _log.exception("flow-dict dispatch failed")
+                if self._fatal_device_error(e):
+                    # The staging buffers are the card's pinned memory: a
+                    # lost context surfaces here too.
+                    self._request_recovery(repr(e))
             return
         with self.stages("dict and wire"):
             n_valid = int(sb.n_valid[0])
@@ -724,11 +954,13 @@ class SketchEngine:
         bucket = wire.shape[0]
 
         def xfer_and_step() -> None:
+            faults.inject("transfer")
             t0 = time.perf_counter()
             with self.stages("copy"):
                 wire_dev = self._to_card(wire, buf)
             with self.stages("ingest"):
                 wins = self._ingest(bucket, packed, wire_dev, int(b_lo), int(b_hi), n_valid)
+            self._recorder.record(mn.STAGE_TRANSFER, t0, window_epoch(self.cfg.window_seconds))
             self._step_windows([wins], now_s, sb.lost, sb.sample_k)
             self.counts.packed_rows += n_valid
             self.counts.events += n_raw
@@ -743,6 +975,7 @@ class SketchEngine:
         ``fleet_enabled``, the invertible decode under "inv", then
         ``end_window``'s outputs. A failed export or decode is counted and
         the close goes on."""
+        t_c0 = time.perf_counter()
         out: dict = {}
         cfg = self.cfg
         if cfg.timetravel_enabled or cfg.fleet_enabled:
@@ -768,6 +1001,7 @@ class SketchEngine:
         self.state, win = self.telemetry.end_window(self.state, z_thresh)
         self._count(self.windows, "end_window")
         out.update(win)
+        self._recorder.record(mn.STAGE_WINDOW_CLOSE, t_c0, epoch)
         return out
 
     def close_window(self, z_thresh: float = 4.0, epoch: int | None = None) -> dict:
@@ -802,8 +1036,13 @@ class SketchEngine:
         window, it dispatches the close and hands its outputs, copying to
         the host, to the harvest thread. An idle window (no event since
         the last close) publishes a zero window through the same queue, so
-        publication order stays close order."""
+        publication order stays close order. During a recovery the close
+        defers (counted) and the next tick closes the window against the
+        recovered state."""
         t0 = time.perf_counter()
+        if self._degraded.is_set():
+            self._count(self.windows, "deferred")
+            return
         self._count(self.windows, "closed")
         if self._events_in == self._closed_events_in:
             self._count(self.windows, "idle")
@@ -839,16 +1078,22 @@ class SketchEngine:
         def safe_close() -> None:
             try:
                 self._close_window_impl()
-            except Exception:
+            except Exception as e:
                 self._count(self.errors, "window_close")
                 _log.exception("window close failed")
+                if self._fatal_device_error(e):
+                    self._request_recovery(repr(e))
             finally:
                 self._close_inflight.release()
 
         if not self._close_inflight.acquire(blocking=False):
             self._count(self.windows, "deferred")
             return
-        self._proxy.submit(safe_close)
+        try:
+            self._proxy.submit(safe_close)
+        except BaseException:
+            self._close_inflight.release()
+            raise
 
     # -- the harvest lane --------------------------------------------------
     def _publish_window(self, win_host: dict[str, np.ndarray], meta: dict | None = None,
@@ -887,26 +1132,55 @@ class SketchEngine:
                     name="window-harvest", daemon=True)
                 self._harvest_thread.start()
 
+    def _restart_harvest(self) -> None:
+        """(Watchdog.) Supersede a hung harvest thread: bump the generation
+        and start a replacement. The hung one exits at its next generation
+        check; its item publishes late or never (every later window
+        refreshes the series)."""
+        with self._harvest_lock:
+            if self._harvest_retired:
+                return
+            self._harvest_gen += 1
+            self._harvest_thread = None
+        get_metrics().thread_restarts.labels(thread="window-harvest").inc()
+        _log.error("harvest thread stalled; superseding it with a replacement (gen %d)",
+                   self._harvest_gen)
+        self._ensure_harvest_thread()
+
     def _harvest_loop(self, gen: int) -> None:
         """(Harvest.) Wait for each closed window's copy to the host, off
-        the proxy, and publish it; FIFO keeps close order."""
+        the proxy, and publish it; FIFO keeps close order. The heartbeat is
+        parked around the waits (the queue, the copy's event), so only a
+        publication that stops making progress is a stall. ``gen`` is this
+        instance's generation: superseded, it exits at its next check."""
+        hb = self._register_hb("window-harvest", on_stall=self._restart_harvest)
         while True:
+            hb.park()
             try:
                 item = self._harvest_q.get(timeout=1.0)
             except queue_mod.Empty:
                 if self._harvest_gen != gen:
-                    return
+                    return  # superseded while idle
                 continue
+            hb.beat()
             t0 = time.perf_counter()
             try:
                 if item is None:
                     return
                 kind, stacked, meta = item
+                faults.inject("harvest")
                 if kind == "zero":
                     self._publish_window(zero_window(), meta)
                 else:
-                    host = stacked.result()
+                    tid = window_epoch(self.cfg.window_seconds)
+                    t_h0 = time.perf_counter()
+                    hb.park()
+                    host = stacked.result(timeout=self.cfg.harvest_timeout_s)
+                    hb.beat()
+                    self._recorder.record(mn.STAGE_HARVEST, t_h0, tid)
+                    t_p0 = time.perf_counter()
                     self._publish_window({k: v.numpy() for k, v in host.items()}, meta)
+                    self._recorder.record(mn.STAGE_PUBLISH, t_p0, tid)
                     inv = meta.pop("inv_decode", None)
                     if inv is not None:
                         self._harvest_invertible(inv)
@@ -916,13 +1190,15 @@ class SketchEngine:
             finally:
                 self._lane("harvest", time.perf_counter() - t0)
                 self._harvest_q.task_done()
+            if self._harvest_gen != gen:
+                return  # superseded mid-item: a replacement runs
 
     def _harvest_invertible(self, dec) -> None:
         """(Harvest.) One window's invertible decode: dedupe (a key can
         decode from up to D buckets), keep it for ``invertible_report`` and,
         with ``heavy_keys_source="both"``, score recall and precision
         against the host ground truth (``_hk_account``)."""
-        host = dec.result()
+        host = dec.result(timeout=self.cfg.harvest_timeout_s)
         ok = host["ok"].numpy().astype(bool)
         keys = host["keys"].numpy().view(np.uint32)[ok]
         est = host["est"].numpy().view(np.uint32)[ok]
@@ -1003,6 +1279,13 @@ class SketchEngine:
         if now - self._dispatch_lat_t <= 2.0 * self.cfg.window_seconds:
             sig["dispatch_lat"] = min(
                 1.0, self._dispatch_lat_ewma / max(0.5 * self.cfg.window_seconds, 1e-3))
+        # Injected backpressure (faults.py feed.backpressure): between the
+        # shed (0.90) and degrade (0.98) thresholds.
+        if faults.pressure("feed.backpressure"):
+            sig["fault"] = 0.95
+        # A recovery pins the controller at DEGRADED while it lasts.
+        if self._degraded.is_set():
+            sig["degraded"] = 1.0
         return sig
 
     @property
@@ -1035,25 +1318,34 @@ class SketchEngine:
     def _dispatch_loop(self, q) -> None:
         """Dispatch thread: builds the wires of partitioned steps and
         submits them (and window closes) to the proxy in feed order without
-        waiting for the card. ``q`` is a TransferMux; ``None`` stops it."""
-        while True:
-            try:
-                item = q.get(timeout=1.0)
-            except queue_mod.Empty:
-                continue
-            if item is None:
-                return
-            kind, payload, now_s, n_raw = item
-            t0 = time.perf_counter()
-            try:
-                if kind == "step":
-                    self._dispatch_sharded(payload, now_s, n_raw, sync=False)
-                else:
-                    self._submit_close_window()
-            except Exception:
-                self._count(self.errors, "dispatch")
-                _log.exception("%s dispatch failed", kind)
-            self._lane("dispatch", time.perf_counter() - t0)
+        waiting for the card. ``q`` is a TransferMux; ``None`` stops it.
+        The heartbeat is parked around each wait for an item."""
+        hb = self._register_hb("engine-dispatch")
+        try:
+            while True:
+                hb.park()
+                try:
+                    item = q.get(timeout=1.0)
+                except queue_mod.Empty:
+                    continue
+                hb.beat()
+                if item is None:
+                    return
+                kind, payload, now_s, n_raw = item
+                t0 = time.perf_counter()
+                try:
+                    if kind == "step":
+                        self._dispatch_sharded(payload, now_s, n_raw, sync=False)
+                    else:
+                        self._submit_close_window()
+                except Exception as e:
+                    self._count(self.errors, "dispatch")
+                    _log.exception("%s dispatch failed", kind)
+                    if self._fatal_device_error(e):
+                        self._request_recovery(repr(e))
+                self._lane("dispatch", time.perf_counter() - t0)
+        finally:
+            self._deregister_hb("engine-dispatch")
 
     def start(self, stop: threading.Event) -> None:
         """The feed loop, until ``stop`` is set: drain the sink, run the
@@ -1115,6 +1407,9 @@ class SketchEngine:
                     drop=drop_item,
                     busy=self._busy_count,
                     alive=lambda: worker is not None and worker.is_alive(),
+                    register_hb=self._register_hb,
+                    deregister_hb=self._deregister_hb,
+                    restart_policy=lambda name: policy_from_config(self.cfg, seed_key=name),
                 )
                 self._feed_pool = pool
                 q = pool.mux
@@ -1137,12 +1432,17 @@ class SketchEngine:
             for item in self._build_quantum(blocks, n_raw, int(time.time())):
                 submit(item)
 
+        hb_feed = self._register_hb("engine-feed")
         try:
             while not stop.is_set():
+                hb_feed.beat()
                 t0 = time.perf_counter()
                 self._overload.tick()
                 blocks = self.sink.drain(max_blocks=64)
                 shed_dns = self._overload.shed_active("dns")
+                # The emit span: the drained blocks dealt into the feed
+                # (observers and staging); none for an idle spin.
+                t_g0 = self._recorder.begin() if blocks else 0.0
                 for rec, plugin in blocks:
                     for obs, oname in self._observers:
                         if shed_dns and oname == "dns":
@@ -1166,6 +1466,9 @@ class SketchEngine:
                     # Flush in bounded quanta as blocks accumulate.
                     if n_pending >= quantum:
                         flush()
+                if blocks:
+                    self._recorder.record(mn.STAGE_GENERATOR_EMIT, t_g0,
+                                          window_epoch(self.cfg.window_seconds))
                 now = time.monotonic()
                 if n_pending and now - last_flush >= self.cfg.flush_interval_s:
                     # Interval flushes serve latency while nothing is in
@@ -1182,6 +1485,8 @@ class SketchEngine:
                 else:
                     stop.wait(0.002)
         finally:
+            hb_feed.park()
+            self._deregister_hb("engine-feed")
             if pending:
                 flush()
             if pool is not None:
@@ -1237,6 +1542,36 @@ class SketchEngine:
                 self._snap_cache = host
                 self._snap_time = time.monotonic()
             return host
+
+    # -- checkpoint/resume ---------------------------------------------------
+    def save_snapshot_state(self, path: str) -> None:
+        """Write the state to ``path`` (``checkpoint.save_state``). The
+        kernels update the state in place, so its copy is taken on the
+        proxy, in order with the steps (one copy to pinned host memory and
+        an event); the file is written here, on the caller's thread, once
+        the copy is done (bounded by ``watchdog_deadline_s``)."""
+        from retina_tpu_torch.checkpoint import save_state
+
+        def copy():
+            return to_host({str(i): t for i, t in enumerate(tensor_leaves(self.state))})
+
+        host = self._proxy.run(copy).result(timeout=self.cfg.watchdog_deadline_s)
+        save_state(path, [to_numpy(host[str(i)]) for i in range(len(host))], self.pcfg)
+
+    def load_snapshot_state(self, path: str) -> bool:
+        """Restore the state from ``path`` on the card. Crash-only: a
+        missing or unusable checkpoint cold-starts (quarantined by
+        ``load_state``); True only when the state was resumed."""
+        from retina_tpu_torch.checkpoint import load_state
+
+        def load() -> bool:
+            state, resumed = load_state(path, self.telemetry, self.pcfg)
+            self.state = state
+            with self._snap_lock:
+                self._snap_cache = None
+            return resumed
+
+        return self._proxy.run(load)
 
     def top_flows(self, k: int = 20) -> tuple[np.ndarray, np.ndarray]:
         return topk_from_snapshot(self.snapshot(), "flow_hh", k)

@@ -20,11 +20,17 @@ Backpressure never blocks a producer: a block that finds every worker's
 staging full is dropped and counted; a worker whose handoff stays full
 because the dispatch thread died drops the item through the pool's
 ``drop`` callback. The reference's Prometheus series (``engine_errors``
-for a crash, ``feed_worker_fill``, ``feed_handoff_wait``,
-``feed_blocks_dropped``) are set through ``metrics.get_metrics()`` and kept
-besides as plain counters in ``stats()``; its restart policy is not ported
-(a worker that crashes is counted and stops, and its blocks go to the other
-shards), so nothing counts a ``thread_restarts``.
+for a crash, ``thread_restarts`` for a restart, ``feed_worker_fill``,
+``feed_handoff_wait``, ``feed_blocks_dropped``) are set through
+``metrics.get_metrics()`` and kept besides as plain counters in ``stats()``.
+
+Supervision, as the reference's: the pool takes the engine's heartbeat
+registrar and restart-policy factory (``register_hb``, ``deregister_hb``,
+``restart_policy``). Each worker beats while it has staged work, parks
+around its idle waits, and restarts its loop under the policy when it
+crashes (its staging survives: it lives on the worker object); a crash
+loop opens the circuit and the worker stops, and its blocks go to the
+other shards. A bare pool runs unsupervised.
 """
 
 from __future__ import annotations
@@ -37,6 +43,8 @@ from collections import deque
 from typing import Any, Callable, Optional
 
 from retina_tpu_torch.metrics import get_metrics
+from retina_tpu_torch.obs.recorder import get_recorder
+from retina_tpu_torch.utils import metric_names as mn
 
 _log = logging.getLogger("retina_tpu_torch.feed")
 
@@ -150,7 +158,8 @@ class FeedWorker(threading.Thread):
         self.handoff_dropped = 0  # worker-only: items the consumer lost
         self._wait_pub = 0.0  # handoff wait already published
         self.busy_s = 0.0  # worker-only: seconds in build_steps
-        self.crashed = False
+        self.restarts = 0  # worker-only: crashes restarted under the policy
+        self.crashed = False  # the policy gave up
 
     # -- distributor side ----------------------------------------------
     def pending_blocks(self) -> int:
@@ -169,26 +178,48 @@ class FeedWorker(threading.Thread):
 
     # -- worker side -----------------------------------------------------
     def run(self) -> None:
+        """Supervised run: the ingest loop restarts under the pool's
+        restart policy when it crashes; a crash loop gives up and lets the
+        distributor's liveness check route blocks to the other shards."""
+        pool = self.pool
+        hb = pool.register_hb(self.name) if pool.register_hb is not None else None
+        policy = pool.restart_policy(self.name) if pool.restart_policy is not None else None
         try:
-            self._loop()
-        except Exception:
-            # Counted; the distributor's liveness check routes blocks to
-            # the other shards.
-            get_metrics().engine_errors.labels(site="feed_worker").inc()
-            self.crashed = True
-            _log.exception("feed worker %d crashed; its blocks go to the other shards",
-                           self.idx)
+            while True:
+                try:
+                    self._loop(hb)
+                    return
+                except Exception:
+                    get_metrics().engine_errors.labels(site="feed_worker").inc()
+                    delay = policy.record_failure() if policy is not None else None
+                    if delay is None:
+                        self.crashed = True
+                        _log.exception("feed worker %d crash-looping; giving up "
+                                       "(blocks route to the other shards)", self.idx)
+                        return
+                    _log.exception("feed worker %d crashed; restart in %.2fs", self.idx, delay)
+                    self.restarts += 1
+                    get_metrics().thread_restarts.labels(thread=self.name).inc()
+                    if pool.stop_evt.wait(delay):
+                        return
+        finally:
+            if pool.deregister_hb is not None:
+                pool.deregister_hb(self.name)
 
-    def _loop(self) -> None:
+    def _loop(self, hb) -> None:
         while True:
             stopping = self.pool.stop_evt.is_set()
             pend = self.pending_events()
             if pend == 0:
                 if stopping:
                     return
+                if hb is not None:
+                    hb.park()
                 self.wake.wait(0.002)
                 self.wake.clear()
                 continue
+            if hb is not None:
+                hb.beat()
             age = time.monotonic() - self.first_t
             # The inline feed's flush policy: a full quantum, the hard age
             # bound, or the interval when nothing is in flight.
@@ -218,13 +249,18 @@ class FeedWorker(threading.Thread):
         self.events_out += n_raw
         self.first_t = time.monotonic()
         self.fill = n_raw / max(self.pool.quantum, 1)
+        rec = get_recorder()
         t0 = time.perf_counter()
         items = self.pool.build_steps(blocks, n_raw, int(time.time()))
-        self.busy_s += time.perf_counter() - t0
+        t1 = time.perf_counter()
+        self.busy_s += t1 - t0
+        rec.record(mn.STAGE_FEED_FILL, t0, t1=t1)
+        t0 = rec.begin()
         for it in items:
             if not self.outq.put(it, alive=self.pool.alive):
                 self.handoff_dropped += 1
                 self.pool.drop(it)
+        rec.record(mn.STAGE_STAGING_HANDOFF, t0)
         self.batches += 1
         self._publish_metrics()
 
@@ -248,6 +284,7 @@ class FeedWorker(threading.Thread):
             "events": self.events_out,
             "handoff_dropped": self.handoff_dropped,
             "busy_s": self.busy_s,
+            "restarts": self.restarts,
             "crashed": self.crashed,
         }
 
@@ -273,6 +310,9 @@ class FeedWorkerPool:
         busy: Callable[[], int] = lambda: 0,
         alive: Callable[[], bool] = lambda: True,
         depth: int = TRANSFER_DEPTH,
+        register_hb: Optional[Callable[[str], Any]] = None,
+        deregister_hb: Optional[Callable[[str], None]] = None,
+        restart_policy: Optional[Callable[[str], Any]] = None,
     ):
         self.quantum = max(1, int(quantum))
         self.staging_blocks = max(1, int(staging_blocks))
@@ -283,6 +323,11 @@ class FeedWorkerPool:
         self.busy = busy
         self.alive = alive
         self.depth = max(1, int(depth))
+        # The supervision seams (the engine's heartbeat registrar and its
+        # restart-policy factory); a bare pool runs unsupervised.
+        self.register_hb = register_hb
+        self.deregister_hb = deregister_hb
+        self.restart_policy = restart_policy
         self.stop_evt = threading.Event()
         data = threading.Event()
         self.workers = [FeedWorker(i, self, data) for i in range(max(1, n_workers))]

@@ -61,9 +61,19 @@ class HostCopy:
         self.tensors = tensors
         self.event = event
 
-    def result(self) -> dict[str, torch.Tensor]:
+    def result(self, timeout: float | None = None) -> dict[str, torch.Tensor]:
+        """The host tensors once the copy is done; with ``timeout``, raise
+        ``TimeoutError`` if it is not done within that many seconds (a wait
+        that cannot hang on a wedged card)."""
         if self.event is not None:
-            self.event.synchronize()
+            if timeout is None:
+                self.event.synchronize()
+            else:
+                deadline = time.monotonic() + timeout
+                while not self.event.query():
+                    if time.monotonic() >= deadline:
+                        raise TimeoutError(f"host copy not done within {timeout} s")
+                    time.sleep(0.0005)
             self.event = None
         return self.tensors
 
@@ -186,11 +196,17 @@ class DeviceProxy:
         return self._q
 
     def _caller_event(self) -> Any:
-        """An event on the calling thread's current stream (CUDA only)."""
+        """An event on the calling thread's current stream (CUDA only). On a
+        lost CUDA context the record fails: the call is queued without one,
+        and raises its own error on the proxy."""
         if not self._cuda:
             return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(self.device))
+        try:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        except Exception:
+            _log.warning("no caller event (the CUDA context is lost?)", exc_info=True)
+            return None
         return ev
 
     def _loop(self) -> None:
@@ -211,8 +227,16 @@ class DeviceProxy:
                         _log.error("submitted device call %r raised", call.fn, exc_info=e)
                 finally:
                     if self._cuda and call.done is not None:
-                        call.ready = torch.cuda.Event()
-                        call.ready.record(self.stream)
+                        try:
+                            call.ready = torch.cuda.Event()
+                            call.ready.record(self.stream)
+                        except Exception as e:
+                            # A lost CUDA context fails the record too: the
+                            # caller gets the error, and this thread lives
+                            # on to deliver the next call's.
+                            call.ready = None
+                            if call.error is None:
+                                call.error = e
                     self.busy_s += time.perf_counter() - t0
                     if call.done is not None:
                         call.done.set()

@@ -77,7 +77,9 @@ MODULES = [
     "retina_tpu_torch.managers.filtermanager", "retina_tpu_torch.module.metric_objects",
     "retina_tpu_torch.module.metrics_module", "retina_tpu_torch.plugins.registry",
     "retina_tpu_torch.plugins.conntrack_gc", "retina_tpu_torch.plugins.dropreason",
-    "retina_tpu_torch.server",
+    "retina_tpu_torch.server", "retina_tpu_torch.runtime.faults",
+    "retina_tpu_torch.runtime.supervisor", "retina_tpu_torch.checkpoint",
+    "retina_tpu_torch.obs", "retina_tpu_torch.obs.recorder",
 ]
 
 
