@@ -215,6 +215,15 @@ flushed, beside the span of a call and the sector bound (see
 ``readout_phase``). Every path that closes a window and takes a snapshot
 must launch K16 and the readout.
 
+Last, the node agent as users start it (``daemon_phase``): a ``Daemon``
+at ``Config()`` with the time-travel ring and the detector bank on the
+card, one in-repo capture through packetparser (the scraped pod series
+equal to the decoded capture's sums exactly), the default synthetic
+source for 10 s (its run equal to its synchronous replay under the plain
+versions), /metrics, /debug/vars and a range query, the kernels of the
+path launched, the shutdown checkpoint reloaded; then a child
+``python3 -m retina_tpu_torch agent`` scraped and stopped by SIGTERM.
+
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
 no result line, if there is no card or any check fails.
@@ -1046,6 +1055,7 @@ def main() -> int:
     runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     scrape_surface(dev, quanta, time_ms, report, results)
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
+    daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -2738,6 +2748,46 @@ RT_IDLE_WINDOWS = 2.2  # the pause after the backlog drained: a whole tick inter
 RT_NOW = 4_000_000_000 // 2  # now_s of the final snapshots compared
 
 
+def instrument(eng, log, published, summaries):
+    """Log the dispatch thread's batches and closes as issued, the step
+    summaries, and each published window with its close's number."""
+    dispatch, close = eng._dispatch_sharded, eng._submit_close_window
+
+    def logged_dispatch(sb, now_s, n_raw, sync=True):
+        log.append(("step", sb, now_s, n_raw))
+        dispatch(sb, now_s, n_raw, sync)
+
+    def logged_close():
+        deferred = eng.windows["deferred"]
+        close()
+        if eng.windows["deferred"] == deferred:
+            log.append(("window",))
+
+    eng._dispatch_sharded, eng._submit_close_window = logged_dispatch, logged_close
+    annotate, publish, step = (eng.overload.window_annotation, eng._publish_window,
+                               eng.telemetry.step)
+    n_closes = [0]
+
+    def numbered_annotation():
+        meta = annotate()
+        meta["close_seq"] = n_closes[0]
+        n_closes[0] += 1
+        return meta
+
+    def logged_publish(win, meta=None):
+        published.append((win, meta))
+        publish(win, meta)
+
+    def logged_step(*args, **kwargs):
+        state, summ = step(*args, **kwargs)
+        summaries.append(summ)
+        return state, summ
+
+    eng.overload.window_annotation = numbered_annotation
+    eng._publish_window = logged_publish
+    eng.telemetry.step = logged_step
+
+
 def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any) -> None:
     """The runtime path: ``SketchEngine.start(stop)`` on its own thread
     with the deployed ``Config()`` (window_seconds 1.0), fed by producer
@@ -2785,45 +2835,6 @@ def runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal
     blocks = [b for q in quanta for b in q]
     print(f"runtime path: os.cpu_count() {os.cpu_count()}; {len(blocks)} blocks of {BLOCK} "
           f"events cycled by {RT_PRODUCERS} producers", flush=True)
-
-    def instrument(eng, log, published, summaries):
-        """Log the dispatch thread's batches and closes as issued, the step
-        summaries, and each published window with its close's number."""
-        dispatch, close = eng._dispatch_sharded, eng._submit_close_window
-
-        def logged_dispatch(sb, now_s, n_raw, sync=True):
-            log.append(("step", sb, now_s, n_raw))
-            dispatch(sb, now_s, n_raw, sync)
-
-        def logged_close():
-            deferred = eng.windows["deferred"]
-            close()
-            if eng.windows["deferred"] == deferred:
-                log.append(("window",))
-
-        eng._dispatch_sharded, eng._submit_close_window = logged_dispatch, logged_close
-        annotate, publish, step = (eng.overload.window_annotation, eng._publish_window,
-                                   eng.telemetry.step)
-        n_closes = [0]
-
-        def numbered_annotation():
-            meta = annotate()
-            meta["close_seq"] = n_closes[0]
-            n_closes[0] += 1
-            return meta
-
-        def logged_publish(win, meta=None):
-            published.append((win, meta))
-            publish(win, meta)
-
-        def logged_step(*args, **kwargs):
-            state, summ = step(*args, **kwargs)
-            summaries.append(summ)
-            return state, summ
-
-        eng.overload.window_annotation = numbered_annotation
-        eng._publish_window = logged_publish
-        eng.telemetry.step = logged_step
 
     def lanes_run(label, cfg, windows, idle_at=None, inject=None, sample_log=None):
         eng = SketchEngine(cfg, device=dev)
@@ -3697,6 +3708,353 @@ def supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, e
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"supervision phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+DAEMON_PCAP = "loopback_mixed_real.pcap"  # the daemon phase's capture (tests/fixtures/real)
+DAEMON_SYNTH_S = 10.0  # seconds of the default synthetic source at its default rate
+DAEMON_PODS = 2047  # pods in the identity cache besides the capture's: the bench traffic's
+DAEMON_WAIT_S = 120.0  # the bound on each wait of the daemon phase
+DAEMON_CHILD_S = 300.0  # the bound on the agent child's boot
+PUBLISH_S = 1.0  # the metrics module's publication interval
+DAEMON_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+                  "latency_update", "ingest_packed", "ingest_new", "window_close",
+                  "snapshot_flat", "fold", "topk_join", "cms_query", "portscan_score",
+                  "bank_close")
+
+
+def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
+    """The node agent as users start it, on the card: ``Daemon(load_config(None,
+    overrides=...))`` at ``Config()`` with the time-travel ring, the detector
+    bank, a checkpoint directory in a temp dir (``snapshot_interval_s`` 1)
+    and an apiserver watcher on 127.0.0.1 (K14's input), its identity cache
+    holding DAEMON_PODS pods and one pod an address of the capture, started
+    on a thread and waited for until ready. The plugins are the default set
+    (packetparser, dropreason, packetforward, dns, with conntrack's GC).
+
+    (a) packetparser replays one in-repo capture once: the scraped pod-level
+    forward and drop packet and byte series must equal the decoded
+    capture's sums exactly. (b) the default synthetic source (a second
+    packetparser on the engine's sink) runs at its default 1e6 events/s for
+    DAEMON_SYNTH_S. Then /metrics twice, /debug/vars (top_flows) and
+    ``/timetravel/query?last=8``; the launch counts, set to 0 when the agent
+    was ready, must show K7, K1-K5, K14, K16, K17, K8-K10, K11 and the
+    bank's close. The engine is instrumented as the runtime phase's
+    (``instrument``), and after the stop its log is replayed synchronously
+    under the plain versions in a second engine: state, step summaries,
+    published windows and the snapshot must be equal. The shutdown
+    checkpoint must load into a fresh engine with an equal state. Last, a
+    child ``python3 -m retina_tpu_torch agent`` with the defaults is
+    scraped once and sent SIGTERM: it must exit 0. Prints boot-to-ready,
+    events/s and the scrape's ms."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+
+    from retina_tpu_torch.common import RetinaEndpoint
+    from retina_tpu_torch.config import load_config
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import (
+        DIR_INGRESS,
+        VERDICT_DROPPED,
+        VERDICT_FORWARDED,
+        F,
+        u32_to_ip,
+    )
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.plugins.dropreason import DROP_REASONS
+    from retina_tpu_torch.plugins.packetparser import PacketParserPlugin
+    from retina_tpu_torch.sources.pcapdecode import decode_pcap_bytes
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    rec = decode_pcap_bytes((root / "tests" / "fixtures" / "real" / DAEMON_PCAP).read_bytes()
+                            ).records
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_daemon_")
+
+    def wait(pred, what: str, bound: float = DAEMON_WAIT_S) -> None:
+        deadline = time.monotonic() + bound
+        while not pred():
+            check(time.monotonic() < deadline, f"daemon phase: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def get(port: int, path: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            body = r.read().decode()
+            check(r.status == 200, f"daemon phase: GET {path} answered {r.status}")
+        return body, (time.perf_counter() - t0) * 1e3
+
+    def pod_sums(text: str):
+        """{(pod, direction): (packets, bytes)} of the forward series and
+        {(pod, reason): ...} of the drop series, nonzero ones."""
+        vals: dict = {}
+        for line in text.splitlines():
+            if not line.startswith("networkobservability_adv_") or "{" not in line:
+                continue
+            name, rest = line.split("{", 1)
+            labels, value = rest.rsplit("} ", 1)
+            lv = dict(kv.split("=", 1) for kv in labels.split(","))
+            lv = {k: v.strip('"') for k, v in lv.items()}
+            vals[(name, lv.get("podname"), lv.get("direction") or lv.get("reason"))] = int(
+                float(value))
+        out = []
+        for kind in ("forward", "drop"):
+            d = {}
+            for (name, pod, key), v in vals.items():
+                if name == f"networkobservability_adv_{kind}_count":
+                    b = vals.get((f"networkobservability_adv_{kind}_bytes", pod, key), 0)
+                    if v or b:
+                        d[(pod, key)] = (v, b)
+            out.append(d)
+        return tuple(out)
+
+    cfg = load_config(None, overrides=dict(
+        api_server_addr="127.0.0.1:0", timetravel_enabled=True, detectors_enabled=True,
+        snapshot_dir=tmp, snapshot_interval_s=1, event_source="pcap",
+        pcap_path=str(root / "tests" / "fixtures" / "real" / DAEMON_PCAP), pcap_loop=False),
+        env={})
+    t_boot = time.perf_counter()
+    d = Daemon(cfg, apiserver_host="127.0.0.1")
+    ctor_s = time.perf_counter() - t_boot
+    eng = d.cm.engine
+    check(eng.device.type == "cuda", f"daemon phase: the agent runs on {eng.device}")
+    # The capture's addresses, one pod each, then the bench traffic's pods,
+    # as an identity watcher would list them at boot. The metrics module
+    # pushes the filter table at each pod's event (the reference's dirty-pod
+    # sync); one deferred push stands for the list's.
+    ips = sorted({u32_to_ip(int(x)) for x in np.concatenate([rec[:, F.SRC_IP], rec[:, F.DST_IP]])})
+    names = {ip: f"capture-{i}" for i, ip in enumerate(ips)}
+    t_reg = time.perf_counter()
+    with d.cm.filtermanager.deferred_push():
+        for ip, name in names.items():
+            d.cm.cache.update_endpoint(RetinaEndpoint(name=name, namespace="default", ips=(ip,)))
+        for i in range(1, DAEMON_PODS + 1):
+            d.cm.cache.update_endpoint(RetinaEndpoint(name=f"pod-{i}", namespace="default",
+                                                      ips=(u32_to_ip(pod_ip(i)),)))
+        want_ident = d.cm.cache.ip_index_map()
+        wait(lambda: d.cm.filtermanager.ip_count() >= len(want_ident), "the pod events")
+    wait(lambda: eng._ident_dict == want_ident, "the identity rebuild")
+    reg_s = time.perf_counter() - t_reg
+    log, published, summaries = [], [], []
+    instrument(eng, log, published, summaries)
+    stop = threading.Event()
+    agent = threading.Thread(target=d.start, args=(stop,), name="daemon", daemon=True)
+    t_start = time.perf_counter()
+    agent.start()
+    wait(lambda: d.cm._ready.is_set() or not agent.is_alive(), "the agent's ready")
+    check(agent.is_alive(), "daemon phase: the agent died while booting")
+    boot_s = ctor_s + time.perf_counter() - t_start
+    kops.reset_launch_counts()
+    port = d.cm.server.port
+    print(f"daemon phase: boot to ready {boot_s:.3f} s (Daemon() {ctor_s:.3f} s, then start() "
+          f"to ready; kernels already built in this process); {len(want_ident)} addresses "
+          f"registered in {reg_s:.3f} s", flush=True)
+
+    # (a) the capture, once, through packetparser's pcap source.
+    ingress = ((rec[:, F.META] >> 4) & 0xF) == DIR_INGRESS
+    local = np.where(ingress, rec[:, F.DST_IP], rec[:, F.SRC_IP])
+    want_fwd: dict = {}
+    want_drop: dict = {}
+    for r, ing, ip in zip(rec, ingress, local):
+        pod, pk, by = names[u32_to_ip(int(ip))], int(r[F.PACKETS]), int(r[F.BYTES])
+        if r[F.VERDICT] == VERDICT_FORWARDED:
+            key, tab = (pod, "ingress" if ing else "egress"), want_fwd
+        elif r[F.VERDICT] == VERDICT_DROPPED:
+            key, tab = (pod, DROP_REASONS.get(int(r[F.DROP_REASON]), str(int(r[F.DROP_REASON])))
+                        ), want_drop
+        else:
+            continue
+        tab[key] = tuple(a + b for a, b in zip(tab.get(key, (0, 0)), (pk, by)))
+    wait(lambda: eng.counts.events == len(rec), "the capture to be stepped")
+    got = [None]
+
+    def scraped() -> bool:
+        got[0] = pod_sums(get(port, "/metrics")[0])
+        return got[0] == (want_fwd, want_drop)
+
+    wait(scraped, f"the scrape to hold the capture's sums {(want_fwd, want_drop)}", 30)
+    print(f"daemon phase (a): {DAEMON_PCAP}: {len(rec)} events; the scraped pod series equal "
+          f"the decoded capture's sums: forward {want_fwd}, drop {want_drop}; overload "
+          f"{eng.overload_stats()['state']}", flush=True)
+
+    # (b) the default synthetic source at its default rate.
+    class CountingSink:
+        def __init__(self, inner):
+            self.inner, self.offered, self.accepted = inner, 0, 0
+
+        def write_records(self, records, plugin):
+            n = self.inner.write_records(records, plugin)
+            self.offered += len(records)
+            self.accepted += n
+            return n
+
+    synth = PacketParserPlugin(dataclasses.replace(cfg, event_source="synthetic"))
+    sink = CountingSink(eng.sink)
+    synth.set_sink(sink)
+    synth.generate()
+    synth.compile()
+    synth.init()
+    ev0 = eng.counts.events
+    stop_b = threading.Event()
+    src = threading.Thread(target=synth.start, args=(stop_b,), name="synthetic", daemon=True)
+    t_b = time.perf_counter()
+    src.start()
+    time.sleep(DAEMON_SYNTH_S)
+    stop_b.set()
+    src.join(30)
+    check(not src.is_alive(), "daemon phase: the synthetic source did not stop")
+    fed = sink.accepted
+    wait(lambda: eng.counts.events - ev0 + eng.lost_events["handoff"] >= fed,
+         "the synthetic events to be stepped")
+    wall_b = time.perf_counter() - t_b
+    stepped = eng.counts.events - ev0
+    print(f"daemon phase (b): synthetic source {sink.offered} events offered in "
+          f"{DAEMON_SYNTH_S:.1f} s ({sink.offered / DAEMON_SYNTH_S:.0f}/s), sink took "
+          f"{sink.accepted}; {stepped} stepped in {wall_b:.3f} s: {stepped / wall_b:.0f} "
+          f"events/s; lost {dict(eng.lost_events)}; overload {eng.overload_stats()['state']}; "
+          f"windows {dict(eng.windows)}", flush=True)
+    time.sleep(1.5 * cfg.window_seconds)  # the last fed window closes
+    ov_run = eng.overload_stats()
+    # Under SHEDDING and above the pod series publish without their labels
+    # (the "labels" stage); the controller steps down a level a dwell.
+    t_calm = time.perf_counter()
+    wait(lambda: eng.overload_stats()["state"] == "NOMINAL", "the overload controller's NOMINAL")
+    time.sleep(2 * PUBLISH_S)  # a publication with the labels
+    print(f"daemon phase: overload at the run's end {ov_run['state']} "
+          f"{dict(ov_run['counters'])}; NOMINAL {time.perf_counter() - t_calm:.1f} s later",
+          flush=True)
+    _, scrape1 = get(port, "/metrics")
+    time.sleep(cfg.metrics_cache_ttl_s)
+    text, scrape2 = get(port, "/metrics")
+    check("podname=\"pod-1\"" in text and "retina_build_info" in text,
+          "daemon phase: the scrape lacks the pod series or the build info")
+    body, vars_ms = get(port, "/debug/vars")
+    dv = json.loads(body)
+    check(bool(dv["top_flows"]) and dv["engine"]["events_in"] == eng.counts.events,
+          "daemon phase: /debug/vars lacks top_flows or the engine's events")
+    wait(lambda: eng.timetravel_ring.drain(1.0), "the ring's readback")
+    body, query_ms = get(port, "/timetravel/query?last=8")
+    doc = json.loads(body)
+    check(doc["windows"] >= 1 and bool(doc["topk"]["keys"]),
+          f"daemon phase: the range query answered {body[:200]}")
+    launches = kops.launch_counts()
+    print(f"daemon phase: GET /metrics {scrape1:.1f} ms then {scrape2:.1f} ms "
+          f"({len(text)} bytes); /debug/vars {vars_ms:.1f} ms; /timetravel/query?last=8 "
+          f"{query_ms:.1f} ms ({doc['windows']} windows); launches {launches}", flush=True)
+    check_sketch_launches(launches, "daemon phase")
+    for name in DAEMON_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the daemon phase")
+
+    stop.set()
+    agent.join(120)
+    check(not agent.is_alive(), "daemon phase: the agent did not stop")
+    path = Path(tmp) / "sketch_state.npz"
+    check(path.exists(), "daemon phase: no shutdown checkpoint")
+    check(not eng.errors and not eng.lost_events.get("dispatch")
+          and not eng.lost_events.get("device"), f"daemon phase: errors {dict(eng.errors)}, "
+          f"lost {dict(eng.lost_events)}")
+
+    # The run's log, synchronously, under the plain versions.
+    t0 = time.perf_counter()
+    ref = SketchEngine(cfg, device=dev)
+    ref.update_identities(d.cm.cache.ip_index_map())
+    ref.update_filter_ips(set(d.cm.filtermanager._refs))
+    ref.set_apiserver_ips([eng.apiserver_ip])
+    rlog, rpub, rsum = [], [], []
+    instrument(ref, rlog, rpub, rsum)
+    before = kops.launch_counts()
+    with kops.plain_versions():
+        for entry in log:
+            if entry[0] == "step":
+                ref._dispatch_sharded(*entry[1:])
+            else:
+                ref._close_window()
+        ref._harvest_window(timeout=60)
+        snap = ref.snapshot(max_age_s=0, now_s=RT_NOW)
+    check(kops.launch_counts() == before, "the plain replay of the daemon phase launched kernels")
+    for (leaf, x), (_, y) in zip(named_leaves(eng.state), named_leaves(ref.state)):
+        if x.dtype == torch.int32:
+            equal_int(x, y, f"daemon phase state {leaf}")
+        elif leaf == "entropy.counts":
+            close_counts(x, y, "daemon phase entropy counts")
+        else:
+            close_float(x, y, f"daemon phase state {leaf}")
+    check(len(summaries) == len(rsum), f"daemon phase: {len(summaries)} steps, the replay "
+          f"{len(rsum)}")
+    for i, (x, y) in enumerate(zip(summaries, rsum)):
+        equal_any(x, y, f"daemon phase step summary {i}")
+    check(len(published) == len(rpub), "daemon phase: windows published differ")
+    for i, ((wx, _), (wy, _)) in enumerate(zip(published, rpub)):
+        equal_any({k: torch.from_numpy(np.asarray(wx[k])) for k in ("entropy_bits", "anomaly",
+                                                                     "zscore")},
+                  {k: torch.from_numpy(np.asarray(wy[k])) for k in ("entropy_bits", "anomaly",
+                                                                     "zscore")},
+                  f"daemon phase window {i}")
+    mine = eng.snapshot(max_age_s=0, now_s=RT_NOW)
+    counters = ("steps", "events_in")  # the engines' own counts, not state
+    equal_any({k: v for k, v in mine.items() if k not in counters},
+              {k: v for k, v in snap.items() if k not in counters}, "daemon phase snapshot")
+    ref.stop()
+    replay_s = time.perf_counter() - t0
+    fresh = SketchEngine(cfg, device=dev)
+    check(fresh.load_snapshot_state(str(path)), "daemon phase: the checkpoint did not load")
+    for (leaf, x), (_, y) in zip(named_leaves(eng.state), named_leaves(fresh.state)):
+        check(torch.equal(x, y), f"daemon phase: the checkpoint's {leaf} differs")
+    fresh.stop()
+    print(f"daemon phase: the plain replay of {len(log)} dispatches and closes ({replay_s:.1f} s) "
+          f"equals the run: state, {len(rsum)} step summaries, {len(rpub)} windows, the "
+          f"snapshot; the shutdown checkpoint ({path.stat().st_size} bytes) reloads equal",
+          flush=True)
+    del log, summaries, published, rlog, rsum, rpub
+
+    # The agent as a user starts it, in a process of its own.
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        child_port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+    out_path = Path(tmp) / "agent.log"
+    t_child = time.perf_counter()
+    with open(out_path, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "retina_tpu_torch", "agent", "--set",
+             f"api_server_addr=127.0.0.1:{child_port}"],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        def child_ready() -> bool:
+            check(child.poll() is None, "daemon phase: the agent child exited while booting: "
+                  + out_path.read_text()[-2000:])
+            try:
+                return get(child_port, "/readyz")[0] == "ok"
+            except OSError:
+                return False
+
+        wait(child_ready, "the agent child's /readyz", DAEMON_CHILD_S)
+        child_boot = time.perf_counter() - t_child
+        text, child_ms = get(child_port, "/metrics")
+        check("networkobservability_tpu_uptime_seconds" in text,
+              "daemon phase: the agent child's scrape lacks the uptime")
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    tail = out_path.read_text()[-2000:]
+    check(rc == 0, f"daemon phase: the agent child exited {rc}: {tail}")
+    check("agent shut down" in tail, f"daemon phase: the agent child did not shut down: {tail}")
+    print(f"daemon phase: python3 -m retina_tpu_torch agent: boot to ready {child_boot:.3f} s "
+          f"(the process's start, torch's import and the kernels' cached build included); "
+          f"GET /metrics {child_ms:.1f} ms ({len(text)} bytes); exit {rc} on SIGTERM",
+          flush=True)
+    print(f"daemon phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def sticky_child() -> int:

@@ -1,44 +1,101 @@
-"""Agent configuration (the part of retina_tpu/config.py the port reads).
+"""Layered agent configuration (port of retina_tpu/config.py).
 
-``Config`` holds only the fields the port reads, with the reference's
-names, defaults and checks, so ``Config()`` is the deployed node agent: the
-pipeline shapes that ``engine.pipeline_config_from`` turns into a
+Reference analog: pkg/config/config.go:59-125 — viper merges a YAML file
+with ``RETINA_``-prefixed environment variables into one static ``Config``
+struct consumed by the daemon. Same layering here: dataclass defaults ←
+YAML file ← ``RETINA_*`` env vars ← explicit overrides, via
+:func:`load_config` (PyYAML is imported only when a file is named).
+
+``Config`` holds the fields the port reads, with the reference's names,
+defaults and checks, so ``Config()`` is the deployed node agent: the
+daemon's, the plugins', the watchers' and the CLI's fields (the HTTP
+address, the enabled plugins, the event source, telemetry and logging),
+the pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
-coalescing, transfer buckets and the wire format), the window, and the
+coalescing, transfer buckets and the wire format), the window, the
 time-travel ring and its query route, the fleet rollup tier, the detector
 bank and the closed-loop capture, the /metrics render cache, the runtime
-lanes (the feed loop's flush policy, the feed workers, the dispatch
-pipeline's depth, the harvest bound and the overload controller), and the
-supervised runtime (checkpoints, the watchdog, the restart policy, fault
-injection and the flight recorder). The reference's layering (YAML file,
-``RETINA_*`` environment) and its daemon, transport and profiling fields
-are not copied: the port has no daemon yet.
+lanes and the overload controller, and the supervised runtime
+(checkpoints, the watchdog, the restart policy, fault injection and the
+flight recorder). ``device_platform`` names the torch device: "" is the
+card (and raises without one), "cpu" the plain versions on the host.
+
+The reference's JAX-only fields (``compilation_cache_dir``, the
+``distributed_num_processes``/``process_id`` pair, the AOT cache) and its
+transport and profiling fields are not copied; ``load_config`` ignores
+unknown keys as the reference does, so an older YAML still loads. The
+switches of parts the port does not have yet (``enable_hubble``,
+``kubeconfig``, ``fleet_aggregator``, ``fleetquery_enabled``,
+``distributed_coordinator``) are kept so that the daemon can refuse them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
+from typing import Any
 
 AGG_LOW = "low"
 AGG_HIGH = "high"
 
+DEFAULT_PLUGINS = ["packetparser", "dropreason", "packetforward", "dns"]
+
+# The torch devices ``device_platform`` may name ("" = the card).
+DEVICE_PLATFORMS = ("", "cpu", "cuda")
+
 
 @dataclasses.dataclass
 class Config:
-    """The fields of the reference ``Config`` that the port's feed path reads."""
+    """Static agent configuration (the reference's ``Config``, the fields
+    the port reads)."""
 
-    # --- the metrics the agent computes (reference-parity fields) ---
+    # --- reference-parity fields ---
+    api_server_addr: str = "127.0.0.1:10093"
+    enabled_plugins: list[str] = dataclasses.field(
+        default_factory=lambda: list(DEFAULT_PLUGINS)
+    )
+    metrics_interval_s: float = 10.0  # map-read plugin cadence
     # /metrics render cache TTL (gauges change only at the publish
     # cadence); 0 renders every scrape.
     metrics_cache_ttl_s: float = 0.5
+    enable_telemetry: bool = False
     enable_pod_level: bool = True
     enable_annotations: bool = False
     enable_conntrack_metrics: bool = True
     bypass_lookup_ip_of_interest: bool = False
     data_aggregation_level: str = AGG_LOW
-
+    telemetry_interval_s: float = 900.0
+    # The flow-relay control plane (hubble/): not ported; the daemon
+    # refuses it.
+    enable_hubble: bool = False
     node_name: str = ""
+    # Identity from a real cluster (core/v1 list+watch): not ported; the
+    # daemon refuses a kubeconfig and an in-cluster service account.
+    kubeconfig: str = ""
+    # A multi-process mesh ("host:port" of process 0): not ported; the
+    # daemon refuses it.
+    distributed_coordinator: str = ""
+    log_level: str = "info"
+    log_file: str = ""  # empty = stderr only
+
+    # --- event source (the kernel-hook analog) ---
+    event_source: str = "synthetic"  # synthetic | pcap | live
+    pcap_path: str = ""  # replay file for event_source=pcap
+    pcap_loop: bool = True  # loop the replay
+    synthetic_rate: float = 1e6  # target events/s for the generator
+    synthetic_flows: int = 100_000
+    # Pre-generate this many 8192-event blocks and cycle them in the feed
+    # loop (0 = generate live).
+    synthetic_pregen: int = 0
+    # Generator regime preset (events/synthetic.py PRESETS).
+    gen_preset: str = "default"
+    capture_iface: str = ""  # live AF_PACKET interface ("" = default)
+
+    # --- the device ---
+    # The torch device the agent runs on: "" = the card (raises without
+    # one), "cpu" = the plain versions on the host.
+    device_platform: str = ""
 
     # --- the feed path ---
     batch_capacity: int = 1 << 15  # events per device batch (one step)
@@ -147,6 +204,9 @@ class Config:
     # --- the fleet rollup tier (fleet/) ---
     # Node side: the window close exports the sketches for the fleet.
     fleet_enabled: bool = False
+    # Operator side: the aggregator role; not ported as a daemon role, the
+    # daemon refuses it.
+    fleet_aggregator: bool = False
     # Close an epoch once this many nodes reported; 0 = on the timeout only.
     fleet_expected_nodes: int = 0
     # Epoch close deadline after the first arrival.
@@ -171,6 +231,7 @@ class Config:
     timetravel_query_topk: int = 32  # default k for /timetravel/query
 
     # --- closed-loop capture (timetravel/autocapture.py) ---
+    autocapture_enabled: bool = False
     # On a detection, range-query the ring around the burst window W,
     # attribute sources by the invertible decode and capture only them.
     autocapture_cooldown_s: float = 60.0  # min spacing between captures
@@ -183,9 +244,14 @@ class Config:
     # Artifact directory (capture host_path output).
     autocapture_output_dir: str = "/tmp/retina-autocapture"
 
+    # --- the fleet query plane (fleetquery/): not ported; the daemon
+    # refuses it ---
+    fleetquery_enabled: bool = False
+
     # --- the detector bank (detect/) ---
     # Derived detectors over the engine's record tap; the window's winner
     # feeds the same AutoCapture sink as the entropy anomaly flags.
+    detectors_enabled: bool = False
     detector_cooldown_s: float = 60.0  # per-detector min firing spacing
     detector_z_thresh: float = 8.0  # adaptive (EWMA z-flag) threshold
     detector_min_windows: int = 3  # EWMA warmup before z-flags count
@@ -304,8 +370,101 @@ class Config:
         for f in ("trace_sample_every", "trace_ring_spans"):
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
+        # The legal presets are the generator's own table (a local import:
+        # the generator pulls numpy, which a bare Config() must not).
+        from retina_tpu_torch.events.synthetic import PRESETS as _gen_presets
+
+        if self.gen_preset not in _gen_presets:
+            raise ValueError(
+                f"gen_preset must be one of {sorted(_gen_presets)}, "
+                f"got {self.gen_preset!r}"
+            )
+        if self.device_platform not in DEVICE_PLATFORMS:
+            raise ValueError(
+                f"device_platform must be one of {list(DEVICE_PLATFORMS)}, "
+                f"got {self.device_platform!r}"
+            )
         if self.detector_z_thresh <= 0:
             raise ValueError(f"detector_z_thresh must be > 0, got {self.detector_z_thresh}")
         if self.autocapture_duration_s <= 0:
             raise ValueError(
                 f"autocapture_duration_s must be > 0, got {self.autocapture_duration_s}")
+
+
+_BOOL_TRUE = {"1", "true", "yes", "on"}
+
+
+def _coerce(value: str, target_type: Any) -> Any:
+    if target_type is bool:
+        return value.strip().lower() in _BOOL_TRUE
+    if target_type is int:
+        return int(value, 0)
+    if target_type is float:
+        return float(value)
+    if target_type is list or target_type == list[str]:
+        return [p.strip() for p in value.split(",") if p.strip()]
+    return value
+
+
+# YAML keys accepted in camelCase (reference configmap style) or snake_case.
+def _normalize_key(key: str) -> str:
+    out = []
+    for ch in key:
+        if ch.isupper():
+            out.append("_")
+            out.append(ch.lower())
+        else:
+            out.append(ch)
+    return "".join(out).lstrip("_")
+
+
+_ALIASES = {
+    "enabled_plugin": "enabled_plugins",
+    "enabled_plugin_linux": "enabled_plugins",
+    "metrics_interval_duration": "metrics_interval_s",
+    "telemetry_interval": "telemetry_interval_s",
+}
+
+
+def load_config(
+    path: str | None = None,
+    overrides: dict[str, Any] | None = None,
+    env: dict[str, str] | None = None,
+) -> Config:
+    """YAML file ← RETINA_* env ← explicit overrides (later wins)."""
+    cfg = Config()
+    fields = {f.name: f for f in dataclasses.fields(Config)}
+
+    def apply(key: str, raw: Any, from_env: bool) -> None:
+        key = _ALIASES.get(_normalize_key(key), _normalize_key(key))
+        if key not in fields:
+            return  # unknown keys ignored, like viper
+        f = fields[key]
+        ftype = f.type if not isinstance(f.type, str) else {
+            "str": str, "int": int, "float": float, "bool": bool,
+            "list[str]": list,
+        }.get(f.type, str)
+        if from_env or isinstance(raw, str) and ftype is not str:
+            raw = _coerce(str(raw), ftype)
+        setattr(cfg, key, raw)
+
+    if path:
+        import yaml  # only here: a config file is the one YAML the agent reads
+
+        with open(path) as fh:
+            doc = yaml.safe_load(fh) or {}
+        if not isinstance(doc, dict):
+            raise ValueError(f"config file {path} must be a YAML mapping")
+        for k, v in doc.items():
+            apply(k, v, from_env=False)
+
+    env = dict(os.environ if env is None else env)
+    for k, v in env.items():
+        if k.startswith("RETINA_"):
+            apply(k[len("RETINA_"):].lower(), v, from_env=True)
+
+    for k, v in (overrides or {}).items():
+        apply(k, v, from_env=False)
+
+    cfg.validate()
+    return cfg

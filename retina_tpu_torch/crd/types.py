@@ -1,17 +1,20 @@
-"""API types: MetricsConfiguration (port of the metrics part of
-retina_tpu/crd/types.py).
+"""API types: MetricsConfiguration and TracesConfiguration (port of the
+metrics and traces parts of retina_tpu/crd/types.py).
 
 Reference analog: MetricsConfiguration (crd/api/v1alpha1/
 metricsconfiguration_types.go:28-95): contextOptions (metricName + src/dst
 label dimensions) and namespace include/exclude, reconciled into the
 running metrics module. Validation mirrors crd/api/v1alpha1/validations/.
-PyYAML is imported only by ``from_yaml``. The capture and traces types are
-not ported yet.
+TracesConfiguration is the reference's stub-parity CRD (its module is a
+skeleton upstream too) that ``module/traces.py`` compiles into matchers.
+PyYAML is imported only by ``from_yaml``. The capture types are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 
 class ValidationError(ValueError):
@@ -147,3 +150,52 @@ class MetricsConfiguration:
         )
         obj.validate()
         return obj
+
+
+# ---------------------------------------------------------------------------
+# TracesConfiguration (stub parity: reference module is a skeleton too)
+
+
+@dataclasses.dataclass
+class TracesSpec:
+    trace_targets: list[dict[str, Any]] = dataclasses.field(
+        default_factory=list
+    )
+    trace_points: list[str] = dataclasses.field(default_factory=list)
+    sampling_rate_per_mille: int = 0
+
+
+@dataclasses.dataclass
+class TracesConfiguration:
+    name: str = "default"
+    namespace: str = "default"  # CRDStore keying (see MetricsConfiguration)
+    spec: TracesSpec = dataclasses.field(default_factory=TracesSpec)
+
+    @classmethod
+    def from_yaml(cls, text: str) -> "TracesConfiguration":
+        # Null-tolerant throughout: a CR with `traceTargets:` left
+        # empty (YAML null) must parse as [], not raise inside the
+        # bridge's LIST loop — one malformed CR would wedge the whole
+        # kind's watch in a re-LIST spin.
+        import yaml  # only here: the agent imports no YAML parser otherwise
+
+        doc = yaml.safe_load(text) or {}
+        meta = doc.get("metadata", {}) or {}
+        s = doc.get("spec", {}) or {}
+        return cls(
+            name=meta.get("name", "default"),
+            namespace=meta.get("namespace") or "default",
+            spec=TracesSpec(
+                trace_targets=list(
+                    s.get("traceTargets")
+                    or s.get("trace_targets") or []
+                ),
+                trace_points=list(
+                    s.get("tracePoints") or s.get("trace_points") or []
+                ),
+                sampling_rate_per_mille=int(
+                    s.get("samplingRatePerMille")
+                    or s.get("sampling_rate_per_mille") or 0
+                ),
+            ),
+        )

@@ -88,12 +88,17 @@ accounting is plain counters (``errors``, ``lost_events``, ``windows``,
 ``lane_s``, ``feed_stats()``); the supervision series (``engine_restarts``,
 ``watchdog_stalls``, ``thread_restarts``, ``degraded_mode``,
 ``recovery_seconds``, ``stage_seconds``) are the registry's
-(``metrics.get_metrics()``). Left out, for later slices: the fleet shipper,
-multi-card partitioning, the managers that own the supervisor and run the
-periodic checkpointer (``ControllerManager``), and the background warm and
-AOT caches: torch compiles nothing ahead of time, so a cold close never
-defers (``windows["deferred"]`` counts closes refused because both close
-slots were in flight, and closes during a recovery).
+(``metrics.get_metrics()``), with the boot's ``build_info``, the
+``uptime_seconds`` the window publish ticks and ``windows_closed``.
+
+``compile()`` is the daemon's boot step (``managers/controllermanager.py``
+owns the engine, the supervisor and the periodic checkpointer): it builds
+the kernels and runs the boot dispatches before the agent reports ready.
+Left out, for later slices: the fleet shipper, multi-card partitioning,
+and the background warm and AOT caches: torch compiles nothing ahead of
+time, so a cold close never defers (``windows["deferred"]`` counts closes
+refused because both close slots were in flight, and closes during a
+recovery).
 """
 
 from __future__ import annotations
@@ -394,6 +399,58 @@ class SketchEngine:
         self._last_resume_src = ""
         self._snapshot_path = (os.path.join(cfg.snapshot_dir, "sketch_state.npz")
                                if cfg.snapshot_dir else None)
+        self._start_monotonic = time.monotonic()
+        self._publish_build_info()
+
+    def _publish_build_info(self) -> None:
+        """One-shot build/runtime identity gauge (value always 1; the labels
+        are the payload) plus the uptime baseline, with the reference's label
+        names: ``jax`` carries torch's version and ``backend`` the device
+        type."""
+        from retina_tpu_torch.utils import buildinfo
+
+        sig = "|".join(str(x) for x in (
+            self.cfg.batch_capacity, self.cfg.flow_dict_slots,
+            int(bool(self.cfg.transfer_packed)), self._fd_id_bits,
+            int(self._fd_dense), NUM_FIELDS))
+        m = get_metrics()
+        m.build_info.labels(version=buildinfo.VERSION, jax=torch.__version__,
+                            backend=self.device.type, devices="1", config=sig).set(1)
+        m.uptime_seconds.set(0.0)
+
+    def compile(self) -> None:
+        """Make the agent ready to feed before it reports ready: build every
+        kernel from the repo's sources (``kernels/build.py``, one nvcc a
+        source in parallel; nothing on the CPU), then run the reference's
+        boot dispatches through the real dispatch path: a full-capacity
+        zero-row batch (the packed wire at ``batch_capacity``, K7 and the
+        step's kernels) and the smallest plain bucket (an idle flush). So
+        neither nvcc nor a first launch lands after ready. The reference
+        warms the rest of its per-bucket programs in the background after
+        ready; the port compiles no per-bucket programs, so nothing follows.
+        """
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from retina_tpu_torch.kernels import build
+
+            libs = build.build_all()
+            _log.info("compile: %d kernels built at +%.1fs", len(libs),
+                      time.perf_counter() - t0)
+        # The boot dispatches are not traffic: as the reference's
+        # record_metrics=False, they leave the feed's counts and the
+        # overload controller's dispatch-latency signal as they were (a
+        # first launch's latency would otherwise read as pressure).
+        counts = dataclasses.replace(self.counts)
+        full = ShardedBatch(
+            records=np.zeros((1, self.cfg.batch_capacity, NUM_FIELDS), np.uint32),
+            n_valid=np.zeros((1,), np.uint32), lost=0)
+        self._dispatch_sharded(full, now_s=1, n_raw=0)
+        self._dispatch(np.zeros((0, NUM_FIELDS), np.uint32), now_s=1)
+        for f in dataclasses.fields(counts):
+            setattr(self.counts, f.name, getattr(counts, f.name))
+        self._dispatch_lat_ewma = self._dispatch_lat_t = 0.0
+        _log.info("engine compiled: device %s, batch=%d, %.1fs", self.device,
+                  self.cfg.batch_capacity, time.perf_counter() - t0)
 
     @property
     def timetravel_ring(self) -> SnapshotRing | None:
@@ -1046,6 +1103,7 @@ class SketchEngine:
         self._count(self.windows, "closed")
         if self._events_in == self._closed_events_in:
             self._count(self.windows, "idle")
+            get_metrics().windows_closed.inc()
             meta = self._overload.window_annotation()
             meta["events"] = 0  # idle, not stalled: nothing arrived
             self._ensure_harvest_thread()
@@ -1067,6 +1125,7 @@ class SketchEngine:
             meta["inv_decode"] = to_host(out["inv"])
         self._ensure_harvest_thread()
         self._harvest_q.put(("win", stacked, meta))
+        get_metrics().windows_closed.inc()
         self._lane("close", time.perf_counter() - t0)
 
     def _submit_close_window(self) -> None:
@@ -1107,6 +1166,9 @@ class SketchEngine:
             win_host["overload"] = meta
         self.last_window = win_host
         m = get_metrics()
+        # Uptime rides the window-publish cadence (>= one update a
+        # window_seconds): cheap, and always fresh at scrape time.
+        m.uptime_seconds.set(time.monotonic() - self._start_monotonic)
         for i, dim in enumerate(ANOMALY_DIMS):
             m.entropy_bits.labels(dimension=dim).set(float(win_host["entropy_bits"][i]))
             m.anomaly_flag.labels(dimension=dim).set(float(win_host["anomaly"][i]))

@@ -28,6 +28,11 @@ ix  name           meaning
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
 
 class F:
     """Column indices of the event record."""
@@ -99,3 +104,148 @@ def ip_to_u32(ip: str) -> int:
 def u32_to_ip(v: int) -> str:
     """Dotted quad of a u32 IPv4 address."""
     return f"{(v >> 24) & 0xFF}.{(v >> 16) & 0xFF}.{(v >> 8) & 0xFF}.{v & 0xFF}"
+
+TCP_FLAG_NAMES = {
+    TCP_FIN: "FIN",
+    TCP_SYN: "SYN",
+    TCP_RST: "RST",
+    TCP_PSH: "PSH",
+    TCP_ACK: "ACK",
+    TCP_URG: "URG",
+    TCP_ECE: "ECE",
+    TCP_CWR: "CWR",
+}
+
+
+def pack_meta(
+    proto: int,
+    tcp_flags: int = 0,
+    obs_point: int = OP_FROM_NETWORK,
+    direction: int = DIR_UNKNOWN,
+    is_reply: int = 0,
+) -> int:
+    return (
+        ((proto & 0xFF) << 24)
+        | ((tcp_flags & 0xFF) << 16)
+        | ((obs_point & 0xFF) << 8)
+        | ((direction & 0xF) << 4)
+        | (is_reply & 0xF)
+    )
+
+
+def pack_ports(src_port: int, dst_port: int) -> int:
+    return ((src_port & 0xFFFF) << 16) | (dst_port & 0xFFFF)
+
+
+def obs_point_to_direction(obs_point: int) -> int:
+    """Observation point -> traffic direction (flow_utils.go:72-92)."""
+    if obs_point in (OP_TO_STACK, OP_TO_NETWORK):
+        return DIR_EGRESS
+    if obs_point in (OP_TO_ENDPOINT, OP_FROM_NETWORK):
+        return DIR_INGRESS
+    return DIR_UNKNOWN
+
+
+# ---------------------------------------------------------------------------
+# Batches
+
+
+@dataclasses.dataclass
+class EventBatch:
+    """A fixed-capacity batch of event records plus a validity count.
+
+    ``records`` is always shaped (capacity, NUM_FIELDS) so every batch of a
+    given capacity hits the same compiled executable; ``n_valid`` marks how
+    many leading rows are real. Device kernels mask on an iota < n_valid
+    comparison instead of slicing (dynamic shapes would force recompiles —
+    the reference's analog constraint is its fixed 32-page perf buffers,
+    packetparser types_linux.go:67-69).
+    """
+
+    records: np.ndarray  # (capacity, NUM_FIELDS) uint32
+    n_valid: int
+
+    def __post_init__(self) -> None:
+        assert self.records.ndim == 2 and self.records.shape[1] == NUM_FIELDS
+        assert self.records.dtype == np.uint32
+        assert 0 <= self.n_valid <= self.records.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return int(self.records.shape[0])
+
+    @classmethod
+    def empty(cls, capacity: int) -> "EventBatch":
+        return cls(np.zeros((capacity, NUM_FIELDS), np.uint32), 0)
+
+    def valid_rows(self) -> np.ndarray:
+        return self.records[: self.n_valid]
+
+
+class EventBuilder:
+    """Host-side builder producing EventBatches from per-event calls.
+
+    This sits where the reference's perf-ring decode workers sit
+    (packetparser_linux.go:556-652): per-event ingestion on the host,
+    emitting dense batches for the device.
+    """
+
+    def __init__(self, capacity: int):
+        self._batch = EventBatch.empty(capacity)
+        self._full: list[EventBatch] = []
+
+    def add(
+        self,
+        *,
+        ts_ns: int = 0,
+        src_ip: int = 0,
+        dst_ip: int = 0,
+        src_port: int = 0,
+        dst_port: int = 0,
+        proto: int = PROTO_TCP,
+        tcp_flags: int = 0,
+        obs_point: int = OP_FROM_NETWORK,
+        is_reply: int = 0,
+        bytes_: int = 0,
+        packets: int = 1,
+        verdict: int = VERDICT_FORWARDED,
+        drop_reason: int = 0,
+        tsval: int = 0,
+        tsecr: int = 0,
+        dns: int = 0,
+        dns_qhash: int = 0,
+        event_type: int = EV_FORWARD,
+        ifindex: int = 0,
+    ) -> None:
+        b = self._batch
+        if b.n_valid == b.capacity:
+            self._full.append(b)
+            self._batch = b = EventBatch.empty(b.capacity)
+        row = b.records[b.n_valid]
+        row[F.TS_LO] = ts_ns & 0xFFFFFFFF
+        row[F.TS_HI] = (ts_ns >> 32) & 0xFFFFFFFF
+        row[F.SRC_IP] = src_ip
+        row[F.DST_IP] = dst_ip
+        row[F.PORTS] = pack_ports(src_port, dst_port)
+        row[F.META] = pack_meta(
+            proto, tcp_flags, obs_point, obs_point_to_direction(obs_point), is_reply
+        )
+        row[F.BYTES] = bytes_
+        row[F.PACKETS] = packets
+        row[F.VERDICT] = verdict
+        row[F.DROP_REASON] = drop_reason
+        row[F.TSVAL] = tsval
+        row[F.TSECR] = tsecr
+        row[F.DNS] = dns
+        row[F.DNS_QHASH] = dns_qhash
+        row[F.EVENT_TYPE] = event_type
+        row[F.IFINDEX] = ifindex
+        b.n_valid += 1
+
+    def drain(self) -> Iterator[EventBatch]:
+        """Yield all full batches plus the current partial one."""
+        full, self._full = self._full, []
+        yield from full
+        if self._batch.n_valid:
+            out, self._batch = self._batch, EventBatch.empty(self._batch.capacity)
+            yield out

@@ -6,8 +6,10 @@ resetting the advanced registry when the set changes; ``publish_once``
 reads the engine's snapshot (``host_snapshot``: u32 leaves as uint32) and
 lets each object set its labeled gauges, with per-pod labels shed under
 overload SHEDDING; ``start(stop)`` publishes on the reference's adaptive
-cadence. The reference's pod and namespace event handlers, which keep the
-filter manager's IPs of interest, come with the daemon that wires the bus.
+cadence. Pod events from the bus add and remove pod IPs in the filter
+manager under requestor "metrics-module" (with ``enable_annotations``,
+only pods carrying retina.sh=observe or living in an annotated namespace),
+the way metrics_module.go's dirty-pod goroutine does.
 """
 
 from __future__ import annotations
@@ -16,11 +18,19 @@ import threading
 import time
 from typing import Any, Optional
 
+from retina_tpu_torch.common import (
+    POD_ANNOTATION,
+    POD_ANNOTATION_VALUE,
+    TOPIC_NAMESPACES,
+    TOPIC_PODS,
+)
 from retina_tpu_torch.config import Config
 from retina_tpu_torch.controllers.cache import Cache
 from retina_tpu_torch.crd.types import MetricsConfiguration, MetricsSpec
+from retina_tpu_torch.events.schema import ip_to_u32
 from retina_tpu_torch.exporter import Exporter, get_exporter
 from retina_tpu_torch.log import logger
+from retina_tpu_torch.managers.filtermanager import FilterManager
 from retina_tpu_torch.module.metric_objects import (
     METRIC_CONSTRUCTORS,
     AdvMetricBase,
@@ -37,13 +47,16 @@ class MetricsModule:
         cfg: Config,
         engine: Any,
         cache: Cache,
+        filtermanager: Optional[FilterManager] = None,
         exporter: Optional[Exporter] = None,
+        pubsub: Any = None,
         dns_resolver: Any = None,
     ):
         self._log = logger("metricsmodule")
         self.cfg = cfg
         self.engine = engine
         self.cache = cache
+        self.fm = filtermanager
         self.exporter = exporter or get_exporter()
         self.dns_resolver = dns_resolver
         self._lock = threading.Lock()
@@ -53,6 +66,60 @@ class MetricsModule:
         # as in the reference); a caller that checks an exposition holds
         # this at 0 so that no family can go missing unnoticed.
         self.publish_failures = 0
+        if pubsub is not None:
+            pubsub.subscribe(TOPIC_PODS, self._on_pod_event)
+            pubsub.subscribe(TOPIC_NAMESPACES, self._on_namespace_event)
+
+    # -- annotation opt-in (metrics_module.go:575-595 podAnnotated) ---
+    def _pod_of_interest(self, ep) -> bool:
+        """With enable_annotations, only pods carrying retina.sh=observe
+        (or living in an annotated namespace) are tracked; otherwise
+        every pod is."""
+        if not self.cfg.enable_annotations:
+            return True
+        if dict(ep.annotations).get(POD_ANNOTATION) == POD_ANNOTATION_VALUE:
+            return True
+        return ep.namespace in self.cache.annotated_namespaces()
+
+    # -- dirty-pod → filtermanager sync (metrics_module.go run loop) --
+    def _on_pod_event(self, msg: tuple) -> None:
+        """Pubsub callbacks run on a pool with NO ordering guarantee, so
+        the decision is derived from the cache's CURRENT state, not the
+        event payload — stale events then converge to the same verdict
+        as fresh ones instead of inverting it."""
+        if self.fm is None:
+            return
+        _ev, ep = msg
+        try:
+            event_ips = [ip_to_u32(ip) for ip in ep.ips]
+        except (ValueError, AttributeError):
+            return
+        current = self.cache.get_endpoint(ep.key())
+        if current is not None and self._pod_of_interest(current):
+            cur_ips = [ip_to_u32(ip) for ip in current.ips]
+            self.fm.add_ips(cur_ips, "metrics-module", ep.key())
+            stale = [ip for ip in event_ips if ip not in set(cur_ips)]
+            if stale:  # pod changed IPs across updates
+                self.fm.delete_ips(stale, "metrics-module", ep.key())
+        else:
+            # Deleted, opted out, or annotation dropped on update.
+            cur_ips = (
+                [ip_to_u32(ip) for ip in current.ips]
+                if current is not None else []
+            )
+            self.fm.delete_ips(sorted(set(event_ips) | set(cur_ips)),
+                               "metrics-module", ep.key())
+
+    def _on_namespace_event(self, msg: tuple) -> None:
+        """A namespace gained/lost the observe annotation: resync every
+        pod already in it in ONE filter-table push
+        (namespace_controller.go Start loop)."""
+        if self.fm is None or not self.cfg.enable_annotations:
+            return
+        _ev, ns = msg
+        with self.fm.deferred_push():
+            for ep in self.cache.endpoints_in_namespace(ns):
+                self._on_pod_event(("updated", ep))
 
     # -- reconcile (metrics_module.go:142-175, :205-263) ---------------
     def reconcile(self, conf: MetricsConfiguration) -> None:

@@ -23,6 +23,10 @@ from retina_tpu_torch.config import Config
 from retina_tpu_torch.log import logger
 
 
+class UnsupportedPlatform(RuntimeError):
+    """Raised by plugins that cannot run on this host OS."""
+
+
 class EventSink(Protocol):
     """Where plugins write decoded event records."""
 

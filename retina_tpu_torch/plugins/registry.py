@@ -2,8 +2,8 @@
 
 Reference analog: pkg/plugin/registry/registry.go:36-53 — a package-level
 map populated by plugin ``init()`` self-registration, panicking on
-duplicates. Same contract: :func:`add` raises on dup. The reference's
-lookup side (``get``, ``names``) comes with the plugin manager that reads it.
+duplicates. Same contract: :func:`add` raises on dup, :func:`get` raises
+KeyError on unknown names (pluginmanager surfaces both as fatal).
 """
 
 from __future__ import annotations
@@ -22,6 +22,18 @@ def add(name: str, ctor: PluginCtor) -> None:
     if name in _registry:
         raise ValueError(f"plugin {name!r} already registered")
     _registry[name] = ctor
+
+
+def get(name: str) -> PluginCtor:
+    if name not in _registry:
+        raise KeyError(
+            f"plugin {name!r} not registered (known: {sorted(_registry)})"
+        )
+    return _registry[name]
+
+
+def names() -> list[str]:
+    return sorted(_registry)
 
 
 def register(cls: Type["api.Plugin"]) -> Type["api.Plugin"]:

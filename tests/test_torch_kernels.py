@@ -80,6 +80,15 @@ MODULES = [
     "retina_tpu_torch.server", "retina_tpu_torch.runtime.faults",
     "retina_tpu_torch.runtime.supervisor", "retina_tpu_torch.checkpoint",
     "retina_tpu_torch.obs", "retina_tpu_torch.obs.recorder",
+    "retina_tpu_torch.events.schema", "retina_tpu_torch.utils.ktime",
+    "retina_tpu_torch.sources.procfs", "retina_tpu_torch.plugins.mockplugin",
+    "retina_tpu_torch.plugins.packetparser", "retina_tpu_torch.plugins.packetforward",
+    "retina_tpu_torch.plugins.dns", "retina_tpu_torch.managers.pluginmanager",
+    "retina_tpu_torch.watchers", "retina_tpu_torch.watchers.endpoint",
+    "retina_tpu_torch.watchers.apiserver", "retina_tpu_torch.managers.watchermanager",
+    "retina_tpu_torch.telemetry", "retina_tpu_torch.module.traces",
+    "retina_tpu_torch.managers.controllermanager", "retina_tpu_torch.daemon",
+    "retina_tpu_torch.cli",
 ]
 
 
@@ -95,6 +104,7 @@ def test_port_imports_without_jax_or_reference():
         "sys.modules['msgpack'] = None\n"
         "sys.modules['prometheus_client'] = None\n"
         "sys.modules['yaml'] = None\n"
+        "sys.modules['psutil'] = None\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'retina_tpu' or m.startswith('retina_tpu.')]\n"
         "assert not bad, bad\n"
