@@ -223,6 +223,15 @@ source for 10 s (its run equal to its synchronous replay under the plain
 versions), /metrics, /debug/vars and a range query, the kernels of the
 path launched, the shutdown checkpoint reloaded; then a child
 ``python3 -m retina_tpu_torch agent`` scraped and stopped by SIGTERM.
+Then the fleet tier as the agent runs it (``fleet_transport_phase``): 8
+engines at ``Config()`` close 4 shared epochs and ship them through their
+``SnapshotShipper``s over the in-process bus to one subscribed
+``FleetAggregator`` (the rollups equal to the same frames merged under the
+plain versions), one more epoch over the relay client to a gRPC relay on
+127.0.0.1, ``/fleet/query`` over the aggregator's ring and over 8 node
+clients (equal to the plain versions), the three fleet dryruns at their
+defaults, and a child agent in the three fleet roles scraped for its
+``fleet_*`` series and ``/fleet/query`` and stopped by SIGTERM.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -1056,6 +1065,7 @@ def main() -> int:
     scrape_surface(dev, quanta, time_ms, report, results)
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
+    fleet_transport_phase(dev, pods, smi)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -4055,6 +4065,354 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
           f"GET /metrics {child_ms:.1f} ms ({len(text)} bytes); exit {rc} on SIGTERM",
           flush=True)
     print(f"daemon phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+FT_NODES, FT_EPOCHS, FT_EPOCH0 = 8, 4, 9000  # the fleet transport phase's nodes and epochs
+FT_WAIT_S = 120.0  # the bound on each wait of the fleet transport phase
+# The kernels the fleet transport phase must launch: the merges and queries
+# (K8-K10, K15, K16's bits, K17's estimate) and the dryruns' sketch builds
+# (K2-K4, K6).
+FT_KERNELS = ("fold", "topk_join", "cms_query", "inv_decode", "entropy_bits", "hll_estimate",
+              "hh_update", "hll_update", "entropy_update", "inv_update")
+
+
+def fleet_relay(ingest):
+    """A relay for ``retina.Fleet/Ship`` on 127.0.0.1 (a plain gRPC generic
+    handler: the frame in, ``ingest``'s verdict out as msgpack {"ok": ...});
+    returns (server, port), or None without grpc."""
+    try:
+        import grpc
+    except ImportError:
+        return None
+    from concurrent import futures
+
+    from retina_tpu_torch.fleet import _msgpack
+    from retina_tpu_torch.hubble.server import FLEET_SERVICE
+
+    def ship(request, ctx):
+        return _msgpack.packb({"ok": bool(ingest(request))})
+
+    handler = grpc.method_handlers_generic_handler(FLEET_SERVICE, {
+        "Ship": grpc.unary_unary_rpc_method_handler(
+            ship, request_deserializer=lambda x: x, response_serializer=lambda x: x)})
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+    server.add_generic_rpc_handlers([handler])
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    return server, port
+
+
+def fleet_transport_phase(dev, pods, smi: str) -> None:
+    """The fleet tier as the agent runs it, on the card. FT_NODES
+    ``SketchEngine``s at ``Config()`` (with the time-travel ring) share the
+    card, each with ``fleet_enabled``, its own ``fleet_node_name`` and one of
+    two tenants of different priority; each takes a ``TrafficGen`` batch of
+    NODE_EVENTS an epoch and closes at FT_EPOCHS shared epochs, and its
+    ``SnapshotShipper`` ships over the in-process bus to one subscribed
+    ``FleetAggregator`` (FT_NODES expected, with its epoch ring), which
+    merges each epoch on the card (on its quorum: the straggler timeout is
+    FT_WAIT_S, since one process feeds the nodes in turn). The frames the
+    shippers sent are
+    captured off the bus and merged again under ``kops.plain_versions()``:
+    the rollups must be equal, and ``fleet_windows_merged`` must count every
+    epoch. With grpc, one more epoch ships over ``FleetShipClient`` to a
+    relay on 127.0.0.1 (``fleet_relay``; each engine gets a shipper with the
+    relay's address). ``FleetQueryService`` answers ``last=4`` over the
+    aggregator's ring and the same span over FT_NODES ``LocalNodeClient``s on
+    the engines' rings (every node given FT_WAIT_S to answer in full), each
+    equal to its plain-version run. Then
+    ``run_dryrun``, ``run_invertible_dryrun`` and ``run_fleetquery_dryrun``
+    at their reference defaults (``ok`` required), and a child ``python3 -m
+    retina_tpu_torch agent`` in the three fleet roles, scraped for its
+    fleet_* series and ``/fleet/query`` once and stopped by SIGTERM (exit 0
+    required). The launch counts, set to 0 at the phase's start, must show
+    FT_KERNELS."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.synthetic import TrafficGen
+    from retina_tpu_torch.fleet.aggregator import FleetAggregator
+    from retina_tpu_torch.fleet.codec import FLEET_TOPIC, decode_snapshot
+    from retina_tpu_torch.fleet.dryrun import run_dryrun, run_invertible_dryrun
+    from retina_tpu_torch.fleet.shipper import SnapshotShipper
+    from retina_tpu_torch.fleetquery import FleetQueryService, LocalNodeClient
+    from retina_tpu_torch.fleetquery.dryrun import run_fleetquery_dryrun
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.metrics import get_metrics
+    from retina_tpu_torch.pubsub import get_pubsub
+    from retina_tpu_torch.timetravel.fold import RangeFold
+
+    t_phase = time.perf_counter()
+    name_power = smi
+
+    def wait(pred, what: str, bound: float = FT_WAIT_S) -> None:
+        deadline = time.monotonic() + bound
+        while not pred():
+            check(time.monotonic() < deadline, f"fleet transport: timed out waiting for {what}")
+            time.sleep(0.01)
+
+    def rollup_doc(r: dict) -> dict:
+        return {k: v for k, v in r.items() if k != "merge_seconds"}
+
+    m = get_metrics()
+    merged0, dropped0 = m.fleet_windows_merged._value, m.fleet_ship_dropped._value
+    kops.reset_launch_counts()
+    # The nodes are fed one after another by one process: an epoch closes on
+    # its quorum, never on the straggler timeout.
+    acfg = Config(fleet_expected_nodes=FT_NODES, timetravel_enabled=True,
+                  fleet_straggler_timeout_s=FT_WAIT_S)
+    agg = FleetAggregator(acfg, device=dev)
+    bus = get_pubsub()
+    frames: list[bytes] = []
+    tap = bus.subscribe(FLEET_TOPIC, frames.append)  # what the shippers sent
+    agg.start(subscribe=True)
+    engines = []
+    for i in range(FT_NODES):
+        first_half = i < FT_NODES // 2
+        cfg = Config(fleet_enabled=True, timetravel_enabled=True, fleet_node_name=f"node-{i}",
+                     fleet_tenant="tenant-a" if first_half else "tenant-b",
+                     fleet_priority=int(first_half))
+        eng = SketchEngine(cfg, device=dev)
+        eng.update_identities(pods)
+        engines.append(eng)
+    gens = [TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=200 + i) for i in range(FT_NODES)]
+    relay = None
+    try:
+        t0 = time.perf_counter()
+        for e in range(FT_EPOCHS):
+            for eng, gen in zip(engines, gens):
+                eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 600 + e)
+                eng.close_window(epoch=FT_EPOCH0 + e)
+            wait(lambda: agg.epochs_merged == e + 1, f"the merge of epoch {e}")
+        feed_s = time.perf_counter() - t0
+        epochs = FT_EPOCHS
+        relay = fleet_relay(agg.ingest)
+        if relay is not None:
+            # One more epoch over the relay client: each node's close offers to
+            # a shipper dialing the relay.
+            for eng in engines:
+                eng._fleet_shipper.stop()
+                eng._fleet_shipper = SnapshotShipper(
+                    dataclasses.replace(eng.cfg, fleet_relay_addr=f"127.0.0.1:{relay[1]}"),
+                    overload=eng._overload)
+            for eng, gen in zip(engines, gens):
+                eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 600 + epochs)
+                eng.close_window(epoch=FT_EPOCH0 + epochs)
+            epochs += 1
+            wait(lambda: agg.epochs_merged == epochs, "the merge of the relay's epoch")
+            wait(lambda: all(eng._fleet_shipper.stats()["shipped"] == 1 for eng in engines),
+                 "the relay's answers to the shippers")
+            print("fleet transport: epoch over the relay (FleetShipClient -> retina.Fleet/Ship "
+                  "on 127.0.0.1) merged", flush=True)
+        else:
+            print("fleet transport: no grpc on this machine; the relay epoch is left out",
+                  flush=True)
+        for eng in engines:
+            check(eng.timetravel_ring.drain(30.0), "fleet transport: an engine's ring lags")
+        check(agg.merge_errors == 0 and agg.invertible_decode_failed == 0,
+              f"fleet transport: merge failed: {agg.last_error}")
+        merged_n = m.fleet_windows_merged._value - merged0
+        check(merged_n == epochs, f"fleet_windows_merged counted {merged_n} of {epochs} epochs")
+        check(agg.received == {f"node-{i}": epochs for i in range(FT_NODES)},
+              f"fleet transport: frames received {agg.received}")
+        ship_drops = m.fleet_ship_dropped._value - dropped0
+        check(ship_drops == 0, f"fleet transport: {ship_drops} frames dropped at the ship queue")
+        rollups = [rollup_doc(r) for r in agg.rollups[-epochs:]]
+        merge_ms = float(np.median([r["merge_seconds"] for r in agg.rollups[-epochs:]])) * 1e3
+        for i, r in enumerate(rollups):  # the engines' sketches are cumulative
+            check(len(r["nodes"]) == FT_NODES and set(r["tenants"]) == {"tenant-a", "tenant-b"}
+                  and int(r["totals"][0]) == (i + 1) * FT_NODES * NODE_EVENTS,
+                  f"fleet transport: epoch {r['epoch']} rollup: nodes {r['nodes']}, tenants "
+                  f"{list(r['tenants'])}, totals[0] {int(r['totals'][0])}")
+
+        # The same frames, merged by the same code under the plain versions.
+        wait(lambda: len(frames) >= FT_EPOCHS * FT_NODES, "the tapped frames")
+        sent = frames[:FT_EPOCHS * FT_NODES]
+        check(sorted(decode_snapshot(f).epoch for f in sent) == sorted(
+            FT_EPOCH0 + e for e in range(FT_EPOCHS) for _ in range(FT_NODES)),
+            "fleet transport: the tapped frames' epochs")
+        launches = kops.launch_counts()
+        with kops.plain_versions():
+            plain = FleetAggregator(acfg, device=dev)
+            for f in sent:
+                check(plain.ingest(f), "fleet transport: the plain merge refused a frame")
+        check(kops.launch_counts() == launches, "the plain fleet merge launched kernels")
+        for got, want in zip(rollups[:FT_EPOCHS], plain.rollups):
+            same_doc(got, rollup_doc(want), f"fleet transport rollup {got['epoch']}")
+
+        # /fleet/query over the aggregator's ring and over the engines' rings.
+        # Every node answers in full (the plain versions' span folds take
+        # longer than the deployed 0.25 s deadline), so the two runs compare.
+        qcfg = dataclasses.replace(acfg, fleetquery_node_deadline_s=FT_WAIT_S,
+                                   fleetquery_hedge_delay_s=FT_WAIT_S)
+
+        def ring_service():
+            svc = FleetQueryService(qcfg, device=dev)
+            svc.add_ring(agg.epoch_ring)
+            return svc
+
+        def node_service():
+            svc = FleetQueryService(qcfg, device=dev)
+            fold = RangeFold(dev)
+            for eng in engines:
+                svc.add_client(LocalNodeClient(eng.cfg.fleet_node_name, eng.timetravel_ring,
+                                               fold))
+            return svc
+
+        e1 = FT_EPOCH0 + epochs
+        queries = (("ring", ring_service, {"last": ["4"]}),
+                   ("nodes", node_service, {"t0": [str(e1 - 4)], "t1": [str(e1)]}))
+        query_ms = {}
+        for label, make, q in queries:
+            svc = make()
+            t0 = time.perf_counter()
+            code, body, _ = svc.handle(q)
+            cold = (time.perf_counter() - t0) * 1e3
+            # The first answer teaches the service the fleet's newest epoch,
+            # which re-keys a range over the live edge: the second query
+            # folds again, the third is a cache hit.
+            code2, body2, _ = svc.handle(q)
+            t0 = time.perf_counter()
+            code3, body3, _ = svc.handle(q)
+            cached = (time.perf_counter() - t0) * 1e3
+            doc = json.loads(body)
+            check(code == code2 == code3 == 200 and body2 == body3 == body
+                  and doc["windows"] == 4
+                  and doc["topk"]["keys"] and not doc["coverage"]["partial"],
+                  f"fleet transport: /fleet/query over the {label} answered {code}: {body[:300]}")
+            svc.close()
+            before = kops.launch_counts()
+            with kops.plain_versions():
+                psvc = make()
+                pcode, pbody, _ = psvc.handle(q)
+                psvc.close()
+            check(kops.launch_counts() == before, "the plain /fleet/query run launched kernels")
+            check(pcode == 200, f"fleet transport: the plain /fleet/query over the {label} "
+                  f"answered {pcode}: {pbody[:300]}")
+            same_doc(doc, json.loads(pbody), f"/fleet/query over the {label}")
+            query_ms[label] = (cold, cached)
+        print(f"fleet transport: {FT_NODES} Config() nodes x {epochs} epochs of {NODE_EVENTS} "
+              f"events fed, closed, shipped and merged in {feed_s:.1f} s (the first "
+              f"{FT_EPOCHS}); rollups equal to the plain merge of the {len(sent)} tapped "
+              f"frames; a merged epoch {merge_ms:.3f} ms (median of {epochs}, frames in to "
+              f"rollup out); ship-queue drops {ship_drops}; /fleet/query last=4 over the "
+              f"aggregator's ring {query_ms['ring'][0]:.3f} ms cold, {query_ms['ring'][1]:.3f} "
+              f"ms cached; over {FT_NODES} node clients {query_ms['nodes'][0]:.3f} ms cold, "
+              f"{query_ms['nodes'][1]:.3f} ms cached; equal to the plain versions; card "
+              f"{name_power}", flush=True)
+    finally:
+        agg.stop()
+        bus.unsubscribe(FLEET_TOPIC, tap)
+        if relay is not None:
+            relay[0].stop(0)
+        for eng in engines:
+            eng.stop()
+    del engines, agg, frames
+
+    # The dryruns at their reference defaults, on the card.
+    for name, fn in (("run_dryrun", run_dryrun), ("run_invertible_dryrun", run_invertible_dryrun),
+                     ("run_fleetquery_dryrun", run_fleetquery_dryrun)):
+        t0 = time.perf_counter()
+        res = fn(device=dev)
+        secs = time.perf_counter() - t0
+        checks = res.get("checks", {})
+        check(res["ok"], f"{name}: not ok: {[k for k, v in checks.items() if not v] or res}")
+        extra = (f"recall {res['recall_min']}" if "recall_min" in res else
+                 f"storm p99 {res['storm']['p99_ms']} ms, "
+                 + ", ".join(f"{d} recall {sc['recall']}" for d, sc in res["detectors"].items()))
+        print(f"fleet transport: {name} ok in {secs:.1f} s ({extra}); card {name_power}",
+              flush=True)
+
+    # The agent as a user starts it in the three fleet roles.
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        child_port = sk.getsockname()[1]
+    root = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+    out_path = Path(tempfile.mkdtemp(prefix="chip_smoke_fleet_")) / "agent.log"
+
+    def get(path: str) -> tuple[int, str]:
+        with urllib.request.urlopen(f"http://127.0.0.1:{child_port}{path}", timeout=60) as r:
+            return r.status, r.read().decode()
+
+    sets = ["fleet_enabled=true", "fleet_aggregator=true", "fleetquery_enabled=true",
+            "timetravel_enabled=true", "fleet_expected_nodes=1",
+            f"api_server_addr=127.0.0.1:{child_port}"]
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "retina_tpu_torch", "agent"]
+            + [a for s_ in sets for a in ("--set", s_)],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        text = ""
+
+        def merged() -> bool:
+            nonlocal text
+            check(child.poll() is None, "fleet transport: the agent child exited: "
+                  + out_path.read_text()[-2000:])
+            try:
+                text = get("/metrics")[1]
+            except OSError:
+                return False
+            return any(line.startswith("networkobservability_fleet_windows_merged_counter_total ")
+                       and float(line.rsplit(" ", 1)[1]) >= 1 for line in text.splitlines())
+
+        wait(merged, "the agent child's first merged epoch", DAEMON_CHILD_S)
+        child_s = time.perf_counter() - t0
+        fleet_lines = [ln for ln in text.splitlines()
+                       if ln.startswith("networkobservability_fleet_")]
+        check(any(ln.startswith("networkobservability_fleet_nodes_reporting 1") for ln in
+                  fleet_lines), "fleet transport: the child's fleet_nodes_reporting is not 1")
+        # Under SHEDDING and above the query plane starts no fold and answers
+        # 503 busy (the reference's contract): ask again until the child's
+        # overload controller lets one through, and count the refusals.
+        busy, states = 0, set()
+        deadline = time.monotonic() + FT_WAIT_S
+        while True:
+            t1 = time.perf_counter()
+            try:
+                code, body = get("/fleet/query?last=4")
+            except urllib.error.HTTPError as err:
+                code, body = err.code, err.read().decode()
+            child_q_ms = (time.perf_counter() - t1) * 1e3
+            doc = json.loads(body)
+            if code == 200:
+                break
+            check(code == 503 and doc.get("error") == "busy" and child.poll() is None,
+                  f"fleet transport: the child's /fleet/query answered {code}: {body[:300]}")
+            busy += 1
+            states.add(json.loads(get("/debug/vars")[1])["overload"]["state"])
+            check(time.monotonic() < deadline,
+                  f"fleet transport: the child's /fleet/query stayed busy ({busy} answers)")
+            time.sleep(0.1)
+        check(doc["windows"] >= 1 and doc["coverage"]["nodes_answered"] == 1,
+              f"fleet transport: the child's /fleet/query answered {body[:300]}")
+        child.send_signal(signal.SIGTERM)
+        rc = child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    tail = out_path.read_text()[-2000:]
+    check(rc == 0, f"fleet transport: the agent child exited {rc}: {tail}")
+    print(f"fleet transport: python3 -m retina_tpu_torch agent in the fleet roles: first merged "
+          f"epoch {child_s:.1f} s after its start, {len(fleet_lines)} fleet_* samples, "
+          f"/fleet/query?last=4 {child_q_ms:.1f} ms ({doc['windows']} windows) after {busy} "
+          f"busy answers (overload {sorted(states)}); exit {rc} on SIGTERM", flush=True)
+
+    launches = kops.launch_counts()
+    print(f"fleet transport launches: {launches}", flush=True)
+    for name in FT_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the fleet transport phase")
+    print(f"fleet transport: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def sticky_child() -> int:

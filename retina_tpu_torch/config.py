@@ -13,8 +13,9 @@ address, the enabled plugins, the event source, telemetry and logging),
 the pipeline shapes that ``engine.pipeline_config_from`` turns into a
 ``PipelineConfig``, the feed path's knobs (batch capacity, combining,
 coalescing, transfer buckets and the wire format), the window, the
-time-travel ring and its query route, the fleet rollup tier, the detector
-bank and the closed-loop capture, the /metrics render cache, the runtime
+time-travel ring and its query route, the fleet rollup tier (the node's
+shipper, the aggregator and its relay transport) and the fleet query plane,
+the detector bank and the closed-loop capture, the /metrics render cache, the runtime
 lanes and the overload controller, and the supervised runtime
 (checkpoints, the watchdog, the restart policy, fault injection and the
 flight recorder). ``device_platform`` names the torch device: "" is the
@@ -22,11 +23,11 @@ card (and raises without one), "cpu" the plain versions on the host.
 
 The reference's JAX-only fields (``compilation_cache_dir``, the
 ``distributed_num_processes``/``process_id`` pair, the AOT cache) and its
-transport and profiling fields are not copied; ``load_config`` ignores
+Hubble and profiling fields are not copied; ``load_config`` ignores
 unknown keys as the reference does, so an older YAML still loads. The
 switches of parts the port does not have yet (``enable_hubble``,
-``kubeconfig``, ``fleet_aggregator``, ``fleetquery_enabled``,
-``distributed_coordinator``) are kept so that the daemon can refuse them.
+``kubeconfig``, ``distributed_coordinator``) are kept so that the daemon
+can refuse them.
 """
 
 from __future__ import annotations
@@ -202,17 +203,43 @@ class Config:
     identity_slots: int = 1 << 16
 
     # --- the fleet rollup tier (fleet/) ---
-    # Node side: the window close exports the sketches for the fleet.
+    # Node side: ship the window-close sketch export (fleet/shipper.py).
     fleet_enabled: bool = False
-    # Operator side: the aggregator role; not ported as a daemon role, the
-    # daemon refuses it.
+    # Operator side: run the FleetAggregator (the epoch-aligned merge on
+    # the card and the fleet_* families). Both may be on in one process:
+    # the in-process pubsub transport loops back.
     fleet_aggregator: bool = False
+    fleet_node_name: str = ""  # wire identity ("" = node_name or pid)
+    fleet_tenant: str = "default"
+    # Higher priority tenants are shed last by the cardinality guardrails.
+    fleet_priority: int = 0
+    # gRPC Ship target ("host:port"); "" ships over the in-process bus.
+    fleet_relay_addr: str = ""
     # Close an epoch once this many nodes reported; 0 = on the timeout only.
     fleet_expected_nodes: int = 0
     # Epoch close deadline after the first arrival.
     fleet_straggler_timeout_s: float = 2.0
     # Open epochs buffered before the oldest is force-closed.
     fleet_epoch_history: int = 8
+    # Node-side ship queue depth; a full queue drops the snapshot (never
+    # blocks the window close).
+    fleet_ship_queue: int = 4
+    # Under SHEDDING and above, ship only 1 window in this many.
+    fleet_shed_ship_every: int = 4
+    # Seed generation stamped on shipped frames; bump it when rotating the
+    # sketch seeds so the aggregator re-admits the node under the new one.
+    fleet_seed_generation: int = 0
+    # Send-failure spool: frames held while the relay is unreachable,
+    # replayed oldest first on heal, the oldest evicted (and counted) when
+    # full. 0 turns spooling off (a failed send is dropped, counted).
+    fleet_ship_spool: int = 64
+    # Jittered exponential backoff between send retries while the ship
+    # circuit is open: uniform in [base/2, min(max, base * 2^n)].
+    fleet_ship_backoff_base_s: float = 0.05
+    fleet_ship_backoff_max_s: float = 2.0
+    # Two-level rollup: re-ship each merged epoch as an RFLT snapshot to a
+    # parent aggregator's relay at this address; "" = this is the root.
+    fleet_reship_addr: str = ""
     # Merge quorum-closed epochs on the poll thread instead of in ingest.
     fleet_merge_async: bool = False
     fleet_topk_k: int = 32  # cluster-wide heavy-hitter series cap
@@ -244,9 +271,19 @@ class Config:
     # Artifact directory (capture host_path output).
     autocapture_output_dir: str = "/tmp/retina-autocapture"
 
-    # --- the fleet query plane (fleetquery/): not ported; the daemon
-    # refuses it ---
+    # --- the fleet query plane (fleetquery/) ---
+    # GET /fleet/query: federated [t0, t1) range queries over the nodes'
+    # rings (scatter-gather) or the aggregator's merged-epoch ring, with
+    # the node tier's latency contract plus a per-node deadline, one hedged
+    # retry and partial coverage.
     fleetquery_enabled: bool = False
+    fleetquery_node_deadline_s: float = 0.25  # per-node answer budget
+    # After this long with nodes unanswered, ONE hedged duplicate request
+    # a straggler.
+    fleetquery_hedge_delay_s: float = 0.05
+    fleetquery_fanout: int = 16  # scatter pool concurrency bound
+    fleetquery_cache_ttl_s: float = 1.0  # fleet result cache TTL
+    fleetquery_topk: int = 32  # default k for /fleet/query
 
     # --- the detector bank (detect/) ---
     # Derived detectors over the engine's record tap; the window's winner
@@ -350,21 +387,42 @@ class Config:
                 f"fleet_straggler_timeout_s must be > 0, "
                 f"got {self.fleet_straggler_timeout_s}"
             )
-        for f in ("fleet_epoch_history", "fleet_topk_k", "fleet_service_top",
-                  "fleet_tenant_series_max", "timetravel_ring_windows",
-                  "timetravel_query_topk"):
+        for f in ("fleet_epoch_history", "fleet_ship_queue", "fleet_shed_ship_every",
+                  "fleet_topk_k", "fleet_service_top", "fleet_tenant_series_max",
+                  "timetravel_ring_windows", "timetravel_query_topk"):
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
-        for f in ("fleet_expected_nodes", "fleet_max_tenants"):
+        for f in ("fleet_expected_nodes", "fleet_max_tenants", "fleet_seed_generation",
+                  "fleet_ship_spool"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
+        if self.fleet_ship_backoff_base_s <= 0:
+            raise ValueError(
+                f"fleet_ship_backoff_base_s must be > 0, "
+                f"got {self.fleet_ship_backoff_base_s}"
+            )
+        if self.fleet_ship_backoff_max_s < self.fleet_ship_backoff_base_s:
+            raise ValueError(
+                "fleet_ship_backoff_max_s must be >= "
+                f"fleet_ship_backoff_base_s, got "
+                f"{self.fleet_ship_backoff_max_s}"
+            )
+        for f in ("fleetquery_fanout", "fleetquery_topk"):
+            if getattr(self, f) < 1:
+                raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
+        if self.fleetquery_node_deadline_s <= 0:
+            raise ValueError(
+                f"fleetquery_node_deadline_s must be > 0, "
+                f"got {self.fleetquery_node_deadline_s}"
+            )
         for f in ("autocapture_max_sources", "autocapture_max_size_mb",
                   "detector_min_windows"):
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
         for f in ("autocapture_cooldown_s", "autocapture_lookback_windows",
                   "autocapture_lookahead_windows", "detector_cooldown_s",
-                  "timetravel_query_cache_ttl_s"):
+                  "timetravel_query_cache_ttl_s", "fleetquery_hedge_delay_s",
+                  "fleetquery_cache_ttl_s"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
         for f in ("trace_sample_every", "trace_ring_spans"):

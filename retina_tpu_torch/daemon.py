@@ -7,9 +7,15 @@ pod-level is on (:239-295), then runs the controller manager until SIGTERM
 cancels the context and the Stop cascade runs.
 
 Here: config → logging → ControllerManager (server + engine + plugins +
-watchers) → the time-travel query route, the closed-loop capture and the
-detector bank → MetricsModule (pod-level) and TracesModule → resume from
-the checkpoint → signal-driven stop event. The entry point is
+watchers) → the fleet aggregator role (``fleet_aggregator``) → the
+time-travel query route over the engine's ring and the aggregator's
+merged-epoch ring, the closed-loop capture and the detector bank → the
+fleet query plane (``fleetquery_enabled``: ``GET /fleet/query`` over the
+aggregator's ring) → MetricsModule (pod-level) and TracesModule → resume
+from the checkpoint → signal-driven stop event. A node with
+``fleet_enabled`` ships each window close through its engine's shipper;
+with the aggregator in the same process the in-process bus carries the
+frames to it. The entry point is
 :func:`run_agent`; ``python -m retina_tpu_torch agent`` calls it via the
 CLI. The engine runs on ``cfg.device_platform``: "" is the card (and the
 daemon raises without one), "cpu" the plain versions.
@@ -17,10 +23,9 @@ daemon raises without one), "cpu" the plain versions.
 A config that turns on a part the port does not have yet raises a
 ``ValueError`` naming its ROADMAP item (:func:`refuse_unported`), never
 starts without it: the Hubble relay, identity from a real cluster (a
-kubeconfig or an in-cluster service account), the fleet aggregator role,
-the fleet query plane and a multi-process mesh. The reference's
-``/debug/trace`` and ``/debug/profile`` routes (obs/debug.py) are not on
-the port's agent mux yet either.
+kubeconfig or an in-cluster service account) and a multi-process mesh.
+The reference's ``/debug/trace`` and ``/debug/profile`` routes
+(obs/debug.py) are not on the port's agent mux yet either.
 """
 
 from __future__ import annotations
@@ -57,11 +62,6 @@ def refuse_unported(cfg: Config) -> None:
         parts.append("kubeconfig or an in-cluster service account (identity from "
                      "a real cluster, operator/kubewatch.py and the CRD bridge: "
                      "ROADMAP §1 item 7)")
-    if cfg.fleet_aggregator:
-        parts.append("fleet_aggregator (the aggregator role and its transport: "
-                     "ROADMAP §1 item 4)")
-    if cfg.fleetquery_enabled:
-        parts.append("fleetquery_enabled (fleetquery/: ROADMAP §1 item 4)")
     if cfg.distributed_coordinator:
         parts.append("distributed_coordinator (a multi-process mesh: "
                      "ROADMAP §1 item 5)")
@@ -84,9 +84,19 @@ class Daemon:
         self.cm = ControllerManager(cfg, apiserver_host=apiserver_host)
         self.metrics_module: Optional[MetricsModule] = None
         self._mm_thread: Optional[threading.Thread] = None
+        # Fleet rollup tier (fleet/): the aggregator role is explicit
+        # config. One operator-side process merges the cluster's shipped
+        # snapshots on its card.
+        self.fleet_aggregator = None
+        if cfg.fleet_aggregator:
+            from retina_tpu_torch.fleet.aggregator import FleetAggregator
+
+            self.fleet_aggregator = FleetAggregator(
+                cfg, device=self.cm.engine.device, supervisor=self.cm.supervisor)
         # Time-travel query tier (timetravel/): one QueryService owns the
-        # fold and the engine's per-window ring. The closed loop
-        # (autocapture) rides the same service.
+        # fold and every ring of this process: the engine's per-window ring
+        # and, with the aggregator role, its merged-epoch ring. The closed
+        # loop (autocapture) rides the same service.
         self.query_service = None
         self.autocapture = None
         if cfg.timetravel_enabled:
@@ -98,6 +108,9 @@ class Daemon:
             )
             if self.cm.engine.timetravel_ring is not None:
                 self.query_service.add_ring(self.cm.engine.timetravel_ring)
+            if (self.fleet_aggregator is not None
+                    and self.fleet_aggregator.epoch_ring is not None):
+                self.query_service.add_ring(self.fleet_aggregator.epoch_ring)
             if cfg.autocapture_enabled:
                 from retina_tpu_torch.capture.manager import CaptureManager
                 from retina_tpu_torch.capture.providers import ReplayProvider
@@ -127,6 +140,17 @@ class Daemon:
                 _bank.observe(window_epoch(_win), records, now_s=float(now_s))
 
             self.cm.engine.record_hook = _record_tap
+        # Fleet query plane (fleetquery/): cluster-wide range answers over
+        # the aggregator's merged-epoch ring when this process has the role.
+        self.fleetquery = None
+        if cfg.fleetquery_enabled:
+            from retina_tpu_torch.fleetquery import FleetQueryService
+
+            self.fleetquery = FleetQueryService(
+                cfg, overload=self.cm.engine._overload, device=self.cm.engine.device)
+            if (self.fleet_aggregator is not None
+                    and self.fleet_aggregator.epoch_ring is not None):
+                self.fleetquery.add_ring(self.fleet_aggregator.epoch_ring)
         if cfg.enable_pod_level:
             dns_plugin = self.cm.pluginmanager.plugins.get("dns")
             self.metrics_module = MetricsModule(
@@ -164,8 +188,13 @@ class Daemon:
             # /timetravel/query + the ring debug var ride the agent mux;
             # registration is a dict insert, safe while the server serves.
             self.query_service.attach(self.cm.server)
+        if self.fleetquery is not None and self.cm.server is not None:
+            # /fleet/query and the fleetquery debug var, the same shape.
+            self.fleetquery.attach(self.cm.server)
         if self.autocapture is not None:
             self.autocapture.start()
+        if self.fleet_aggregator is not None:
+            self.fleet_aggregator.start()
         if self.metrics_module is not None:
             self.metrics_module.reconcile(MetricsConfiguration.default())
             self._mm_thread = threading.Thread(
@@ -186,11 +215,18 @@ class Daemon:
         try:
             self.cm.start(stop)  # blocks until stop fires; runs shutdown
         finally:
+            if self.fleet_aggregator is not None:
+                self.fleet_aggregator.stop()
+                ring = self.fleet_aggregator.timetravel_ring
+                if ring is not None:
+                    ring.stop()
             if self.autocapture is not None:
                 self.autocapture.stop()
             if self.detector_bank is not None:
                 # Judge the in-progress window before the loop dies.
                 self.detector_bank.flush()
+            if self.fleetquery is not None:
+                self.fleetquery.close()
 
 
 def run_agent(

@@ -47,12 +47,17 @@ on the quantum builds (inline or the feed workers).
 
 ``close_window`` closes the window in the reference's order: with the
 time-travel ring or the fleet tier on, it first copies the window's
-sketches (``Telemetry.fleet_export``) and offers them to the engine's
-``SnapshotRing`` (``timetravel_ring``) and, with ``fleet_enabled``, returns
-them for the caller to encode; then the invertible decode; then
+sketches (``Telemetry.fleet_export``) and starts one copy of them to the
+host (``to_host``), which goes to the engine's ``SnapshotRing``
+(``timetravel_ring``) and, with ``fleet_enabled``, to the engine's
+``SnapshotShipper`` (``fleet/shipper.py``: one export and one pinned copy
+feed both, as the reference's one export does); ``close_window`` also
+returns the export for the caller; then the invertible decode; then
 ``end_window``, whose anomaly flags go to ``anomaly_hook`` with the close's
-epoch. The lanes' close offers to the ring alike; the fleet shipper is not
-ported, so they hand no export out.
+epoch. The lanes' close offers to the ring and the shipper alike. A failed
+export or offer counts ``fleet_ship_errors`` and ``errors["fleet_export"]``
+and the close goes on. ``start(stop)`` starts the shipper's worker and
+stops it after the last close (``close_window`` starts it too).
 
 Crash-only supervision, as the reference's: with a ``Supervisor`` every
 long-lived lane thread (``engine-feed``, ``engine-dispatch``,
@@ -94,11 +99,10 @@ accounting is plain counters (``errors``, ``lost_events``, ``windows``,
 ``compile()`` is the daemon's boot step (``managers/controllermanager.py``
 owns the engine, the supervisor and the periodic checkpointer): it builds
 the kernels and runs the boot dispatches before the agent reports ready.
-Left out, for later slices: the fleet shipper, multi-card partitioning,
-and the background warm and AOT caches: torch compiles nothing ahead of
-time, so a cold close never defers (``windows["deferred"]`` counts closes
-refused because both close slots were in flight, and closes during a
-recovery).
+Left out, for later slices: multi-card partitioning, and the background
+warm and AOT caches: torch compiles nothing ahead of time, so a cold close
+never defers (``windows["deferred"]`` counts closes refused because both
+close slots were in flight, and closes during a recovery).
 """
 
 from __future__ import annotations
@@ -120,7 +124,7 @@ from retina_tpu_torch._device import resolve_device
 from retina_tpu_torch.config import Config
 from retina_tpu_torch.convert import tensor_leaves
 from retina_tpu_torch.events.schema import NUM_FIELDS, VERDICT_FORWARDED, F
-from retina_tpu_torch.fleet.shipper import window_epoch
+from retina_tpu_torch.fleet.shipper import SnapshotShipper, window_epoch
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.models.identity import HostIdentityTable, IdentityMap
@@ -377,6 +381,13 @@ class SketchEngine:
         self.last_window: dict[str, Any] = {}
         self._feed_pool: FeedWorkerPool | None = None
         self._overload = OverloadController(cfg, self._overload_signals)
+        # The fleet rollup tier: ship the window-close export to the
+        # aggregator. offer() on the proxy never blocks the close; the
+        # SHEDDING backoff reads the same controller.
+        self._fleet_shipper: SnapshotShipper | None = None
+        if cfg.fleet_enabled:
+            self._fleet_shipper = SnapshotShipper(cfg, overload=self._overload,
+                                                  supervisor=supervisor)
         self._ov_wait_prev = 0.0
         self._ov_wait_t = time.monotonic()
         self._dispatch_lat_ewma = 0.0  # seconds, on the proxy thread
@@ -464,9 +475,12 @@ class SketchEngine:
         return self.counts.events
 
     def stop(self) -> None:
-        """Stop the ring's readback thread, join a recovery in flight (for
-        at most its fence bound and a backoff) and deregister the harvest's
-        heartbeat (the other lanes deregister theirs as they end)."""
+        """Stop the shipper (after the frames it has queued) and the ring's
+        readback thread, join a recovery in flight (for at most its fence
+        bound and a backoff) and deregister the harvest's heartbeat (the
+        other lanes deregister theirs as they end)."""
+        if self._fleet_shipper is not None:
+            self._fleet_shipper.stop()
         if self._tt_ring is not None:
             self._tt_ring.stop()
         with self._recover_lock:
@@ -1028,10 +1042,10 @@ class SketchEngine:
     # -- window close ------------------------------------------------------
     def _close_dispatch(self, z_thresh: float, epoch: int) -> dict:
         """(Proxy.) The close itself: the export (copies taken before
-        ``end_window``) to the ring and under "export" with
-        ``fleet_enabled``, the invertible decode under "inv", then
-        ``end_window``'s outputs. A failed export or decode is counted and
-        the close goes on."""
+        ``end_window``), one host copy of it offered to the ring and the
+        shipper, and the export under "export" with ``fleet_enabled``; the
+        invertible decode under "inv", then ``end_window``'s outputs. A
+        failed export, offer or decode is counted and the close goes on."""
         t_c0 = time.perf_counter()
         out: dict = {}
         cfg = self.cfg
@@ -1039,13 +1053,17 @@ class SketchEngine:
             try:
                 export = self.telemetry.fleet_export(self.state)
                 seeds = self.telemetry.fleet_seeds(self.state)
+                # One copy feeds both: the workers wait for it off the proxy.
+                host = to_host(export)
+                if self._fleet_shipper is not None:
+                    self._fleet_shipper.offer(epoch, host, cfg.window_seconds, seeds)
                 if self._tt_ring is not None:
-                    # The ring's worker reads host copies once they land.
-                    self._tt_ring.offer(epoch, to_host(export), cfg.window_seconds, seeds)
+                    self._tt_ring.offer(epoch, host, cfg.window_seconds, seeds)
                 if cfg.fleet_enabled:
                     out["export"] = (epoch, export, cfg.window_seconds, seeds)
                 self._count(self.windows, "exports")
             except Exception:
+                get_metrics().fleet_ship_errors.inc()
                 self._count(self.errors, "fleet_export")
                 _log.exception("fleet export failed")
         if self.pcfg.enable_invertible:
@@ -1076,6 +1094,8 @@ class SketchEngine:
             return zero_window()
         ingested = self._events_in
         epoch = window_epoch(self.cfg.window_seconds) if epoch is None else int(epoch)
+        if self._fleet_shipper is not None:
+            self._fleet_shipper.start()
         out = self._proxy.run(self._close_dispatch, z_thresh, epoch)
         self._closed_events_in = ingested
         if self.anomaly_hook is not None:
@@ -1417,6 +1437,8 @@ class SketchEngine:
         On stop: the workers flush, the dispatch thread drains, the proxy
         is fenced, the harvest publishes the last window and retires."""
         self.started.set()
+        if self._fleet_shipper is not None:
+            self._fleet_shipper.start()
         if self._tt_ring is not None:
             self._tt_ring.start()
         proxy_busy0 = self._proxy.busy_s
@@ -1573,6 +1595,10 @@ class SketchEngine:
                 self._harvest_q.put(None)
                 ht.join(timeout=5.0)
             self._lane("proxy", self._proxy.busy_s - proxy_busy0)
+            # After the fence: the last close's export is queued by then,
+            # so the last window still ships before the worker stops.
+            if self._fleet_shipper is not None:
+                self._fleet_shipper.stop()
             if self._tt_ring is not None:
                 self._tt_ring.stop()
 

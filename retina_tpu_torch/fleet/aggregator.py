@@ -24,13 +24,27 @@ totals, under the reference's label-space guardrails (at most
 ``fleet_tenant_series_max`` series each). With ``timetravel_enabled``
 every merged epoch is also a slot of ``epoch_ring``.
 
-Counters are attributes. The reference's Prometheus publication, pubsub
-subscription, tier-2 re-shipper and flight recorder wait for the port's
-exporter and transport.
+Transport and publication, as the reference's: ``start(subscribe=True)``
+subscribes ``ingest`` to the in-process ``FLEET_TOPIC`` (the co-located
+nodes' shippers publish there; a relay calls ``ingest`` itself) and starts
+the poll thread, registered with the optional ``supervisor`` as
+``fleet-agg``; ``stop`` unsubscribes. With ``fleet_reship_addr`` (or an
+injected ``reship_transport``) every merged epoch is re-encoded as a node
+snapshot (tier 1) and shipped one tier up by a ``SnapshotShipper``, so a
+root aggregator folds zone rollups like node frames. Each merged epoch is
+published (``_publish``): every ``fleet_*`` gauge of the reference, the
+keyed ones cleared and set again each epoch, then the rollup on
+``ROLLUP_TOPIC``. The counters go to the registry (``metrics.py``:
+``fleet_snapshots_received``/``_dropped``, ``fleet_windows_merged``/
+``_stragglers``, ``fleet_merge_errors``, ``fleet_merge_seconds``, ...) and
+stay attributes too (``dropped``, ``received``, ``stragglers``, ...); the
+flight recorder takes the merge span (``aggregator_merge``, the window
+epoch its trace ID).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 import traceback
@@ -41,7 +55,16 @@ import numpy as np
 import torch
 
 from retina_tpu_torch._device import resolve_device
-from retina_tpu_torch.fleet.codec import FleetDecodeError, FleetSnapshot, decode_snapshot
+from retina_tpu_torch.fleet.codec import (
+    FLEET_TOPIC,
+    ROLLUP_TOPIC,
+    FleetDecodeError,
+    FleetSnapshot,
+    decode_snapshot,
+)
+from retina_tpu_torch.log import logger, rate_limited
+from retina_tpu_torch.metrics import get_metrics
+from retina_tpu_torch.obs.recorder import get_recorder
 from retina_tpu_torch.ops.countmin import CountMinSketch
 from retina_tpu_torch.ops.hyperloglog import HyperLogLog
 from retina_tpu_torch.timetravel.fold import (
@@ -53,8 +76,10 @@ from retina_tpu_torch.timetravel.fold import (
     host_arrays,
     stack_slots,
 )
+from retina_tpu_torch.pubsub import get_pubsub
 from retina_tpu_torch.timetravel.ring import SnapshotRing
 from retina_tpu_torch.u32 import from_numpy, to_numpy
+from retina_tpu_torch.utils import metric_names as mn
 
 # Seed-generation references kept: a live rotation is a few generations.
 _GEN_HISTORY = 8
@@ -77,12 +102,16 @@ class _EpochBucket:
 
 
 class FleetAggregator:
-    """Thread-safe: ``ingest`` may run on transport threads, ``poll`` on
-    the aggregator's own thread (``start``)."""
+    """Thread-safe: ``ingest`` runs on transport threads (the pubsub pool,
+    a relay's handlers), ``poll`` on the aggregator's own thread
+    (``start``)."""
 
-    def __init__(self, cfg, device: torch.device | str | None = None) -> None:
+    def __init__(self, cfg, device: torch.device | str | None = None, supervisor=None,
+                 reship_transport=None) -> None:
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.log = logger("fleet.agg")
+        self._supervisor = supervisor
         self._lock = threading.Lock()
         self._buckets: dict[int, _EpochBucket] = {}
         self._watermark = -1  # highest closed epoch
@@ -92,6 +121,18 @@ class FleetAggregator:
         self._ready_q: deque[tuple[int, _EpochBucket]] = deque()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._sub_id: str | None = None
+        # Tier-2 re-ship: every merged epoch re-encoded as a (tier 1) node
+        # snapshot and shipped to the next rollup tier, over an injected
+        # transport or to the relay at fleet_reship_addr.
+        self._reshipper = None
+        if reship_transport is not None or str(cfg.fleet_reship_addr):
+            from retina_tpu_torch.fleet.shipper import SnapshotShipper
+
+            ship_cfg = dataclasses.replace(cfg, fleet_relay_addr=str(cfg.fleet_reship_addr))
+            self._reshipper = SnapshotShipper(ship_cfg, supervisor=supervisor,
+                                              transport=reship_transport)
+            self._reshipper.tier = 1
         self.epoch_ring: SnapshotRing | None = None
         if cfg.timetravel_enabled:
             self.epoch_ring = SnapshotRing(cfg.timetravel_ring_windows, name="fleet")
@@ -113,29 +154,54 @@ class FleetAggregator:
         return self.epoch_ring
 
     # -- lifecycle ----------------------------------------------------------
-    def start(self) -> None:
+    def start(self, subscribe: bool = True) -> None:
         """Start the thread that calls ``poll`` (straggler timeouts and, with
-        ``fleet_merge_async``, the quorum-closed merges)."""
+        ``fleet_merge_async``, the quorum-closed merges) and the re-shipper;
+        with ``subscribe``, take the co-located nodes' frames from
+        ``FLEET_TOPIC``."""
+        if subscribe and self._sub_id is None:
+            self._sub_id = get_pubsub().subscribe(FLEET_TOPIC, self.ingest)
         if self._thread is None:
             self._stop.clear()
             self._thread = threading.Thread(target=self._poll_loop, name="fleet-agg",
                                             daemon=True)
             self._thread.start()
+        if self._reshipper is not None:
+            self._reshipper.start()
 
     def stop(self, timeout_s: float = 5.0) -> None:
         self._stop.set()
+        if self._reshipper is not None:
+            self._reshipper.stop(timeout_s=timeout_s)
+        if self._sub_id is not None:
+            try:
+                get_pubsub().unsubscribe(FLEET_TOPIC, self._sub_id)
+            except KeyError:  # already unsubscribed; stop is idempotent
+                pass
+            self._sub_id = None
         t = self._thread
         if t is not None:
             t.join(timeout=timeout_s)
+            if self._supervisor is not None:
+                self._supervisor.deregister("fleet-agg")
         self._thread = None
 
     def _poll_loop(self) -> None:
+        hb = None
+        if self._supervisor is not None:
+            hb = self._supervisor.register("fleet-agg", self.cfg.watchdog_deadline_s)
         cadence = max(0.05, self.cfg.fleet_straggler_timeout_s / 4.0)
         while not self._stop.is_set():
+            if hb is not None:
+                hb.beat()
             try:
                 self.poll()
             except Exception:  # counted; the loop keeps the tier alive
                 self._count_error("merge_errors")
+                if rate_limited("fleet.poll"):
+                    self.log.exception("fleet poll failed")
+            if hb is not None:
+                hb.park()
             self._stop.wait(cadence)
 
     # -- ingest -------------------------------------------------------------
@@ -143,13 +209,15 @@ class FleetAggregator:
         """Decode and bucket one wire frame; True when accepted."""
         try:
             snap = decode_snapshot(frame)
-        except FleetDecodeError:
+        except FleetDecodeError as e:
             self._count_drop("decode")
+            if rate_limited("fleet.decode"):
+                self.log.warning("fleet frame rejected: %s", e)
             return False
         ready = None
         with self._lock:
             if snap.epoch <= self._watermark:
-                self.dropped["late"] += 1
+                self._count_drop_locked("late")
                 return False
             gen = int(snap.seed_gen)
             ref = self._gen_refs.get(gen)
@@ -160,20 +228,21 @@ class FleetAggregator:
                 self._gen_refs[gen] = ref
             ref_seeds, ref_shapes = ref
             if snap.seeds != ref_seeds:
-                self.dropped["seed_mismatch"] += 1
+                self._count_drop_locked("seed_mismatch")
                 return False
             if {k: v.shape for k, v in snap.arrays.items()} != ref_shapes:
-                self.dropped["shape_mismatch"] += 1
+                self._count_drop_locked("shape_mismatch")
                 return False
             bucket = self._buckets.get(snap.epoch)
             if bucket is None:
                 bucket = self._buckets[snap.epoch] = _EpochBucket(time.monotonic())
                 self.open_buckets_max = max(self.open_buckets_max, len(self._buckets))
             if snap.node in bucket.snaps:
-                self.dropped["duplicate"] += 1
+                self._count_drop_locked("duplicate")
                 return False
             bucket.snaps[snap.node] = snap
             self.received[snap.node] = self.received.get(snap.node, 0) + 1
+            get_metrics().fleet_snapshots_received.labels(node=snap.node).inc()
             expected = int(self.cfg.fleet_expected_nodes)
             if expected > 0 and len(bucket.snaps) >= expected:
                 ready = [(snap.epoch, self._buckets.pop(snap.epoch))]
@@ -188,7 +257,11 @@ class FleetAggregator:
 
     def _count_drop(self, reason: str, n: int = 1) -> None:
         with self._lock:
-            self.dropped[reason] += n
+            self._count_drop_locked(reason, n)
+
+    def _count_drop_locked(self, reason: str, n: int = 1) -> None:
+        self.dropped[reason] += n
+        get_metrics().fleet_snapshots_dropped.labels(reason=reason).inc(n)
 
     def _overflow_locked(self) -> list[tuple[int, _EpochBucket]]:
         """Keep at most fleet_epoch_history open buckets, force-closing the
@@ -222,8 +295,13 @@ class FleetAggregator:
             self._merge_epoch(epoch, bucket, straggled)
         except Exception:  # counted: a bad epoch must not stop the tier
             self._count_error("merge_errors")
+            if rate_limited("fleet.merge"):
+                self.log.exception("fleet merge failed (epoch %d)", epoch)
 
     def _count_error(self, counter: str) -> None:
+        """Count a failure under ``counter`` (an attribute, and its registry
+        series ``fleet_<counter>``) and keep its traceback."""
+        getattr(get_metrics(), f"fleet_{counter}").inc()
         with self._lock:
             setattr(self, counter, getattr(self, counter) + 1)
             self.last_error = traceback.format_exc()
@@ -231,6 +309,9 @@ class FleetAggregator:
     # -- merge --------------------------------------------------------------
     def _merge_epoch(self, epoch: int, bucket: _EpochBucket, straggled: bool) -> None:
         t0 = time.monotonic()
+        m = get_metrics()
+        rec = get_recorder()
+        span_t0 = rec.begin()
         snaps = sorted(bucket.snaps.values(), key=lambda s: s.node)
         if not snaps:
             return
@@ -241,20 +322,42 @@ class FleetAggregator:
             by_gen.setdefault(int(s.seed_gen), []).append(s)
         gen = max(by_gen, key=lambda g: (len(by_gen[g]), g))
         if len(by_gen) > 1:
-            self._count_drop("gen_skew", len(snaps) - len(by_gen[gen]))
+            skewed = len(snaps) - len(by_gen[gen])
+            self._count_drop("gen_skew", skewed)
+            if rate_limited("fleet.gen_skew"):
+                self.log.warning("fleet epoch %d: %d frame(s) outside dominant seed generation "
+                                 "%d dropped (rotation in flight)", epoch, skewed, gen)
             snaps = by_gen[gen]
+        # Lineage across processes: the shipped trace context carries the
+        # window epoch of the node's close (the epoch itself when absent).
+        trace_id = next((int(s.trace["tid"]) for s in snaps
+                         if s.trace is not None and "tid" in s.trace), int(epoch))
         with self._lock:
             self._watermark = max(self._watermark, epoch)
         names = sorted(set.intersection(*(set(s.arrays) for s in snaps)))
         seeds = snaps[0].seeds
         merged = fold_stacked(stack_slots([s.arrays for s in snaps], names, self.device))
+        host = (host_arrays(merged)
+                if self.epoch_ring is not None or self._reshipper is not None else None)
         if self.epoch_ring is not None:
-            self.epoch_ring.append_host(epoch, host_arrays(merged), float(snaps[0].window_s),
-                                        dict(seeds))
+            self.epoch_ring.append_host(epoch, host, float(snaps[0].window_s), dict(seeds))
+        if self._reshipper is not None:
+            # The merged arrays are a valid node snapshot (the algebra is
+            # closed under merge): the next tier ingests this aggregator as
+            # one big node.
+            self._reshipper.offer(epoch, host, float(snaps[0].window_s), dict(seeds),
+                                  seed_gen=gen)
+            m.fleet_rollups_reshipped.inc()
         rollup = self._rollup(epoch, snaps, merged, seeds)
         rollup["straggled"] = straggled
         rollup["seed_gen"] = gen
         rollup["merge_seconds"] = time.monotonic() - t0
+        self._publish(rollup)
+        rec.record(mn.STAGE_AGG_MERGE, span_t0, trace_id)
+        m.fleet_windows_merged.inc()
+        if straggled:
+            m.fleet_windows_stragglers.inc()
+        m.fleet_merge_seconds.set(rollup["merge_seconds"])
         with self._lock:
             self.epochs_merged += 1
             self.stragglers += int(straggled)
@@ -316,6 +419,8 @@ class FleetAggregator:
                 inv = self._invertible_decode(merged, seeds)
             except Exception:  # counted, as the reference does; the rollup goes on
                 self._count_error("invertible_decode_failed")
+                if rate_limited("fleet.invdec"):
+                    self.log.exception("fleet invertible decode failed")
         if inv is not None:
             rollup["invertible"] = inv
         inv_keys = inv["keys"] if inv is not None and len(inv["keys"]) else None
@@ -355,6 +460,12 @@ class FleetAggregator:
             prio[s.tenant] = max(prio.get(s.tenant, s.priority), s.priority)
         ranked = sorted(by_tenant, key=lambda t: (-prio[t], t))
         kept = ranked[: max(0, int(cfg.fleet_max_tenants))]
+        m = get_metrics()
+        for t in ranked[len(kept):]:
+            m.fleet_tenants_shed.inc()
+            if rate_limited("fleet.tenant_shed"):
+                self.log.warning("fleet: tenant %s shed (priority %d, budget %d)",
+                                 t, prio[t], cfg.fleet_max_tenants)
         cap = max(1, int(cfg.fleet_tenant_series_max))
         out: dict[str, dict] = {}
         for tenant in kept:
@@ -368,6 +479,7 @@ class FleetAggregator:
                                               candidates=inv_keys)
             if len(keys) > cap:  # defense in depth; min() above caps
                 self.series_capped += len(keys) - cap
+                m.fleet_series_capped.inc(len(keys) - cap)
                 keys, counts = keys[:cap], counts[:cap]
             out[tenant] = {
                 "priority": prio[tenant],
@@ -378,14 +490,55 @@ class FleetAggregator:
             self.tenants_shed += len(ranked) - len(kept)
         return out
 
+    # -- publication ----------------------------------------------------------
+    def _publish(self, rollup: dict) -> None:
+        """The epoch's ``fleet_*`` gauges, then the rollup on
+        ``ROLLUP_TOPIC``. Keyed gauges are cleared and set again each epoch,
+        so the exported label space never exceeds this epoch's (capped)
+        series."""
+        m = get_metrics()
+        m.fleet_nodes_reporting.set(len(rollup["nodes"]))
+        m.fleet_top_flows.clear()
+        m.fleet_tenant_top_flows.clear()
+        m.fleet_service_cardinality.clear()
+        m.fleet_tenant_series.clear()
+        m.fleet_invertible_sources.clear()
+        inv = rollup.get("invertible")
+        if inv is not None:
+            m.fleet_invertible_keys.set(float(len(inv["keys"])))
+            srcs, spk = inv["sources"]
+            cap = max(0, int(self.cfg.fleet_topk_k))
+            for ip, pk in zip(srcs[:cap], spk[:cap]):
+                m.fleet_invertible_sources.labels(key=f"{int(ip):08x}").set(float(pk))
+        pair = rollup.get("top_flow")
+        if pair is not None:
+            for row, count in zip(*pair):
+                m.fleet_top_flows.labels(key=format_key(row)).set(float(count))
+        for idx, est in rollup.get("service_cardinality", ()):
+            m.fleet_service_cardinality.labels(service=f"pod{idx}").set(est)
+        for dim, bits in rollup.get("entropy_bits", {}).items():
+            m.fleet_entropy_bits.labels(dimension=dim).set(bits)
+        if "distinct_flows" in rollup:
+            m.fleet_distinct_flows.set(rollup["distinct_flows"])
+        for tenant, tr in rollup["tenants"].items():
+            keys, counts = tr["top_flows"]
+            for row, count in zip(keys, counts):
+                m.fleet_tenant_top_flows.labels(tenant=tenant, key=format_key(row)).set(
+                    float(count))
+            m.fleet_tenant_series.labels(tenant=tenant).set(len(keys))
+        get_pubsub().publish(ROLLUP_TOPIC, rollup)
+
+    # -- observability --------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
-            return {
+            out = {
                 "watermark": self._watermark,
                 "open_epochs": sorted(self._buckets),
                 "ready_q": len(self._ready_q),
                 "epochs_merged": self.epochs_merged,
                 "generations": sorted(self._gen_refs),
                 "nodes_last": self.rollups[-1]["nodes"] if self.rollups else [],
-                "dropped": dict(self.dropped),
             }
+        if self._reshipper is not None:
+            out["reship"] = self._reshipper.stats()
+        return out

@@ -39,6 +39,12 @@ from retina_tpu_torch.fleet import _msgpack
 MAGIC = b"RFLT"
 VERSION = 1
 
+# In-process pubsub topics (pubsub.py). Snapshot payloads are bytes,
+# exactly what the gRPC Ship RPC carries, so the in-process and relay
+# transports are interchangeable.
+FLEET_TOPIC = "fleet/snapshots"
+ROLLUP_TOPIC = "fleet/rollups"
+
 # v1 array catalog: name -> (device dtype, wire dtype). Encoders may
 # ship any subset (the aggregator merges what every node in the epoch
 # actually sent), but names outside the catalog are a decode error —

@@ -45,16 +45,19 @@ ENTROPY_DIMS = ("src_ip", "dst_ip", "dst_port")
 
 
 def fold_plain(stacked: torch.Tensor, op: str) -> torch.Tensor:
-    """Plain version of K8: (N, *shape) -> (*shape). The u32 sum and max
-    widen to int64 and store back mod 2^32; the f32 sum adds slot by slot
-    in slot order, as each kernel thread does, so the two are bit-equal."""
+    """Plain version of K8: (N, *shape) -> (*shape). The u32 sum adds the
+    int32 bit patterns in int64 (each differs from its u32 value by 0 or
+    2^32, so the sum is the same mod 2^32) and the max compares widened u32
+    values, both stored back mod 2^32; the f32 sum adds slot by slot in slot
+    order, as each kernel thread does, so the two are bit-equal."""
     if op == "sum_f32":
         acc = stacked[0].clone()
         for k in range(1, stacked.shape[0]):
             acc = acc + stacked[k]
         return acc
-    wide = widen(stacked)
-    return narrow((wide.sum(dim=0) & M32) if op == "sum_u32" else wide.amax(dim=0))
+    if op == "sum_u32":
+        return narrow(stacked.sum(dim=0, dtype=torch.int64) & M32)
+    return narrow(widen(stacked).amax(dim=0))
 
 
 def stack_slots(slots: list[dict[str, np.ndarray]], names: list[str],

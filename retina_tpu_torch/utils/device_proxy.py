@@ -65,12 +65,13 @@ class HostCopy:
         """The host tensors once the copy is done; with ``timeout``, raise
         ``TimeoutError`` if it is not done within that many seconds (a wait
         that cannot hang on a wedged card)."""
-        if self.event is not None:
+        event = self.event  # several readers may wait on one copy
+        if event is not None:
             if timeout is None:
-                self.event.synchronize()
+                event.synchronize()
             else:
                 deadline = time.monotonic() + timeout
-                while not self.event.query():
+                while not event.query():
                     if time.monotonic() >= deadline:
                         raise TimeoutError(f"host copy not done within {timeout} s")
                     time.sleep(0.0005)

@@ -123,6 +123,17 @@ def test_load_config_reads_the_process_environment(monkeypatch):
     {"invertible_depth": 0},
     {"trace_ring_spans": 0},
     {"overload_priority_ip_mask": 1 << 32},
+    {"fleet_ship_queue": 0},
+    {"fleet_shed_ship_every": 0},
+    {"fleet_ship_spool": -1},
+    {"fleet_seed_generation": -1},
+    {"fleet_ship_backoff_base_s": 0},
+    {"fleet_ship_backoff_max_s": 0.01},
+    {"fleetquery_fanout": 0},
+    {"fleetquery_topk": 0},
+    {"fleetquery_node_deadline_s": 0},
+    {"fleetquery_hedge_delay_s": -1},
+    {"fleetquery_cache_ttl_s": -1},
 ])
 def test_validate_raises_the_reference_error(bad):
     with pytest.raises(ValueError) as ref_err:

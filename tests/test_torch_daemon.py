@@ -9,8 +9,11 @@ synthetic run whose engine equals its own synchronous replay (the dispatch
 and close log of ``chip_smoke.instrument``, never the reference's threaded
 engine), whose shutdown checkpoint loads into a fresh engine and resumes a
 second agent with an equal state; ``python -m retina_tpu_torch agent`` in a
-subprocess exiting 0 on SIGTERM; and the agent refusing to start with no
-card and no ``device_platform``, and with each part it does not have yet.
+subprocess exiting 0 on SIGTERM; the agent in the three fleet roles
+(``fleet_enabled``, ``fleet_aggregator``, ``fleetquery_enabled``) answering
+``/fleet/query`` from its merged epochs; and the agent refusing to start
+with no card and no ``device_platform``, and with each part it does not
+have yet.
 Every join, ``urlopen`` and subprocess has its own timeout.
 """
 
@@ -325,8 +328,6 @@ def test_agent_without_a_card_or_device_platform_raises(monkeypatch):
 @pytest.mark.parametrize("override,item", [
     ({"enable_hubble": True}, "item 7"),
     ({"kubeconfig": "/etc/kube/config"}, "item 7"),
-    ({"fleet_aggregator": True}, "item 4"),
-    ({"fleetquery_enabled": True}, "item 4"),
     ({"distributed_coordinator": "10.0.0.1:1234"}, "item 5"),
     ({"in_cluster": True}, "item 7"),
 ])
@@ -336,6 +337,88 @@ def test_agent_refuses_each_unported_part(override, item, monkeypatch):
     cfg = config(**override)
     with pytest.raises(ValueError, match=f"not ported yet: .*ROADMAP §1 {item}"):
         Daemon(cfg)
+
+
+def test_refuse_unported_no_longer_names_the_fleet_roles(monkeypatch):
+    monkeypatch.setattr(daemon_mod, "in_cluster_available", lambda: False)
+    daemon_mod.refuse_unported(config(fleet_enabled=True, fleet_aggregator=True,
+                                      fleetquery_enabled=True))
+    with pytest.raises(ValueError) as err:
+        daemon_mod.refuse_unported(config(
+            fleet_aggregator=True, fleetquery_enabled=True, enable_hubble=True,
+            kubeconfig="/etc/kube/config", distributed_coordinator="10.0.0.1:1234"))
+    msg = str(err.value)
+    assert "fleet_aggregator" not in msg and "fleetquery" not in msg
+    for part in ("enable_hubble", "kubeconfig", "distributed_coordinator"):
+        assert part in msg, part
+
+
+def scraped_value(text: str, name: str) -> float | None:
+    """The value of an unlabeled series of an exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def test_agent_in_the_fleet_roles_answers_fleet_query_from_its_merged_epochs():
+    """The co-located topology: the node ships each window close to its own
+    aggregator over the in-process bus, which merges it (one node expected)
+    into its epoch ring; GET /fleet/query answers from that ring what the
+    engine's own ring folds to over the same epochs, and /metrics carries
+    the fleet_* series."""
+    from retina_tpu_torch.fleet.aggregator import format_key
+    from retina_tpu_torch.timetravel.fold import RangeFold, range_extract, range_topk
+
+    capture = REPO / "tests" / "fixtures" / "real" / "loopback_mixed_real.pcap"
+    rec = decode_pcap_bytes(capture.read_bytes()).records
+    ips = sorted({u32_to_ip(int(x)) for x in np.concatenate([rec[:, F.SRC_IP], rec[:, F.DST_IP]])})
+    cfg = config(event_source="pcap", pcap_path=str(capture), pcap_loop=False,
+                 overload_enabled=False, timetravel_enabled=True, fleet_enabled=True,
+                 fleet_aggregator=True, fleetquery_enabled=True, fleet_expected_nodes=1,
+                 fleet_node_name="node-0")
+    d = Daemon(cfg, apiserver_host="127.0.0.1")
+    assert d.fleet_aggregator is not None and d.fleetquery is not None
+    assert set(d.query_service.rings) == {"engine", "fleet"}
+    register(d, ips)
+    with running(d) as port:
+        eng, agg = d.cm.engine, d.fleet_aggregator
+        wait_for(lambda: eng.counts.events == len(rec), 60, "the capture to be stepped")
+        wait_for(lambda: eng.timetravel_ring.stats()["appended"] >= 1
+                 and agg.epoch_ring.span() == eng.timetravel_ring.span(), 30,
+                 "the aggregator to merge the engine's closes")
+        code, body = get(port, "/fleet/query?last=4")
+        doc = json.loads(body)
+        assert code == 200 and doc["windows"] >= 1, doc
+        assert doc["coverage"] == {"nodes_answered": 1, "nodes_total": 1, "partial": False}
+        slots = eng.timetravel_ring.select(doc["t0"], doc["t1"])
+        assert [s[0] for s in slots] == doc["epochs"]
+        seeds = slots[0][3]
+        merged = (slots[0][1] if len(slots) == 1
+                  else RangeFold("cpu").fold([s[1] for s in slots], seeds))
+        ex = range_extract(merged, seeds, "cpu")
+        assert doc["cardinality"] == pytest.approx(ex["cardinality"])
+        assert doc["entropy_bits"] == pytest.approx(ex["entropy_bits"])
+        keys, counts = range_topk(merged, seeds, fam="flow", k=cfg.fleetquery_topk,
+                                  est=ex.get("flow_est"), device="cpu")
+        assert [(e["key"], e["count"]) for e in doc["topk"]["keys"]] == [
+            (format_key(r), int(c)) for r, c in zip(keys, counts)] and keys.size
+        assert agg.rollups[-1]["nodes"] == ["node-0"] and agg.stats()["epochs_merged"] >= 1
+        text = ""
+
+        def reporting() -> bool:
+            nonlocal text
+            text = get(port, "/metrics")[1]
+            return scraped_value(text, "networkobservability_fleet_nodes_reporting") == 1.0
+
+        wait_for(reporting, 30, "fleet_nodes_reporting 1 on /metrics")
+        assert scraped_value(text, "networkobservability_fleet_windows_merged_counter_total") >= 1
+        assert "networkobservability_fleet_top_flow_packets{" in text
+        assert scraped_value(text, "networkobservability_fleet_snapshots_shipped_counter_total") >= 1
+        code, body = get(port, "/timetravel/query?ring=fleet&last=4")
+        assert code == 200 and json.loads(body)["windows"] == doc["windows"]
+        dv = json.loads(get(port, "/debug/vars")[1])
+        assert dv["fleetquery"]["ring"] == "fleet" and dv["fleetquery"]["queries"] >= 1
 
 
 def test_in_cluster_available_reads_the_service_account(tmp_path, monkeypatch):

@@ -88,7 +88,10 @@ MODULES = [
     "retina_tpu_torch.watchers.apiserver", "retina_tpu_torch.managers.watchermanager",
     "retina_tpu_torch.telemetry", "retina_tpu_torch.module.traces",
     "retina_tpu_torch.managers.controllermanager", "retina_tpu_torch.daemon",
-    "retina_tpu_torch.cli",
+    "retina_tpu_torch.cli", "retina_tpu_torch.hubble", "retina_tpu_torch.hubble.server",
+    "retina_tpu_torch.fleet.dryrun", "retina_tpu_torch.timetravel.dryrun",
+    "retina_tpu_torch.fleetquery", "retina_tpu_torch.fleetquery.service",
+    "retina_tpu_torch.fleetquery.dryrun",
 ]
 
 
@@ -105,6 +108,7 @@ def test_port_imports_without_jax_or_reference():
         "sys.modules['prometheus_client'] = None\n"
         "sys.modules['yaml'] = None\n"
         "sys.modules['psutil'] = None\n"
+        "sys.modules['grpc'] = None\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'retina_tpu' or m.startswith('retina_tpu.')]\n"
         "assert not bad, bad\n"
