@@ -215,6 +215,16 @@ flushed, beside the span of a call and the sector bound (see
 ``readout_phase``). Every path that closes a window and takes a snapshot
 must launch K16 and the readout.
 
+Then the engine over 4 shards on the one card (``sharded_phase``):
+``SketchEngine(cfg, devices=[card] * 4)`` at ``Config()`` and at the
+invertible configuration over ingest path 1's quanta, its closes, export,
+snapshot and decode merged by K8 and K9 on the card, equal to the same run
+under the plain versions, equal to one shard on the leaves that are exact
+by construction, the union's candidates holding the heaviest flows; the
+same merges in a world-size-1 NCCL group equal to the group-less ones;
+and the flush rate, the close's and the snapshot's device time and the
+snapshot's latency at 4 shards and at one.
+
 Last, the node agent as users start it (``daemon_phase``): a ``Daemon``
 at ``Config()`` with the time-travel ring and the detector bank on the
 card, one in-repo capture through packetparser (the scraped pod series
@@ -271,7 +281,8 @@ def check(cond: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
-def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
+def device_ms(fn, reps: int = 10, kernel: str | None = None,
+              require: bool = True) -> float | None:
     """Device time of one call of ``fn`` from torch.profiler, over ``reps``
     calls after 2 warm-ups: the summed durations of the kernels, copies and
     fills the calls ran on the card (only the kernels whose name holds
@@ -280,7 +291,8 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
     wait for the host's launches. A trace that holds no device activity (the
     profiler has returned such traces, up to three in a row, on the chip
     machine) is taken again with twice the calls, at most eight times in
-    all."""
+    all; then it fails, or with ``require`` false returns None (not
+    measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -306,6 +318,8 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None) -> float:
               "tracing again", flush=True)
         reps *= 2
         time.sleep(0.1)
+    if not require and us == 0:
+        return None
     check(us > 0, f"the profiler saw no device time{f' in {kernel}' if kernel else ''}")
     return us / 1e3 / reps
 
@@ -336,6 +350,32 @@ def device_launches(fn, reps: int = 10) -> dict[str, int]:
             return {k: n // reps for k, n in ran.items()}
         time.sleep(0.1)
     raise CheckFailed(f"the profiler saw no whole launches a call: {ran}")
+
+
+def busy_threads(seconds: float = 1.0, top: int = 6) -> list[tuple[str, float]]:
+    """This process's busiest threads over ``seconds``: (name, CPU seconds)
+    from the user and system times in /proc/self/task/*/stat."""
+    import os
+    import threading
+
+    def cpu() -> dict[int, float]:
+        out = {}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    fields = f.read().rsplit(")", 1)[1].split()
+            except OSError:
+                continue
+            out[int(tid)] = (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+        return out
+
+    before = cpu()
+    time.sleep(seconds)
+    after = cpu()
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    used = sorted(((names.get(tid, str(tid)), after[tid] - before.get(tid, 0.0))
+                   for tid in after), key=lambda x: -x[1])
+    return [(n, round(c, 3)) for n, c in used[:top]]
 
 
 def named_leaves(obj, prefix: str = ""):
@@ -1064,6 +1104,7 @@ def main() -> int:
     runtime_lanes(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     scrape_surface(dev, quanta, time_ms, report, results)
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
+    sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
     fleet_transport_phase(dev, pods, smi)
 
@@ -2025,7 +2066,7 @@ def timetravel_and_fleet(dev, quanta, pods, time_ms, report, results) -> None:
     for i in range(FLEET_NODES):
         gen = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=i)
         # A fresh node, one engine reused; made on the engine's stream.
-        eng.state = eng._proxy.run(eng.telemetry.init_state)
+        eng.states = eng._proxy.run(eng.telemetry.init_state)
         eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 500)
         before = kops.launch_counts()
         epoch, arrays, window_s, seeds = eng.close_window(epoch=FLEET_EPOCH)["export"]
@@ -4135,6 +4176,8 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     import urllib.request
     from pathlib import Path
 
+    import torch
+
     from retina_tpu_torch.config import Config
     from retina_tpu_torch.engine import SketchEngine
     from retina_tpu_torch.events.synthetic import TrafficGen
@@ -4331,6 +4374,13 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
               flush=True)
 
     # The agent as a user starts it in the three fleet roles.
+    print(f"fleet transport: this process's busiest threads over 1 s before the child "
+          f"(CPU s): {busy_threads()}", flush=True)
+    if dev.type == "cuda":
+        free, total = torch.cuda.mem_get_info(dev)
+        print(f"fleet transport: card memory before the child: {free / 2**30:.2f} of "
+              f"{total / 2**30:.2f} GiB free, {torch.cuda.memory_reserved(dev) / 2**30:.2f} "
+              f"GiB reserved by this process", flush=True)
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         child_port = sk.getsockname()[1]
@@ -4391,7 +4441,8 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
             busy += 1
             states.add(json.loads(get("/debug/vars")[1])["overload"]["state"])
             check(time.monotonic() < deadline,
-                  f"fleet transport: the child's /fleet/query stayed busy ({busy} answers)")
+                  f"fleet transport: the child's /fleet/query stayed busy ({busy} answers, "
+                  f"states {sorted(states)}; this process's busiest threads {busy_threads()})")
             time.sleep(0.1)
         check(doc["windows"] >= 1 and doc["coverage"]["nodes_answered"] == 1,
               f"fleet transport: the child's /fleet/query answered {body[:300]}")
@@ -4413,6 +4464,247 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     for name in FT_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the fleet transport phase")
     print(f"fleet transport: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+SHARDS = 4  # the sharded phase's shards, all on the one card
+SHARD_QUANTA = 3  # ingest path 1's three distinct quanta, a close after the second
+SHARD_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+                 "latency_update", "ingest_new", "fold", "topk_join", "ct_active",
+                 "snapshot_flat", "window_close")
+# The merged leaves equal to one shard's by construction: sums of the
+# disjoint shards' per-row counts and maxes of their registers, and the
+# totals but ct_reports (6) and lost (7). At low aggregation the flow and
+# service sketches, the pod HLL bank, the entropy counts and the invertible
+# planes take the conntrack reports, whose count depends on how each
+# connection's rows fall into batches, and so on the shards' windows: only
+# the export's leaves fed a row at a time are exact there. At high
+# aggregation every sketch is fed a row at a time.
+EXACT_SNAPSHOT = ("pod_forward", "pod_drop", "pod_tcpflags", "pod_dns", "pod_retrans",
+                  "node_counters", "lat_hist", "hll_flows", "hll_src_per_reason")
+EXACT_EXPORT_LOW = ("dns_cms", "hll_flows")
+EXACT_EXPORT_HIGH = ("flow_cms", "svc_cms", "dns_cms", "hll_flows", "hll_src_per_pod",
+                     "entropy", "inv_flow_planes", "inv_flow_weights", "inv_hi_planes",
+                     "inv_hi_weights")
+
+
+def sharded_phase(dev, quanta, pods, smi, equal_any) -> None:
+    """The engine over SHARDS shards on one card (``SketchEngine(cfg,
+    devices=[card] * SHARDS)``) at ``Config()`` and at
+    ``Config(heavy_keys_source="invertible")``: SHARD_QUANTA of ingest path
+    1's quanta flushed (a close after the second), then the fleet export, a
+    snapshot and the last close (with the invertible decode). Each run must
+    equal the same run under ``kops.plain_versions()`` bit for bit (every
+    shard's state, the closes, snapshots, exports and decodes); its merged
+    leaves that are exact by construction (EXACT_SNAPSHOT, totals[0:6] and
+    EXACT_EXPORT_LOW; at high aggregation, a third run without the plain
+    one, EXACT_EXPORT_HIGH) must equal a one-shard engine's over the same
+    quanta; the union's
+    candidate tables must hold the quanta's 10 heaviest flows in their top
+    100. K1 must launch SHARDS times a step, K8 and K9 where the merges
+    are. Then the same four shards' merges again in a world-size-1 NCCL
+    process group (``make_mesh(..., group=)``), equal to the group-less
+    merges bit for bit, with the collectives' added device time. Prints the
+    flush rate at SHARDS shards and at one, the close's and the snapshot's
+    device time at both (the merge's K8 alone), and the snapshot's latency,
+    each beside ``smi`` (the card's name and power limit)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import F
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.parallel.mesh import make_mesh
+    from retina_tpu_torch.parallel.telemetry import (
+        HLL_LEAVES,
+        SUM_LEAVES,
+        ShardedTelemetry,
+        topk_from_snapshot,
+    )
+    from retina_tpu_torch.u32 import to_numpy
+
+    t_phase = time.perf_counter()
+    schedule = quanta[:SHARD_QUANTA]
+    fed = sum(len(b) for blocks in schedule for b in blocks)
+
+    def run(cfg, devices, plain):
+        eng = SketchEngine(cfg, devices=devices)
+        eng.update_identities(pods)
+        ctx = kops.plain_versions if plain else contextlib.nullcontext
+        out: dict = {"wins": [], "flush_s": 0.0}
+        for i, blocks in enumerate(schedule):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx():
+                eng.flush(blocks, 100 + i)
+            torch.cuda.synchronize()
+            out["flush_s"] += time.perf_counter() - t0
+            if i == 1:
+                with ctx():
+                    out["wins"].append(eng.close_window(epoch=i))
+        with ctx():
+            out["export"] = eng.telemetry.fleet_export(eng.states)
+            out["snap"] = eng.snapshot(max_age_s=0, now_s=200)
+            out["wins"].append(eng.close_window(epoch=SHARD_QUANTA))
+        torch.cuda.synchronize()
+        out["eng"] = eng
+        return out
+
+    def same_states(a, b, what):
+        for d, (x, y) in enumerate(zip(a.states, b.states)):
+            for leaf, (p, q) in enumerate(zip(state_to_numpy(x), state_to_numpy(y))):
+                check(p.shape == q.shape and np.array_equal(p, q),
+                      f"{what}: shard {d} leaf {leaf} differs")
+
+    # The quanta's heaviest flows by packets, keyed as flow_hh: (src, dst,
+    # ports, proto).
+    rows = np.concatenate([b for blocks in schedule for b in blocks])
+    keys = np.stack([rows[:, F.SRC_IP], rows[:, F.DST_IP], rows[:, F.PORTS],
+                     rows[:, F.META] >> np.uint32(24)], axis=1)
+    uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+    weight = np.zeros(len(uniq), np.uint64)
+    np.add.at(weight, inv.reshape(-1), rows[:, F.PACKETS].astype(np.uint64))
+    heavy = {tuple(k) for k in uniq[np.argsort(weight)[::-1][:10]]}
+
+    devices = [dev] * SHARDS
+    for label, cfg, exact in (
+            ("deployed", Config(), EXACT_EXPORT_LOW),
+            ("invertible", Config(heavy_keys_source="invertible"), EXACT_EXPORT_LOW),
+            ("high aggregation", Config(heavy_keys_source="invertible",
+                                        data_aggregation_level="high"), EXACT_EXPORT_HIGH)):
+        name = f"sharded path ({label}, {SHARDS} shards)"
+        timed = label != "high aggregation"
+        # The flush rates in turns: one shard, SHARDS, SHARDS, one.
+        one_a = run(cfg, [dev], plain=False)["flush_s"] if timed else 0.0
+        kops.reset_launch_counts()
+        got = run(cfg, devices, plain=False)
+        launches = kops.launch_counts()
+        eng = got["eng"]
+        got_b = run(cfg, devices, plain=False)["flush_s"] if timed else 0.0
+        one = run(cfg, [dev], plain=False)
+        for k in EXACT_SNAPSHOT:
+            equal_any(got["snap"][k], one["snap"][k], f"{name} {k} vs one shard")
+        equal_any(got["snap"]["totals"][:6], one["snap"]["totals"][:6],
+                  f"{name} totals[0:6] vs one shard")
+        for k in got["export"]:
+            if k in exact:
+                equal_any(got["export"][k], one["export"][k], f"{name} export {k} vs one shard")
+            else:
+                diff = int((got["export"][k] != one["export"][k]).sum())
+                print(f"{name}: export {k} differs from one shard's in {diff} of "
+                      f"{got['export'][k].numel()}", flush=True)
+        if not timed:
+            continue
+        print(f"{name} launches: {launches}", flush=True)
+        check_sketch_launches(launches, name)
+        kernels = SHARD_KERNELS + (("inv_update", "inv_decode", "cms_query", "ingest_packed")
+                                   if label == "invertible" else ())
+        for k in kernels:
+            if k != "ingest_new" or label == "deployed":
+                check(launches[k] > 0, f"{k} was not launched on the {name}")
+        check(launches["step_rows"] == SHARDS * eng.counts.steps,
+              f"{name}: K1 launched {launches['step_rows']} times in {eng.counts.steps} "
+              f"steps of {SHARDS} shards")
+        check(launches["topk_join"] == 1, f"{name}: the export launched K9 "
+              f"{launches['topk_join']} times")
+        before = kops.launch_counts()
+        ref = run(cfg, devices, plain=True)
+        check(kops.launch_counts() == before, f"the plain {name} run launched kernels")
+        same_states(eng, ref["eng"], name)
+        for w, (a, b) in enumerate(zip(got["wins"], ref["wins"])):
+            equal_any(a, b, f"{name} close {w}")
+        equal_any(got["export"], ref["export"], f"{name} export")
+        equal_any(dict(got["snap"]), dict(ref["snap"]), f"{name} snapshot")
+        check(int(to_numpy(got["snap"]["totals"])[0]) == fed & 0xFFFFFFFF,
+              f"{name}: totals[0] != raw events fed")
+        check(eng.counts.events == fed, f"{name}: events counted != fed")
+
+        tk, _ = topk_from_snapshot(got["snap"], "flow_hh", 100)
+        found = {tuple(k) for k in tk} & heavy
+        check(len(found) == len(heavy), f"{name}: the union's top 100 holds {len(found)} "
+              "of the 10 heaviest flows")
+
+        # -- the same shards in a world-size-1 NCCL group --
+        fd, init = tempfile.mkstemp(prefix="nccl-init-")
+        os.close(fd)
+        os.unlink(init)
+        dist.init_process_group("nccl", init_method=f"file://{init}", rank=0, world_size=1)
+        try:
+            grouped = ShardedTelemetry(eng.pcfg, make_mesh(devices, group=dist.group.WORLD))
+            plain_tel = eng.telemetry
+            states = eng.states
+            for what, fn in (("snapshot", lambda t: t.snapshot(states, 300)),
+                             ("export", lambda t: t.fleet_export(states)),
+                             ("decode", lambda t: t.inv_decode(states, 0))):
+                if what == "decode" and not eng.pcfg.enable_invertible:
+                    continue
+                equal_any(fn(grouped), fn(plain_tel), f"{name} NCCL {what}")
+            copies = [[state_from_numpy(state_to_numpy(s), s) for s in states] for _ in range(2)]
+            _, win_g = grouped.end_window(copies[0])
+            _, win_p = plain_tel.end_window(copies[1])
+            equal_any(win_g, win_p, f"{name} NCCL close")
+            for d, (x, y) in enumerate(zip(copies[0], copies[1])):
+                for leaf, (p, q) in enumerate(zip(state_to_numpy(x), state_to_numpy(y))):
+                    check(np.array_equal(p, q), f"{name} NCCL close: shard {d} leaf {leaf}")
+            g_ms = device_ms(lambda: grouped.snapshot_flat_dispatch(states, 300))
+            p_ms = device_ms(lambda: plain_tel.snapshot_flat_dispatch(states, 300))
+            nccl_ms = device_ms(lambda: grouped.snapshot_flat_dispatch(states, 300),
+                                kernel="nccl", require=False)
+        finally:
+            dist.destroy_process_group()
+        print(f"{name}: NCCL (world size 1) snapshot device {g_ms:.4f} ms vs {p_ms:.4f} ms "
+              f"without a group (the collectives add {g_ms - p_ms:.4f} ms); the NCCL kernels "
+              f"{'not measured' if nccl_ms is None else f'{nccl_ms:.4f} ms'} a snapshot "
+              f"[{smi}]", flush=True)
+
+        # -- timings, beside the card --
+        tel1 = one["eng"].telemetry
+        st1 = one["eng"].states
+        snap_ms = device_ms(lambda: eng.telemetry.snapshot_flat_dispatch(eng.states, 300))
+        snap1_ms = device_ms(lambda: tel1.snapshot_flat_dispatch(st1, 300))
+        fold_ms = device_ms(lambda: eng.telemetry.snapshot_flat_dispatch(eng.states, 300),
+                            kernel="fold")
+        close_ms = device_ms(lambda: eng.telemetry.end_window(eng.states))
+        close1_ms = device_ms(lambda: tel1.end_window(st1))
+        close_fold_ms = device_ms(lambda: eng.telemetry.end_window(eng.states), kernel="fold")
+
+        def plain(fn):
+            with kops.plain_versions():
+                return fn()
+
+        snap_plain_ms = device_ms(lambda: plain(
+            lambda: eng.telemetry.snapshot_flat_dispatch(eng.states, 300)))
+        close_plain_ms = device_ms(lambda: plain(lambda: eng.telemetry.end_window(eng.states)))
+        lat = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            eng.snapshot(max_age_s=0, now_s=300)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        lat1 = []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            one["eng"].snapshot(max_age_s=0, now_s=300)
+            lat1.append((time.perf_counter() - t0) * 1e3)
+        leaf_bytes = sum(t.numel() * t.element_size() for s in eng.states for t in (
+            [getattr(s, k) for k in SUM_LEAVES] + [getattr(s, k).registers for k in HLL_LEAVES]))
+        bound_ms = leaf_bytes * (1 + 1 / SHARDS) / HBM_BYTES_PER_S * 1e3
+        turns = (one_a, got["flush_s"], got_b, one["flush_s"])
+        print(f"{name}: flush events/s in turns (one shard, {SHARDS}, {SHARDS}, one) "
+              + ", ".join(f"{fed / t:.0f}" for t in turns)
+              + f" ({fed} events; {eng.counts.steps} steps at {SHARDS} shards, "
+              f"{one['eng'].counts.steps} at one) [{smi}]", flush=True)
+        print(f"{name}: close device {close_ms:.4f} ms at {SHARDS} shards (K8 at {SHARDS} "
+              f"shards {close_fold_ms:.4f}; plain versions {close_plain_ms:.4f}), "
+              f"{close1_ms:.4f} at one; snapshot device {snap_ms:.4f} ms at {SHARDS} shards "
+              f"(K8 at {SHARDS} shards {fold_ms:.4f}, bound of the merge's {leaf_bytes} bytes "
+              f"read {bound_ms:.4f}; plain versions {snap_plain_ms:.4f}), {snap1_ms:.4f} at "
+              f"one; snapshot latency median {np.median(lat):.3f} ms at {SHARDS} shards, "
+              f"{np.median(lat1):.3f} at one [{smi}]", flush=True)
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def sticky_child() -> int:

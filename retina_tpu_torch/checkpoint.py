@@ -13,6 +13,12 @@ packages' ``PipelineConfig`` fingerprint alike, so a file written by either
 loads in the other. A config mismatch (different table shapes) refuses to
 load.
 
+At D shards (the engine's ``ShardedTelemetry``) each leaf carries a leading
+device axis of D, as the reference writes a D-device state
+(``stack_shards``). At one shard the leaves have no device axis, as the
+port has always written them; a file with a device axis of 1 (the
+reference engine's at one device) loads too.
+
 The state is updated in place by the kernels, so ``save_state`` takes host
 arrays or a state nobody steps while it runs; the engine hands it a copy
 taken on its device proxy, in order with the steps
@@ -37,6 +43,12 @@ _log = logger("checkpoint")
 
 def _fingerprint(pcfg) -> str:
     return json.dumps(dataclasses.asdict(pcfg), sort_keys=True)
+
+
+def stack_shards(shards: list[list[np.ndarray]]) -> list[np.ndarray]:
+    """Each shard's leaves (``state_to_numpy``) -> the D-shard file's
+    leaves: leaf i of every shard stacked, (D, *shape)."""
+    return [np.stack(leaves) for leaves in zip(*shards)]
 
 
 def save_state(path: str, state: Any, pcfg) -> None:
@@ -84,8 +96,10 @@ def _leaf_spec(t) -> tuple[tuple[int, ...], np.dtype]:
 
 
 def load_state(path: str, sharded, pcfg):
-    """Restore into a zero state built by ``sharded.init_state()`` (the
-    engine passes its ``Telemetry``; the state lives on its device).
+    """Restore into a zero state built by ``sharded.init_state()``: one
+    state (a ``Telemetry``'s or a pipeline's), or a list of one a shard (the
+    engine's ``ShardedTelemetry``; each shard's on its device), the file's
+    leaves then (D, *shape), or without the axis at D = 1.
 
     Crash-only contract: a missing, truncated, corrupt, or
     fingerprint-mismatched checkpoint never raises — the bad file is
@@ -94,6 +108,8 @@ def load_state(path: str, sharded, pcfg):
     on any cold start.
     """
     zero = sharded.init_state()
+    shards = zero if isinstance(zero, list) else [zero]
+    n_dev = len(shards)
     if not os.path.exists(path):
         return zero, False
     try:
@@ -103,9 +119,13 @@ def load_state(path: str, sharded, pcfg):
                 _quarantine(path, "config fingerprint mismatch — table shapes changed")
                 return zero, False
             loaded = []
-            for i, leaf in enumerate(tensor_leaves(zero)):
+            for i, leaf in enumerate(tensor_leaves(shards[0])):
                 a = z[f"leaf_{i}"]
                 shape, dtype = _leaf_spec(leaf)
+                if n_dev == 1 and a.shape == (1,) + shape:
+                    a = a[0]
+                elif n_dev > 1:
+                    shape = (n_dev,) + shape
                 if a.shape != shape or a.dtype != dtype:
                     _quarantine(
                         path,
@@ -120,6 +140,10 @@ def load_state(path: str, sharded, pcfg):
         # all of them mean the same thing here: not a usable checkpoint.
         _quarantine(path, f"{type(e).__name__}: {e}")
         return zero, False
-    state = state_from_numpy(loaded, zero)
+    if n_dev > 1:
+        state = [state_from_numpy([a[d] for a in loaded], st) for d, st in enumerate(shards)]
+    else:
+        state = state_from_numpy(loaded, shards[0])
+        state = [state] if isinstance(zero, list) else state
     _log.info("state checkpoint restored: %s", path)
     return state, True

@@ -100,6 +100,8 @@ class Config:
 
     # --- the feed path ---
     batch_capacity: int = 1 << 15  # events per device batch (one step)
+    # The cap on the engine's shards (one a local card): 0 = every local card.
+    mesh_devices: int = 0
     window_seconds: float = 1.0  # entropy/anomaly window; fleet epochs are its multiples
     # Host-side combining of identical descriptors before the transfer
     # (parallel/combine.py); lossless.
@@ -307,6 +309,8 @@ class Config:
                 f"dataAggregationLevel must be {AGG_LOW!r} or {AGG_HIGH!r}, "
                 f"got {self.data_aggregation_level!r}"
             )
+        if self.mesh_devices < 0:
+            raise ValueError(f"mesh_devices must be >= 0, got {self.mesh_devices}")
         for f in ("batch_capacity", "n_pods", "cms_width", "topk_slots",
                   "entropy_buckets", "conntrack_slots", "identity_slots",
                   "invertible_width", "invertible_hi_width"):

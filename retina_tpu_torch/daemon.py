@@ -18,7 +18,8 @@ with the aggregator in the same process the in-process bus carries the
 frames to it. The entry point is
 :func:`run_agent`; ``python -m retina_tpu_torch agent`` calls it via the
 CLI. The engine runs on ``cfg.device_platform``: "" is the card (and the
-daemon raises without one), "cpu" the plain versions.
+daemon raises without one), "cpu" the plain versions. With "" the engine
+takes a shard a local card, at most ``mesh_devices`` of them (0: every card).
 
 A config that turns on a part the port does not have yet raises a
 ``ValueError`` naming its ROADMAP item (:func:`refuse_unported`), never
@@ -63,8 +64,9 @@ def refuse_unported(cfg: Config) -> None:
                      "a real cluster, operator/kubewatch.py and the CRD bridge: "
                      "ROADMAP §1 item 7)")
     if cfg.distributed_coordinator:
-        parts.append("distributed_coordinator (a multi-process mesh: "
-                     "ROADMAP §1 item 5)")
+        parts.append("distributed_coordinator (an agent over several processes, whose "
+                     "closes and scrapes must call the mesh's collectives in the same "
+                     "order on every rank: ROADMAP §1 item 5)")
     if parts:
         raise ValueError("not ported yet: " + "; ".join(parts))
 

@@ -1,4 +1,4 @@
-"""SketchEngine: one node agent's feed path and runtime lanes on one card
+"""SketchEngine: one node agent's feed path and runtime lanes over D shards
 (port of retina_tpu/engine.py).
 
 A flush quantum of raw record blocks goes through the reference engine's
@@ -7,26 +7,37 @@ feed path:
 1. ``_build_quantum``: combine identical descriptors
    (``parallel/combine.py``, native), sample them under overload
    (``runtime/overload.py``: at NOMINAL every row, k = 1), cut the rows into
-   chunks of ``batch_capacity * feed_coalesce_windows`` and partition each
-   (``parallel/partition.py``, one card: a (1, B, 16) batch);
+   chunks of ``batch_capacity * feed_coalesce_windows`` rows a shard and
+   partition each by connection over the D shards (``parallel/partition.py``:
+   a (D, B, 16) batch);
 2. ``_dispatch_sharded`` per chunk: with the flow dictionary
    (``parallel/flowdict.py``) and at least ``transfer_min_bucket`` rows,
    ``_dispatch_flowdict`` splits the rows into new descriptors and known
    flows and builds the 13-lane new wire and the v4 dense (or v3) known
    wire (``parallel/wire.py``, native); otherwise, and always with
    ``heavy_keys_source="invertible"``, the rows cross as the packed wire.
-   The wires are built in pinned host staging buffers;
+   The wires are built in pinned host staging buffers, one wire a shard
+   (its part of a staging buffer 16-byte aligned), over one flow dictionary
+   for every shard; each shard's ingest writes its own descriptor table;
 3. on the device proxy (``utils/device_proxy.py``: one thread that owns the
    card's stream and runs every card call of the engine): one
-   ``non_blocking`` host-to-card copy per side, of the wire alone; the
+   ``non_blocking`` host-to-card copy per side and card, of the wires alone;
+   each card's work goes on that card's current stream; the
    flush's base timestamp, TS_REL flag, ``now_s`` and losses go to the
    kernels and the step as scalars;
 4. ``_ingest``, ``_ingest_new`` and ``_ingest_known`` (kernel K7,
    ``kernels/csrc/ingest.cu``) turn the wire back into (capacity, 16)
    windows; the new side runs first, because known rows may name ids
    first assigned in the same flush;
-5. ``Telemetry.step`` per window; host losses fold into the first step
-   of the flush only.
+5. ``ShardedTelemetry.step`` per window (every shard steps its part);
+   host losses fold into the first step of the flush only, on shard 0.
+
+The shards are the engine's mesh (``parallel/mesh.py``): ``devices`` as the
+caller names them (one card may be named several times), or ``device``
+alone, or by default every local card; ``mesh_devices`` caps them. The
+closes, the exports, the decode, the snapshot and the checkpoints merge the
+shards through ``ShardedTelemetry``'s collectives (K8 and K9 on the lead
+card); at one shard they are the one card's ``Telemetry`` calls.
 
 ``flush``, ``step_records`` and ``close_window`` run that path
 synchronously (each card call through the proxy, the caller waiting).
@@ -47,7 +58,7 @@ on the quantum builds (inline or the feed workers).
 
 ``close_window`` closes the window in the reference's order: with the
 time-travel ring or the fleet tier on, it first copies the window's
-sketches (``Telemetry.fleet_export``) and starts one copy of them to the
+sketches (``ShardedTelemetry.fleet_export``) and starts one copy of them to the
 host (``to_host``), which goes to the engine's ``SnapshotRing``
 (``timetravel_ring``) and, with ``fleet_enabled``, to the engine's
 ``SnapshotShipper`` (``fleet/shipper.py``: one export and one pinned copy
@@ -87,7 +98,7 @@ and partitioning (the detector bank's tap); ``anomaly_hook(epoch, dims)``
 gets the flagged entropy dims of a close (``AutoCapture.notify``). A hook
 or observer that raises is counted in ``errors`` under its name and never
 propagates. ``snapshot`` reads the state back in one copy
-(``Telemetry.snapshot_host``), cached for ``max_age_s``. The method names
+(``ShardedTelemetry.snapshot_flat_dispatch``), cached for ``max_age_s``. The method names
 are the reference's, so each has its counterpart there. The engine's own
 accounting is plain counters (``errors``, ``lost_events``, ``windows``,
 ``lane_s``, ``feed_stats()``); the supervision series (``engine_restarts``,
@@ -99,8 +110,9 @@ accounting is plain counters (``errors``, ``lost_events``, ``windows``,
 ``compile()`` is the daemon's boot step (``managers/controllermanager.py``
 owns the engine, the supervisor and the periodic checkpointer): it builds
 the kernels and runs the boot dispatches before the agent reports ready.
-Left out, for later slices: multi-card partitioning, and the background
-warm and AOT caches: torch compiles nothing ahead of time, so a cold close
+Left out, for later slices: an engine over several processes (the
+daemon's ``distributed_coordinator``), and the background warm and AOT
+caches: torch compiles nothing ahead of time, so a cold close
 never defers (``windows["deferred"]`` counts closes refused because both
 close slots were in flight, and closes during a recovery).
 """
@@ -134,7 +146,8 @@ from retina_tpu_torch.parallel.combine import combine_blocks
 from retina_tpu_torch.parallel.feed import FeedWorkerPool, TransferMux, TransferQueue
 from retina_tpu_torch.parallel.flowdict import flow_dict_stats, make_flow_dict
 from retina_tpu_torch.parallel.partition import ShardedBatch, _next_bucket, partition_events
-from retina_tpu_torch.parallel.telemetry import Telemetry, topk_from_snapshot
+from retina_tpu_torch.parallel.mesh import batch_mesh, local_devices
+from retina_tpu_torch.parallel.telemetry import ShardedTelemetry, topk_from_snapshot
 from retina_tpu_torch.parallel.wire import (
     DENSE_BY_BITS,
     DENSE_PK_BITS,
@@ -268,11 +281,23 @@ class FeedCounts:
     packed_rows: int = 0
 
 
+def engine_devices(cfg: Config, device: torch.device | str | None = None,
+                   devices: list | None = None) -> list[torch.device]:
+    """The engine's shard devices, as the reference's
+    ``devices[:mesh_devices]``: ``devices`` as named, or ``device`` alone, or
+    every local card; capped by ``mesh_devices`` (0: no cap)."""
+    if devices is None and device is not None:
+        devices = [resolve_device(device)]
+    devs = local_devices(devices)
+    return devs[: cfg.mesh_devices] if cfg.mesh_devices > 0 else devs
+
+
 class SketchEngine:
-    """The feed path, the lanes and the state of one node agent on one card."""
+    """The feed path, the lanes and the state of one node agent over the
+    shards of its mesh."""
 
     def __init__(self, cfg: Config, device: torch.device | str | None = None,
-                 supervisor: Supervisor | None = None):
+                 supervisor: Supervisor | None = None, devices: list | None = None):
         cfg.validate()
         self.cfg = cfg
         self._supervisor = supervisor
@@ -282,14 +307,18 @@ class SketchEngine:
             capacity=cfg.trace_ring_spans, sample_every=cfg.trace_sample_every,
             enabled=cfg.trace_enabled)
         self.pcfg = pipeline_config_from(cfg)
-        self.device = resolve_device(device)
+        self.mesh = batch_mesh(engine_devices(cfg, device, devices))
+        self.devices = list(self.mesh.devices)
+        self.n_devices = self.mesh.size
+        self.device = self.mesh.lead
         self.sink = QueueSink(max_blocks=1024)
-        # Every card call of the engine runs on this device's proxy thread,
-        # on its stream; the wires cross from the staging buffers.
+        # Every card call of the engine runs on the lead device's proxy
+        # thread, on its stream; the wires cross from the staging buffers.
         self._proxy = proxy_for(self.device)
         self._staging = PinnedStaging(self.device)
-        self.telemetry = Telemetry(self.pcfg, self.device)
-        self.state: PipelineState = self._proxy.run(self.telemetry.init_state)
+        self.telemetry = ShardedTelemetry(self.pcfg, self.mesh)
+        # One state a shard, in shard order, each on its device.
+        self.states: list[PipelineState] = self._proxy.run(self.telemetry.init_state)
         if cfg.host_combine_threads > 0:
             from retina_tpu_torch.native import set_combine_threads
 
@@ -311,10 +340,10 @@ class SketchEngine:
         # The dictionary, its epoch and the ground truth are touched by the
         # dispatch thread and the proxy.
         self._fd_lock = threading.Lock()
-        # The card's descriptor table (slots, 12) and K7's per-slot claim
-        # scratch, made on the card at first use and after a resync.
-        self._desc_table: torch.Tensor | None = None
-        self._desc_winner: torch.Tensor | None = None
+        # Each shard's descriptor table (slots, 12) and K7's per-slot claim
+        # scratch, made on its card at first use and after a resync.
+        self._desc_tables: list[torch.Tensor | None] = [None] * self.n_devices
+        self._desc_winners: list[torch.Tensor | None] = [None] * self.n_devices
         # Bumped by failure resyncs only (not by capacity clears): a queued
         # batch from an older epoch names a table that no longer exists and
         # drops itself.
@@ -331,6 +360,11 @@ class SketchEngine:
 
         self.ident = IdentityMap.zeros(cfg.identity_slots, device=self.device)
         self.filter_map = IdentityMap.zeros(cfg.identity_slots, seed=99, device=self.device)
+        # The maps each shard's step reads: the lead's, or a copy on its card.
+        self._shard_idents = self._for_shards(
+            self.ident, lambda d: IdentityMap.zeros(cfg.identity_slots, device=d))
+        self._shard_filters = self._for_shards(
+            self.filter_map, lambda d: IdentityMap.zeros(cfg.identity_slots, seed=99, device=d))
         self.apiserver_ip = 0
         self._ident_host = HostIdentityTable(n_slots=cfg.identity_slots)
         self._ident_dict: dict[int, int] = {}
@@ -426,7 +460,8 @@ class SketchEngine:
             int(self._fd_dense), NUM_FIELDS))
         m = get_metrics()
         m.build_info.labels(version=buildinfo.VERSION, jax=torch.__version__,
-                            backend=self.device.type, devices="1", config=sig).set(1)
+                            backend=self.device.type, devices=str(self.n_devices),
+                            config=sig).set(1)
         m.uptime_seconds.set(0.0)
 
     def compile(self) -> None:
@@ -453,8 +488,8 @@ class SketchEngine:
         # first launch's latency would otherwise read as pressure).
         counts = dataclasses.replace(self.counts)
         full = ShardedBatch(
-            records=np.zeros((1, self.cfg.batch_capacity, NUM_FIELDS), np.uint32),
-            n_valid=np.zeros((1,), np.uint32), lost=0)
+            records=np.zeros((self.n_devices, self.cfg.batch_capacity, NUM_FIELDS), np.uint32),
+            n_valid=np.zeros((self.n_devices,), np.uint32), lost=0)
         self._dispatch_sharded(full, now_s=1, n_raw=0)
         self._dispatch(np.zeros((0, NUM_FIELDS), np.uint32), now_s=1)
         for f in dataclasses.fields(counts):
@@ -462,6 +497,25 @@ class SketchEngine:
         self._dispatch_lat_ewma = self._dispatch_lat_t = 0.0
         _log.info("engine compiled: device %s, batch=%d, %.1fs", self.device,
                   self.cfg.batch_capacity, time.perf_counter() - t0)
+
+    @property
+    def state(self) -> PipelineState:
+        """The state of the engine at one shard (``states[0]``); an engine
+        over several shards has ``states``."""
+        if self.n_devices != 1:
+            raise AttributeError(f"the engine has {self.n_devices} shards: read .states")
+        return self.states[0]
+
+    def _for_shards(self, lead_obj: Any, make: Callable[[torch.device], Any]) -> list:
+        """``lead_obj`` for every shard on the lead device, and for the
+        shards of each other card one ``make(card)``."""
+        made: dict[torch.device, Any] = {self.device: lead_obj}
+        out = []
+        for d in self.devices:
+            if d not in made:
+                made[d] = make(d)
+            out.append(made[d])
+        return out
 
     @property
     def timetravel_ring(self) -> SnapshotRing | None:
@@ -529,8 +583,9 @@ class SketchEngine:
             if self._recovering or self.recovery_failed.is_set():
                 return
             self._recovering = True
-        self._degraded.set()
+        # The gauge first: whoever sees the engine degraded sees it set.
         get_metrics().degraded_mode.set(1)
+        self._degraded.set()
         _log.error("engine entering DEGRADED mode (crash-only recovery): %s", reason)
         t = threading.Thread(target=self._recover, name="engine-recover", daemon=True)
         with self._recover_lock:
@@ -566,12 +621,13 @@ class SketchEngine:
                         return
                     hb.park()
                     time.sleep(delay)
-            self._degraded.clear()
+            # The accounting first: whoever sees the engine recovered sees it.
             m.degraded_mode.set(0)
             m.engine_restarts.inc()
             self.restarts += 1
             dt = time.monotonic() - t0
             m.recovery_seconds.observe(dt)
+            self._degraded.clear()
             _log.warning("engine recovered in %.2fs (attempt %d, %s)", dt, attempt,
                          self._last_resume_src)
         finally:
@@ -596,8 +652,8 @@ class SketchEngine:
             # host dictionary clears with it (the epoch bump drops queued
             # batches of before the recovery).
             with self._fd_lock:
-                self._desc_table = None
-                self._desc_winner = None
+                self._desc_tables = [None] * self.n_devices
+                self._desc_winners = [None] * self.n_devices
                 if self._flow_dict is not None:
                     self._flow_dict.clear()
                     self._fd_epoch += 1
@@ -607,7 +663,7 @@ class SketchEngine:
                 state, resumed = load_state(path, self.telemetry, self.pcfg)
             else:
                 state, resumed = self.telemetry.init_state(), False
-            self.state = state
+            self.states = state
             with self._snap_lock:
                 self._snap_cache = None
             return resumed
@@ -647,7 +703,13 @@ class SketchEngine:
             if old.get(ip) != idx:
                 self._ident_host.insert(ip, idx)
         self._ident_dict = new
-        self.ident = self._proxy.run(self._ident_host.to_device, self.device)
+
+        def upload() -> None:
+            host = self._ident_host
+            self.ident = host.to_device(self.device)
+            self._shard_idents = self._for_shards(self.ident, host.to_device)
+
+        self._proxy.run(upload)
 
     def update_filter_ips(self, ips: set[int]) -> None:
         """Replace the IPs-of-interest map; an overfull set keeps the
@@ -659,7 +721,12 @@ class SketchEngine:
             live = live[: host.capacity]
         for ip in live:
             host.insert(ip, 1)
-        self.filter_map = self._proxy.run(host.to_device, self.device)
+
+        def upload() -> None:
+            self.filter_map = host.to_device(self.device)
+            self._shard_filters = self._for_shards(self.filter_map, host.to_device)
+
+        self._proxy.run(upload)
 
     def set_apiserver_ips(self, ips: list[int]) -> None:
         self.apiserver_ip = ips[0] if ips else 0
@@ -692,7 +759,7 @@ class SketchEngine:
     def _dispatch(self, records: np.ndarray, now_s: int) -> None:
         self._call_hook("record_hook", records, now_s)
         with self.stages("partition"):
-            sb = partition_events(records, 1, self.cfg.batch_capacity,
+            sb = partition_events(records, self.n_devices, self.cfg.batch_capacity,
                                   min_bucket=self.cfg.transfer_min_bucket)
         self._dispatch_sharded(sb, now_s, n_raw=len(records))
 
@@ -707,10 +774,11 @@ class SketchEngine:
                        ) -> list[tuple]:
         """Combine, sample and partition one flush quantum into ("step",
         batch, now_s, n_raw) items of at most ``batch_capacity *
-        feed_coalesce_windows`` rows. Pure host work, shared by the inline
-        flush and the feed workers, where it runs concurrently."""
+        feed_coalesce_windows`` rows a shard. Pure host work, shared by the
+        inline flush and the feed workers, where it runs concurrently."""
         t0 = time.perf_counter()
-        coal = self.cfg.batch_capacity * max(1, self.cfg.feed_coalesce_windows)
+        coal_per_dev = self.cfg.batch_capacity * max(1, self.cfg.feed_coalesce_windows)
+        coal = coal_per_dev * self.n_devices
         with self.stages("combine"):
             if self.cfg.host_combine:
                 all_rec = combine_blocks(blocks)
@@ -725,7 +793,7 @@ class SketchEngine:
         items: list[tuple] = []
         with self.stages("partition"):
             for off in range(0, len(all_rec), coal):
-                sb = partition_events(all_rec[off: off + coal], 1, coal,
+                sb = partition_events(all_rec[off: off + coal], self.n_devices, coal_per_dev,
                                       min_bucket=self.cfg.transfer_min_bucket)
                 sb.sample_k = samp_k
                 # Raw-row accounting goes to the chunk that carries it.
@@ -743,24 +811,35 @@ class SketchEngine:
         with self._fd_lock:
             self._flow_dict.clear()
             self._fd_epoch += 1
-            self._desc_table = None
-            self._desc_winner = None
+            self._desc_tables = [None] * self.n_devices
+            self._desc_winners = [None] * self.n_devices
 
-    def _ensure_desc_table(self) -> torch.Tensor:
-        """(Proxy.) The card's descriptor table, zeros made on the card
+    def _ensure_desc_table(self, shard: int = 0) -> torch.Tensor:
+        """(Proxy.) A shard's descriptor table, zeros made on its card
         (never uploaded), with K7's claim scratch beside it."""
-        if self._desc_table is None:
-            slots = self.cfg.flow_dict_slots
-            self._desc_table = torch.zeros((slots, PACKED_FIELDS), dtype=torch.int32,
-                                           device=self.device)
-            self._desc_winner = torch.zeros((slots,), dtype=torch.int32, device=self.device)
-        return self._desc_table
+        if self._desc_tables[shard] is None:
+            slots, dev = self.cfg.flow_dict_slots, self.devices[shard]
+            self._desc_tables[shard] = torch.zeros((slots, PACKED_FIELDS), dtype=torch.int32,
+                                                   device=dev)
+            self._desc_winners[shard] = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        return self._desc_tables[shard]
 
-    def _to_card(self, wire: np.ndarray, buf: torch.Tensor) -> torch.Tensor:
-        """(Proxy.) One host-to-card copy of a u32 wire built in a staging
-        buffer (int32 bit patterns)."""
-        self.counts.wire_bytes += wire.nbytes
-        return self._staging.to_card(wire, buf, self.device)
+    def _shard_wires(self, shape: tuple) -> tuple[np.ndarray, torch.Tensor, list[np.ndarray]]:
+        """A zeroed staging array of one row a shard, each row padded to a
+        multiple of 16 bytes (so each shard's wire starts aligned on the
+        card), its buffer, and each shard's wire as a (``shape``) view."""
+        words = int(np.prod(shape))
+        stride = words if self.n_devices == 1 else -(-words // 4) * 4
+        arr, buf = self._staging.array((self.n_devices, stride))
+        return arr, buf, [arr[d, :words].reshape(shape) for d in range(self.n_devices)]
+
+    def _to_shards(self, arr: np.ndarray, buf: torch.Tensor, shape: tuple) -> list[torch.Tensor]:
+        """(Proxy.) The host-to-card copy of a ``_shard_wires`` array (one
+        copy a card): each shard's wire on its device, int32 bit patterns."""
+        self.counts.wire_bytes += arr.nbytes
+        words = int(np.prod(shape))
+        rows = self._staging.to_cards(arr, buf, self.devices)
+        return [r[:words].view(shape) for r in rows]
 
     def _slice_windows(self, buf: torch.Tensor, n_valid: int, bucket: int,
                        ) -> list[tuple[torch.Tensor, int]]:
@@ -785,34 +864,42 @@ class SketchEngine:
         return self._slice_windows(buf, n_valid, bucket)
 
     def _ingest_new(self, bucket: int, wire: torch.Tensor, base_lo: int, base_hi: int,
-                    n_valid: int) -> list[tuple[torch.Tensor, int]]:
-        """The new wire -> descriptors into the table, and step windows
-        (K7 ingest_new)."""
-        table = self._ensure_desc_table()
-        buf = kops.ingest_new(wire, table, self._desc_winner, base_lo, base_hi,
+                    n_valid: int, shard: int = 0) -> list[tuple[torch.Tensor, int]]:
+        """A shard's new wire -> descriptors into its table, and step
+        windows (K7 ingest_new)."""
+        table = self._ensure_desc_table(shard)
+        buf = kops.ingest_new(wire, table, self._desc_winners[shard], base_lo, base_hi,
                               self._n_out(bucket))
         return self._slice_windows(buf, n_valid, bucket)
 
     def _ingest_known(self, bucket: int, wire: torch.Tensor, ts_rel: int, base_lo: int,
-                      base_hi: int, n_valid: int) -> list[tuple[torch.Tensor, int]]:
-        """The known wire + the resident table -> step windows (K7
+                      base_hi: int, n_valid: int, shard: int = 0,
+                      ) -> list[tuple[torch.Tensor, int]]:
+        """A shard's known wire + its resident table -> step windows (K7
         ingest_known)."""
         buf = kops.ingest_known(wire, bucket, self._fd_dense, self._fd_id_bits,
-                                self._ensure_desc_table(), ts_rel, base_lo, base_hi,
+                                self._ensure_desc_table(shard), ts_rel, base_lo, base_hi,
                                 self._n_out(bucket))
         return self._slice_windows(buf, n_valid, bucket)
 
+    @staticmethod
+    def _by_window(per_shard: list[list[tuple[torch.Tensor, int]]]) -> list[tuple[list, list]]:
+        """Each shard's windows of one side -> the side's windows, each
+        (records a shard, n_valid a shard); the shards share the bucket, so
+        they have as many windows."""
+        return [([w[0] for w in win], [w[1] for w in win]) for win in zip(*per_shard)]
+
     def _step_windows(self, sides: list, now_s: int, lost: int, sample_k: int) -> None:
-        """(Proxy.) Step every window of every side in order; host losses
-        fold into the first step only."""
+        """(Proxy.) Step every window of every side in order, each on every
+        shard; host losses fold into the first step only."""
         first = True
         with self.stages("steps"):
             for wins in sides:
-                for rec, n_valid in wins:
-                    self.state, _ = self.telemetry.step(
-                        self.state, rec, n_valid, now_s, self.ident, self.apiserver_ip,
-                        filter_map=self.filter_map, lost=lost if first else 0,
-                        sample_k=sample_k)
+                for recs, n_valid in wins:
+                    self.states, _ = self.telemetry.step(
+                        self.states, recs, n_valid, now_s, self._shard_idents,
+                        self.apiserver_ip, filter_map=self._shard_filters,
+                        lost=lost if first else 0, sample_k=sample_k)
                     first = False
                     self.counts.steps += 1
 
@@ -888,20 +975,24 @@ class SketchEngine:
 
     def _dispatch_flowdict(self, sb: ShardedBatch, now_s: int, n_raw: int,
                            sync: bool) -> None:
-        """Split the batch into new-descriptor rows (13-lane upload + table
-        insert) and known rows (a few bytes each against the resident
-        table). Known rows the narrow lanes cannot carry exactly escalate
-        to the new side (re-writing a resident descriptor is harmless).
-        Both sides ride one proxy call, new first."""
+        """Split each shard's rows into new-descriptor rows (13-lane upload
+        + its table's insert) and known rows (a few bytes each against its
+        resident table), over the one flow dictionary. Known rows the
+        narrow lanes cannot carry exactly escalate to the new side
+        (re-writing a resident descriptor is harmless). Both sides of every
+        shard ride one proxy call, new first."""
         from retina_tpu_torch.native import flowwire_dense_native, flowwire_native
 
+        n_dev = self.n_devices
         with self.stages("dict and wire"):
-            nv = int(sb.n_valid[0])
-            rows = np.ascontiguousarray(sb.records[0, :nv])
             with self._fd_lock:
-                ids, is_new = self._flow_dict.lookup_or_assign(rows)
-                if self._hk_counts is not None and nv:
-                    self._hk_account(rows)
+                per_dev = []
+                for d in range(n_dev):
+                    rows = np.ascontiguousarray(sb.records[d, :int(sb.n_valid[d])])
+                    ids, is_new = self._flow_dict.lookup_or_assign(rows)
+                    if self._hk_counts is not None and len(rows):
+                        self._hk_account(rows)
+                    per_dev.append((rows, ids, is_new))
                 epoch = self._fd_epoch
             base = batch_ts_base(sb.records)
             dense = self._fd_dense
@@ -910,37 +1001,44 @@ class SketchEngine:
             # TSval/TSecr carriers (the latency match needs their exact
             # send time) and unstamped rows (TS_REL 0 must round-trip);
             # on the dense wire also bytes over the 22-bit lane.
-            sel = (
-                is_new
-                | (rows[:, F.PACKETS] >= pk_cap)
-                | ((rows[:, F.TSVAL] | rows[:, F.TSECR]) != 0)
-                | ((rows[:, F.TS_LO] | rows[:, F.TS_HI]) == 0)
-            )
-            if dense:
-                sel |= rows[:, F.BYTES] >= (1 << DENSE_BY_BITS)
-            n_new = int(sel.sum())
-            n_known = nv - n_new
-            bn, bk = self._wire_bucket(n_new), self._wire_bucket(n_known)
-            if n_new > bn or n_known > bk:
+            sels = []
+            for rows, _, is_new in per_dev:
+                sel = (
+                    is_new
+                    | (rows[:, F.PACKETS] >= pk_cap)
+                    | ((rows[:, F.TSVAL] | rows[:, F.TSECR]) != 0)
+                    | ((rows[:, F.TS_LO] | rows[:, F.TS_HI]) == 0)
+                )
+                if dense:
+                    sel |= rows[:, F.BYTES] >= (1 << DENSE_BY_BITS)
+                sels.append(sel)
+            n_new = [int(sel.sum()) for sel in sels]
+            n_known = [len(x[0]) - nn for x, nn in zip(per_dev, n_new)]
+            bn, bk = self._wire_bucket(max(n_new)), self._wire_bucket(max(n_known))
+            if max(n_new) > bn or max(n_known) > bk:
                 # Dropping new rows would leave registered descriptors that
                 # never reach the table: fail; the caller resyncs.
-                raise RuntimeError(
-                    f"flow-dict wire overflow: {n_new}/{bn} new, {n_known}/{bk} known rows")
-            new_wire, new_buf = self._staging.array((bn, 13))
-            known_wire, known_buf = self._staging.array(
-                (dense_words(bk, self._fd_id_bits),) if dense else (bk, 2))
-            if nv:
-                build = flowwire_dense_native if dense else flowwire_native
-                lanes = (DENSE_PK_BITS, DENSE_BY_BITS) if dense else ()
-                got = build(rows, ids, sel.astype(np.uint8), int(base), self._fd_id_bits,
-                            *lanes, new_wire, known_wire)
-                if got != n_new:
-                    raise RuntimeError(f"flow wire build wrote {got} new rows, expected {n_new}")
+                raise RuntimeError(f"flow-dict wire overflow: {max(n_new)}/{bn} new, "
+                                   f"{max(n_known)}/{bk} known rows")
+            new_shape = (bn, 13)
+            known_shape = (dense_words(bk, self._fd_id_bits),) if dense else (bk, 2)
+            new_wire, new_buf, new_parts = self._shard_wires(new_shape)
+            known_wire, known_buf, known_parts = self._shard_wires(known_shape)
+            build = flowwire_dense_native if dense else flowwire_native
+            lanes = (DENSE_PK_BITS, DENSE_BY_BITS) if dense else ()
+            for d, (rows, ids, _) in enumerate(per_dev):
+                if len(rows):
+                    got = build(rows, ids, sels[d].astype(np.uint8), int(base), self._fd_id_bits,
+                                *lanes, new_parts[d], known_parts[d])
+                    if got != n_new[d]:
+                        raise RuntimeError(f"flow wire build wrote {got} new rows on shard "
+                                           f"{d}, expected {n_new[d]}")
             base_lo, base_hi = int(base) & 0xFFFFFFFF, int(base) >> 32
             # Known rows' TS_REL: the flush base itself (1), or 0 when the
             # flush is unstamped.
             ts_flag = 1 if int(base) > 0 else 0
-        if not (n_new or n_known):
+        have_new, have_known = any(n_new), any(n_known)
+        if not (have_new or have_known):
             self._staging.give(new_buf)
             self._staging.give(known_buf)
             return  # nothing valid
@@ -949,26 +1047,31 @@ class SketchEngine:
         def xfer_and_step() -> None:
             faults.inject("transfer")
             if self._fd_epoch != epoch:
-                # A resync after this batch was built dropped the table its
+                # A resync after this batch was built dropped the tables its
                 # ids name.
                 self._count(self.lost_events, "dispatch", n_events)
                 _log.warning("dropping an in-flight flow-dict batch of an older epoch")
                 return
             t0 = time.perf_counter()
             with self.stages("copy"):
-                new_dev = self._to_card(new_wire, new_buf) if n_new else None
-                known_dev = self._to_card(known_wire, known_buf) if n_known else None
+                new_dev = self._to_shards(new_wire, new_buf, new_shape) if have_new else None
+                known_dev = (self._to_shards(known_wire, known_buf, known_shape)
+                             if have_known else None)
             sides = []
             with self.stages("ingest"):
-                if n_new:
-                    sides.append(self._ingest_new(bn, new_dev, base_lo, base_hi, n_new))
-                if n_known:
-                    sides.append(self._ingest_known(bk, known_dev, ts_flag, base_lo, base_hi,
-                                                    n_known))
+                if have_new:
+                    sides.append(self._by_window([
+                        self._ingest_new(bn, new_dev[d], base_lo, base_hi, n_new[d], shard=d)
+                        for d in range(n_dev)]))
+                if have_known:
+                    sides.append(self._by_window([
+                        self._ingest_known(bk, known_dev[d], ts_flag, base_lo, base_hi,
+                                           n_known[d], shard=d)
+                        for d in range(n_dev)]))
             self._recorder.record(mn.STAGE_TRANSFER, t0, window_epoch(self.cfg.window_seconds))
             self._step_windows(sides, now_s, sb.lost, sb.sample_k)
-            self.counts.new_rows += n_new
-            self.counts.known_rows += n_known
+            self.counts.new_rows += sum(n_new)
+            self.counts.known_rows += sum(n_known)
             self.counts.events += n_raw
             self._note_latency(t0)
 
@@ -1013,27 +1116,33 @@ class SketchEngine:
                     self._request_recovery(repr(e))
             return
         with self.stages("dict and wire"):
-            n_valid = int(sb.n_valid[0])
-            if self.cfg.transfer_packed:
-                rows, b_lo, b_hi = pack_records(np.ascontiguousarray(sb.records[0]))
-                packed = True
-            else:
-                rows, b_lo, b_hi = sb.records[0], 0, 0
-                packed = False
-            wire, buf = self._staging.array(rows.shape)
-            np.copyto(wire, rows)
-        bucket = wire.shape[0]
+            n_dev = self.n_devices
+            n_valid = [int(x) for x in sb.n_valid]
+            packed = bool(self.cfg.transfer_packed)
+            # Every shard's rows are relative to one base, the flush's.
+            base = batch_ts_base(sb.records) if packed and n_dev > 1 else None
+            shape = sb.records.shape[1:2] + ((PACKED_FIELDS,) if packed else sb.records.shape[2:])
+            wire, buf, parts = self._shard_wires(shape)
+            b_lo = b_hi = 0
+            for d in range(n_dev):
+                rows = sb.records[d]
+                if packed:
+                    rows, b_lo, b_hi = pack_records(np.ascontiguousarray(rows), base)
+                np.copyto(parts[d], rows)
+        bucket = shape[0]
 
         def xfer_and_step() -> None:
             faults.inject("transfer")
             t0 = time.perf_counter()
             with self.stages("copy"):
-                wire_dev = self._to_card(wire, buf)
+                wire_dev = self._to_shards(wire, buf, shape)
             with self.stages("ingest"):
-                wins = self._ingest(bucket, packed, wire_dev, int(b_lo), int(b_hi), n_valid)
+                wins = self._by_window([
+                    self._ingest(bucket, packed, wire_dev[d], int(b_lo), int(b_hi), n_valid[d])
+                    for d in range(n_dev)])
             self._recorder.record(mn.STAGE_TRANSFER, t0, window_epoch(self.cfg.window_seconds))
             self._step_windows([wins], now_s, sb.lost, sb.sample_k)
-            self.counts.packed_rows += n_valid
+            self.counts.packed_rows += sum(n_valid)
             self.counts.events += n_raw
             self._note_latency(t0)
 
@@ -1051,8 +1160,8 @@ class SketchEngine:
         cfg = self.cfg
         if cfg.timetravel_enabled or cfg.fleet_enabled:
             try:
-                export = self.telemetry.fleet_export(self.state)
-                seeds = self.telemetry.fleet_seeds(self.state)
+                export = self.telemetry.fleet_export(self.states)
+                seeds = self.telemetry.fleet_seeds(self.states[0])
                 # One copy feeds both: the workers wait for it off the proxy.
                 host = to_host(export)
                 if self._fleet_shipper is not None:
@@ -1068,12 +1177,12 @@ class SketchEngine:
                 _log.exception("fleet export failed")
         if self.pcfg.enable_invertible:
             try:
-                out["inv"] = self.telemetry.inv_decode(self.state,
+                out["inv"] = self.telemetry.inv_decode(self.states,
                                                        self.cfg.invertible_min_weight)
             except Exception:
                 self._count(self.errors, "inv_decode")
                 _log.exception("invertible decode failed")
-        self.state, win = self.telemetry.end_window(self.state, z_thresh)
+        self.states, win = self.telemetry.end_window(self.states, z_thresh)
         self._count(self.windows, "end_window")
         out.update(win)
         self._recorder.record(mn.STAGE_WINDOW_CLOSE, t_c0, epoch)
@@ -1619,7 +1728,7 @@ class SketchEngine:
             now = int(time.time()) if now_s is None else int(now_s)
 
             def snap_dispatch():
-                flat, layout = self.telemetry.snapshot_flat_dispatch(self.state, now)
+                flat, layout = self.telemetry.snapshot_flat_dispatch(self.states, now)
                 return to_host({"flat": flat}), layout, self.counts.steps, self.counts.events
 
             copy, layout, steps, events_in = self._proxy.run(snap_dispatch)
@@ -1633,18 +1742,23 @@ class SketchEngine:
 
     # -- checkpoint/resume ---------------------------------------------------
     def save_snapshot_state(self, path: str) -> None:
-        """Write the state to ``path`` (``checkpoint.save_state``). The
-        kernels update the state in place, so its copy is taken on the
-        proxy, in order with the steps (one copy to pinned host memory and
-        an event); the file is written here, on the caller's thread, once
-        the copy is done (bounded by ``watchdog_deadline_s``)."""
-        from retina_tpu_torch.checkpoint import save_state
+        """Write the state to ``path`` (``checkpoint.save_state``; at D
+        shards each leaf stacked with a leading axis of D, the reference's
+        layout). The kernels update the state in place, so its copy is taken
+        on the proxy, in order with the steps (one copy to pinned host
+        memory and an event); the file is written here, on the caller's
+        thread, once the copy is done (bounded by ``watchdog_deadline_s``)."""
+        from retina_tpu_torch.checkpoint import save_state, stack_shards
 
         def copy():
-            return to_host({str(i): t for i, t in enumerate(tensor_leaves(self.state))})
+            return to_host({f"{d}.{i}": t for d, st in enumerate(self.states)
+                            for i, t in enumerate(tensor_leaves(st))})
 
         host = self._proxy.run(copy).result(timeout=self.cfg.watchdog_deadline_s)
-        save_state(path, [to_numpy(host[str(i)]) for i in range(len(host))], self.pcfg)
+        n_leaves = len(host) // self.n_devices
+        shards = [[to_numpy(host[f"{d}.{i}"]) for i in range(n_leaves)]
+                  for d in range(self.n_devices)]
+        save_state(path, shards[0] if self.n_devices == 1 else stack_shards(shards), self.pcfg)
 
     def load_snapshot_state(self, path: str) -> bool:
         """Restore the state from ``path`` on the card. Crash-only: a
@@ -1654,7 +1768,7 @@ class SketchEngine:
 
         def load() -> bool:
             state, resumed = load_state(path, self.telemetry, self.pcfg)
-            self.state = state
+            self.states = state
             with self._snap_lock:
                 self._snap_cache = None
             return resumed

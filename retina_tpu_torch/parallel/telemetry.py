@@ -1,4 +1,5 @@
-"""Single-card telemetry (port of retina_tpu/parallel/telemetry.py at D=1).
+"""Telemetry over one card and over D shards (port of
+retina_tpu/parallel/telemetry.py).
 
 ``Telemetry`` wraps the pipeline with the reference ShardedTelemetry's
 interface on a one-device mesh, where every collective is an identity: the
@@ -12,8 +13,30 @@ the invertible sketches at a window close. ``fleet_export`` copies the
 window's sketches in the fleet array catalog (``fleet/codec.py``) and
 ``snapshot_host`` reads the flat snapshot back in one copy
 (``snapshot_flat_dispatch`` / ``_finish``).
-State has no device axis. Multi-card sharding (NCCL collectives) is a
-later slice.
+
+``ShardedTelemetry`` is the reference's class: one ``Telemetry`` a local
+shard of a mesh (``parallel/mesh.py``), each shard's state on its device,
+events partitioned by connection (``parallel/partition.py``), and the
+reference's five collective programs as merges (``parallel/collectives.py``:
+K8 in the process, ``torch.distributed`` across processes):
+
+    step          psum of the summary's events and ct_reports; host losses
+                  on global shard 0 only; the report lanes (D, B)
+    end_window    psum of the entropy counts, then K16 once on the union;
+                  every shard takes the same EWMA state and zeroes its window
+    snapshot      psum of the rectangles, node_counters, totals, lat_hist and
+                  each shard's live connections; pmax of the HLL registers
+                  before the estimate; gather of the candidate tables and
+                  ct_totals; then one K17 launch writes the flat buffer
+    fleet_export  psum of the CMS tables, entropy, totals and invertible
+                  planes and weights; pmax of the two HLL banks; the D
+                  candidate tables of each family joined by K9 (one launch)
+    inv_decode    psum of the flow CMS, planes and weights; K15 and K10 once
+                  on the union
+
+Conntrack tables are not merged: connection-consistent partitioning makes
+them disjoint. At one shard with no process group every method is the one
+shard's ``Telemetry``'s: no copy, no fold.
 """
 
 from __future__ import annotations
@@ -26,9 +49,16 @@ import torch
 
 from retina_tpu_torch.kernels import ops as kops
 from retina_tpu_torch.models.identity import IdentityMap
-from retina_tpu_torch.models.pipeline import PipelineConfig, PipelineState, TelemetryPipeline
+from retina_tpu_torch.models.pipeline import (
+    EWMA_MIN_WINDOWS,
+    PipelineConfig,
+    PipelineState,
+    TelemetryPipeline,
+)
 from retina_tpu_torch.ops.conntrack import active_connections_plain
 from retina_tpu_torch.ops.hyperloglog import estimate_plain
+from retina_tpu_torch.parallel.collectives import gather_many, psum, reduce_many
+from retina_tpu_torch.parallel.mesh import Mesh
 from retina_tpu_torch.u32 import M32, narrow, to_numpy, widen
 
 # (key path, shape, dtype) of each leaf of a flat snapshot, in buffer order.
@@ -81,35 +111,13 @@ class Telemetry:
         ``ct_totals`` with a leading device axis of 1), the HLL estimates
         ("hll") and the live connections ("live")."""
         s = state
-
-        def copy(t, lead=False):
-            return ("copy", t), (1,) * lead + tuple(t.shape), t.dtype
-
-        def hh(sk):
-            return {"keys": copy(sk.table.key_rows, True), "counts": copy(sk.table.counts, True)}
-
-        def hll(bank):
-            return ("hll", bank.registers), (bank.n_groups,), torch.float32
-
-        tree = {
-            "pod_forward": copy(s.pod_forward),
-            "pod_drop": copy(s.pod_drop),
-            "pod_tcpflags": copy(s.pod_tcpflags),
-            "pod_dns": copy(s.pod_dns),
-            "pod_retrans": copy(s.pod_retrans),
-            "node_counters": copy(s.node_counters),
-            "totals": copy(s.totals),
-            "ct_totals": copy(s.ct_totals, True),
-            "lat_hist": copy(s.lat_hist),
-            "hll_flows": hll(s.hll_flows),
-            "hll_src_per_reason": hll(s.hll_src_per_reason),
-            "hll_src_per_pod": hll(s.hll_src_per_pod),
-            "flow_hh": hh(s.flow_hh),
-            "svc_hh": hh(s.svc_hh),
-            "dns_hh": hh(s.dns_hh),
-            "active_conns": (("live", s.conntrack.keys, s.conntrack.vals), (), torch.int32),
-        }
-        return [(path, *leaf) for path, leaf in _sorted_leaves(tree)]
+        copies: dict[str, Any] = {k: getattr(s, k) for k in SUM_LEAVES}
+        copies["ct_totals"] = s.ct_totals[None]
+        for name in HH_LEAVES:
+            table = getattr(s, name).table
+            copies[name] = {"keys": table.key_rows[None], "counts": table.counts[None]}
+        hlls = {k: getattr(s, k).registers for k in HLL_LEAVES}
+        return _readout_jobs(copies, hlls, ("live", s.conntrack.keys, s.conntrack.vals))
 
     def fleet_export(self, state: PipelineState) -> dict[str, torch.Tensor]:
         """The window's sketches for the fleet tier and the time-travel
@@ -186,11 +194,218 @@ class Telemetry:
         are one launch of K10 (``kops.cms_query_many``), reading the key
         columns at their stride, which writes ``est`` and ``ok``."""
         cms = state.flow_hh.cms
-        keys, ok, tier = kops.inv_decode_many([
+        return decode_regions(cms.table, cms.seed, [
             (inv.planes, inv.weights, inv.seed, t)
-            for t, inv in enumerate((state.inv_flow, state.inv_hi))])
-        est, ok = kops.cms_query_many([(cms.table, cms.seed, list(keys.t()), ok, min_weight)])
-        return {"keys": keys, "est": est, "ok": ok, "tier": tier}
+            for t, inv in enumerate((state.inv_flow, state.inv_hi))], min_weight)
+
+
+def decode_regions(cms_table: torch.Tensor, cms_seed: int, regions: list[tuple],
+                   min_weight: int) -> dict[str, torch.Tensor]:
+    """Decode the invertible ``regions`` (planes, weights, seed, tier) in one
+    launch of K15 and verify every row against the Count-Min table in one
+    launch of K10 (``Telemetry.inv_decode``'s outputs)."""
+    keys, ok, tier = kops.inv_decode_many(regions)
+    est, ok = kops.cms_query_many([(cms_table, cms_seed, list(keys.t()), ok, min_weight)])
+    return {"keys": keys, "est": est, "ok": ok, "tier": tier}
+
+
+# The snapshot's leaves by merge: summed, HLL banks (maxed, then estimated)
+# and candidate tables (gathered), as the reference's ``_build_snapshot``.
+SUM_LEAVES = ("pod_forward", "pod_drop", "pod_tcpflags", "pod_dns", "pod_retrans",
+              "node_counters", "totals", "lat_hist")
+HLL_LEAVES = ("hll_flows", "hll_src_per_reason", "hll_src_per_pod")
+HH_LEAVES = ("flow_hh", "svc_hh", "dns_hh")
+# The fleet catalog's families: (name, sketch).
+FAMILIES = (("flow", "flow_hh"), ("svc", "svc_hh"), ("dns", "dns_hh"))
+
+
+def _readout_jobs(copies: dict[str, Any], hlls: dict[str, torch.Tensor],
+                  live: tuple) -> list[tuple[tuple, tuple, tuple, torch.dtype]]:
+    """The readout of a snapshot: a "copy" job a leaf of ``copies`` (a
+    tensor, or a dict of them), an "hll" job a register bank of ``hlls`` and
+    ``live`` (a "live" job, or a "copy" of the live count) as
+    ``active_conns``, in the reference's leaf order."""
+    def copy(t):
+        return ("copy", t), tuple(t.shape), t.dtype
+
+    tree: dict[str, Any] = {k: ({kk: copy(t) for kk, t in v.items()} if isinstance(v, dict)
+                                else copy(v)) for k, v in copies.items()}
+    for k, regs in hlls.items():
+        tree[k] = ("hll", regs), (regs.shape[0],), torch.float32
+    tree["active_conns"] = live, (), torch.int32
+    return [(path, *leaf) for path, leaf in _sorted_leaves(tree)]
+
+
+class ShardedTelemetry:
+    """TelemetryPipeline spread over a shard mesh: one ``Telemetry`` a local
+    shard, the states a list in shard order, the reference's interface."""
+
+    def __init__(self, config: PipelineConfig, mesh: Mesh):
+        self.mesh = mesh
+        self.shards = [Telemetry(config, dev) for dev in mesh.devices]
+        self.pipeline = self.shards[0].pipeline
+        self.device = mesh.lead
+        self.axes = tuple(mesh.axis_names)
+        self.n_devices = mesh.size
+        # One shard and no group: every collective is the identity.
+        self._one = mesh.local_size == 1 and mesh.group is None
+
+    @staticmethod
+    def _list(states) -> list[PipelineState]:
+        return list(states) if isinstance(states, (list, tuple)) else [states]
+
+    def init_state(self) -> list[PipelineState]:
+        """Zero state, one a local shard on its device."""
+        return [t.init_state() for t in self.shards]
+
+    def step(self, states, records, n_valid, now_s: int, ident, apiserver_ip: int = 0,
+             filter_map=None, lost: int = 0, sample_k: int = 1,
+             ) -> tuple[list[PipelineState], dict[str, torch.Tensor]]:
+        """Shard i steps ``records[i]`` ((B, 16) on its device) and
+        ``n_valid[i]``; ``ident`` and ``filter_map`` are one map, or one a
+        shard on its device. ``lost`` adds to totals[7] of global shard 0
+        only, so a snapshot counts it once. The summary's ``events`` and
+        ``ct_reports`` are summed over the mesh; its per-row lanes are (D,
+        B), gathered in global shard order."""
+        states = self._list(states)
+
+        def pick(x, i):
+            return x[i] if isinstance(x, (list, tuple)) else x
+
+        if self._one:
+            st, summ = self.shards[0].step(
+                states[0], records[0], int(n_valid[0]), now_s, pick(ident, 0), apiserver_ip,
+                filter_map=pick(filter_map, 0), lost=lost, sample_k=sample_k)
+            return [st], summ
+        summs = []
+        for i, tel in enumerate(self.shards):
+            states[i], summ = tel.step(
+                states[i], records[i], int(n_valid[i]), now_s, pick(ident, i), apiserver_ip,
+                filter_map=pick(filter_map, i),
+                lost=lost if self.mesh.global_index(i) == 0 else 0, sample_k=sample_k)
+            summs.append(summ)
+        events, reports = reduce_many(self.mesh, [
+            ([s["events"] for s in summs], "sum_u32"),
+            ([s["ct_reports"] for s in summs], "sum_u32")])
+        mask, packets, nbytes = gather_many(self.mesh, [
+            [s["report_mask"][0].view(torch.uint8) for s in summs],
+            [s["report_packets"][0] for s in summs],
+            [s["report_bytes"][0] for s in summs]])
+        return states, {"events": events, "ct_reports": reports,
+                        "report_mask": mask.view(torch.bool), "report_packets": packets,
+                        "report_bytes": nbytes}
+
+    def end_window(self, states, z_thresh: float = 4.0,
+                   ) -> tuple[list[PipelineState], dict[str, torch.Tensor]]:
+        """Close the window of the union: the entropy counts summed over the
+        mesh, then one launch of K16 on them with shard 0's EWMA state, which
+        every other shard copies (the EWMA state stays replicated); then each
+        shard's window is zeroed."""
+        states = self._list(states)
+        if self._one:
+            st, out = self.shards[0].end_window(states[0], z_thresh)
+            return [st], out
+        counts = psum(self.mesh, [s.entropy.counts for s in states])
+        a = states[0].anomaly
+        h, flags, z = kops.window_close(counts, a.mean, a.var, a.n_obs, a.alpha, z_thresh,
+                                        EWMA_MIN_WINDOWS)
+        for s in states:
+            if s is not states[0]:
+                for name in ("mean", "var", "n_obs"):
+                    getattr(s.anomaly, name).copy_(getattr(a, name))
+            s.entropy.counts.zero_()
+        return states, {"entropy_bits": h, "anomaly": flags, "zscore": z}
+
+    def snapshot(self, states, now_s: int) -> dict[str, Any]:
+        """The merged scrape-time readout (``Telemetry.snapshot``'s keys;
+        the candidate tables and ``ct_totals`` carry a leading axis of D)."""
+        return _unflatten(*self.snapshot_flat_dispatch(states, now_s))
+
+    def snapshot_flat_dispatch(self, states, now_s: int) -> tuple[torch.Tensor, FlatLayout]:
+        """The merged snapshot as one flat int32 buffer on the lead device
+        and its layout: every psum and pmax of the snapshot in one K8
+        launch (each shard's live connections counted on its device by a
+        one-job K17 launch first), the gathers stacked, and one K17 launch
+        that copies the merged leaves and estimates the merged HLL banks."""
+        states = self._list(states)
+        if self._one:
+            return self.shards[0].snapshot_flat_dispatch(states[0], now_s)
+        now = int(now_s) & M32
+        live = [kops.ct_active(s.conntrack.keys, s.conntrack.vals, now) for s in states]
+        merged = reduce_many(self.mesh, [([getattr(s, k) for s in states], "sum_u32")
+                                         for k in SUM_LEAVES]
+                             + [(live, "sum_u32")]
+                             + [([getattr(s, k).registers for s in states], "max_u32")
+                                for k in HLL_LEAVES])
+        gathered = gather_many(self.mesh, [[s.ct_totals for s in states]] + [
+            [getattr(getattr(s, name).table, leaf) for s in states]
+            for name in HH_LEAVES for leaf in ("key_rows", "counts")])
+        copies: dict[str, Any] = dict(zip(SUM_LEAVES, merged))
+        copies["ct_totals"] = gathered[0]
+        for i, name in enumerate(HH_LEAVES):
+            copies[name] = {"keys": gathered[1 + 2 * i], "counts": gathered[2 + 2 * i]}
+        hlls = dict(zip(HLL_LEAVES, merged[len(SUM_LEAVES) + 1:]))
+        leaves = _readout_jobs(copies, hlls, ("copy", merged[len(SUM_LEAVES)]))
+        flat = kops.snapshot_flat([job for _, job, _, _ in leaves], now)
+        return flat, [(path, shape, dtype) for path, _, shape, dtype in leaves]
+
+    snapshot_flat_finish = staticmethod(Telemetry.snapshot_flat_finish)
+
+    def snapshot_host(self, states, now_s: int) -> dict[str, Any]:
+        """The merged snapshot read back to the host in one copy."""
+        flat, layout = self.snapshot_flat_dispatch(states, now_s)
+        return self.snapshot_flat_finish(flat.cpu(), layout)
+
+    def fleet_export(self, states) -> dict[str, torch.Tensor]:
+        """The union's sketches in the fleet array catalog, new tensors on
+        the lead device: the sums and maxes in one K8 launch, and each
+        family's D candidate tables joined slot by slot in one K9 launch
+        for the three (the reference folds them with ``TopKTable.merge``
+        in shard order; the join keeps the same greatest (count, key row))."""
+        states = self._list(states)
+        if self._one:
+            return self.shards[0].fleet_export(states[0])
+        leaves = [(f"{fam}_cms", "sum_u32", [getattr(s, hh).cms.table for s in states])
+                  for fam, hh in FAMILIES]
+        leaves += [("hll_flows", "max_u32", [s.hll_flows.registers for s in states]),
+                   ("hll_src_per_pod", "max_u32", [s.hll_src_per_pod.registers for s in states]),
+                   ("entropy", "sum_f32", [s.entropy.counts for s in states]),
+                   ("totals", "sum_u32", [s.totals for s in states])]
+        if self.pipeline.config.enable_invertible:
+            leaves += [(f"{r}_{leaf}", "sum_u32", [getattr(getattr(s, r), leaf) for s in states])
+                       for r in ("inv_flow", "inv_hi") for leaf in ("planes", "weights")]
+        merged = dict(zip([k for k, _, _ in leaves],
+                          reduce_many(self.mesh, [(ts, op) for _, op, ts in leaves])))
+        gathered = gather_many(self.mesh, [
+            [getattr(getattr(s, hh).table, leaf) for s in states]
+            for _, hh in FAMILIES for leaf in ("key_rows", "counts")])
+        joined = kops.topk_join_many([(gathered[2 * i], gathered[2 * i + 1])
+                                      for i in range(len(FAMILIES))])
+        out: dict[str, torch.Tensor] = {}
+        for (fam, _), (keys, counts) in zip(FAMILIES, joined):
+            out[f"{fam}_cms"] = merged.pop(f"{fam}_cms")
+            out[f"{fam}_keys"] = keys
+            out[f"{fam}_counts"] = counts
+        out.update(merged)
+        return out
+
+    fleet_seeds = staticmethod(Telemetry.fleet_seeds)
+
+    def inv_decode(self, states, min_weight: int = 0) -> dict[str, torch.Tensor]:
+        """Decode the union: the flow CMS and both regions' planes and
+        weights summed over the mesh in one K8 launch, then K15 and K10 once
+        (``Telemetry.inv_decode``'s outputs)."""
+        states = self._list(states)
+        if self._one:
+            return self.shards[0].inv_decode(states[0], min_weight)
+        s0 = states[0]
+        cms, fp, fw, hp, hw = reduce_many(self.mesh, [
+            ([get(s) for s in states], "sum_u32") for get in (
+                lambda s: s.flow_hh.cms.table, lambda s: s.inv_flow.planes,
+                lambda s: s.inv_flow.weights, lambda s: s.inv_hi.planes,
+                lambda s: s.inv_hi.weights)])
+        return decode_regions(cms, s0.flow_hh.cms.seed, [(fp, fw, s0.inv_flow.seed, 0),
+                                                         (hp, hw, s0.inv_hi.seed, 1)], min_weight)
 
 
 def _unflatten(flat: torch.Tensor, layout: FlatLayout) -> dict[str, Any]:

@@ -1351,7 +1351,7 @@ def fleet_and_range(dev) -> dict:
     eng.update_identities(pods)
     frames = []
     for i in range(64):
-        eng.state = eng._proxy.run(eng.telemetry.init_state)
+        eng.states = eng._proxy.run(eng.telemetry.init_state)
         eng.flush(np.split(TrafficGen(n_flows=1_000_000, n_pods=2048, seed=i).batch(1 << 18),
                            32), 500)
         epoch, arrays, window_s, seeds = eng.close_window(epoch=7)["export"]

@@ -159,6 +159,40 @@ class PinnedStaging:
         self.give(buf, ev)
         return out
 
+    def to_cards(self, arr: np.ndarray, buf: torch.Tensor,
+                 devices: list[torch.device]) -> list[torch.Tensor]:
+        """(On the proxy thread.) Copy row i of ``arr`` (a u32 array in
+        ``buf``, one row a device) to ``devices[i]``: one copy when every row
+        goes to one device, else one a row, each on its card's current
+        stream. The buffer goes back once the last copy is queued, with an
+        event a card after it."""
+        if all(d == devices[0] for d in devices):
+            return list(self.to_card(arr, buf, devices[0]))
+        src = buf[: arr.nbytes].view(torch.int32).reshape(arr.shape)
+        rows = []
+        for row, dev in zip(src, devices):
+            out = torch.empty(row.shape, dtype=torch.int32, device=dev)
+            out.copy_(row, non_blocking=self._pin)
+            rows.append(out)
+        events = []
+        for dev in dict.fromkeys(devices) if self._pin else ():
+            events.append(torch.cuda.Event())
+            events[-1].record(torch.cuda.current_stream(dev))
+        self.give(buf, _Events(events) if events else None)
+        return rows
+
+
+class _Events:
+    """Several events as one: done when every one is."""
+
+    __slots__ = ("events",)
+
+    def __init__(self, events: list) -> None:
+        self.events = events
+
+    def query(self) -> bool:
+        return all(e.query() for e in self.events)
+
 
 class _Call:
     __slots__ = ("fn", "args", "kwargs", "after", "done", "result", "error", "ready")

@@ -210,7 +210,7 @@ def test_build_quantum_and_flush_match_reference():
 def test_failure_after_assignment_resyncs_then_reraises(monkeypatch):
     _, eng = _engines()
     eng.step_records(escalating(9), now_s=5)
-    table = eng._desc_table
+    table = eng._desc_tables[0]
     assert table is not None and len(eng._flow_dict) > 0
     gen, before = eng._flow_dict.generation, eng.state.totals.clone()
 
@@ -221,11 +221,11 @@ def test_failure_after_assignment_resyncs_then_reraises(monkeypatch):
     with pytest.raises(RuntimeError, match="ingest failed"):
         eng.step_records(escalating(9), now_s=6)
     assert len(eng._flow_dict) == 0 and eng._flow_dict.generation == gen + 1
-    assert eng._fd_epoch == 1 and eng._desc_table is None
+    assert eng._fd_epoch == 1 and eng._desc_tables[0] is None
     assert torch.equal(eng.state.totals, before)
     monkeypatch.undo()
     eng.step_records(escalating(9), now_s=7)  # every descriptor new again
-    assert eng._desc_table is not None and eng._desc_table is not table
+    assert eng._desc_tables[0] is not None and eng._desc_tables[0] is not table
     assert int(eng.state.totals[0]) == 2 * int(escalating(9)[:, F.PACKETS].sum())
 
 

@@ -53,10 +53,11 @@ MODULES = [
     "retina_tpu_torch.kernels.ops", "retina_tpu_torch.events.synthetic",
     "retina_tpu_torch.models.pipeline", "retina_tpu_torch.parallel.telemetry",
     "retina_tpu_torch.ops.conntrack", "retina_tpu_torch.ops.invertible",
-    "retina_tpu_torch.step_profile", "retina_tpu_torch.config", "retina_tpu_torch.engine",
+    "retina_tpu_torch.step_profile", "retina_tpu_torch.lanes_probe", "retina_tpu_torch.config", "retina_tpu_torch.engine",
     "retina_tpu_torch.native", "retina_tpu_torch.parallel.combine",
     "retina_tpu_torch.parallel.flowdict", "retina_tpu_torch.parallel.partition",
-    "retina_tpu_torch.parallel.wire", "retina_tpu_torch.fleet.codec",
+    "retina_tpu_torch.parallel.wire", "retina_tpu_torch.parallel.mesh",
+    "retina_tpu_torch.parallel.collectives", "retina_tpu_torch.fleet.codec",
     "retina_tpu_torch.fleet._msgpack", "retina_tpu_torch.fleet.aggregator",
     "retina_tpu_torch.fleet.shipper", "retina_tpu_torch.timetravel.ring",
     "retina_tpu_torch.timetravel.fold", "retina_tpu_torch.timetravel.query",
@@ -867,6 +868,48 @@ def test_fold_and_close_decode_launch_k9_and_k15_once(monkeypatch):
     assert dec["keys"].shape == (m, 4) and dec["tier"].shape == (m,)
 
 
+def test_sharded_merges_launch_k8_once_a_program_and_nothing_at_one_shard(monkeypatch):
+    """Without a card, the launches caught where they would enter C, at 4
+    shards of one device: the snapshot counts each shard's live connections
+    (K17, one job each), folds its 12 sums and maxes in one K8 launch and
+    reads out 19 jobs in one K17 launch; the export folds 11 arrays (the
+    invertible planes and weights among them) in one K8 launch and joins the 3 families in one K9 launch; the decode folds 5 in
+    one K8 launch, then K15 and K10 once; the close folds the entropy in one
+    K8 launch, then K16 once. At one shard with no group, each is
+    ``Telemetry``'s: no fold."""
+    from retina_tpu_torch.parallel.mesh import make_mesh
+    from retina_tpu_torch.parallel.telemetry import ShardedTelemetry
+
+    seen = []
+
+    def launch(name, dev, *args, n_launches=1):
+        seen.append((name, args[1], args[2]) if name == "fold" else (name,))
+
+    def readout(name, dev, jobs, out, now):
+        seen.append((name, len(jobs)))
+
+    monkeypatch.setattr(kops, "_on_card", lambda dev: True)
+    monkeypatch.setattr(kops, "_launch", launch)
+    monkeypatch.setattr(kops, "_readout_launch", readout)
+    monkeypatch.setattr(kops, "_close_args", lambda dev, g, k: (1, 0, 0))
+    for n in (4, 1):
+        tel = ShardedTelemetry(INVERTIBLE_CUT, make_mesh(["cpu"] * n))
+        states = tel.init_state()
+        seen.clear()
+        tel.snapshot_flat_dispatch(states, 5)
+        tel.fleet_export(states)
+        tel.inv_decode(states)
+        tel.end_window(states)
+        if n == 4:
+            assert seen == [("ct_active", 1)] * 4 + [
+                ("fold", 12, 4), ("snapshot_flat", 19), ("fold", 11, 4), ("topk_join",),
+                ("fold", 5, 4), ("inv_decode",), ("cms_query",), ("fold", 1, 4),
+                ("window_close",)]
+        else:
+            assert seen == [("snapshot_flat", 19), ("inv_decode",), ("cms_query",),
+                            ("window_close",)]
+
+
 @pytest.mark.parametrize("groups, precision, n_rows, want", [
     (32, 8, 1 << 16, 16), (32, 8, 8 << 12, 8), (32, 8, 1 << 12, 1), (32, 8, 64, 1),
     (32, 8, 4097, 2), (32, 8, 0, 1), (3, 8, 1 << 20, 16), (64, 8, 4 << 12, 4),
@@ -1222,6 +1265,58 @@ def test_fold_many_kernel_matches_plain(card, n_slots):
     for (x, op), out, ref in zip(items, outs, refs):
         assert out.dtype == x.dtype and out.shape == x.shape[1:]
         assert torch.equal(out.view(torch.int32), ref.view(torch.int32)), (op, x.shape)
+
+
+@pytest.mark.gpu
+def test_sharded_merges_on_the_card_match_plain(card):
+    """Four shards on the card, stepped with the kernels: the merged
+    snapshot, export, decode and close (K8, K9, K15, K10, K16, K17 on the
+    lead shard's device) equal the plain versions' on copies of the same
+    states bit for bit, and so do the states the close leaves."""
+    from retina_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from retina_tpu_torch.parallel.mesh import make_mesh
+    from retina_tpu_torch.parallel.partition import partition_events
+    from retina_tpu_torch.parallel.telemetry import ShardedTelemetry
+
+    n = 4
+    tel = ShardedTelemetry(INVERTIBLE_CUT, make_mesh([card] * n))
+    states = tel.init_state()
+    ident = IdentityMap.build_host({pod_ip(i): i for i in range(1, 200)}, n_slots=1 << 9,
+                                   device=card)
+    gen = TrafficGen(n_flows=3000, n_pods=200, seed=91)
+    for i in range(3):
+        sb = partition_events(gen.batch(1 << 15), n, 1 << 14)
+        recs = [from_numpy(r, card) for r in sb.records]
+        states, summ = tel.step(states, recs, sb.n_valid, 100 + i, ident, lost=sb.lost)
+    copies = [state_from_numpy(state_to_numpy(s), s) for s in states]
+
+    def merges(sts):
+        snap = tel.snapshot(sts, 103)
+        out = {f"snap.{k}": v for k, v in snap.items() if not isinstance(v, dict)}
+        out.update({f"snap.{k}.{kk}": vv for k, v in snap.items() if isinstance(v, dict)
+                    for kk, vv in v.items()})
+        out.update({f"export.{k}": v for k, v in tel.fleet_export(sts).items()})
+        out.update({f"decode.{k}": v for k, v in tel.inv_decode(sts, 3).items()})
+        sts, win = tel.end_window(sts)
+        out.update({f"close.{k}": v for k, v in win.items()})
+        return out, sts
+
+    kops.reset_launch_counts()
+    got, states = merges(states)
+    launches = kops.launch_counts()
+    with kops.plain_versions():
+        want, copies = merges(copies)
+    torch.cuda.synchronize()
+    assert launches["fold"] == 4 and launches["topk_join"] == 1
+    assert launches["snapshot_flat"] == 1 and launches["ct_active"] == n
+    assert set(got) == set(want)
+    for k, ref in want.items():
+        assert got[k].shape == ref.shape and got[k].dtype == ref.dtype, k
+        a, b = got[k].reshape(-1), ref.reshape(-1)
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), k
+    for a, b in zip(states, copies):
+        for x, y in zip(state_to_numpy(a), state_to_numpy(b)):
+            np.testing.assert_array_equal(x, y)
 
 
 @pytest.mark.gpu

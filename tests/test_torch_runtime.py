@@ -384,11 +384,13 @@ def _logged(eng, log):
     return published
 
 
-def _run_lanes(cfg, windows: int = 6, idle_at: int = 3, block: int = 256, per_window: int = 6):
-    """Start the lanes, produce TrafficGen blocks into the sink for
-    ``windows`` windows with a pause of two at ``idle_at``, stop. Returns
-    the engine, its log, what it published and the rows the sink took."""
-    eng = SketchEngine(cfg, device="cpu")
+def _run_lanes(cfg, windows: int = 6, idle_at: int = 3, block: int = 256, per_window: int = 6,
+               devices: list | None = None):
+    """Start the lanes (on the CPU, or over ``devices``), produce TrafficGen
+    blocks into the sink for ``windows`` windows with a pause of two at
+    ``idle_at``, stop. Returns the engine, its log, what it published and
+    the rows the sink took."""
+    eng = SketchEngine(cfg, device="cpu", devices=devices)
     eng.update_identities(PODS)
     log: list = []
     published = _logged(eng, log)
@@ -424,10 +426,10 @@ def _run_lanes(cfg, windows: int = 6, idle_at: int = 3, block: int = 256, per_wi
     return eng, log, published, accepted, sum(seen)
 
 
-def _replay(cfg, log):
-    """The log, synchronously, through a second engine: its state and the
-    windows it published."""
-    eng = SketchEngine(cfg, device="cpu")
+def _replay(cfg, log, devices: list | None = None):
+    """The log, synchronously, through a second engine (on the CPU, or over
+    ``devices``): its state and the windows it published."""
+    eng = SketchEngine(cfg, device="cpu", devices=devices)
     eng.update_identities(PODS)
     published = []
     publish = eng._publish_window

@@ -427,11 +427,11 @@ def test_ingest_new_matches_reference_jit(slots, bucket, n_valid):
     lo, hi = 0xFFFFF000, 11
     jwins, jnvs, _, _, jtable = jeng._ingest_new_fn(bucket)(
         jnp.asarray(w[None]), _meta(lo, hi, 1, 0, 1, n_valid), jnp.asarray(table[None]))
-    eng._desc_table = from_numpy(table, "cpu")
-    eng._desc_winner = torch.zeros(slots, dtype=torch.int32)
+    eng._desc_tables[0] = from_numpy(table, "cpu")
+    eng._desc_winners[0] = torch.zeros(slots, dtype=torch.int32)
     wins = eng._ingest_new(bucket, from_numpy(w, "cpu"), lo, hi, n_valid)
     _compare_windows(jwins, jnvs, wins)
-    np.testing.assert_array_equal(to_numpy(eng._desc_table), np.asarray(jtable)[0])
+    np.testing.assert_array_equal(to_numpy(eng._desc_tables[0]), np.asarray(jtable)[0])
 
 
 @pytest.mark.parametrize("dense", [True, False])
@@ -458,7 +458,7 @@ def test_ingest_known_matches_reference_jit(dense, slots):
     for flag, (lo, hi) in ((1, (0xFFFFFFF0, 4)), (0, (0, 0))):
         jwins, jnvs, _, _ = jeng._ingest_known_fn(bucket)(
             jnp.asarray(w[None]), _meta(lo, hi, 1, 0, flag, n_valid), jnp.asarray(table[None]))
-        eng._desc_table = from_numpy(table, "cpu")
+        eng._desc_tables[0] = from_numpy(table, "cpu")
         wins = eng._ingest_known(bucket, from_numpy(w, "cpu"), flag, lo, hi, n_valid)
         _compare_windows(jwins, jnvs, wins)
 
@@ -490,11 +490,11 @@ def test_ingest_new_id_patterns_match_reference_jit(pattern, bucket, n_valid):
     lo, hi = 0xFFFFF000, 11
     jwins, jnvs, _, _, jtable = jeng._ingest_new_fn(bucket)(
         jnp.asarray(w[None]), _meta(lo, hi, 1, 0, 1, n_valid), jnp.asarray(table[None]))
-    eng._desc_table = from_numpy(table, "cpu")
-    eng._desc_winner = torch.zeros(slots, dtype=torch.int32)
+    eng._desc_tables[0] = from_numpy(table, "cpu")
+    eng._desc_winners[0] = torch.zeros(slots, dtype=torch.int32)
     wins = eng._ingest_new(bucket, from_numpy(w, "cpu"), lo, hi, n_valid)
     _compare_windows(jwins, jnvs, wins)
-    np.testing.assert_array_equal(to_numpy(eng._desc_table), np.asarray(jtable)[0])
+    np.testing.assert_array_equal(to_numpy(eng._desc_tables[0]), np.asarray(jtable)[0])
 
 
 def _known_32(jeng, eng, dense, bucket, ids, rng):
@@ -518,7 +518,7 @@ def _known_32(jeng, eng, dense, bucket, ids, rng):
     table = rng.integers(0, 1 << 32, (slots, 12), dtype=np.uint64).astype(np.uint32)
     jwins, jnvs, _, _ = jeng._ingest_known_fn(bucket)(
         jnp.asarray(w[None]), _meta(0xFFFFFFF0, 4, 1, 0, 1, n_valid), jnp.asarray(table[None]))
-    eng._desc_table = from_numpy(table, "cpu")
+    eng._desc_tables[0] = from_numpy(table, "cpu")
     wins = eng._ingest_known(bucket, from_numpy(w, "cpu"), 1, 0xFFFFFFF0, 4, n_valid)
     return jwins, jnvs, wins
 
