@@ -233,6 +233,18 @@ source for 10 s (its run equal to its synchronous replay under the plain
 versions), /metrics, /debug/vars and a range query, the kernels of the
 path launched, the shutdown checkpoint reloaded; then a child
 ``python3 -m retina_tpu_torch agent`` scraped and stopped by SIGTERM.
+Then the agent's event sources (``sources_phase``): the three in-repo
+captures and a 2^20-packet capture synthesized from the bench flows'
+keys, in the nanosecond and microsecond formats, through the native and
+the numpy decoders (all 16 lanes and the DNS names equal); their records
+through the main and the invertible engines with kernels and under the
+plain versions (state, windows and snapshots equal, ``totals[0]`` the
+packets decoded); and a ``Daemon`` with packetparser (the TPACKET_V3 ring
+on lo where this process may open one, else a replay of the synthesized
+capture), linuxutil, tcpretrans, infiniband, externalevents (a capture's
+records as frames on its socket) and ciliumeventobserver (a gob stream of
+drop and trace notifications on its socket): the host-stat series on
+/metrics and the rows stepped equal to the rows delivered.
 Then the fleet tier as the agent runs it (``fleet_transport_phase``): 8
 engines at ``Config()`` close 4 shared epochs and ship them through their
 ``SnapshotShipper``s over the in-process bus to one subscribed
@@ -307,6 +319,8 @@ def device_ms(fn, reps: int = 10, kernel: str | None = None,
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(0.002)  # the tracer is on before the first call
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -329,7 +343,10 @@ def device_launches(fn, reps: int = 10) -> dict[str, int]:
     of ``fn`` runs on the card, from torch.profiler over ``reps`` calls after
     a warm-up and an empty session. A trace that is empty, or whose counts
     are not whole launches a call (the profiler has lost single records on
-    the chip machine), is taken again, at most eight times."""
+    the chip machine), is taken again, at most eight times. A spin kernel
+    runs before the calls and one after, and both are left out of the
+    counts: on some machines the trace loses the session's first or last
+    record every time, which is then a spin kernel's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -341,11 +358,15 @@ def device_launches(fn, reps: int = 10) -> dict[str, int]:
             torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(0.002)  # the tracer is on before the first call
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         ran = {e.key: e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and "spin_kernel" not in e.key}
         if ran and all(n % reps == 0 for n in ran.values()):
             return {k: n // reps for k, n in ran.items()}
         time.sleep(0.1)
@@ -376,6 +397,15 @@ def busy_threads(seconds: float = 1.0, top: int = 6) -> list[tuple[str, float]]:
     used = sorted(((names.get(tid, str(tid)), after[tid] - before.get(tid, 0.0))
                    for tid in after), key=lambda x: -x[1])
     return [(n, round(c, 3)) for n, c in used[:top]]
+
+
+def overload_line(block: dict) -> str:
+    """An overload controller's block (``overload_stats()`` or an agent's
+    ``/debug/vars``) on one line: state, pressure, signals, seconds since its
+    last change and transitions."""
+    sig = {k: round(v, 3) for k, v in (block.get("signals") or {}).items()}
+    return (f"{block.get('state')} pressure {block.get('pressure')} signals {sig} since "
+            f"{block.get('since_change_s')} s, {block.get('transitions')} transitions")
 
 
 def named_leaves(obj, prefix: str = ""):
@@ -1106,6 +1136,7 @@ def main() -> int:
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
+    sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
     fleet_transport_phase(dev, pods, smi)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
@@ -3958,7 +3989,10 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
     src = threading.Thread(target=synth.start, args=(stop_b,), name="synthetic", daemon=True)
     t_b = time.perf_counter()
     src.start()
-    time.sleep(DAEMON_SYNTH_S)
+    while time.perf_counter() - t_b < DAEMON_SYNTH_S:
+        time.sleep(min(1.0, max(0.0, DAEMON_SYNTH_S - (time.perf_counter() - t_b))))
+        print(f"daemon phase (b) at {time.perf_counter() - t_b:.1f} s: overload "
+              f"{overload_line(eng.overload_stats())}", flush=True)
     stop_b.set()
     src.join(30)
     check(not src.is_alive(), "daemon phase: the synthetic source did not stop")
@@ -4108,6 +4142,453 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
     print(f"daemon phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+SRC_PACKETS = 1 << 20  # packets of the synthesized capture
+SRC_QNAMES = ("kube-dns.kube-system.svc.cluster.local", "api.internal", "db-0.prod.svc",
+              "metrics.monitoring.svc.cluster.local", "x.y")
+SRC_T0_NS = 1_700_000_000_000_000_000  # the synthesized capture's first timestamp
+SRC_BURST = 20_000  # UDP datagrams of the live burst over lo
+SRC_DNS = 200  # DNS queries of the live burst
+SRC_REPLAY_RATE = 250_000.0  # events/s of the agent's replay where no ring opens
+SRC_WAIT_S = 60.0  # the bound on each wait of the sources phase
+SRC_MONITOR = (600, 400)  # drop and trace notifications served on the monitor socket
+# The main path's kernels (K7's ingest, the step, the close, the scrape) and
+# what the invertible configuration adds (K6, K15, K10).
+SRC_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+               "latency_update", "window_close", "snapshot_flat")
+SRC_INV_KERNELS = ("ingest_packed", "inv_update", "inv_decode", "cms_query")
+
+
+def capture_specs(n: int, seed: int = SEED) -> list[dict]:
+    """``synthesize_pcap``'s packet specs for ``n`` packets on ``TrafficGen``'s
+    flow keys (its addresses and ports): TCP (two in five with the timestamp
+    option, the flags varied), UDP, and DNS queries and responses of
+    SRC_QNAMES (port 53) with several qtypes and rcodes, a microsecond apart
+    and more."""
+    from retina_tpu_torch.events.schema import F, PROTO_TCP, PROTO_UDP
+    from retina_tpu_torch.events.synthetic import TrafficGen
+
+    rec = TrafficGen(n_flows=N_FLOWS, n_pods=N_PODS_GEN, seed=seed).batch(n)
+    rng = np.random.default_rng(seed)
+    kind = rng.choice(4, n, p=[0.5, 0.3, 0.1, 0.1])  # tcp, udp, dns query, dns response
+    ts = SRC_T0_NS + np.cumsum(rng.integers(1_000, 50_000, n, dtype=np.int64))
+    flags = rng.choice(np.array([0x10, 0x02, 0x12, 0x18, 0x11, 0x04]), n)
+    with_ts = rng.random(n) < 0.4
+    tsval, tsecr = (rng.integers(1, 1 << 32, n, dtype=np.int64) for _ in range(2))
+    qname = rng.integers(0, len(SRC_QNAMES), n)
+    qtype = rng.choice(np.array([1, 28, 5, 33, 12]), n)
+    rcode = rng.choice(np.array([0, 0, 0, 3, 2]), n)
+    cols = [c.tolist() for c in (rec[:, F.SRC_IP], rec[:, F.DST_IP], rec[:, F.PORTS] >> 16,
+                                 rec[:, F.PORTS] & 0xFFFF, kind, ts, flags, with_ts, tsval,
+                                 tsecr, qname, qtype, rcode)]
+    out = []
+    for src, dst, sport, dport, k, t, fl, wts, tv, te, q, qt, rc in zip(*cols):
+        p = {"src_ip": src, "dst_ip": dst, "sport": sport, "dport": dport, "ts_ns": t}
+        if k == 0:
+            p.update(proto=PROTO_TCP, tcp_flags=fl)
+            if wts:
+                p.update(tsval=tv, tsecr=te)
+        elif k == 1:
+            p["proto"] = PROTO_UDP
+        else:
+            p.update(proto=PROTO_UDP, dns_qname=SRC_QNAMES[q], dns_qtype=qt,
+                     dns_response=k == 3, dns_rcode=rc if k == 3 else 0)
+            if k == 3:
+                p.update(sport=53, dport=sport)
+            else:
+                p["dport"] = 53
+        out.append(p)
+    return out
+
+
+def pcap_to_microseconds(data: bytes) -> bytes:
+    """A nanosecond pcap as ``synthesize_pcap(..., ns=False)`` writes the same
+    packets: the microsecond magic, and each record's fraction divided by
+    1000."""
+    from retina_tpu_torch.sources.pcapdecode import PCAP_MAGIC_NS, PCAP_MAGIC_US, _find_offsets
+
+    buf = np.frombuffer(data, np.uint8).copy()
+    if int.from_bytes(data[:4], "little") != PCAP_MAGIC_NS:
+        raise ValueError("not a little-endian nanosecond pcap")
+    buf[:4] = np.frombuffer(PCAP_MAGIC_US.to_bytes(4, "little"), np.uint8)
+    _, pkt_off, _ = _find_offsets(data, True, False)
+    frac = pkt_off.astype(np.int64) - 12  # each record header's fraction field
+    words = buf[frac[:, None] + np.arange(4)].view("<u4").reshape(-1)
+    buf[frac[:, None] + np.arange(4)] = (words // 1000).astype("<u4").view(np.uint8).reshape(-1, 4)
+    return buf.tobytes()
+
+
+def sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any) -> None:
+    """The agent's event sources on the card.
+
+    (a) Decode: the three in-repo captures, and a capture of SRC_PACKETS
+    packets synthesized from ``TrafficGen``'s flow keys (``capture_specs``:
+    TCP with and without the timestamp option, UDP, DNS queries and
+    responses) in the nanosecond and the microsecond format, through the
+    native decoder (``native/decoder.cpp``) and the numpy decoder: all 16
+    lanes and the DNS names equal; both decoders' host ms printed.
+
+    (b) Step: each capture's records through ``SketchEngine.flush`` (K7's
+    ingest, the step's K1-K5 and K14, K6 on the invertible configuration),
+    a window close (K16; K15 and K10 on the invertible one) and a snapshot
+    (K17), at ``Config()`` and ``Config(heavy_keys_source="invertible")``,
+    with kernels and under the plain versions: integer state and snapshots
+    equal, floats within the float rule, ``totals[0]`` the packets decoded.
+
+    (c) The agent: a ``Daemon`` at ``Config()`` with packetparser, linuxutil,
+    tcpretrans, infiniband, externalevents and ciliumeventobserver (the
+    overload controller off, so every row delivered is stepped).
+    packetparser captures ``lo`` live through the TPACKET_V3 ring where the
+    machine lets this process open one, while the phase sends a counted
+    burst of UDP datagrams and DNS queries over it (the ring's rows must
+    hold them); elsewhere it replays the synthesized capture at
+    SRC_REPLAY_RATE. A producer writes the first capture's records to
+    ``external_socket`` as frames, and a fake Cilium agent serves a gob
+    stream of drop and trace notifications at ``monitor_sock_path``. Checks:
+    the host-stat series on ``/metrics``; after the stop, the rows stepped
+    equal the rows the three sources delivered, the replay's and the
+    frames' exactly. Each run's kernels must have launched in that run: the
+    counts are set to 0 before each configuration of (b) and before the
+    agent starts, and (c) requires the kernels a ``Config()`` agent runs."""
+    import os
+    import shutil
+    import socket
+    import struct
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+
+    from retina_tpu_torch import native
+    from retina_tpu_torch.common import RetinaEndpoint
+    from retina_tpu_torch.config import Config, load_config
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.engine import SketchEngine
+    from retina_tpu_torch.events.schema import EV_DNS_REQ, F, u32_to_ip
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.plugins import framing
+    from retina_tpu_torch.sources import gobcodec
+    from retina_tpu_torch.sources.cilium_monitor import (
+        MSG_DROP,
+        MSG_TRACE,
+        PAYLOAD_EVENT_SAMPLE,
+    )
+    from retina_tpu_torch.sources.pcapdecode import (
+        _decode_pcap_numpy,
+        decode_pcap_bytes,
+        dns_qname_hash,
+        synthesize_pcap,
+    )
+    from retina_tpu_torch.u32 import to_numpy
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sources_"))
+    # The Unix sockets' directory: a path of at most 108 bytes binds.
+    sock_dir = Path(tempfile.mkdtemp(prefix="cs_"))
+    if len(str(sock_dir)) > 90:
+        sock_dir = Path(tempfile.mkdtemp(prefix=".cs_", dir="."))
+
+    def wait(pred, what: str, bound: float = SRC_WAIT_S) -> None:
+        deadline = time.monotonic() + bound
+        while not pred():
+            check(time.monotonic() < deadline, f"sources phase: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    # (a) Decode.
+    captures = {p.name: p.read_bytes()
+                for p in sorted((root / "tests" / "fixtures" / "real").glob("*.pcap"))}
+    t0 = time.perf_counter()
+    big = synthesize_pcap(capture_specs(SRC_PACKETS))
+    captures["synthesized_ns"] = big
+    captures["synthesized_us"] = pcap_to_microseconds(big)
+    print(f"sources phase (a): {SRC_PACKETS} packets synthesized ({len(big)} bytes) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    decoded = {}
+    for name, data in captures.items():
+        t0 = time.perf_counter()
+        nat = decode_pcap_bytes(data)
+        nat_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ref = decode_pcap_bytes(data, prefer_native=False)
+        np_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        records, total = native.decode_pcap_native(data)
+        lib_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _decode_pcap_numpy(data, parse_dns=False)
+        lanes_ms = (time.perf_counter() - t0) * 1e3
+        check(nat.records.shape == ref.records.shape and np.array_equal(nat.records, ref.records)
+              and np.array_equal(records, ref.records),
+              f"sources phase: {name}: the native and numpy decodes differ")
+        check(nat.dns_names == ref.dns_names and nat.n_packets_total == ref.n_packets_total
+              == total, f"sources phase: {name}: DNS names or packet counts differ")
+        check(len(nat.records) == total, f"sources phase: {name}: {total - len(nat.records)} "
+              "packets did not decode")
+        decoded[name] = nat
+        print(f"sources phase (a): {name}: {total} packets, {len(nat.dns_names)} DNS names; "
+              f"native and numpy equal in all 16 lanes; host ms: native {lib_ms:.1f} "
+              f"(with the name pass {nat_ms:.1f}), numpy {lanes_ms:.1f} (with the name pass "
+              f"{np_ms:.1f}); card {smi}", flush=True)
+    us = decoded["synthesized_us"].records
+    ns = decoded["synthesized_ns"].records
+    check(np.array_equal(np.delete(us, [F.TS_LO, F.TS_HI], 1),
+                         np.delete(ns, [F.TS_LO, F.TS_HI], 1)),
+          "sources phase: the microsecond capture decodes to other lanes than the nanosecond one")
+
+    # (b) Step, with kernels and under the plain versions.
+    pods = {pod_ip(i): i for i in range(1, N_PODS_GEN)}
+    t_b = time.perf_counter()
+    for label, cfg, extra in (("Config()", Config(), ("ingest_new",)),
+                              ("invertible", Config(heavy_keys_source="invertible"),
+                               SRC_INV_KERNELS)):
+        # Each configuration's kernels are counted from its own run.
+        kops.reset_launch_counts()
+        runs = []
+        for plain in (False, True):
+            eng = SketchEngine(cfg, device=dev)
+            # TrafficGen's pods, and the captures' loopback address as a
+            # second address of pod 1: every row has a pod at one end.
+            eng.update_identities({**pods, 0x7F000001: 1})
+            eng.set_apiserver_ips([0x7F000001])  # the captures' loopback: K14's probes
+            snaps, wins, fed = [], [], 0
+            before = kops.launch_counts()
+            with kops.plain_versions() if plain else contextlib.nullcontext():
+                for name, res in decoded.items():
+                    rec = res.records
+                    now_s = int(((rec[:, F.TS_HI].astype(np.uint64) << np.uint64(32))
+                                 | rec[:, F.TS_LO]).max() // 10**9) + 1
+                    eng.flush([rec], now_s)
+                    wins.append(eng.close_window())
+                    snaps.append(eng.snapshot(max_age_s=0, now_s=now_s))
+                    fed += int(rec[:, F.PACKETS].astype(np.uint64).sum())
+                    check(int(to_numpy(eng.state.totals)[0]) == fed & 0xFFFFFFFF,
+                          f"sources phase (b) {label}: totals[0] after {name} is not the "
+                          f"{fed} packets decoded")
+            torch.cuda.synchronize()
+            if plain:
+                check(kops.launch_counts() == before,
+                      f"sources phase (b) {label}: the plain run launched kernels")
+            runs.append((eng, wins, snaps))
+        (eng, wins, snaps), (ref, rwins, rsnaps) = runs
+        for (leaf, a), (_, b) in zip(named_leaves(eng.state), named_leaves(ref.state)):
+            if a.dtype == torch.int32:
+                equal_int(a, b, f"sources phase (b) {label} state {leaf}")
+            elif leaf == "entropy.counts":
+                close_counts(a, b, f"sources phase (b) {label} entropy counts")
+            else:
+                close_float(a, b, f"sources phase (b) {label} state {leaf}")
+        for i, name in enumerate(decoded):
+            equal_any(wins[i], rwins[i], f"sources phase (b) {label} window after {name}")
+            equal_any(snaps[i], rsnaps[i], f"sources phase (b) {label} snapshot after {name}")
+        launches = kops.launch_counts()
+        for k in SRC_KERNELS + extra:
+            check(launches[k] > 0, f"{k} was not launched on the sources phase ({label})")
+        eng.stop()
+        ref.stop()
+        print(f"sources phase (b) {label}: {len(decoded)} captures, {fed} packets stepped "
+              f"with kernels equal the plain versions (state, windows, snapshots; totals[0]); "
+              f"launches {launches}", flush=True)
+    print(f"sources phase (b): {time.perf_counter() - t_b:.1f} s", flush=True)
+
+    # (c) The agent with the new sources.
+    try:
+        native.AfPacketRing(iface="lo").close()
+        live, why = True, "this process may open an AF_PACKET socket on lo"
+    except RuntimeError as e:
+        live, why = False, f"no TPACKET_V3 ring here ({e})"
+    if live:
+        source = dict(event_source="live", capture_iface="lo")
+    else:
+        replay_path = tmp / "synthesized.pcap"
+        replay_path.write_bytes(big)
+        source = dict(event_source="pcap", pcap_path=str(replay_path), pcap_loop=False,
+                      synthetic_rate=SRC_REPLAY_RATE)
+    cfg = load_config(None, overrides=dict(
+        api_server_addr="127.0.0.1:0", overload_enabled=False,
+        enabled_plugins=["packetparser", "linuxutil", "tcpretrans", "infiniband",
+                         "externalevents", "ciliumeventobserver"],
+        external_socket=str(sock_dir / "e.sock"), monitor_sock_path=str(sock_dir / "m.sock"),
+        **source), env={})
+    ext_rec = decoded[next(iter(decoded))].records
+    # The fake Cilium agent: drop notifications of 10.77.0.0/16 sources and
+    # trace notifications of 10.78.0.0/16 ones, one gob stream, one connection.
+    enc = gobcodec.GobStructEncoder("Payload", [("Data", gobcodec.T_BYTES),
+                                                ("CPU", gobcodec.T_INT),
+                                                ("Lost", gobcodec.T_UINT),
+                                                ("Type", gobcodec.T_INT)])
+
+    def udp_frame(src: int) -> bytes:
+        ip = struct.pack(">BBHHHBBHII", 0x45, 0, 36, 0, 0, 64, 17, 0, src, 0x0A010009)
+        return b"\x00" * 12 + b"\x08\x00" + ip + struct.pack(">HHHH", 3333, 8080, 16, 0) \
+            + b"x" * 8
+
+    notes = []
+    for i in range(SRC_MONITOR[0]):
+        hdr = bytearray(36)
+        hdr[0], hdr[1] = MSG_DROP, 133
+        notes.append(bytes(hdr) + udp_frame(0x0A4D0000 + i))
+    for i in range(SRC_MONITOR[1]):
+        hdr = bytearray(32)
+        hdr[0], hdr[1] = MSG_TRACE, 10
+        notes.append(bytes(hdr) + udp_frame(0x0A4E0000 + i))
+    wire = b"".join(enc.encode({"Data": d, "Type": PAYLOAD_EVENT_SAMPLE}) for d in notes)
+    server = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    server.bind(cfg.monitor_sock_path)
+    server.listen(1)
+
+    def serve() -> None:
+        conn, _ = server.accept()
+        with conn:
+            conn.sendall(wire)
+            time.sleep(1.0)
+
+    served = threading.Thread(target=serve, name="monitor", daemon=True)
+    served.start()
+    d = Daemon(cfg, apiserver_host="127.0.0.1")
+    eng = d.cm.engine
+    check(eng.device.type == "cuda", f"sources phase: the agent runs on {eng.device}")
+    delivered: dict = {}
+    tap: list = []
+    write = eng.sink.write_records
+
+    def counted(records, plugin):
+        n = write(records, plugin)
+        delivered[plugin] = delivered.get(plugin, 0) + n
+        if plugin == "packetparser" and live:
+            tap.append(records[:n].copy())
+        return n
+
+    eng.sink.write_records = counted
+    # The pods: the loopback address (the live burst, the frames), the
+    # monitor stream's destination, and, for the replay, TrafficGen's pods.
+    local = ["127.0.0.1", "10.1.0.9"] + ([] if live else [u32_to_ip(ip) for ip in pods])
+    with d.cm.filtermanager.deferred_push():
+        for i, ip in enumerate(local):
+            d.cm.cache.update_endpoint(RetinaEndpoint(name=f"pod-{i}", namespace="default",
+                                                      ips=(ip,)))
+        want_ident = d.cm.cache.ip_index_map()
+        wait(lambda: d.cm.filtermanager.ip_count() >= len(want_ident), "the pod events")
+    wait(lambda: eng._ident_dict == want_ident, "the identity rebuild")
+    stop = threading.Event()
+    agent = threading.Thread(target=d.start, args=(stop,), name="daemon", daemon=True)
+    kops.reset_launch_counts()  # the agent's kernels, counted from its own run
+    t_c = time.perf_counter()
+    agent.start()
+    try:
+        wait(lambda: d.cm._ready.is_set() or not agent.is_alive(), "the agent's ready")
+        check(agent.is_alive(), "sources phase: the agent died while booting")
+        port = d.cm.server.port
+        wait(lambda: os.path.exists(cfg.external_socket), "the external socket")
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+            c.connect(cfg.external_socket)
+            for i in range(0, len(ext_rec), 8):
+                framing.send_frame(c, ext_rec[i: i + 8])
+        sent = dns_sent = 0
+        if live:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as rx, \
+                    socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+                rx.bind(("127.0.0.1", 0))
+                udp_port = rx.getsockname()[1]
+                rx.setblocking(False)
+                tx.connect(("127.0.0.1", udp_port))
+                for _ in range(SRC_BURST):
+                    tx.send(b"sources-phase-burst")
+                    sent += 1
+                    try:
+                        rx.recv(64)
+                    except BlockingIOError:
+                        pass
+            q = (b"\x12\x34\x01\x00\x00\x01\x00\x00\x00\x00\x00\x00"
+                 b"\x07sources\x05phase\x00\x00\x01\x00\x01")
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as tx:
+                for _ in range(SRC_DNS):
+                    try:
+                        tx.sendto(q, ("127.0.0.1", 53))
+                        dns_sent += 1
+                    except OSError:
+                        pass  # the ICMP port-unreachable of an earlier query
+        else:
+            wait(lambda: delivered.get("packetparser", 0) >= len(ns), "the replay")
+        wait(lambda: delivered.get("externalevents", 0) >= len(ext_rec), "the external frames")
+        wait(lambda: delivered.get("ciliumeventobserver", 0) >= sum(SRC_MONITOR),
+             "the monitor stream")
+        text = ""
+
+        def host_stats() -> bool:
+            nonlocal text
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=60) as r:
+                text = r.read().decode()
+            return all(f"networkobservability_{k}{{" in text for k in (
+                "tcp_connection_stats", "udp_connection_stats", "ip_connection_stats"))
+
+        wait(host_stats, "the host-stat series on /metrics")
+        if live:
+            seen = [0, 0]
+
+            def burst_seen() -> bool:
+                # Over lo the ring sees each datagram twice, sent and received.
+                rows = np.concatenate(tap) if tap else np.zeros((0, 16), np.uint32)
+                dns = rows[rows[:, F.EVENT_TYPE] == EV_DNS_REQ]
+                seen[:] = [int(((rows[:, F.PORTS] & 0xFFFF) == udp_port).sum()), int(
+                    (dns[:, F.DNS_QHASH] == np.uint32(dns_qname_hash(b"sources.phase"))).sum())]
+                return seen[0] >= 2 * sent and seen[1] >= 2 * dns_sent
+
+            deadline = time.monotonic() + SRC_WAIT_S
+            while not burst_seen():
+                check(time.monotonic() < deadline, f"sources phase: the ring's rows hold "
+                      f"{seen[0]} of the {2 * sent} frames of the burst and {seen[1]} of the "
+                      f"{2 * dns_sent} of the DNS queries; delivered {delivered}")
+                time.sleep(0.05)
+        # Quiescence: every row the sources delivered has been stepped.
+        caught_up = [0, 0]
+
+        def stepped_all() -> bool:
+            caught_up[:] = [sum(delivered.values()), eng.counts.events]
+            return caught_up[0] == caught_up[1]
+
+        wait(stepped_all, "the rows delivered to be stepped")
+    finally:
+        stop.set()
+        agent.join(120)
+        server.close()
+        served.join(10)
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    check(not agent.is_alive(), "sources phase: the agent did not stop")
+    wall_c = time.perf_counter() - t_c
+    lost = dict(eng.lost_events)
+    check(not eng.errors and not lost, f"sources phase (c): errors {dict(eng.errors)}, "
+          f"lost {lost}")
+    total = caught_up[0]
+    check(delivered["externalevents"] == len(ext_rec)
+          and delivered["ciliumeventobserver"] == sum(SRC_MONITOR),
+          f"sources phase (c): delivered {delivered}")
+    if not live:
+        check(delivered["packetparser"] == len(ns), f"sources phase (c): the replay delivered "
+              f"{delivered['packetparser']} of {len(ns)}")
+    # Every row has a pod at one end, so totals[0] counts each stepped row
+    # (the live ring's rows after the quiescent point too).
+    check(int(to_numpy(eng.state.totals)[0]) == eng.counts.events & 0xFFFFFFFF,
+          f"sources phase (c): totals[0] is not the {eng.counts.events} rows stepped")
+    # The Config() agent's path: K7's ingest and the main path's kernels.
+    launches = kops.launch_counts()
+    for k in SRC_KERNELS + ("ingest_new",):
+        check(launches[k] > 0, f"{k} was not launched by the agent on the sources phase (c)")
+    host_lines = sum(1 for ln in text.splitlines() if ln.startswith((
+        "networkobservability_tcp_connection_stats{", "networkobservability_udp_connection_stats{",
+        "networkobservability_ip_connection_stats{", "networkobservability_interface_stats{",
+        "networkobservability_infiniband_")))
+    print(f"sources phase (c): packetparser {'live on lo through the TPACKET_V3 ring' if live else 'replayed the synthesized capture through the native decoder'} "
+          f"({why}); {total} rows delivered ({delivered} at the stop) and as many stepped, "
+          f"none lost, in {wall_c:.1f} s; {host_lines} host-stat series on /metrics"
+          + (f"; the ring held the {sent}-datagram burst and {dns_sent} DNS queries" if live
+             else ""), flush=True)
+    print(f"sources phase (c): launches {launches}", flush=True)
+    print(f"sources phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 FT_NODES, FT_EPOCHS, FT_EPOCH0 = 8, 4, 9000  # the fleet transport phase's nodes and epochs
 FT_WAIT_S = 120.0  # the bound on each wait of the fleet transport phase
 # The kernels the fleet transport phase must launch: the merges and queries
@@ -4127,7 +4608,7 @@ def fleet_relay(ingest):
         return None
     from concurrent import futures
 
-    from retina_tpu_torch.fleet import _msgpack
+    from retina_tpu_torch.utils import _msgpack
     from retina_tpu_torch.hubble.server import FLEET_SERVICE
 
     def ship(request, ctx):
@@ -4188,6 +4669,7 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     from retina_tpu_torch.fleetquery import FleetQueryService, LocalNodeClient
     from retina_tpu_torch.fleetquery.dryrun import run_fleetquery_dryrun
     from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.lanes_probe import overload_block, top_signal
     from retina_tpu_torch.metrics import get_metrics
     from retina_tpu_torch.pubsub import get_pubsub
     from retina_tpu_torch.timetravel.fold import RangeFold
@@ -4424,7 +4906,7 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
         # Under SHEDDING and above the query plane starts no fold and answers
         # 503 busy (the reference's contract): ask again until the child's
         # overload controller lets one through, and count the refusals.
-        busy, states = 0, set()
+        busy, states, last_top = 0, set(), None
         deadline = time.monotonic() + FT_WAIT_S
         while True:
             t1 = time.perf_counter()
@@ -4439,10 +4921,15 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
             check(code == 503 and doc.get("error") == "busy" and child.poll() is None,
                   f"fleet transport: the child's /fleet/query answered {code}: {body[:300]}")
             busy += 1
-            states.add(json.loads(get("/debug/vars")[1])["overload"]["state"])
+            block = overload_block(json.loads(get("/debug/vars")[1]))
+            states.add(block["state"])
+            last_top = top_signal(block["signals"])
+            print(f"fleet transport: busy answer {busy}: overload {overload_line(block)}",
+                  flush=True)
             check(time.monotonic() < deadline,
                   f"fleet transport: the child's /fleet/query stayed busy ({busy} answers, "
-                  f"states {sorted(states)}; this process's busiest threads {busy_threads()})")
+                  f"states {sorted(states)}, highest signal on the last {last_top}; this "
+                  f"process's busiest threads {busy_threads()})")
             time.sleep(0.1)
         check(doc["windows"] >= 1 and doc["coverage"]["nodes_answered"] == 1,
               f"fleet transport: the child's /fleet/query answered {body[:300]}")
@@ -4457,7 +4944,8 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     print(f"fleet transport: python3 -m retina_tpu_torch agent in the fleet roles: first merged "
           f"epoch {child_s:.1f} s after its start, {len(fleet_lines)} fleet_* samples, "
           f"/fleet/query?last=4 {child_q_ms:.1f} ms ({doc['windows']} windows) after {busy} "
-          f"busy answers (overload {sorted(states)}); exit {rc} on SIGTERM", flush=True)
+          f"busy answers (overload {sorted(states)}; highest signal on the last busy answer "
+          f"{last_top}); exit {rc} on SIGTERM", flush=True)
 
     launches = kops.launch_counts()
     print(f"fleet transport launches: {launches}", flush=True)

@@ -92,6 +92,10 @@ class Config:
     # Generator regime preset (events/synthetic.py PRESETS).
     gen_preset: str = "default"
     capture_iface: str = ""  # live AF_PACKET interface ("" = default)
+    external_socket: str = "/tmp/retina-events.sock"  # externalevents' feed
+    # Cilium agent monitor socket (gob payload stream) for the
+    # ciliumeventobserver plugin (reference config.go MonitorSockPath).
+    monitor_sock_path: str = "/var/run/cilium/monitor1_2.sock"
 
     # --- the device ---
     # The torch device the agent runs on: "" = the card (raises without

@@ -401,6 +401,11 @@ class SketchEngine:
         self._inflight = threading.Semaphore(max(1, cfg.feed_pipeline_depth))
         self._busy_lock = threading.Lock()
         self._inflight_busy = 0
+        # The start of the dispatch thread's wait for a slot in progress
+        # (perf_counter; None when it is not waiting), and the (time,
+        # lane_s["inflight_wait"]) samples of the overload signal's window.
+        self._inflight_wait_t0: float | None = None
+        self._inflight_wait_hist: collections.deque = collections.deque()
         # The protected close lane: two slots of its own, never the steps'.
         self._close_inflight = threading.Semaphore(2)
         self._closed_events_in = 0
@@ -953,8 +958,13 @@ class SketchEngine:
                 self._inflight.release()
 
         t0 = time.perf_counter()
-        self._inflight.acquire()
-        self._lane("inflight_wait", time.perf_counter() - t0)
+        if not self._inflight.acquire(blocking=False):
+            with self._count_lock:
+                self._inflight_wait_t0 = t0
+            self._inflight.acquire()
+        with self._count_lock:
+            self._inflight_wait_t0 = None
+            self.lane_s["inflight_wait"] += time.perf_counter() - t0
         with self._busy_lock:
             self._inflight_busy += 1
         try:
@@ -1463,7 +1473,7 @@ class SketchEngine:
             sig["handoff_wait"] = min(1.0, max(0.0, wait - self._ov_wait_prev) / dt)
             self._ov_wait_prev = wait
             self._ov_wait_t = now
-        sig["inflight"] = min(1.0, self._busy_count() / max(1, self.cfg.feed_pipeline_depth))
+        sig["inflight"] = self._inflight_blocked_share(now)
         sig["harvest"] = min(1.0, self._harvest_q.unfinished_tasks / 4.0)
         # A dispatch eating half a window is pressure; a stale sample (no
         # dispatch for two windows) means idle, not slow.
@@ -1478,6 +1488,39 @@ class SketchEngine:
         if self._degraded.is_set():
             sig["degraded"] = 1.0
         return sig
+
+    def _inflight_blocked_share(self, now: float) -> float:
+        """The in-flight signal: the share of the last ``overload_dwell_s``
+        that the dispatch thread spent blocked on a full pipeline (all
+        ``feed_pipeline_depth`` slots taken), a wait in progress included.
+        Only that thread takes slots (a synchronous dispatch runs on the
+        proxy without one), so ``lane_s["inflight_wait"]`` is wall time.
+
+        The reference reads the slots' fill at the tick instead. Its slot is
+        held while the proxy issues one compiled program, microseconds; the
+        port's while the proxy issues a step's launches one by one,
+        milliseconds of host time. So a pipeline that keeps up holds one or
+        two of the port's three slots at most ticks, a fill of 1/3 or 2/3
+        that never stays at the exit pressure (0.45) for a dwell. Blocked
+        time agrees with the fill at its ends: 0 while a slot is free
+        whenever a dispatch is ready, 1 when every dispatch waits. The
+        window is the dwell the controller leaves a level after, so a wait
+        behind one slow dispatch (a window close, a merge on the proxy) does
+        not reset the dwell, and a saturated pipeline reads 1 within a
+        dwell."""
+        with self._count_lock:
+            total = self.lane_s["inflight_wait"]
+            if self._inflight_wait_t0 is not None:
+                total += time.perf_counter() - self._inflight_wait_t0
+            hist = self._inflight_wait_hist
+            hist.append((now, total))
+            span = max(float(self.cfg.overload_dwell_s), 1e-3)
+            while len(hist) > 2 and hist[1][0] <= now - span:
+                hist.popleft()
+            t_old, w_old = hist[0]
+        if now - t_old <= 0.0:
+            return 0.0
+        return min(1.0, max(0.0, (total - w_old) / max(now - t_old, span)))
 
     @property
     def overload(self) -> OverloadController:

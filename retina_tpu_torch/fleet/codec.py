@@ -1,7 +1,7 @@
 """Versioned wire codec for fleet sketch snapshots (port of
 retina_tpu/fleet/codec.py; the frame layout, catalog and header are the
 reference's, byte for byte, and the header is packed by the port's own
-MessagePack subset, ``_msgpack.py``).
+MessagePack subset, ``utils/_msgpack.py``).
 
 One snapshot is the device-merged sketch state of one node for one
 closed window: CM tables, heavy-hitter candidate tables, HLL register
@@ -34,7 +34,7 @@ import struct
 
 import numpy as np
 
-from retina_tpu_torch.fleet import _msgpack
+from retina_tpu_torch.utils import _msgpack
 
 MAGIC = b"RFLT"
 VERSION = 1

@@ -5,7 +5,7 @@ Nodes ship encoded sketch snapshots to the aggregator through the relay
 endpoint instead of raw samples: a raw-bytes unary RPC whose request is the
 RFLT frame (``fleet/codec.py``), so the relay never unpacks the arrays, and
 whose reply is a msgpack ``{"ok": bool}``, read here with the port's own
-MessagePack subset (``fleet/_msgpack.py``).
+MessagePack subset (``utils/_msgpack.py``).
 
 ``grpc`` is imported when a client is built, never at module import: an
 agent that ships over the in-process bus needs no gRPC. Without it, building
@@ -18,7 +18,7 @@ and the rest of the reference's hubble/ wait for ROADMAP §1 item 7.
 
 from __future__ import annotations
 
-from retina_tpu_torch.fleet import _msgpack
+from retina_tpu_torch.utils import _msgpack
 
 # Fleet rollup tier (fleet/): the relay's Ship endpoint.
 FLEET_SERVICE = "retina.Fleet"

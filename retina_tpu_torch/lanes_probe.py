@@ -10,7 +10,9 @@
         this checkout) in the three fleet roles at the defaults, polled for
         its first merged epoch and then for ``/fleet/query?last=4`` until it
         answers 200, at most 150 s in all: the seconds to each, the busy
-        answers by overload state, and the overload and feed stats at the end.
+        answers by overload state, the controller's signals read at each busy
+        answer (how often each was the highest, their means and maxima), and
+        the overload and feed stats at the end.
 
 Each prints one line, ``PROXY ...`` or ``PROBE {json}``. Both run on the
 card; the functions also take a device and small shapes (``proxy``) or
@@ -37,6 +39,48 @@ from pathlib import Path
 
 FLEET_SETS = ("fleet_enabled=true", "fleet_aggregator=true", "fleetquery_enabled=true",
               "timetravel_enabled=true", "fleet_expected_nodes=1")
+OVERLOAD_KEYS = ("state", "pressure", "signals", "since_change_s", "transitions")
+
+
+def overload_block(debug_vars: dict) -> dict:
+    """The overload controller's block of an agent's ``/debug/vars``: its
+    state, pressure, signals, seconds since its last change and transitions."""
+    ov = debug_vars.get("overload", {})
+    return {k: ov.get(k) for k in OVERLOAD_KEYS}
+
+
+def top_signal(signals: dict | None) -> str | None:
+    """The signal that sets the pressure (the largest; None when there is none)."""
+    return max(signals, key=signals.get) if signals else None
+
+
+class SignalTally:
+    """The overload blocks read at each busy answer: how often each signal was
+    the highest, each signal's mean and max, and the last block."""
+
+    def __init__(self) -> None:
+        self.n = 0
+        self.top: dict[str, int] = {}
+        self.sums: dict[str, float] = {}
+        self.maxes: dict[str, float] = {}
+        self.last: dict | None = None
+
+    def add(self, block: dict) -> None:
+        sig = block.get("signals") or {}
+        self.n += 1
+        self.last = block
+        t = top_signal(sig)
+        if t is not None:
+            self.top[t] = self.top.get(t, 0) + 1
+        for k, v in sig.items():
+            self.sums[k] = self.sums.get(k, 0.0) + v
+            self.maxes[k] = max(self.maxes.get(k, 0.0), v)
+
+    def summary(self) -> dict:
+        return {"answers": self.n, "top": self.top,
+                "mean": {k: round(v / self.n, 4) for k, v in self.sums.items()},
+                "max": self.maxes, "last": self.last,
+                "last_top": top_signal((self.last or {}).get("signals"))}
 
 
 def proxy(workers: int, seconds: float = 4.0, device: str | None = None, n_blocks: int = 256,
@@ -105,8 +149,23 @@ def fleet_child(root: str | Path | None = None, limit_s: float = 150.0,
                                  + [a for s in sets for a in ("--set", s)],
                                  cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
     res: dict = {}
+    trail: list = []
+
+    def sample(block: dict | None = None) -> None:
+        # One [s since start, state, pressure, signals] a second, from boot on.
+        now = round(time.monotonic() - t0, 1)
+        if trail and now - trail[-1][0] < 1.0:
+            return
+        try:
+            block = block or overload_block(json.loads(get("/debug/vars")[1]))
+        except OSError:
+            return
+        trail.append([now, block["state"], block["pressure"],
+                      {k: round(v, 2) for k, v in (block["signals"] or {}).items()}])
+
     try:
         while time.monotonic() - t0 < limit_s and child.poll() is None:
+            sample()
             try:
                 text = get("/metrics")[1]
                 if any(ln.startswith("networkobservability_fleet_windows_merged_counter_total ")
@@ -117,6 +176,7 @@ def fleet_child(root: str | Path | None = None, limit_s: float = 150.0,
             time.sleep(0.2)
         res["merged_s"] = round(time.monotonic() - t0, 2)
         code, busy, states, t1 = 0, 0, {}, time.monotonic()
+        tally = SignalTally()
         while time.monotonic() - t0 < limit_s and child.poll() is None:
             try:
                 code = get("/fleet/query?last=4")[0]
@@ -128,19 +188,22 @@ def fleet_child(root: str | Path | None = None, limit_s: float = 150.0,
                 break
             busy += 1
             try:
-                st = json.loads(get("/debug/vars")[1])["overload"]["state"]
-                states[st] = states.get(st, 0) + 1
+                block = overload_block(json.loads(get("/debug/vars")[1]))
+                states[block["state"]] = states.get(block["state"], 0) + 1
+                tally.add(block)
+                sample(block)
             except OSError:
                 pass
             time.sleep(0.1)
         res.update(code=code, busy=busy, states=states,
-                   answer_s=round(time.monotonic() - t1, 2))
+                   answer_s=round(time.monotonic() - t1, 2), signals=tally.summary())
         if child.poll() is None:
             v = json.loads(get("/debug/vars")[1])
-            res["overload"] = {k: v["overload"].get(k) for k in ("state", "pressure", "signals")}
+            res["overload"] = overload_block(v)
             res["feed"] = {k: v.get("feed", {}).get(k) for k in (
                 "mode", "workers", "dropped_events", "lane_s", "lost_events")}
         res["wall_s"] = round(time.monotonic() - t0, 2)
+        res["trail"] = trail
     finally:
         if child.poll() is None:
             child.send_signal(signal.SIGTERM)

@@ -1,10 +1,17 @@
 """The port's native host helpers: a build at first use and ctypes bindings.
 
-``combine.cpp``, ``flowdict.cpp`` and ``pack.cpp`` are copies of the
-reference's sources in ``retina_tpu/native/`` (the C interface and
-``rt_abi_version`` are the same; ``abi.cpp`` carries the version, which the
-reference keeps in its decoder). They are the feed path's host side: the
-descriptor combiner, the flow dictionary and the wire packers.
+Every source is a copy of the reference's in ``retina_tpu/native/`` (the C
+interface and ``rt_abi_version``, defined in ``decoder.cpp``, are the same):
+
+- ``combine.cpp``, ``flowdict.cpp``, ``pack.cpp``: the feed path's host
+  side (the descriptor combiner, the flow dictionary, the wire packers);
+- ``decoder.cpp``: pcap bytes to (N, 16) event records,
+  :func:`decode_pcap_native`, bit-identical to the numpy decoder of
+  ``sources/pcapdecode.py``;
+- ``ring.cpp``: :class:`NativeRing`, a single-producer single-consumer
+  record ring in private memory or an mmap'd file shared across processes;
+- ``afpacket.cpp``: :class:`AfPacketRing`, the TPACKET_V3 live capture
+  that packetparser reads on a node.
 
 The library builds on first use with ``g++ -O3 -std=c++17 -fPIC -shared
 -pthread`` into ``.torch_kernels/`` beside the package (gitignored), named by
@@ -19,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import mmap
 import os
 import shutil
 import subprocess
@@ -32,9 +40,10 @@ from retina_tpu_torch.events.schema import NUM_FIELDS
 from retina_tpu_torch.kernels.build import BUILD_DIR
 
 SRC_DIR = Path(__file__).resolve().parent
-SOURCES = ("combine.cpp", "flowdict.cpp", "pack.cpp", "abi.cpp")
+SOURCES = ("decoder.cpp", "ring.cpp", "combine.cpp", "afpacket.cpp", "flowdict.cpp",
+           "pack.cpp")
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
-# ABI the bindings below expect (abi.cpp rt_abi_version; the reference's
+# ABI the bindings below expect (decoder.cpp rt_abi_version; the reference's
 # NATIVE_ABI_VERSION for the same interface).
 NATIVE_ABI_VERSION = 2
 
@@ -99,6 +108,21 @@ def _bind(lib: ctypes.CDLL) -> None:
         "rt_flowwire_dense": (ctypes.c_long, [_U32P, sz, _U32P, u8p, ctypes.c_uint64,
                                               u32, u32, u32, _U32P, _U32P]),
         "rt_abi_version": (u32, []),
+        "rt_decode_pcap": (ctypes.c_long, [ctypes.c_char_p, sz, u32, _U32P, sz,
+                                           ctypes.POINTER(sz)]),
+        "rt_afp_open": (vp, [ctypes.c_char_p, u32, u32]),
+        "rt_afp_poll": (ctypes.c_long, [vp, u32, u32, _U32P, sz,
+                                        ctypes.POINTER(ctypes.c_uint64), u8p, sz,
+                                        ctypes.POINTER(sz)]),
+        "rt_afp_drops": (ctypes.c_uint64, [vp]),
+        "rt_afp_close": (None, [vp]),
+        "rt_ring_bytes": (sz, [ctypes.c_uint64, u32]),
+        "rt_ring_init": (ctypes.c_int, [vp, ctypes.c_uint64, u32]),
+        "rt_ring_check": (ctypes.c_int, [vp, u32]),
+        "rt_ring_push": (ctypes.c_uint64, [vp, _U32P, ctypes.c_uint64]),
+        "rt_ring_pop": (ctypes.c_uint64, [vp, _U32P, ctypes.c_uint64]),
+        "rt_ring_size": (ctypes.c_uint64, [vp]),
+        "rt_ring_dropped": (ctypes.c_uint64, [vp]),
     }
     for name, (restype, argtypes) in sigs.items():
         fn = getattr(lib, name)
@@ -126,6 +150,29 @@ def native_abi_version() -> int:
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(_U32P)
+
+
+def decode_pcap_native(data: bytes, obs_point: int = 2) -> tuple[np.ndarray, int]:
+    """C++ pcap decode (decoder.cpp rt_decode_pcap): ((N, 16) u32 records,
+    packets in the capture). DNS names are not extracted here (the host's
+    name pass in ``sources/pcapdecode.py`` does that); the DNS qtype, rcode
+    and qname-hash lanes are filled as the numpy decoder fills them. Raises
+    ValueError on bytes that are not a pcap."""
+    lib = get_lib()
+    # Every record is at least a 16 B header and a 54 B packet; the buffer
+    # doubles while the library reports it too small.
+    max_records = max(len(data) // 70 + 64, 1024)
+    while True:
+        out = np.zeros((max_records, NUM_FIELDS), np.uint32)
+        total = ctypes.c_size_t(0)
+        n = lib.rt_decode_pcap(data, len(data), obs_point, _ptr(out), max_records,
+                               ctypes.byref(total))
+        if n == -1:
+            raise ValueError("not a pcap file")
+        if n == -2:
+            max_records *= 2
+            continue
+        return out[:n], int(total.value)
 
 
 # Distinct-group count of the previous combine: it sizes the next probe
@@ -378,3 +425,108 @@ class NativeFlowDict:
     def __del__(self):
         if getattr(self, "_h", None):
             self.close()
+
+
+class AfPacketRing:
+    """TPACKET_V3 live capture (afpacket.cpp), the perf ring's analog.
+
+    ``poll(timeout_ms)`` returns ((N, 16) records, frames seen, the DNS
+    frames as a [u16 len][frame] blob); kernel drops are a monotonic
+    counter, ``drops()``. Raises RuntimeError when the ring cannot open (no
+    CAP_NET_RAW, not Linux, no such interface): the caller then runs its
+    socket loop, as the reference's does."""
+
+    # A 1 MiB block holds at most ~11k minimum-size frames: room for two full
+    # blocks a poll makes the mid-block resume the exception.
+    POLL_RECORDS = 1 << 15
+    DNS_BUF_BYTES = 1 << 16
+
+    def __init__(self, iface: str = "", block_size: int = 1 << 20, block_nr: int = 32,
+                 obs_point: int = 2):
+        self._lib = get_lib()
+        self.obs_point = obs_point
+        self._h = self._lib.rt_afp_open(iface.encode(), block_size, block_nr)
+        if not self._h:
+            raise RuntimeError(f"AF_PACKET TPACKET_V3 ring open failed (iface={iface!r}; "
+                               "needs Linux and CAP_NET_RAW)")
+        self._buf = np.empty((self.POLL_RECORDS, NUM_FIELDS), np.uint32)
+        self._dns_buf = (ctypes.c_uint8 * self.DNS_BUF_BYTES)()
+
+    def poll(self, timeout_ms: int = 100) -> tuple[np.ndarray, int, bytes]:
+        if self._h is None:
+            raise RuntimeError("AF_PACKET ring is closed")
+        seen = ctypes.c_uint64(0)
+        dns_used = ctypes.c_size_t(0)
+        n = self._lib.rt_afp_poll(self._h, timeout_ms, self.obs_point, _ptr(self._buf),
+                                  self.POLL_RECORDS, ctypes.byref(seen), self._dns_buf,
+                                  self.DNS_BUF_BYTES, ctypes.byref(dns_used))
+        if n < 0:
+            raise RuntimeError("AF_PACKET poll failed")
+        return self._buf[:n].copy(), int(seen.value), bytes(self._dns_buf[: dns_used.value])
+
+    def drops(self) -> int:
+        if self._h is None:
+            raise RuntimeError("AF_PACKET ring is closed")
+        return int(self._lib.rt_afp_drops(self._h))
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.rt_afp_close(self._h)
+            self._h = None
+
+
+class NativeRing:
+    """Single-producer single-consumer record ring (ring.cpp) over private
+    memory, or over an mmap'd file that another process opens with
+    ``create=False``. A push that finds the ring full drops the rows that do
+    not fit and counts them (``dropped``)."""
+
+    def __init__(self, capacity: int = 1 << 14, path: Optional[str] = None,
+                 create: bool = True):
+        self._lib = lib = get_lib()
+        self.capacity = capacity
+        nbytes = lib.rt_ring_bytes(capacity, NUM_FIELDS)
+        self._file = None
+        if path is None:
+            self._mm = mmap.mmap(-1, nbytes)
+        else:
+            mode = "r+b" if (os.path.exists(path) and not create) else "w+b"
+            self._file = open(path, mode)
+            if create or os.path.getsize(path) < nbytes:
+                self._file.truncate(nbytes)
+            self._mm = mmap.mmap(self._file.fileno(), nbytes)
+        self._buf = ctypes.c_char.from_buffer(self._mm)
+        self._addr = ctypes.addressof(self._buf)
+        if create:
+            if lib.rt_ring_init(self._addr, capacity, NUM_FIELDS) != 0:
+                self.close()
+                raise ValueError("capacity must be a power of two")
+        elif lib.rt_ring_check(self._addr, NUM_FIELDS) != 0:
+            self.close()
+            raise ValueError(f"not a retina ring: {path}")
+
+    def push(self, records: np.ndarray) -> int:
+        """Rows pushed (the rest dropped and counted)."""
+        rec = np.ascontiguousarray(records, np.uint32)
+        if rec.ndim != 2 or rec.shape[1] != NUM_FIELDS:
+            raise ValueError(f"expected (N, {NUM_FIELDS}) records, got {rec.shape}")
+        return int(self._lib.rt_ring_push(self._addr, _ptr(rec), len(rec)))
+
+    def pop(self, max_records: int = 8192) -> np.ndarray:
+        out = np.empty((max_records, NUM_FIELDS), np.uint32)
+        n = int(self._lib.rt_ring_pop(self._addr, _ptr(out), max_records))
+        return out[:n]
+
+    def __len__(self) -> int:
+        return int(self._lib.rt_ring_size(self._addr))
+
+    @property
+    def dropped(self) -> int:
+        return int(self._lib.rt_ring_dropped(self._addr))
+
+    def close(self) -> None:
+        # Release the exported buffer before closing the mmap.
+        del self._buf
+        self._mm.close()
+        if self._file is not None:
+            self._file.close()

@@ -3,10 +3,12 @@
 Importing this package registers every ported plugin with the registry
 (the reference's ``init()`` + ``registry.Add`` self-registration,
 registry.go:42-47): the default set (packetparser, dropreason,
-packetforward, dns), the conntrack GC that rides with packetparser, and the
-mock plugin of the manager's tests. The host-stat plugins (tcpretrans,
-linuxutil, infiniband), the socket frame codecs (framing,
-externalevents), ciliumeventobserver and windows are not ported yet.
+packetforward, dns), the conntrack GC that rides with packetparser, the
+host-stat plugins (linuxutil, tcpretrans, infiniband), the socket feeds
+(externalevents over ``framing.py``'s record frames, ciliumeventobserver
+over Cilium's gob monitor stream) and the mock plugin of the manager's
+tests. Name the others in ``enabled_plugins`` to run them. The Windows
+plugins (windows.py) are not ported (ROADMAP §1 item 7).
 """
 
 from retina_tpu_torch.plugins import registry
@@ -19,12 +21,17 @@ from retina_tpu_torch.plugins.api import (
 
 # Self-registration imports (each module calls registry.add at import).
 from retina_tpu_torch.plugins import (  # noqa: F401
+    ciliumeventobserver,
     conntrack_gc,
     dns,
     dropreason,
+    externalevents,
+    infiniband,
+    linuxutil,
     mockplugin,
     packetforward,
     packetparser,
+    tcpretrans,
 )
 
 __all__ = [

@@ -5,8 +5,8 @@ Reference analog: pkg/plugin/packetparser — tc classifiers parse every
 packet on the host device + pod veths into ``struct packet`` records that
 stream to userspace over a perf ring and become flows
 (packetparser_linux.go:556-652). Here the packet-parse step is the
-host-side decoder (sources/pcapdecode.py), and the plugin's start loop
-streams decoded record blocks into the
+host-side decoder (sources/pcapdecode.py, the C++ native decoder first),
+and the plugin's start loop streams decoded record blocks into the
 sink at a paced rate. Conntrack sampling/enrichment runs on-device inside
 the pipeline step rather than in a kernel map (ops/conntrack.py).
 
@@ -15,11 +15,9 @@ Sources (cfg.event_source):
   cfg.synthetic_rate events/s.
 - ``pcap``: replay cfg.pcap_path (optionally looped), preserving record
   order; DNS names feed the host string table via pubsub.
-- ``live``: AF_PACKET raw-socket capture (root only), decoded in batches.
-  The reference's TPACKET_V3 ring (native/afpacket.cpp) is not in the
-  port's ``native/`` yet, so ``_run_live_native`` answers unavailable and
-  the socket loop runs, as the reference does when its native library
-  lacks the ring.
+- ``live``: the TPACKET_V3 ring (native/afpacket.cpp, root only), whose C
+  decoder writes records straight from the kernel's blocks; where the ring
+  cannot be opened, an AF_PACKET raw socket decoded in batches.
 """
 
 from __future__ import annotations
@@ -258,13 +256,48 @@ class PacketParserPlugin(Plugin):
                 return
 
     def _run_live_native(self, stop: threading.Event) -> bool:
-        """The TPACKET_V3 mmap ring capture (the reference's
-        native/afpacket.cpp). The port's ``native/`` has no ring yet, so
-        this answers unavailable (False), as the reference does when its
-        native library lacks one, and the caller runs the socket loop."""
-        self.log.info("native AF_PACKET ring unavailable (not in this "
-                      "build's native library); using socket loop")
-        return False
+        """TPACKET_V3 mmap ring capture (native/afpacket.cpp): the kernel
+        hands over whole blocks of frames and the C decoder writes records
+        directly, with no per-packet syscall or Python cost. Returns False
+        when the ring cannot be opened (no CAP_NET_RAW, no such interface),
+        so the caller runs the socket loop, as the reference does; a native
+        library that cannot be built raises."""
+        from retina_tpu_torch.events.schema import OP_FROM_NETWORK
+        from retina_tpu_torch.native import AfPacketRing, get_lib
+        from retina_tpu_torch.sources.pcapdecode import dns_names_from_frames
+
+        get_lib()
+        try:
+            ring = AfPacketRing(iface=self.cfg.capture_iface, obs_point=OP_FROM_NETWORK)
+        except RuntimeError as e:
+            self.log.info("native AF_PACKET ring unavailable (%s); using socket loop", e)
+            return False
+        # The init()-opened raw socket would keep receiving (and the kernel
+        # keep cloning) every packet for the process's life: the ring
+        # replaces it.
+        if self._sock is not None:
+            self._sock.close()
+            self._sock = None
+        self.log.info("live capture via TPACKET_V3 ring (iface=%r)",
+                      self.cfg.capture_iface or "all")
+        last_drops = 0
+        try:
+            while not stop.is_set():
+                rec, _seen, dns_frames = ring.poll(timeout_ms=100)
+                if len(rec):
+                    self.emit(rec)
+                if dns_frames:
+                    names = dns_names_from_frames(dns_frames)
+                    if names:
+                        self.dns_names.update(names)
+                        self._publish_dns_names(names)
+                drops = ring.drops()
+                if drops > last_drops:
+                    self.count_lost("kernel", drops - last_drops)
+                    last_drops = drops
+        finally:
+            ring.close()
+        return True
 
     def _run_live(self, stop: threading.Event) -> None:
         if self._run_live_native(stop):

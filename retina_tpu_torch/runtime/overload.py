@@ -1,9 +1,9 @@
 """Closed-loop overload controller (port of retina_tpu/runtime/overload.py).
 
 The controller watches normalized pressure signals the engine feeds it
-(per-worker staging fill, dispatch in-flight fill, handoff wait rate,
-harvest lag, dispatch latency) and moves the pipeline through explicit
-states with hysteresis::
+(per-worker staging fill, the share of time dispatches wait on a full
+pipeline, handoff wait rate, harvest lag, dispatch latency) and moves the
+pipeline through explicit states with hysteresis::
 
     NOMINAL --p>=enter--> SAMPLING --p>=shed--> SHEDDING --p>=degrade--> DEGRADED
        <--p<=exit for dwell_s-- (one level per dwell period)

@@ -1,13 +1,22 @@
-"""Pcap synthesis and the numpy pcap reader (copy of part of
+"""Pcap decoding to event records, the packetparser.c analog (port of
 retina_tpu/sources/pcapdecode.py).
 
-``synthesize_pcap`` builds real pcap bytes from packet specs (the replay
-capture's artifact); ``decode_pcap_bytes`` reads one back into event
-records through ``_decode_pcap_numpy``, the reference's vectorized numpy
-decoder (its fallback when the native one is not built): one sequential
-pass finds each packet's offset, then every header field of all packets
-is gathered with numpy. The native decoder and the live sources are not
-ported yet.
+Reference analog: pkg/plugin/packetparser/_cprog/packetparser.c:
+``parse()`` (:118-227) extracts eth/IPv4/TCP/UDP headers plus the TCP
+timestamp option (:42-115). Here the same extraction runs on the host over
+pcap bytes: the C++ decoder (``native/decoder.cpp``, ``decode_pcap_native``)
+first, as the reference does; the vectorized numpy decoder below
+(``_decode_pcap_numpy``: one pass finds each packet's offset, then every
+header field of all packets is gathered with numpy) when the caller asks
+for it with ``prefer_native=False``. The two are bit-identical. Unlike the
+reference, a native library that cannot be built raises: there is no quiet
+fallback.
+
+DNS payloads (UDP :53) get a second, sparse pass building qname hashes and
+a host-side string table (strings never cross to the device).
+
+Also provides :func:`synthesize_pcap` (build a real pcap from flow specs)
+so tests and captures can round-trip: flows -> pcap bytes -> records.
 """
 
 from __future__ import annotations
@@ -22,12 +31,12 @@ from retina_tpu_torch.events.schema import (
     EV_DNS_REQ,
     EV_DNS_RESP,
     EV_FORWARD,
+    F,
     NUM_FIELDS,
     OP_FROM_NETWORK,
     PROTO_TCP,
     PROTO_UDP,
     VERDICT_FORWARDED,
-    F,
 )
 
 PCAP_MAGIC_US = 0xA1B2C3D4
@@ -51,13 +60,6 @@ class PcapDecodeResult:
     dns_names: dict[int, str]  # qname hash -> name (host string table)
     n_packets_total: int  # all packets in the capture
     n_decoded: int  # IPv4 TCP/UDP packets decoded
-
-
-def decode_pcap_bytes(data: bytes, obs_point: int = OP_FROM_NETWORK,
-                      parse_dns: bool = True) -> PcapDecodeResult:
-    """Decode a pcap byte string into event records (the numpy decoder,
-    which the reference holds bit-identical to its native one)."""
-    return _decode_pcap_numpy(data, obs_point, parse_dns)
 
 
 def _find_offsets(data: bytes, ns: bool, swap: bool) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -98,6 +100,66 @@ def _gather_u32(buf: np.ndarray, offs: np.ndarray) -> np.ndarray:
         | (buf[offs + 2].astype(np.uint32) << 8)
         | buf[offs + 3].astype(np.uint32)
     )
+
+
+def decode_pcap_bytes(
+    data: bytes,
+    obs_point: int = OP_FROM_NETWORK,
+    parse_dns: bool = True,
+    prefer_native: bool = True,
+) -> PcapDecodeResult:
+    """Decode a pcap byte string into event records: the C++ decoder
+    (``native.decode_pcap_native``, built at first use; a failed build
+    raises), or the bit-identical numpy decoder with ``prefer_native=False``.
+    DNS name strings always come from a sparse host pass (strings never
+    enter the record tensor)."""
+    if prefer_native:
+        from retina_tpu_torch.native import decode_pcap_native
+
+        records, n_total = decode_pcap_native(data, obs_point)
+        names = _dns_name_pass(data) if parse_dns else {}
+        return PcapDecodeResult(records, names, n_total, len(records))
+    return _decode_pcap_numpy(data, obs_point, parse_dns)
+
+
+def _dns_name_pass(data: bytes) -> dict[int, str]:
+    """Sparse second pass: qname strings for UDP:53 packets only."""
+    if len(data) < 24:
+        return {}
+    magic = struct.unpack_from("<I", data, 0)[0]
+    if magic in (PCAP_MAGIC_US, PCAP_MAGIC_NS):
+        swap, ns = False, magic == PCAP_MAGIC_NS
+    else:
+        magic_be = struct.unpack_from(">I", data, 0)[0]
+        if magic_be not in (PCAP_MAGIC_US, PCAP_MAGIC_NS):
+            return {}
+        swap, ns = True, magic_be == PCAP_MAGIC_NS
+    _, pkt_off, caplen = _find_offsets(data, ns, swap)
+    names: dict[int, str] = {}
+    for off, incl in zip(pkt_off, caplen):
+        off, incl = int(off), int(incl)
+        if incl < 14 + 20 + 8:
+            continue
+        if data[off + 12] != 0x08 or data[off + 13] != 0x00:
+            continue
+        ip_off = off + 14
+        if (data[ip_off] >> 4) != 4 or data[ip_off + 9] != PROTO_UDP:
+            continue
+        ihl = (data[ip_off] & 0xF) * 4
+        l4 = ip_off + ihl
+        if incl < 14 + ihl + 8:
+            continue
+        sport = (data[l4] << 8) | data[l4 + 1]
+        dport = (data[l4 + 2] << 8) | data[l4 + 3]
+        if sport != 53 and dport != 53:
+            continue
+        parsed = _parse_dns(data, l4 + 8, off + incl)
+        if parsed is not None:
+            names[dns_qname_hash(parsed[0])] = parsed[0].decode(
+                "ascii", "replace"
+            )
+    return names
+
 
 def _decode_pcap_numpy(
     data: bytes,
@@ -284,8 +346,42 @@ def _parse_dns(data: bytes, off: int, end: int):
     return b".".join(labels), qtype, rcode, is_resp
 
 
+def dns_names_from_frames(blob: bytes) -> dict[int, str]:
+    """qname strings from a [u16 caplen][eth frame] blob — the DNS
+    sidecar the native TPACKET_V3 ring emits (afpacket.cpp): the C path
+    fills record hash lanes, the host string table fills here."""
+    names: dict[int, str] = {}
+    off = 0
+    total = len(blob)
+    while off + 2 <= total:
+        (cl,) = struct.unpack_from("<H", blob, off)
+        off += 2
+        end = off + cl
+        if end > total:
+            break
+        frame = blob[off:off + cl]
+        off = end
+        if cl < 14 + 20 + 8 or frame[12] != 0x08 or frame[13] != 0x00:
+            continue
+        if (frame[14] >> 4) != 4 or frame[14 + 9] != PROTO_UDP:
+            continue
+        ihl = (frame[14] & 0xF) * 4
+        pay = 14 + ihl + 8
+        parsed = _parse_dns(frame, pay, cl)
+        if parsed is not None:
+            names[dns_qname_hash(parsed[0])] = parsed[0].decode(
+                "ascii", "replace"
+            )
+    return names
+
+
+def decode_pcap_file(path: str, **kw) -> PcapDecodeResult:
+    with open(path, "rb") as fh:
+        return decode_pcap_bytes(fh.read(), **kw)
+
+
 # ---------------------------------------------------------------------------
-# Pcap synthesis (tests and captures round-trip real packet bytes).
+# Pcap synthesis (tests / benches round-trip real packet bytes).
 
 
 def _build_packet(

@@ -1,12 +1,14 @@
-"""The subset of MessagePack that the RFLT frame header uses.
+"""The subset of MessagePack that the RFLT frame header and the record
+frames (``plugins/framing.py``) use.
 
 ``packb`` writes what ``msgpack.packb(obj, use_bin_type=True)`` writes for
 nil, bool, int (-2^63 .. 2^64 - 1, in the smallest format), float (always
 float64), str, bytes, list, tuple and dict, byte for byte, so a frame
 header encoded here equals the reference's. ``unpackb`` reads those
 formats (and float32) back, as ``msgpack.unpackb(data, raw=False)`` does:
-str as str, bin as bytes, arrays as lists, map keys only str or bytes,
-and trailing bytes are an error. Anything else raises ``ValueError``.
+str as str, bin as bytes, arrays as lists, map keys only str or bytes
+(any key with ``strict_map_key=False``, as msgpack's own flag), and
+trailing bytes are an error. Anything else raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -105,9 +107,9 @@ _SIZED = {
 }
 
 
-def unpackb(data: bytes):
+def unpackb(data: bytes, strict_map_key: bool = True):
     view = memoryview(data)
-    obj, off = _unpack(view, 0)
+    obj, off = _unpack(view, 0, strict_map_key)
     if off != len(view):
         raise ValueError(f"{len(view) - off} extra bytes after the object")
     return obj
@@ -119,7 +121,7 @@ def _take(view: memoryview, off: int, n: int) -> tuple[memoryview, int]:
     return view[off: off + n], off + n
 
 
-def _unpack(view: memoryview, off: int):
+def _unpack(view: memoryview, off: int, strict: bool = True):
     head, off = _take(view, off, 1)
     b = head[0]
     if b < 0x80:
@@ -129,9 +131,9 @@ def _unpack(view: memoryview, off: int):
     if 0xA0 <= b < 0xC0:
         return _str(view, off, b & 0x1F)
     if 0x90 <= b < 0xA0:
-        return _array(view, off, b & 0x0F)
+        return _array(view, off, b & 0x0F, strict)
     if 0x80 <= b < 0x90:
-        return _map(view, off, b & 0x0F)
+        return _map(view, off, b & 0x0F, strict)
     if b == 0xC0:
         return None, off
     if b in (0xC2, 0xC3):
@@ -149,7 +151,7 @@ def _unpack(view: memoryview, off: int):
         if kind == "bin":
             raw, off = _take(view, off, n)
             return bytes(raw), off
-        return (_array if kind == "array" else _map)(view, off, n)
+        return (_array if kind == "array" else _map)(view, off, n, strict)
     raise ValueError(f"unsupported msgpack format byte {b:#04x}")
 
 
@@ -158,19 +160,19 @@ def _str(view: memoryview, off: int, n: int):
     return bytes(raw).decode("utf-8"), off
 
 
-def _array(view: memoryview, off: int, n: int):
+def _array(view: memoryview, off: int, n: int, strict: bool):
     out = []
     for _ in range(n):
-        x, off = _unpack(view, off)
+        x, off = _unpack(view, off, strict)
         out.append(x)
     return out, off
 
 
-def _map(view: memoryview, off: int, n: int):
+def _map(view: memoryview, off: int, n: int, strict: bool):
     out = {}
     for _ in range(n):
-        k, off = _unpack(view, off)
-        if not isinstance(k, (str, bytes)):
+        k, off = _unpack(view, off, strict)
+        if strict and not isinstance(k, (str, bytes)):
             raise ValueError(f"map key of type {type(k).__name__}")
-        out[k], off = _unpack(view, off)
+        out[k], off = _unpack(view, off, strict)
     return out, off

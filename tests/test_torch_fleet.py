@@ -29,7 +29,7 @@ from retina_tpu.fleet.codec import decode_snapshot as jdecode
 from retina_tpu.fleet.codec import encode_snapshot as jencode
 from retina_tpu.fleet.shipper import window_epoch as jwindow_epoch
 from retina_tpu_torch.config import Config
-from retina_tpu_torch.fleet import _msgpack
+from retina_tpu_torch.utils import _msgpack
 from retina_tpu_torch.fleet.aggregator import FleetAggregator, format_key
 from retina_tpu_torch.fleet.codec import (
     ARRAY_CATALOG,

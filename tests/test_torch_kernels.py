@@ -58,7 +58,7 @@ MODULES = [
     "retina_tpu_torch.parallel.flowdict", "retina_tpu_torch.parallel.partition",
     "retina_tpu_torch.parallel.wire", "retina_tpu_torch.parallel.mesh",
     "retina_tpu_torch.parallel.collectives", "retina_tpu_torch.fleet.codec",
-    "retina_tpu_torch.fleet._msgpack", "retina_tpu_torch.fleet.aggregator",
+    "retina_tpu_torch.utils._msgpack", "retina_tpu_torch.fleet.aggregator",
     "retina_tpu_torch.fleet.shipper", "retina_tpu_torch.timetravel.ring",
     "retina_tpu_torch.timetravel.fold", "retina_tpu_torch.timetravel.query",
     "retina_tpu_torch.timetravel.autocapture", "retina_tpu_torch.detect",
@@ -92,7 +92,11 @@ MODULES = [
     "retina_tpu_torch.cli", "retina_tpu_torch.hubble", "retina_tpu_torch.hubble.server",
     "retina_tpu_torch.fleet.dryrun", "retina_tpu_torch.timetravel.dryrun",
     "retina_tpu_torch.fleetquery", "retina_tpu_torch.fleetquery.service",
-    "retina_tpu_torch.fleetquery.dryrun",
+    "retina_tpu_torch.fleetquery.dryrun", "retina_tpu_torch.sources",
+    "retina_tpu_torch.sources.gobcodec", "retina_tpu_torch.sources.cilium_monitor",
+    "retina_tpu_torch.plugins.framing", "retina_tpu_torch.plugins.externalevents",
+    "retina_tpu_torch.plugins.linuxutil", "retina_tpu_torch.plugins.tcpretrans",
+    "retina_tpu_torch.plugins.infiniband", "retina_tpu_torch.plugins.ciliumeventobserver",
 ]
 
 

@@ -173,10 +173,10 @@ def test_packetparser_live_socket_loop_equals_the_reference(capture, monkeypatch
         stop = threading.Event()
         sink = StopAfter(stop)
         p.set_sink(sink)
-        # The reference's ring would take over where its native library has
-        # one; the port's answers unavailable, so both run the socket loop.
-        if cls is RParser:
-            monkeypatch.setattr(p, "_run_live_native", lambda s: False)
+        # Each package's TPACKET_V3 ring would take over where the process
+        # may open one: both run the socket loop, as where the ring cannot
+        # be opened (test_packetparser_live_native_ring_is_unavailable).
+        monkeypatch.setattr(p, "_run_live_native", lambda s: False)
         p._sock = FakeSocket(frames)
         p.start(stop)
         outs.append((sink.blocks, p.dns_names))
@@ -189,8 +189,12 @@ def test_packetparser_live_socket_loop_equals_the_reference(capture, monkeypatch
 
 
 def test_packetparser_live_native_ring_is_unavailable():
-    p = PParser(PConfig(event_source="live"))
-    assert p._run_live_native(threading.Event()) is False
+    """Where the ring cannot be opened (here: no such interface), the native
+    capture answers unavailable and the caller runs its socket loop, as the
+    reference's does."""
+    for cls, cfg in ((RParser, RConfig(event_source="live", capture_iface="no-such-if9")),
+                     (PParser, PConfig(event_source="live", capture_iface="no-such-if9"))):
+        assert cls(cfg)._run_live_native(threading.Event()) is False
 
 
 def test_packetparser_bad_config_raises_as_the_reference():

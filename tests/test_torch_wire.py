@@ -211,7 +211,7 @@ def test_host_flow_dict_overflow_clear_and_sentinel():
 
 
 def test_native_sources_are_the_reference_copies():
-    for name in ("combine.cpp", "flowdict.cpp", "pack.cpp"):
+    for name in native.SOURCES:
         ref = native.SRC_DIR.parents[1] / "retina_tpu" / "native" / name
         assert (native.SRC_DIR / name).read_bytes() == ref.read_bytes(), name
     assert native.library_path().parent.name == ".torch_kernels"
