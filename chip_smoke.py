@@ -245,15 +245,28 @@ capture), linuxutil, tcpretrans, infiniband, externalevents (a capture's
 records as frames on its socket) and ciliumeventobserver (a gob stream of
 drop and trace notifications on its socket): the host-stat series on
 /metrics and the rows stepped equal to the rows delivered.
+Then the Hubble control plane (``hubble_phase``): a ``Daemon`` at
+``Config()`` with ``enable_hubble`` and the synthetic source at 1e6
+events/s; ``GetFlows(last=1000)`` over msgpack, over the Cilium protobuf
+surface and over the unix socket, each equal to ``record_to_flow`` of the
+last 1000 rows the monitor agent delivered; ServerStatus, peer Notify, the
+hubble metrics mux; ``observe`` and ``status`` children; a ``relay`` child
+whose flows carry the agent's node name.
 Then the fleet tier as the agent runs it (``fleet_transport_phase``): 8
 engines at ``Config()`` close 4 shared epochs and ship them through their
 ``SnapshotShipper``s over the in-process bus to one subscribed
 ``FleetAggregator`` (the rollups equal to the same frames merged under the
-plain versions), one more epoch over the relay client to a gRPC relay on
-127.0.0.1, ``/fleet/query`` over the aggregator's ring and over 8 node
-clients (equal to the plain versions), the three fleet dryruns at their
-defaults, and a child agent in the three fleet roles scraped for its
-``fleet_*`` series and ``/fleet/query`` and stopped by SIGTERM.
+plain versions), one more epoch over the relay client to the port's
+``HubbleServer`` (``fleet_ingest=agg.ingest``) on 127.0.0.1,
+``/fleet/query`` over the aggregator's ring and over 8 node clients
+(equal to the plain versions), the three fleet dryruns at their defaults,
+and a child agent in the three fleet roles scraped for its ``fleet_*``
+series and ``/fleet/query`` and stopped by SIGTERM. Last, the churn
+harness (``churn_phase``): ``run_churn_dryrun`` with 64 torch-free node
+processes shipping over gRPC to 4 zone relays (``HubbleServer``) whose
+aggregators merge on the card and re-ship to a root aggregator on the
+card, through restarts, two partitions and a seed rotation; its scorecard
+must be ok.
 
 Prints the card's name and power limit, a JSON line of per-kernel results
 and, as the last line, {"ok": true, "device": {...}}. Exits non-zero, with
@@ -1137,7 +1150,9 @@ def main() -> int:
     sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
     sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
+    hubble_phase(dev, smi)
     fleet_transport_phase(dev, pods, smi)
+    churn_phase(dev, smi)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -4589,6 +4604,409 @@ def sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any) -> 
     print(f"sources phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+HUB_WAIT_S = 60.0  # the bound on each wait of the hubble phase
+HUB_SYNTH_S = 5.0  # seconds of the default synthetic source before the reads
+HUB_LAST = 1000  # GetFlows(last=N) on each surface
+HUB_FOLLOW_S = 2.0  # seconds of the protobuf follow stream read
+HUB_PODS = 255  # pods in the identity cache: pod_ip(1..255) of the synthetic traffic
+HUB_NODE = "chip-node"  # the agent's node_name: the relay's flows must carry it
+
+
+def hubble_phase(dev, smi: str) -> None:
+    """The Hubble control plane as the agent serves it, on the card: a
+    ``Daemon`` at ``Config()`` with ``enable_hubble`` (its default plugins,
+    the synthetic source at 1e6 events/s), ``hubble_addr`` and
+    ``hubble_metrics_addr`` on 127.0.0.1:0 and ``hubble_sock_path`` in a temp
+    dir, HUB_PODS pods in the identity cache, a static peer and a node in the
+    node store. The plugins mirror every block to the external channel ->
+    MonitorAgent -> FlowObserver (lazy decode) -> HubbleServer.
+
+    A second consumer on the monitor agent copies each block it receives
+    and, once the phase holds it, keeps the drain thread (so the observer)
+    still. After HUB_SYNTH_S: GetFlows(last=HUB_LAST) over msgpack (TCP),
+    over protobuf and over msgpack on the unix socket must each equal the
+    port's ``record_to_flow`` of the last HUB_LAST copied rows (the protobuf
+    one as ``flow_dict_to_proto`` of those, byte for byte); ``python3 -m
+    retina_tpu_torch observe --last 100 --json`` (a child) prints the last
+    100 of them; ``status`` (a child) exits 0; ServerStatus on both
+    surfaces, peer Notify (the static peer and the node) and the hubble
+    mux's ``hubble_*`` series are checked. Released, a ``relay`` child
+    follows the agent: flows read through it carry HUB_NODE. A protobuf
+    follow stream is read for HUB_FOLLOW_S. The launch counts, set to 0 just
+    before the agent starts, must show SRC_KERNELS and K7's ingest. Then
+    ``python3 -m retina_tpu_torch agent --set enable_hubble=true`` as a
+    child at the defaults must serve GetFlows over msgpack and protobuf and
+    exit 0 on SIGTERM. Prints
+    flows observed a second, the external channel's losses, GetFlows ms on
+    each surface and the follow stream's flows a second."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    import grpc
+
+    from retina_tpu_torch.common import RetinaEndpoint, RetinaNode
+    from retina_tpu_torch.config import load_config
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.events.schema import u32_to_ip
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.hubble import proto as pb
+    from retina_tpu_torch.hubble.flow import record_to_flow
+    from retina_tpu_torch.hubble.server import HubbleClient
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.metrics import get_metrics
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sock_dir = Path(tempfile.mkdtemp(prefix="cs_"))
+    if len(str(sock_dir)) > 90:
+        sock_dir = Path(tempfile.mkdtemp(prefix=".cs_", dir="."))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+
+    def wait(pred, what: str, bound: float = HUB_WAIT_S) -> None:
+        deadline = time.monotonic() + bound
+        while not pred():
+            check(time.monotonic() < deadline, f"hubble phase: timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def free_port() -> int:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            return sk.getsockname()[1]
+
+    static_peer = {"name": "peer-static", "address": "10.9.9.9:4244"}
+    cfg = load_config(None, overrides=dict(
+        api_server_addr="127.0.0.1:0", enable_hubble=True, hubble_addr="127.0.0.1:0",
+        hubble_metrics_addr="127.0.0.1:0", hubble_sock_path=str(sock_dir / "h.sock"),
+        hubble_peers=[static_peer], node_name=HUB_NODE), env={})
+    d = Daemon(cfg, apiserver_host="127.0.0.1")
+    eng = d.cm.engine
+    check(eng.device.type == "cuda", f"hubble phase: the agent runs on {eng.device}")
+    with d.cm.filtermanager.deferred_push():
+        for i in range(1, HUB_PODS + 1):
+            d.cm.cache.update_endpoint(RetinaEndpoint(
+                name=f"pod-{i}", namespace=f"ns-{i % 4}", ips=(u32_to_ip(pod_ip(i)),),
+                labels=(("app", f"app-{i % 8}"),), owner_refs=(("Deployment", f"app-{i % 8}"),)))
+        want_ident = d.cm.cache.ip_index_map()
+        wait(lambda: d.cm.filtermanager.ip_count() >= len(want_ident), "the pod events")
+    wait(lambda: eng._ident_dict == want_ident, "the identity rebuild")
+    d.cm.cache.update_node(RetinaNode(name="node-x", ip="10.99.0.7"))
+
+    # The second consumer: copies each block; while ``hold`` is set it keeps
+    # the monitor agent's drain thread (the observer's only writer) still.
+    copied: list = []
+    hold, held, release = threading.Event(), threading.Event(), threading.Event()
+
+    def copy_blocks(records) -> None:
+        copied.append(np.array(records, copy=True))
+        del copied[:-64]
+        if hold.is_set():
+            held.set()
+            release.wait(HUB_WAIT_S)
+
+    d.monitoragent.register_consumer(copy_blocks)
+    stop = threading.Event()
+    agent = threading.Thread(target=d.start, args=(stop,), name="daemon", daemon=True)
+    lost_ext = get_metrics().lost_events
+
+    def external_lost() -> int:
+        return int(sum(v for suffix, labels, v in lost_ext.samples()
+                       if suffix == "_total" and labels.get("stage") == "external"))
+
+    lost0 = external_lost()
+    relay = None
+    cli = [sys.executable, "-m", "retina_tpu_torch"]
+    kops.reset_launch_counts()  # the agent's kernels, counted from its own run
+    agent.start()
+    try:
+        wait(lambda: d.cm._ready.is_set() or not agent.is_alive(), "the agent's ready")
+        check(agent.is_alive(), "hubble phase: the agent died while booting")
+        port = d.hubble.port
+        addr = f"127.0.0.1:{port}"
+        wait(lambda: d.observer.flows_seen > 0, "the first flow at the observer")
+        seen0, t0 = d.observer.flows_seen, time.perf_counter()
+        time.sleep(HUB_SYNTH_S)
+        flows_s = (d.observer.flows_seen - seen0) / (time.perf_counter() - t0)
+        lost_run = external_lost() - lost0
+        hold.set()
+        check(held.wait(HUB_WAIT_S), "hubble phase: the monitor agent delivered no block")
+        rows = np.concatenate(copied)[-HUB_LAST:]
+        check(len(rows) == HUB_LAST, f"hubble phase: {len(rows)} rows copied")
+        dns = d.cm.pluginmanager.plugins.get("dns")
+        want = [record_to_flow(r, d.cm.cache, dns.resolve if dns else None) for r in rows]
+        check(sum(1 for f in want if f["source"] or f["destination"]) > 0,
+              "hubble phase: no flow was enriched from the identity cache")
+        surface_ms = {}
+
+        def timed(label, fn):
+            t1 = time.perf_counter()
+            out = fn()
+            surface_ms[label] = (time.perf_counter() - t1) * 1e3
+            return out
+
+        client = HubbleClient(addr)
+        got = timed("msgpack", lambda: list(client.get_flows(last=HUB_LAST, timeout=60)))
+        check(got == want, f"hubble phase: GetFlows over msgpack differs from record_to_flow "
+              f"({len(got)} flows)")
+        ux = HubbleClient(f"unix:{cfg.hubble_sock_path}")
+        got = timed("unix", lambda: list(ux.get_flows(last=HUB_LAST, timeout=60)))
+        check(got == want, "hubble phase: GetFlows over the unix socket differs")
+        ux.close()
+        chan = grpc.insecure_channel(addr)
+        get_flows = chan.unary_stream(
+            "/observer.Observer/GetFlows",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.GetFlowsResponse.FromString)
+        resps = timed("protobuf", lambda: list(get_flows(pb.GetFlowsRequest(number=HUB_LAST),
+                                                         timeout=60)))
+        check([r.flow.SerializeToString() for r in resps]
+              == [pb.flow_dict_to_proto(f, HUB_NODE).SerializeToString() for f in want]
+              and all(r.node_name == HUB_NODE for r in resps),
+              f"hubble phase: GetFlows over protobuf differs ({len(resps)} responses)")
+        st = client.server_status()
+        status_pb = chan.unary_unary(
+            "/observer.Observer/ServerStatus",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.ServerStatusResponse.FromString)(
+                pb.ServerStatusRequest(), timeout=10)
+        seen = d.observer.flows_seen
+        cap = cfg.hubble_ring_capacity
+        check(st["seen_flows"] == seen and st["num_flows"] == min(seen, cap)
+              and st["max_flows"] == cap and status_pb.seen_flows == seen
+              and status_pb.max_flows == cap, f"hubble phase: ServerStatus {st}, {status_pb}")
+        notify = chan.unary_stream(
+            "/peer.Peer/Notify", request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.ChangeNotification.FromString)(pb.NotifyRequest(),
+                                                                    timeout=30)
+        it = iter(notify)
+        notes = {(n.name, n.address, n.type) for n in (next(it), next(it))}
+        notify.cancel()
+        check(notes == {("peer-static", "10.9.9.9:4244", 1), ("node-x", f"10.99.0.7:{port}", 1)},
+              f"hubble phase: peer Notify sent {notes}")
+        check(client.list_peers() == [static_peer, {"name": "node-x",
+                                                    "address": f"10.99.0.7:{port}"}],
+              f"hubble phase: ListPeers {client.list_peers()}")
+        client.close()
+        t1 = time.perf_counter()
+        obs = subprocess.run(cli + ["observe", "--server", addr, "--last", "100", "--json"],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        observe_s = time.perf_counter() - t1
+        check(obs.returncode == 0, f"hubble phase: observe exited {obs.returncode}: "
+              f"{obs.stderr[-2000:]}")
+        check([json.loads(ln) for ln in obs.stdout.splitlines()] == want[-100:],
+              "hubble phase: observe --last 100 did not print the last 100 flows")
+        sts = subprocess.run(cli + ["status", "--server", addr], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=120)
+        check(sts.returncode == 0 and f"Flows seen total: {seen}" in sts.stdout
+              and "peer: node-x" in sts.stdout,
+              f"hubble phase: status exited {sts.returncode}: {sts.stdout} {sts.stderr[-2000:]}")
+        hold.clear()
+        release.set()
+        mux = ""
+        want_series = ("hubble_seen_flows ", 'hubble_get_flows_requests_total{surface="msgpack"}',
+                       'hubble_get_flows_requests_total{surface="protobuf"}',
+                       'hubble_lost_events_total{source="HUBBLE_RING_BUFFER"}',
+                       "hubble_flows_processed_total{")
+
+        def mux_series() -> bool:
+            # The mux's render cache serves its previous body until a
+            # re-render after its TTL lands: scrape until the series show.
+            nonlocal mux
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{d.hubble_metrics_server.port}/metrics", timeout=60) as r:
+                mux = r.read().decode()
+            return all(series in mux for series in want_series)
+
+        wait(mux_series, "the hubble_* series on the hubble mux")
+        check("networkobservability_" not in mux, "hubble phase: the hubble mux serves the "
+              "agent's families")
+
+        # The follow stream from the live edge (number=1: the newest
+        # buffered flow, then what arrives), read for HUB_FOLLOW_S after its
+        # first response. The server converts every buffered flow before
+        # the first one goes out (the reference's filter-then-last-N).
+        stream = get_flows(pb.GetFlowsRequest(follow=True, number=1),
+                           timeout=HUB_FOLLOW_S + HUB_WAIT_S)
+        it = iter(stream)
+        t1 = time.perf_counter()
+        next(it)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        n_follow = n_lost_markers = lost_in_stream = 0
+        t1 = time.perf_counter()
+        for resp in it:
+            if resp.WhichOneof("response_types") == "lost_events":
+                n_lost_markers += 1
+                lost_in_stream += resp.lost_events.num_events_lost
+            else:
+                n_follow += 1
+            if time.perf_counter() - t1 >= HUB_FOLLOW_S:
+                break
+        follow_s = time.perf_counter() - t1
+        stream.cancel()
+        chan.close()
+
+        # The relay child, following the agent.
+        relay_port = free_port()
+        with open(sock_dir / "relay.log", "w") as out:
+            relay = subprocess.Popen(cli + ["relay", "--peer", addr, "--addr",
+                                            f"127.0.0.1:{relay_port}", "--name", "chip-relay"],
+                                     cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        rchan = grpc.insecure_channel(f"127.0.0.1:{relay_port}")
+        rget = rchan.unary_stream(
+            "/observer.Observer/GetFlows", request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=pb.GetFlowsResponse.FromString)
+        relayed: list = []
+
+        def through_relay() -> bool:
+            check(relay.poll() is None, "hubble phase: the relay child exited")
+            try:
+                relayed[:] = list(rget(pb.GetFlowsRequest(number=100), timeout=10))
+            except grpc.RpcError:
+                return False
+            return len(relayed) == 100
+
+        t1 = time.perf_counter()
+        wait(through_relay, "100 flows through the relay child", DAEMON_CHILD_S)
+        relay_s = time.perf_counter() - t1
+        rchan.close()
+        check(all(r.flow.node_name == HUB_NODE and r.node_name == "chip-relay"
+                  for r in relayed), "hubble phase: the relay's flows do not carry the "
+              f"agent's node_name: {sorted({r.flow.node_name for r in relayed})}")
+        relay.send_signal(signal.SIGTERM)
+        rc = relay.wait(timeout=60)
+        check(rc == 0, f"hubble phase: the relay child exited {rc}: "
+              + (sock_dir / "relay.log").read_text()[-2000:])
+    finally:
+        release.set()
+        stop.set()
+        agent.join(120)
+        if relay is not None and relay.poll() is None:
+            relay.kill()
+            relay.wait(timeout=30)
+    check(not agent.is_alive(), "hubble phase: the agent did not stop")
+    lost_total = external_lost() - lost0
+    launches = kops.launch_counts()
+    for k in SRC_KERNELS + ("ingest_new",):
+        check(launches[k] > 0, f"{k} was not launched by the agent on the hubble phase")
+
+    # The agent as users start it: python3 -m retina_tpu_torch agent with
+    # enable_hubble at the defaults, read over msgpack and protobuf, SIGTERM.
+    child_node = f"{HUB_NODE}-child"
+    hub_port, api_port = free_port(), free_port()
+    agent_log = sock_dir / "agent.log"
+    with open(agent_log, "w") as out:
+        child = subprocess.Popen(
+            cli + ["agent", "--set", "enable_hubble=true", "--set",
+                   f"hubble_addr=127.0.0.1:{hub_port}", "--set",
+                   f"api_server_addr=127.0.0.1:{api_port}", "--set", f"node_name={child_node}"],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        child_flows: list = []
+
+        def child_serves() -> bool:
+            check(child.poll() is None, "hubble phase: the agent child exited: "
+                  + agent_log.read_text()[-2000:])
+            c = HubbleClient(f"127.0.0.1:{hub_port}")
+            try:
+                child_flows[:] = list(c.get_flows(last=100, timeout=30))
+            except grpc.RpcError:
+                return False
+            finally:
+                c.close()
+            return len(child_flows) == 100
+
+        t1 = time.perf_counter()
+        wait(child_serves, "GetFlows from the agent child", DAEMON_CHILD_S)
+        child_s = time.perf_counter() - t1
+        with grpc.insecure_channel(f"127.0.0.1:{hub_port}") as cchan:
+            cresps = list(cchan.unary_stream(
+                "/observer.Observer/GetFlows",
+                request_serializer=lambda m: m.SerializeToString(),
+                response_deserializer=pb.GetFlowsResponse.FromString)(
+                    pb.GetFlowsRequest(number=100), timeout=60))
+        check(len(cresps) == 100 and all(r.flow.node_name == child_node for r in cresps)
+              and all("ip" in f and "l4" in f for f in child_flows),
+              f"hubble phase: the agent child's GetFlows: {len(cresps)} protobuf responses")
+        child.send_signal(signal.SIGTERM)
+        child_rc = child.wait(timeout=120)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+    check(child_rc == 0, f"hubble phase: the agent child exited {child_rc}: "
+          + agent_log.read_text()[-2000:])
+    print(f"hubble phase: {flows_s:.0f} flows observed a second over {HUB_SYNTH_S:.0f} s of "
+          f"the synthetic source; the external channel lost {lost_run} rows in that run "
+          f"({lost_total} in all, the hold included); GetFlows(last={HUB_LAST}) "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in surface_ms.items())
+          + f" (msgpack first: it pays the lazy decode), each equal to record_to_flow of the "
+          f"last {HUB_LAST} rows copied; the follow stream's first response after "
+          f"{first_ms:.1f} ms, then {n_follow / follow_s:.0f} flows a second "
+          f"({n_lost_markers} LostEvent markers, {lost_in_stream} flows lost to it); observe "
+          f"child {observe_s:.1f} s; "
+          f"100 flows through the relay child {relay_s:.1f} s after its start, "
+          f"node_name {HUB_NODE}; python3 -m retina_tpu_torch agent --set enable_hubble=true "
+          f"served GetFlows on both surfaces {child_s:.1f} s after its start and exited 0 on "
+          f"SIGTERM; card {smi}", flush=True)
+    print(f"hubble phase launches: {launches}", flush=True)
+    print(f"hubble phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+CHURN_NODES, CHURN_ZONES = 64, 4  # the reference's defaults (bench.py --churn-dryrun)
+# The kernels the churn's aggregators must launch: K8's fold and K9's join
+# for each merge, and the rollup's K10 query, K16's entropy bits and K17's
+# HLL estimate (the FT_KERNELS of a non-invertible rollup).
+CHURN_KERNELS = ("fold", "topk_join", "cms_query", "entropy_bits", "hll_estimate")
+
+
+def churn_phase(dev, smi: str) -> None:
+    """The multi-process fleet churn harness (``fleet/churn.py``
+    ``run_churn_dryrun``) at CHURN_NODES node processes (torch-free, real
+    RFLT frames over gRPC) and CHURN_ZONES zones: each zone relay a
+    ``HubbleServer`` in front of a zone ``FleetAggregator`` on the card that
+    re-ships each merged epoch to the root relay and root aggregator (on the
+    card), through a rolling restart, a node->relay and a relay->root
+    partition and a live seed rotation. The interval is bench.py's rule,
+    max(1, 0.08 * nodes / cpus) s. The scorecard's ``ok`` is required; its
+    recall, replay, rotation and lineage fields are printed. The launch
+    counts, set to 0 just before the run, must show CHURN_KERNELS."""
+    import os
+
+    from retina_tpu_torch.fleet.churn import run_churn_dryrun
+    from retina_tpu_torch.kernels import ops as kops
+
+    interval = max(1.0, 0.08 * CHURN_NODES / (os.cpu_count() or 1))
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_churn_dryrun(nodes=CHURN_NODES, zones=CHURN_ZONES, interval_s=interval,
+                           device=dev, log=lambda s: print(s, flush=True))
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    keys = ("recall_min", "epochs_scored", "child_spool_replayed", "reship_spool_replayed",
+            "no_silent_frame_loss", "rotation_readmitted_all", "rotation_readmit_epochs",
+            "trace_lineage_ok", "root_epochs_merged", "zone_epochs_merged",
+            "frames_dropped_by_reason", "uplink_frames_sent", "root_frames_accepted",
+            "root_frames_rejected_counted", "scrape_p99_s", "scrape_samples", "zone_merge_s",
+            "root_merge_s", "child_peak_rss_kb", "child_rss_at_stop_kb", "events")
+    print("churn phase: " + json.dumps({k: res[k] for k in keys}), flush=True)
+    check(res["ok"], f"churn phase: the scorecard is not ok: {json.dumps(res)[:6000]}")
+    for k in CHURN_KERNELS:
+        check(launches[k] > 0, f"{k} was not launched on the churn phase")
+    print(f"churn phase: {CHURN_NODES} node processes, {CHURN_ZONES} zones, interval "
+          f"{interval:.2f} s: ok in {wall:.1f} s; merges on the card: zones "
+          f"{res['zone_merge_s']['n']} in {res['zone_merge_s']['sum']:.3f} s (max "
+          f"{res['zone_merge_s']['max'] * 1e3:.1f} ms), root {res['root_merge_s']['n']} in "
+          f"{res['root_merge_s']['sum']:.3f} s (max {res['root_merge_s']['max'] * 1e3:.1f} ms); "
+          f"scrape p99 {res['scrape_p99_s']} s; the children's largest peak RSS (VmHWM) "
+          f"{res['child_peak_rss_kb']} kB and RSS at STOP {res['child_rss_at_stop_kb']} kB "
+          f"(None where /proc does not give it); card {smi}", flush=True)
+    print(f"churn phase launches: {launches}", flush=True)
+
+
 FT_NODES, FT_EPOCHS, FT_EPOCH0 = 8, 4, 9000  # the fleet transport phase's nodes and epochs
 FT_WAIT_S = 120.0  # the bound on each wait of the fleet transport phase
 # The kernels the fleet transport phase must launch: the merges and queries
@@ -4596,32 +5014,6 @@ FT_WAIT_S = 120.0  # the bound on each wait of the fleet transport phase
 # (K2-K4, K6).
 FT_KERNELS = ("fold", "topk_join", "cms_query", "inv_decode", "entropy_bits", "hll_estimate",
               "hh_update", "hll_update", "entropy_update", "inv_update")
-
-
-def fleet_relay(ingest):
-    """A relay for ``retina.Fleet/Ship`` on 127.0.0.1 (a plain gRPC generic
-    handler: the frame in, ``ingest``'s verdict out as msgpack {"ok": ...});
-    returns (server, port), or None without grpc."""
-    try:
-        import grpc
-    except ImportError:
-        return None
-    from concurrent import futures
-
-    from retina_tpu_torch.utils import _msgpack
-    from retina_tpu_torch.hubble.server import FLEET_SERVICE
-
-    def ship(request, ctx):
-        return _msgpack.packb({"ok": bool(ingest(request))})
-
-    handler = grpc.method_handlers_generic_handler(FLEET_SERVICE, {
-        "Ship": grpc.unary_unary_rpc_method_handler(
-            ship, request_deserializer=lambda x: x, response_serializer=lambda x: x)})
-    server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
-    server.add_generic_rpc_handlers([handler])
-    port = server.add_insecure_port("127.0.0.1:0")
-    server.start()
-    return server, port
 
 
 def fleet_transport_phase(dev, pods, smi: str) -> None:
@@ -4637,9 +5029,10 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     shippers sent are
     captured off the bus and merged again under ``kops.plain_versions()``:
     the rollups must be equal, and ``fleet_windows_merged`` must count every
-    epoch. With grpc, one more epoch ships over ``FleetShipClient`` to a
-    relay on 127.0.0.1 (``fleet_relay``; each engine gets a shipper with the
-    relay's address). ``FleetQueryService`` answers ``last=4`` over the
+    epoch. One more epoch ships over ``FleetShipClient`` to the port's
+    ``HubbleServer(fleet_ingest=agg.ingest)`` on 127.0.0.1 (its
+    ``retina.Fleet/Ship``; each engine gets a shipper with the server's
+    address). ``FleetQueryService`` answers ``last=4`` over the
     aggregator's ring and the same span over FT_NODES ``LocalNodeClient``s on
     the engines' rings (every node given FT_WAIT_S to answer in full), each
     equal to its plain-version run. Then
@@ -4668,6 +5061,7 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
     from retina_tpu_torch.fleet.shipper import SnapshotShipper
     from retina_tpu_torch.fleetquery import FleetQueryService, LocalNodeClient
     from retina_tpu_torch.fleetquery.dryrun import run_fleetquery_dryrun
+    from retina_tpu_torch.hubble import FlowObserver, HubbleServer
     from retina_tpu_torch.kernels import ops as kops
     from retina_tpu_torch.lanes_probe import overload_block, top_signal
     from retina_tpu_torch.metrics import get_metrics
@@ -4718,27 +5112,24 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
             wait(lambda: agg.epochs_merged == e + 1, f"the merge of epoch {e}")
         feed_s = time.perf_counter() - t0
         epochs = FT_EPOCHS
-        relay = fleet_relay(agg.ingest)
-        if relay is not None:
-            # One more epoch over the relay client: each node's close offers to
-            # a shipper dialing the relay.
-            for eng in engines:
-                eng._fleet_shipper.stop()
-                eng._fleet_shipper = SnapshotShipper(
-                    dataclasses.replace(eng.cfg, fleet_relay_addr=f"127.0.0.1:{relay[1]}"),
-                    overload=eng._overload)
-            for eng, gen in zip(engines, gens):
-                eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 600 + epochs)
-                eng.close_window(epoch=FT_EPOCH0 + epochs)
-            epochs += 1
-            wait(lambda: agg.epochs_merged == epochs, "the merge of the relay's epoch")
-            wait(lambda: all(eng._fleet_shipper.stats()["shipped"] == 1 for eng in engines),
-                 "the relay's answers to the shippers")
-            print("fleet transport: epoch over the relay (FleetShipClient -> retina.Fleet/Ship "
-                  "on 127.0.0.1) merged", flush=True)
-        else:
-            print("fleet transport: no grpc on this machine; the relay epoch is left out",
-                  flush=True)
+        # One more epoch over the relay: the port's HubbleServer fronts the
+        # aggregator, and each node's close offers to a shipper dialing it.
+        relay = HubbleServer(FlowObserver(), "127.0.0.1:0", fleet_ingest=agg.ingest)
+        relay.start()
+        for eng in engines:
+            eng._fleet_shipper.stop()
+            eng._fleet_shipper = SnapshotShipper(
+                dataclasses.replace(eng.cfg, fleet_relay_addr=f"127.0.0.1:{relay.port}"),
+                overload=eng._overload)
+        for eng, gen in zip(engines, gens):
+            eng.flush(np.split(gen.batch(NODE_EVENTS), NODE_EVENTS // BLOCK), 600 + epochs)
+            eng.close_window(epoch=FT_EPOCH0 + epochs)
+        epochs += 1
+        wait(lambda: agg.epochs_merged == epochs, "the merge of the relay's epoch")
+        wait(lambda: all(eng._fleet_shipper.stats()["shipped"] == 1 for eng in engines),
+             "the relay's answers to the shippers")
+        print("fleet transport: epoch over the relay (FleetShipClient -> HubbleServer's "
+              "retina.Fleet/Ship on 127.0.0.1) merged", flush=True)
         for eng in engines:
             check(eng.timetravel_ring.drain(30.0), "fleet transport: an engine's ring lags")
         check(agg.merge_errors == 0 and agg.invertible_decode_failed == 0,
@@ -4836,7 +5227,7 @@ def fleet_transport_phase(dev, pods, smi: str) -> None:
         agg.stop()
         bus.unsubscribe(FLEET_TOPIC, tap)
         if relay is not None:
-            relay[0].stop(0)
+            relay.stop(0)
         for eng in engines:
             eng.stop()
     del engines, agg, frames

@@ -23,11 +23,10 @@ card (and raises without one), "cpu" the plain versions on the host.
 
 The reference's JAX-only fields (``compilation_cache_dir``, the
 ``distributed_num_processes``/``process_id`` pair, the AOT cache) and its
-Hubble and profiling fields are not copied; ``load_config`` ignores
-unknown keys as the reference does, so an older YAML still loads. The
-switches of parts the port does not have yet (``enable_hubble``,
-``kubeconfig``, ``distributed_coordinator``) are kept so that the daemon
-can refuse them.
+profiling fields are not copied; ``load_config`` ignores unknown keys as
+the reference does, so an older YAML still loads. The switches of parts
+the port does not have yet (``kubeconfig``, ``distributed_coordinator``)
+are kept so that the daemon can refuse them.
 """
 
 from __future__ import annotations
@@ -67,9 +66,21 @@ class Config:
     bypass_lookup_ip_of_interest: bool = False
     data_aggregation_level: str = AGG_LOW
     telemetry_interval_s: float = 900.0
-    # The flow-relay control plane (hubble/): not ported; the daemon
-    # refuses it.
-    enable_hubble: bool = False
+    enable_hubble: bool = False  # flow-relay control plane (cmd/hubble)
+    hubble_addr: str = "127.0.0.1:4244"
+    hubble_ring_capacity: int = 1 << 12
+    # Dedicated hubble metrics mux (reference :9965); "" disables.
+    hubble_metrics_addr: str = ""
+    # TLS for the flow relay (reference hubble TLS options). PEM paths;
+    # client CA set => mutual TLS required.
+    hubble_tls_cert: str = ""
+    hubble_tls_key: str = ""
+    hubble_tls_client_ca: str = ""
+    # Local-client unix endpoint beside TCP (the reference serves
+    # unix:///var/run/cilium/hubble.sock, SURVEY §3.5). "" disables.
+    hubble_sock_path: str = ""
+    # Static peer list for the peer service: [{"name", "address"}].
+    hubble_peers: list = dataclasses.field(default_factory=list)
     node_name: str = ""
     # Identity from a real cluster (core/v1 list+watch): not ported; the
     # daemon refuses a kubeconfig and an in-cluster service account.

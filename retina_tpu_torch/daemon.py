@@ -11,7 +11,10 @@ watchers) → the fleet aggregator role (``fleet_aggregator``) → the
 time-travel query route over the engine's ring and the aggregator's
 merged-epoch ring, the closed-loop capture and the detector bank → the
 fleet query plane (``fleetquery_enabled``: ``GET /fleet/query`` over the
-aggregator's ring) → MetricsModule (pod-level) and TracesModule → resume
+aggregator's ring) → the Hubble control plane (``enable_hubble``: the
+plugins' external channel → MonitorAgent → FlowObserver → HubbleServer's
+Observer, Peer and, with the aggregator role, Fleet services, and the
+hubble metrics mux) → MetricsModule (pod-level) and TracesModule → resume
 from the checkpoint → signal-driven stop event. A node with
 ``fleet_enabled`` ships each window close through its engine's shipper;
 with the aggregator in the same process the in-process bus carries the
@@ -23,8 +26,8 @@ takes a shard a local card, at most ``mesh_devices`` of them (0: every card).
 
 A config that turns on a part the port does not have yet raises a
 ``ValueError`` naming its ROADMAP item (:func:`refuse_unported`), never
-starts without it: the Hubble relay, identity from a real cluster (a
-kubeconfig or an in-cluster service account) and a multi-process mesh.
+starts without it: identity from a real cluster (a kubeconfig or an
+in-cluster service account) and a multi-process mesh.
 The reference's ``/debug/trace`` and ``/debug/profile`` routes
 (obs/debug.py) are not on the port's agent mux yet either.
 """
@@ -57,8 +60,6 @@ def refuse_unported(cfg: Config) -> None:
     """Raise a ValueError, naming the ROADMAP item, for each part of the
     reference daemon that ``cfg`` turns on and the port lacks."""
     parts = []
-    if cfg.enable_hubble:
-        parts.append("enable_hubble (the Hubble relay, hubble/: ROADMAP §1 item 7)")
     if cfg.kubeconfig or in_cluster_available():
         parts.append("kubeconfig or an in-cluster service account (identity from "
                      "a real cluster, operator/kubewatch.py and the CRD bridge: "
@@ -153,6 +154,12 @@ class Daemon:
             if (self.fleet_aggregator is not None
                     and self.fleet_aggregator.epoch_ring is not None):
                 self.fleetquery.add_ring(self.fleet_aggregator.epoch_ring)
+        self.monitoragent = None
+        self.observer = None
+        self.hubble = None
+        self.hubble_metrics_server = None
+        if cfg.enable_hubble:
+            self._init_hubble(cfg)
         if cfg.enable_pod_level:
             dns_plugin = self.cm.pluginmanager.plugins.get("dns")
             self.metrics_module = MetricsModule(
@@ -170,6 +177,65 @@ class Daemon:
 
         self.traces_module = TracesModule()
         self.traces_module.attach(self.cm.engine)
+
+    def _init_hubble(self, cfg: Config) -> None:
+        """The Hubble CP rides alongside (cmd/hubble cell graph analog):
+        plugins mirror events into the external channel; the monitor agent
+        fans them out to the flow observer; the gRPC relay serves GetFlows
+        (SURVEY.md §3.5)."""
+        from retina_tpu_torch.hubble import FlowObserver, HubbleServer, MonitorAgent
+
+        self.monitoragent = MonitorAgent()
+        dns_plugin = self.cm.pluginmanager.plugins.get("dns")
+        self.observer = FlowObserver(
+            capacity=cfg.hubble_ring_capacity,
+            cache=self.cm.cache,
+            dns_resolver=(dns_plugin.resolve if dns_plugin else None),
+        )
+        self.monitoragent.register_consumer(self.observer.consume)
+        self.cm.pluginmanager.setup_channel(self.monitoragent.channel)
+
+        def _peers() -> list[dict[str, str]]:
+            # Peer set = static config peers + the node store (nodes the
+            # operator publishes land in the cache), served on the same
+            # configured hubble port; with an ephemeral bind fall back to
+            # our bound port.
+            port = cfg.hubble_addr.rsplit(":", 1)[1]
+            if port == "0" and self.hubble is not None:
+                port = str(self.hubble.port)
+            out = [dict(p) for p in cfg.hubble_peers]
+            seen = {p.get("address") for p in out}
+            for n in self.cm.cache.list_nodes():
+                if n.ip and n.name != cfg.node_name:
+                    addr = f"{n.ip}:{port}"
+                    if addr not in seen:
+                        out.append({"name": n.name, "address": addr})
+            return out
+
+        self.hubble = HubbleServer(
+            self.observer,
+            addr=cfg.hubble_addr,
+            peers=_peers,
+            node_name=cfg.node_name,
+            tls_cert=cfg.hubble_tls_cert,
+            tls_key=cfg.hubble_tls_key,
+            tls_client_ca=cfg.hubble_tls_client_ca,
+            unix_socket=cfg.hubble_sock_path,
+            fleet_ingest=(self.fleet_aggregator.ingest
+                          if self.fleet_aggregator is not None else None),
+        )
+        if cfg.hubble_metrics_addr:
+            # Dedicated hubble metrics mux (:9965 analog): serves ONLY the
+            # hubble registry so scraping both muxes never double-ingests
+            # the node/pod families.
+            from retina_tpu_torch.exporter import get_exporter
+            from retina_tpu_torch.server import Server
+
+            self.hubble_metrics_server = Server(
+                cfg.hubble_metrics_addr,
+                gather=get_exporter().gather_hubble_text,
+                metrics_cache_ttl_s=cfg.metrics_cache_ttl_s,
+            )
 
     def start(self, stop: threading.Event) -> None:
         self.log.info(
@@ -195,8 +261,14 @@ class Daemon:
             self.fleetquery.attach(self.cm.server)
         if self.autocapture is not None:
             self.autocapture.start()
+        if self.monitoragent is not None:
+            self.monitoragent.start(stop)
         if self.fleet_aggregator is not None:
             self.fleet_aggregator.start()
+        if self.hubble is not None:
+            self.hubble.start()
+            if self.hubble_metrics_server is not None:
+                self.hubble_metrics_server.start()
         if self.metrics_module is not None:
             self.metrics_module.reconcile(MetricsConfiguration.default())
             self._mm_thread = threading.Thread(
@@ -217,6 +289,10 @@ class Daemon:
         try:
             self.cm.start(stop)  # blocks until stop fires; runs shutdown
         finally:
+            if self.hubble is not None:
+                self.hubble.stop()
+                if self.hubble_metrics_server is not None:
+                    self.hubble_metrics_server.stop()
             if self.fleet_aggregator is not None:
                 self.fleet_aggregator.stop()
                 ring = self.fleet_aggregator.timetravel_ring

@@ -158,6 +158,13 @@ class Gauge(_Metric):
 
     def _init_value(self) -> None:
         self._value = 0.0
+        self._function: Callable[[], float] | None = None
+
+    def set_function(self, f: Callable[[], float]) -> None:
+        """Read the value from ``f()`` at each render (prometheus_client's
+        ``Gauge.set_function``): a gauge of live state needs no setter."""
+        self._observable()
+        self._function = f
 
     def set(self, value: float) -> None:
         self._observable()
@@ -174,7 +181,8 @@ class Gauge(_Metric):
         self.inc(-amount)
 
     def _child_samples(self) -> list[Sample]:
-        return [("", {}, self._value)]
+        f = self._function
+        return [("", {}, float(f()) if f is not None else self._value)]
 
 
 class Counter(_Metric):

@@ -42,13 +42,13 @@ from __future__ import annotations
 import os
 import queue as queue_mod
 import random
+import sys
 import threading
 import time
 from collections import deque
 from typing import Any, Callable, Optional
 
 import numpy as np
-import torch
 
 from retina_tpu_torch.fleet.codec import FLEET_TOPIC, FleetSnapshot, encode_snapshot
 from retina_tpu_torch.log import logger, rate_limited
@@ -56,9 +56,8 @@ from retina_tpu_torch.metrics import get_metrics
 from retina_tpu_torch.obs.recorder import get_recorder
 from retina_tpu_torch.pubsub import get_pubsub
 from retina_tpu_torch.runtime.overload import SHEDDING
-from retina_tpu_torch.u32 import to_numpy
 from retina_tpu_torch.utils import metric_names as mn
-from retina_tpu_torch.utils.device_proxy import HostCopy
+from retina_tpu_torch.utils.hostcopy import HostCopy
 
 # Worker wake sentinel: a retry-timer tick, not a frame.
 _TICK = object()
@@ -68,7 +67,14 @@ def _host_arrays(arrays: HostCopy | dict[str, Any]) -> dict[str, np.ndarray]:
     """(Worker.) The catalog's host numpy arrays of an offered export."""
     if isinstance(arrays, HostCopy):
         arrays = arrays.result()
-    return {k: v if isinstance(v, np.ndarray) else to_numpy(v) for k, v in arrays.items()}
+    out = {}
+    for k, v in arrays.items():
+        if not isinstance(v, np.ndarray):
+            from retina_tpu_torch.u32 import to_numpy  # a tensor: torch is loaded
+
+            v = to_numpy(v)
+        out[k] = v
+    return out
 
 
 class SnapshotShipper:
@@ -157,7 +163,10 @@ class SnapshotShipper:
         """Enqueue one window's export for shipping: a ``HostCopy`` or a
         dict of host arrays (see the module docstring). False when deferred
         (overload backoff) or dropped (queue full, stopped)."""
-        if not isinstance(arrays, HostCopy) and any(
+        # A process that never loaded torch (a churn node agent) holds no
+        # tensor, card or CPU.
+        torch = sys.modules.get("torch")
+        if torch is not None and not isinstance(arrays, HostCopy) and any(
                 isinstance(v, torch.Tensor) and v.device.type != "cpu" for v in arrays.values()):
             raise TypeError("offer a HostCopy of card tensors (to_host), not the tensors")
         if self._stop.is_set():

@@ -5,9 +5,8 @@ Reference analog: pkg/managers/pluginmanager/pluginmanager.go —
 instantiate enabled plugins from the registry (:60-66), Reconcile each
 (Generate→Compile→Stop→Init under a 10s SLA, :27-28, :91-113), start each
 in an errgroup where any plugin's fatal error tears the whole agent down
-for a clean restart (:154-179), and run conntrack GC only when
-packetparser is on (:140-151). The SetupChannel broadcast (:206-212) comes
-with the Hubble relay that owns the channel.
+for a clean restart (:154-179), broadcast SetupChannel (:206-212), and run
+conntrack GC only when packetparser is on (:140-151).
 
 Differences by design: plugins raising UnsupportedPlatform at reconcile
 are skipped with a warning (the reference compiles them out per-OS);
@@ -25,6 +24,7 @@ keeps serving the remaining plugins and the engine.
 
 from __future__ import annotations
 
+import queue
 import threading
 import time
 from typing import Any, Optional
@@ -107,6 +107,11 @@ class PluginManager:
                 name, took, RECONCILE_SLA_S,
             )
         return True
+
+    def setup_channel(self, q: queue.Queue) -> None:
+        """Broadcast the external channel (pluginmanager.go:206-212)."""
+        for p in self.plugins.values():
+            p.setup_channel(q)
 
     # -- start/stop (pluginmanager.go:116-193) -------------------------
     def start(self, stop: threading.Event) -> None:

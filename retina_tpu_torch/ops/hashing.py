@@ -4,17 +4,21 @@ These are the plain versions of ``kernels/csrc/hash.cuh``: murmur3's fmix32
 finalizer over boost-style combined u32 columns, reduced onto a power-of-two
 range by a mask. The torch functions take int32 bit patterns or int64 u32
 values and return int64 values in [0, 2^32); products are split so no
-int64 product overflows. The ``*_np`` functions are the numpy mirror.
+int64 product overflows. The ``*_np`` functions, the numpy mirror, live
+in ``hashing_np.py`` (no torch import) and are re-exported here.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from retina_tpu_torch.ops.hashing_np import (  # noqa: F401 (the numpy mirror)
+    PHI32,
+    fmix32_np,
+    hash_cols_np,
+    reduce_range_np,
+)
 from retina_tpu_torch.u32 import M32, widen
-
-PHI32 = 0x9E3779B9
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -64,33 +68,3 @@ def reduce_range(h: torch.Tensor, width: int) -> torch.Tensor:
     if width & (width - 1):
         raise ValueError(f"width must be a power of two, got {width}")
     return h & (width - 1)
-
-
-# -- numpy mirror --------------------------------------------------------
-
-
-def fmix32_np(x: np.ndarray) -> np.ndarray:
-    x = np.asarray(x).astype(np.uint32)
-    x = x ^ (x >> np.uint32(16))
-    x = (x * np.uint32(0x85EBCA6B)).astype(np.uint32)
-    x = x ^ (x >> np.uint32(13))
-    x = (x * np.uint32(0xC2B2AE35)).astype(np.uint32)
-    return x ^ (x >> np.uint32(16))
-
-
-def hash_cols_np(cols: list[np.ndarray], seed) -> np.ndarray:
-    h = (np.asarray(seed, np.uint32) * np.uint32(PHI32)).astype(np.uint32)
-    for c in cols:
-        c = np.asarray(c, np.uint32)
-        h = fmix32_np(
-            h ^ (c + np.uint32(PHI32) + (h << np.uint32(6)) + (h >> np.uint32(2))).astype(
-                np.uint32
-            )
-        )
-    return h
-
-
-def reduce_range_np(h: np.ndarray, width: int) -> np.ndarray:
-    if width & (width - 1):
-        raise ValueError(f"width must be a power of two, got {width}")
-    return h & np.uint32(width - 1)

@@ -46,37 +46,11 @@ from typing import Any, Callable, TypeVar
 import numpy as np
 import torch
 
+from retina_tpu_torch.utils.hostcopy import HostCopy
+
 T = TypeVar("T")
 
 _log = logging.getLogger("retina_tpu_torch.device_proxy")
-
-
-class HostCopy:
-    """Tensors copied to the host on the proxy stream; ``result()`` waits
-    for the copy (off the proxy) and returns them."""
-
-    __slots__ = ("tensors", "event")
-
-    def __init__(self, tensors: dict[str, torch.Tensor], event: Any = None):
-        self.tensors = tensors
-        self.event = event
-
-    def result(self, timeout: float | None = None) -> dict[str, torch.Tensor]:
-        """The host tensors once the copy is done; with ``timeout``, raise
-        ``TimeoutError`` if it is not done within that many seconds (a wait
-        that cannot hang on a wedged card)."""
-        event = self.event  # several readers may wait on one copy
-        if event is not None:
-            if timeout is None:
-                event.synchronize()
-            else:
-                deadline = time.monotonic() + timeout
-                while not event.query():
-                    if time.monotonic() >= deadline:
-                        raise TimeoutError(f"host copy not done within {timeout} s")
-                    time.sleep(0.0005)
-            self.event = None
-        return self.tensors
 
 
 def to_host(tensors: dict[str, torch.Tensor]) -> HostCopy:

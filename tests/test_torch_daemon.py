@@ -326,7 +326,7 @@ def test_agent_without_a_card_or_device_platform_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"enable_hubble": True}, "item 7"),
+    ({"enable_hubble": True, "kubeconfig": "/etc/kube/config"}, "item 7"),
     ({"kubeconfig": "/etc/kube/config"}, "item 7"),
     ({"distributed_coordinator": "10.0.0.1:1234"}, "item 5"),
     ({"in_cluster": True}, "item 7"),
@@ -349,7 +349,8 @@ def test_refuse_unported_no_longer_names_the_fleet_roles(monkeypatch):
             kubeconfig="/etc/kube/config", distributed_coordinator="10.0.0.1:1234"))
     msg = str(err.value)
     assert "fleet_aggregator" not in msg and "fleetquery" not in msg
-    for part in ("enable_hubble", "kubeconfig", "distributed_coordinator"):
+    assert "enable_hubble" not in msg
+    for part in ("kubeconfig", "distributed_coordinator"):
         assert part in msg, part
 
 

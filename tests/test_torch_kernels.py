@@ -97,6 +97,11 @@ MODULES = [
     "retina_tpu_torch.plugins.framing", "retina_tpu_torch.plugins.externalevents",
     "retina_tpu_torch.plugins.linuxutil", "retina_tpu_torch.plugins.tcpretrans",
     "retina_tpu_torch.plugins.infiniband", "retina_tpu_torch.plugins.ciliumeventobserver",
+    "retina_tpu_torch.hubble.flow", "retina_tpu_torch.hubble.monitoragent",
+    "retina_tpu_torch.hubble.observer", "retina_tpu_torch.hubble.proto",
+    "retina_tpu_torch.hubble.relay", "retina_tpu_torch.fleet.hostsketch",
+    "retina_tpu_torch.fleet.node_agent", "retina_tpu_torch.fleet.churn",
+    "retina_tpu_torch.ops.hashing_np", "retina_tpu_torch.utils.hostcopy",
 ]
 
 
@@ -114,6 +119,7 @@ def test_port_imports_without_jax_or_reference():
         "sys.modules['yaml'] = None\n"
         "sys.modules['psutil'] = None\n"
         "sys.modules['grpc'] = None\n"
+        "sys.modules['google.protobuf'] = None\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'retina_tpu' or m.startswith('retina_tpu.')]\n"
         "assert not bad, bad\n"
