@@ -233,6 +233,15 @@ source for 10 s (its run equal to its synchronous replay under the plain
 versions), /metrics, /debug/vars and a range query, the kernels of the
 path launched, the shutdown checkpoint reloaded; then a child
 ``python3 -m retina_tpu_torch agent`` scraped and stopped by SIGTERM.
+Then the agent with its identity from a cluster (``kube_phase``): a fake
+kube-apiserver on 127.0.0.1 (``FakeKube``) lists 2,048 pods, their
+services and 8 nodes to an agent started with a kubeconfig; its cache, the
+engine's identity map and the filter set equal a plain replay of the LIST,
+pushed to the card once, then of each WATCH event (a pod added, deleted
+and moved, a service deleted, a bookmark, a 410 and a dropped
+connection's re-LIST); the capture's scraped pod series under the listed
+names, a ``MetricsConfiguration`` CR reconciled and deleted, a second
+agent over CiliumEndpoints, and a ``--kubeconfig`` child.
 Then the agent's event sources (``sources_phase``): the three in-repo
 captures and a 2^20-packet capture synthesized from the bench flows'
 keys, in the nanosecond and microsecond formats, through the native and
@@ -1149,6 +1158,7 @@ def main() -> int:
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
+    kube_phase()
     sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
     hubble_phase(dev, smi)
     fleet_transport_phase(dev, pods, smi)
@@ -2838,7 +2848,7 @@ def cms_update_phase(dev, batch, time_ms, report, results, equal_int, report_set
     results[-1]["launches"] = launches
 
 
-RT_WINDOWS = 8  # windows of producer traffic in each full runtime run
+RT_WINDOWS = 6  # windows of producer traffic in each full runtime run
 RT_SHORT = 3  # windows of the "both" and overload runs
 RT_PRODUCERS = 2
 RT_IDLE_WINDOWS = 2.2  # the pause after the backlog drained: a whole tick interval idle
@@ -3819,6 +3829,62 @@ DAEMON_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "con
                   "bank_close")
 
 
+def scraped_pod_sums(text: str):
+    """{(pod, direction): (packets, bytes)} of an exposition's pod forward
+    series and {(pod, reason): ...} of its drop series, nonzero ones."""
+    vals: dict = {}
+    for line in text.splitlines():
+        if not line.startswith("networkobservability_adv_") or "{" not in line:
+            continue
+        name, rest = line.split("{", 1)
+        labels, value = rest.rsplit("} ", 1)
+        lv = dict(kv.split("=", 1) for kv in labels.split(","))
+        lv = {k: v.strip('"') for k, v in lv.items()}
+        vals[(name, lv.get("podname"), lv.get("direction") or lv.get("reason"))] = int(
+            float(value))
+    out = []
+    for kind in ("forward", "drop"):
+        d = {}
+        for (name, pod, key), v in vals.items():
+            if name == f"networkobservability_adv_{kind}_count":
+                b = vals.get((f"networkobservability_adv_{kind}_bytes", pod, key), 0)
+                if v or b:
+                    d[(pod, key)] = (v, b)
+        out.append(d)
+    return tuple(out)
+
+
+def capture_pod_sums(rec, names: dict[str, str]):
+    """The pipeline's pod attribution of the records ``rec`` under
+    ``names`` (address -> pod): the destination's pod for ingress rows, the
+    source's otherwise; ({(pod, direction): (packets, bytes)} of the
+    forwarded rows, {(pod, reason): ...} of the dropped ones)."""
+    from retina_tpu_torch.events.schema import (
+        DIR_INGRESS,
+        VERDICT_DROPPED,
+        VERDICT_FORWARDED,
+        F,
+        u32_to_ip,
+    )
+    from retina_tpu_torch.plugins.dropreason import DROP_REASONS
+
+    ingress = ((rec[:, F.META] >> 4) & 0xF) == DIR_INGRESS
+    local = np.where(ingress, rec[:, F.DST_IP], rec[:, F.SRC_IP])
+    fwd: dict = {}
+    drop: dict = {}
+    for r, ing, ip in zip(rec, ingress, local):
+        pod, pk, by = names[u32_to_ip(int(ip))], int(r[F.PACKETS]), int(r[F.BYTES])
+        if r[F.VERDICT] == VERDICT_FORWARDED:
+            key, tab = (pod, "ingress" if ing else "egress"), fwd
+        elif r[F.VERDICT] == VERDICT_DROPPED:
+            key, tab = (pod, DROP_REASONS.get(int(r[F.DROP_REASON]), str(int(r[F.DROP_REASON])))
+                        ), drop
+        else:
+            continue
+        tab[key] = tuple(a + b for a, b in zip(tab.get(key, (0, 0)), (pk, by)))
+    return fwd, drop
+
+
 def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
     """The node agent as users start it, on the card: ``Daemon(load_config(None,
     overrides=...))`` at ``Config()`` with the time-travel ring, the detector
@@ -3857,16 +3923,9 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
     from retina_tpu_torch.config import load_config
     from retina_tpu_torch.daemon import Daemon
     from retina_tpu_torch.engine import SketchEngine
-    from retina_tpu_torch.events.schema import (
-        DIR_INGRESS,
-        VERDICT_DROPPED,
-        VERDICT_FORWARDED,
-        F,
-        u32_to_ip,
-    )
+    from retina_tpu_torch.events.schema import F, u32_to_ip
     from retina_tpu_torch.events.synthetic import pod_ip
     from retina_tpu_torch.kernels import ops as kops
-    from retina_tpu_torch.plugins.dropreason import DROP_REASONS
     from retina_tpu_torch.plugins.packetparser import PacketParserPlugin
     from retina_tpu_torch.sources.pcapdecode import decode_pcap_bytes
 
@@ -3888,30 +3947,6 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
             body = r.read().decode()
             check(r.status == 200, f"daemon phase: GET {path} answered {r.status}")
         return body, (time.perf_counter() - t0) * 1e3
-
-    def pod_sums(text: str):
-        """{(pod, direction): (packets, bytes)} of the forward series and
-        {(pod, reason): ...} of the drop series, nonzero ones."""
-        vals: dict = {}
-        for line in text.splitlines():
-            if not line.startswith("networkobservability_adv_") or "{" not in line:
-                continue
-            name, rest = line.split("{", 1)
-            labels, value = rest.rsplit("} ", 1)
-            lv = dict(kv.split("=", 1) for kv in labels.split(","))
-            lv = {k: v.strip('"') for k, v in lv.items()}
-            vals[(name, lv.get("podname"), lv.get("direction") or lv.get("reason"))] = int(
-                float(value))
-        out = []
-        for kind in ("forward", "drop"):
-            d = {}
-            for (name, pod, key), v in vals.items():
-                if name == f"networkobservability_adv_{kind}_count":
-                    b = vals.get((f"networkobservability_adv_{kind}_bytes", pod, key), 0)
-                    if v or b:
-                        d[(pod, key)] = (v, b)
-            out.append(d)
-        return tuple(out)
 
     cfg = load_config(None, overrides=dict(
         api_server_addr="127.0.0.1:0", timetravel_enabled=True, detectors_enabled=True,
@@ -3956,25 +3991,12 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
           f"registered in {reg_s:.3f} s", flush=True)
 
     # (a) the capture, once, through packetparser's pcap source.
-    ingress = ((rec[:, F.META] >> 4) & 0xF) == DIR_INGRESS
-    local = np.where(ingress, rec[:, F.DST_IP], rec[:, F.SRC_IP])
-    want_fwd: dict = {}
-    want_drop: dict = {}
-    for r, ing, ip in zip(rec, ingress, local):
-        pod, pk, by = names[u32_to_ip(int(ip))], int(r[F.PACKETS]), int(r[F.BYTES])
-        if r[F.VERDICT] == VERDICT_FORWARDED:
-            key, tab = (pod, "ingress" if ing else "egress"), want_fwd
-        elif r[F.VERDICT] == VERDICT_DROPPED:
-            key, tab = (pod, DROP_REASONS.get(int(r[F.DROP_REASON]), str(int(r[F.DROP_REASON])))
-                        ), want_drop
-        else:
-            continue
-        tab[key] = tuple(a + b for a, b in zip(tab.get(key, (0, 0)), (pk, by)))
+    want_fwd, want_drop = capture_pod_sums(rec, names)
     wait(lambda: eng.counts.events == len(rec), "the capture to be stepped")
     got = [None]
 
     def scraped() -> bool:
-        got[0] = pod_sums(get(port, "/metrics")[0])
+        got[0] = scraped_pod_sums(get(port, "/metrics")[0])
         return got[0] == (want_fwd, want_drop)
 
     wait(scraped, f"the scrape to hold the capture's sums {(want_fwd, want_drop)}", 30)
@@ -4155,6 +4177,834 @@ def daemon_phase(dev, equal_int, close_counts, close_float, equal_any) -> None:
           f"GET /metrics {child_ms:.1f} ms ({len(text)} bytes); exit {rc} on SIGTERM",
           flush=True)
     print(f"daemon phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+class FakeKube:
+    """A kube-apiserver on 127.0.0.1 for the kube phase and the CPU tests,
+    on the standard library: LIST and chunked WATCH (with resourceVersion
+    resumption and bookmarks) of any resource under ``/api/v1`` or
+    ``/apis/<group>/<version>``, GET of one object, POST, PUT (a stale
+    ``metadata.resourceVersion`` answers 409, an absent object 404),
+    DELETE, and the ``/status`` merge-PATCH. Objects and their events are
+    made by the caller (``add``, ``modify``, ``delete``); ``bookmark``,
+    ``expire`` (a 410 ``ERROR`` event on every open stream), ``drop`` (open
+    streams cut without their last chunk) and ``forget`` (an object removed
+    with no event: a delete the watch missed) script the rest. Every
+    request is logged in ``requests`` as (method, path, Authorization),
+    every write in ``writes`` as (method, path, body). ``tls`` is an
+    ``ssl.SSLContext`` to serve HTTPS."""
+
+    def __init__(self, tls=None) -> None:
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        self.cond = threading.Condition()
+        self.rv = 1
+        self.objects: dict[str, dict[str, dict]] = {}  # resource -> key -> object
+        self.events: dict[str, list[tuple[int, dict]]] = {}  # resource -> (rv, event)
+        self.cuts: dict[str, list[str]] = {}  # resource -> "expire"/"drop", in order
+        self.refuse: dict[str, int] = {}  # resource -> WATCH requests to refuse
+        self.open: dict[str, int] = {}  # resource -> streams open
+        self.hangups = 0
+        self.lists: dict[str, int] = {}
+        self.list_at: dict[str, list[float]] = {}  # resource -> time.monotonic() of each LIST
+        self.watches: dict[str, int] = {}
+        self.requests: list[tuple[str, str, str]] = []
+        self.writes: list[tuple[str, str, dict]] = []
+        self.closed = False
+        fake = self
+
+        handler = type("KubeHandler", (_kube_handler(),), {"kube": fake})
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        self.httpd.daemon_threads = True
+        if tls is not None:
+            self.httpd.socket = tls.wrap_socket(self.httpd.socket, server_side=True)
+        self.port = self.httpd.server_address[1]
+        self.url = f"{'https' if tls is not None else 'http'}://127.0.0.1:{self.port}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever, name="fakekube",
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+    def kubeconfig(self, path, token: str = "tok", cluster: dict | None = None,
+                   user: dict | None = None) -> str:
+        """Write a kubeconfig for this server at ``path``; returns it."""
+        import yaml
+
+        with open(path, "w") as fh:
+            yaml.safe_dump({
+                "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+                "contexts": [{"name": "smoke", "context": {"cluster": "c", "user": "u"}}],
+                "clusters": [{"name": "c", "cluster": dict(cluster or {}, server=self.url)}],
+                "users": [{"name": "u", "user": user if user is not None else {"token": token}}],
+            }, fh)
+        return str(path)
+
+    # -- the script -----------------------------------------------------
+    @staticmethod
+    def key(obj: dict) -> str:
+        meta = obj.get("metadata", {}) or {}
+        return f"{meta.get('namespace', '')}/{meta.get('name', '')}"
+
+    def _event(self, resource: str, etype: str, obj: dict) -> dict:
+        import copy
+
+        with self.cond:
+            self.rv += 1
+            obj = copy.deepcopy(obj)
+            obj.setdefault("metadata", {})["resourceVersion"] = str(self.rv)
+            store = self.objects.setdefault(resource, {})
+            if etype == "DELETED":
+                store.pop(self.key(obj), None)
+            elif etype != "BOOKMARK":
+                store[self.key(obj)] = obj
+            ev = {"type": etype, "object": obj}
+            self.events.setdefault(resource, []).append((self.rv, ev))
+            self.cond.notify_all()
+        return obj
+
+    def add(self, resource: str, obj: dict, event: bool = True) -> dict:
+        """Store ``obj`` under ``resource`` (e.g. "/api/v1/pods"); with
+        ``event`` an ADDED event goes to the watchers too."""
+        if event:
+            return self._event(resource, "ADDED", obj)
+        with self.cond:
+            self.rv += 1
+            obj = dict(obj, metadata=dict(obj.get("metadata", {}),
+                                          resourceVersion=str(self.rv)))
+            self.objects.setdefault(resource, {})[self.key(obj)] = obj
+        return obj
+
+    def modify(self, resource: str, obj: dict) -> dict:
+        return self._event(resource, "MODIFIED", obj)
+
+    def delete(self, resource: str, obj: dict) -> dict:
+        return self._event(resource, "DELETED", obj)
+
+    def bookmark(self, resource: str) -> None:
+        self._event(resource, "BOOKMARK", {"kind": "Bookmark", "metadata": {}})
+
+    def forget(self, resource: str, key: str) -> None:
+        with self.cond:
+            self.objects.get(resource, {}).pop(key, None)
+
+    def expire(self, resource: str) -> None:
+        with self.cond:
+            self.cuts.setdefault(resource, []).append("expire")
+            self.cond.notify_all()
+
+    def end(self, resource: str) -> None:
+        with self.cond:
+            self.cuts.setdefault(resource, []).append("end")
+            self.cond.notify_all()
+
+    def hangup(self) -> None:
+        """End every open stream cleanly: watchers whose stop is set leave
+        at once instead of waiting out ``timeoutSeconds``."""
+        with self.cond:
+            self.hangups += 1
+            self.cond.notify_all()
+
+    def drop(self, resource: str) -> None:
+        with self.cond:
+            self.cuts.setdefault(resource, []).append("drop")
+            self.refuse[resource] = self.refuse.get(resource, 0) + self.open.get(resource, 0)
+            self.cond.notify_all()
+
+    def wait(self, pred, bound: float, what: str) -> None:
+        """Wait until ``pred()`` holds (under the server's lock)."""
+        import time as _time
+
+        deadline = _time.monotonic() + bound
+        with self.cond:
+            while not pred():
+                left = deadline - _time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(f"fake apiserver: timed out waiting for {what}")
+                self.cond.wait(min(left, 0.1))
+
+    def items(self, resource: str, namespace: str = "") -> list[dict]:
+        with self.cond:
+            return [o for k, o in self.objects.get(resource, {}).items()
+                    if not namespace or k.startswith(namespace + "/")]
+
+
+def _kube_path(path: str):
+    """(resource, namespace, name, subresource, query) of an apiserver
+    path: resource is the collection's path without its namespace, e.g.
+    "/api/v1/pods" or "/apis/cilium.io/v2/ciliumendpoints"."""
+    from urllib.parse import parse_qs, urlsplit
+
+    u = urlsplit(path)
+    parts = [p for p in u.path.split("/") if p]
+    if parts[:1] == ["api"]:
+        base, rest = f"/api/{parts[1]}", parts[2:]
+    else:
+        base, rest = f"/apis/{parts[1]}/{parts[2]}", parts[3:]
+    ns = ""
+    if len(rest) >= 3 and rest[0] == "namespaces":
+        ns, rest = rest[1], rest[2:]
+    return (f"{base}/{rest[0]}", ns, rest[1] if len(rest) > 1 else "",
+            rest[2] if len(rest) > 2 else "", parse_qs(u.query))
+
+
+def _kube_handler():
+    """The request handler class of ``FakeKube`` (built on first use, so
+    that importing this script loads no HTTP server)."""
+    import copy
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"  # chunked WATCH streams
+        kube: FakeKube
+
+        def log_message(self, *args) -> None:
+            pass
+
+        def _send(self, code: int, doc: dict) -> None:
+            body = json.dumps(doc).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _status(self, code: int, reason: str) -> None:
+            self._send(code, {"kind": "Status", "apiVersion": "v1", "status": "Failure",
+                              "reason": reason, "code": code})
+
+        def _start(self, write: bool):
+            k = self.kube
+            n = int(self.headers.get("Content-Length", 0) or 0)
+            body = json.loads(self.rfile.read(n)) if n else {}
+            with k.cond:
+                k.requests.append((self.command, self.path,
+                                   self.headers.get("Authorization", "")))
+                if write:
+                    k.writes.append((self.command, self.path, copy.deepcopy(body)))
+            return (*_kube_path(self.path), body)
+
+        def _chunk(self, data: bytes) -> None:
+            self.wfile.write(b"%x\r\n%s\r\n" % (len(data), data))
+            self.wfile.flush()
+
+        def do_GET(self) -> None:
+            k = self.kube
+            res, ns, name, _, q, _ = self._start(False)
+            if q.get("watch") == ["true"]:
+                self._watch(res, ns, q)
+                return
+            with k.cond:
+                if name:
+                    obj = k.objects.get(res, {}).get(f"{ns}/{name}")
+                else:
+                    k.lists[res] = k.lists.get(res, 0) + 1
+                    k.list_at.setdefault(res, []).append(time.monotonic())
+                    items = [o for key, o in k.objects.get(res, {}).items()
+                             if not ns or key.startswith(ns + "/")]
+                    doc = {"kind": "List", "apiVersion": "v1",
+                           "metadata": {"resourceVersion": str(k.rv)}, "items": items}
+                    k.cond.notify_all()
+            if not name:
+                self._send(200, doc)
+            elif obj is None:
+                self._status(404, "NotFound")
+            else:
+                self._send(200, obj)
+
+        def _watch(self, res: str, ns: str, q: dict) -> None:
+            k = self.kube
+            deadline = time.monotonic() + float(q.get("timeoutSeconds", ["240"])[0])
+            with k.cond:
+                k.watches[res] = k.watches.get(res, 0) + 1
+                sent = int(q.get("resourceVersion", ["0"])[0] or 0) or k.rv
+                cut0 = len(k.cuts.get(res, []))
+                hangups = k.hangups
+                refused = k.refuse.get(res, 0) > 0
+                if refused:
+                    k.refuse[res] -= 1
+                else:
+                    k.open[res] = k.open.get(res, 0) + 1
+                k.cond.notify_all()
+            if refused:
+                self.close_connection = True
+                return
+            try:
+                self._stream(res, ns, sent, cut0, hangups, deadline)
+            finally:
+                with k.cond:
+                    k.open[res] -= 1
+
+        def _stream(self, res: str, ns: str, sent: int, cut0: int, hangups: int,
+                    deadline: float) -> None:
+            k = self.kube
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            self.wfile.flush()
+            try:
+                while True:
+                    with k.cond:
+                        while True:
+                            if k.closed:
+                                out = "drop"
+                                break
+                            # Events before a cut: the stream keeps their order.
+                            out = [(rv, ev) for rv, ev in k.events.get(res, ())
+                                   if rv > sent and (not ns or ev["object"].get(
+                                       "metadata", {}).get("namespace", ns) == ns)]
+                            if out:
+                                break
+                            cuts = k.cuts.get(res, [])
+                            if len(cuts) > cut0:
+                                out = cuts[cut0]
+                                break
+                            if k.hangups > hangups:
+                                out = "end"
+                                break
+                            if time.monotonic() > deadline:
+                                out = "timeout"
+                                break
+                            k.cond.wait(0.1)
+                    if out == "drop":
+                        # Cut without the last chunk (a client reads it as the
+                        # stream's end); its next WATCH is refused.
+                        self.close_connection = True
+                        return
+                    if out == "expire":
+                        self._chunk(json.dumps({"type": "ERROR", "object": {
+                            "kind": "Status", "apiVersion": "v1", "status": "Failure",
+                            "message": "too old resource version", "reason": "Expired",
+                            "code": 410}}).encode() + b"\n")
+                    if out in ("expire", "end", "timeout"):
+                        self.wfile.write(b"0\r\n\r\n")
+                        self.wfile.flush()
+                        return
+                    for rv, ev in out:
+                        self._chunk(json.dumps(ev).encode() + b"\n")
+                        sent = rv
+            except OSError:
+                self.close_connection = True
+
+        def do_POST(self) -> None:
+            k = self.kube
+            res, ns, _, _, _, body = self._start(True)
+            meta = body.setdefault("metadata", {})
+            if ns and not meta.get("namespace"):
+                meta["namespace"] = ns
+            with k.cond:
+                if k.key(body) in k.objects.get(res, {}):
+                    obj = None
+                else:
+                    obj = k._event(res, "ADDED", body)
+            if obj is None:
+                self._status(409, "AlreadyExists")
+            else:
+                self._send(201, obj)
+
+        def do_PUT(self) -> None:
+            k = self.kube
+            res, ns, name, _, _, body = self._start(True)
+            meta = body.setdefault("metadata", {})
+            meta["name"] = name
+            if ns:
+                meta["namespace"] = ns
+            with k.cond:
+                cur = k.objects.get(res, {}).get(f"{ns}/{name}")
+                if cur is None:
+                    code = 404
+                elif meta.get("resourceVersion", cur["metadata"]["resourceVersion"]) \
+                        != cur["metadata"]["resourceVersion"]:
+                    code = 409
+                else:
+                    code, obj = 200, k._event(res, "MODIFIED", body)
+            if code == 200:
+                self._send(200, obj)
+            else:
+                self._status(code, "NotFound" if code == 404 else "Conflict")
+
+        def do_PATCH(self) -> None:
+            k = self.kube
+            res, ns, name, _, _, body = self._start(True)
+            with k.cond:
+                cur = k.objects.get(res, {}).get(f"{ns}/{name}")
+                if cur is not None:
+                    merged = copy.deepcopy(cur)
+                    for field, value in body.items():
+                        if isinstance(value, dict) and isinstance(merged.get(field), dict):
+                            merged[field].update(value)
+                        else:
+                            merged[field] = value
+                    obj = k._event(res, "MODIFIED", merged)
+            if cur is None:
+                self._status(404, "NotFound")
+            else:
+                self._send(200, obj)
+
+        def do_DELETE(self) -> None:
+            k = self.kube
+            res, ns, name, _, _, _ = self._start(True)
+            with k.cond:
+                cur = k.objects.get(res, {}).get(f"{ns}/{name}")
+                if cur is not None:
+                    k._event(res, "DELETED", cur)
+            if cur is None:
+                self._status(404, "NotFound")
+            else:
+                self._send(200, cur)
+
+    return Handler
+
+
+KUBE_PODS = 2048  # pods the apiserver lists: the capture's addresses, then pod_ip(1..)
+KUBE_SERVICES = 64  # services over them, one an app label
+KUBE_NODES = 8
+KUBE_WAIT_S = 120.0  # the bound on each wait of the kube phase
+KUBE_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+                "latency_update", "window_close", "snapshot_flat")
+KUBE_INGEST = ("ingest_packed", "ingest_new", "ingest_known")  # K7: any of its entries
+
+
+def kube_pod_doc(name: str, ip: str, node: str, app: str) -> dict:
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "spec": {"nodeName": node, "containers": [{"name": "main"}]},
+            "status": {"phase": "Running", "podIP": ip, "podIPs": [{"ip": ip}]}}
+
+
+def kube_cep_doc(pod: dict) -> dict:
+    """The CiliumEndpoint a Cilium agent publishes for ``pod``."""
+    meta = pod["metadata"]
+    labels = [f"k8s:{k}={v}" for k, v in meta["labels"].items()]
+    labels.append(f"k8s:io.kubernetes.pod.namespace={meta['namespace']}")
+    return {"apiVersion": "cilium.io/v2", "kind": "CiliumEndpoint",
+            "metadata": {"name": meta["name"], "namespace": meta["namespace"]},
+            "status": {"identity": {"id": 256, "labels": labels},
+                       "networking": {"addressing": [{"ipv4": pod["status"]["podIP"]}],
+                                      "node": pod["spec"]["nodeName"]},
+                       "state": "ready"}}
+
+
+def kube_phase() -> None:
+    """The agent with its identity from a cluster, on the card: a fake
+    kube-apiserver on 127.0.0.1 (``FakeKube``) lists KUBE_PODS pods (the
+    capture's address, one pod, then ``pod_ip(1..)``), KUBE_SERVICES
+    services and KUBE_NODES nodes, and the agent boots as users start it,
+    ``Daemon(load_config(None, overrides={"kubeconfig": ...}))`` at
+    ``Config()`` with an apiserver watcher on 127.0.0.1 (K14's input) and a
+    capture with no packets as its own source. Its cache, the engine's
+    identity map and the filter set must equal a plain replay of the LIST
+    (the port's ``Cache`` fed the same documents in order), with one filter
+    push for the LIST; the LIST-to-identity-ready seconds are printed.
+
+    The in-repo capture replayed through a second packetparser: each
+    scraped pod series equals the decoded capture's sums exactly, under the
+    listed pod's name. WATCH events (a pod added, the capture's pod
+    deleted, a pod whose IP becomes the capture's address, a service
+    deleted, a bookmark and the stream's end, a 410 ``ERROR``, a dropped
+    connection whose re-LIST omits a pod), each held against the plain
+    replay. The capture again: its traffic goes to the pod that took the
+    address; the deleted pod's series do not grow. A ``MetricsConfiguration``
+    CR through the agent's ``KubeBridge`` (forward and drop only): the
+    next scrapes lack the other families; deleting it returns the
+    defaults. The launch counts since ready must show K7, K1-K5, K14, K16
+    and K17. Then a second agent with ``identity_source="cilium"`` over
+    CiliumEndpoints of the same pods: its series from one replay equal the
+    first agent's. Last, a child ``python3 -m retina_tpu_torch agent
+    --kubeconfig`` answers /metrics with a listed pod's series and exits 0
+    on SIGTERM."""
+    import os
+    import shutil
+    import signal
+    import socket
+    import struct
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    from retina_tpu_torch.config import load_config
+    from retina_tpu_torch.controllers.cache import Cache
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.events.schema import F, ip_to_u32, u32_to_ip
+    from retina_tpu_torch.events.synthetic import pod_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.operator.kubewatch import pod_to_endpoint
+    from retina_tpu_torch.plugins.packetparser import PacketParserPlugin
+    from retina_tpu_torch.sources.pcapdecode import decode_pcap_bytes
+
+    t_phase = time.perf_counter()
+    pods_res, svcs_res, nodes_res = "/api/v1/pods", "/api/v1/services", "/api/v1/nodes"
+    ceps_res = "/apis/cilium.io/v2/ciliumendpoints"
+    metrics_res = "/apis/retina.sh/v1alpha1/metricsconfigurations"
+    root = Path(__file__).resolve().parent
+    pcap = root / "tests" / "fixtures" / "real" / DAEMON_PCAP
+    rec = decode_pcap_bytes(pcap.read_bytes()).records
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kube_"))
+    empty = tmp / "empty.pcap"  # a capture with no packets: the agents' own source is quiet
+    empty.write_bytes(struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535, 1))
+
+    def wait(pred, what: str, bound: float = KUBE_WAIT_S, step: float = 0.02) -> None:
+        deadline = time.monotonic() + bound
+        while not pred():
+            check(time.monotonic() < deadline, f"kube phase: timed out waiting for {what}")
+            time.sleep(step)
+
+    def get(port: int, path: str) -> str:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            check(r.status == 200, f"kube phase: GET {path} answered {r.status}")
+            return r.read().decode()
+
+    def add_sums(a, b):
+        return tuple({k: tuple(x + y for x, y in zip(da.get(k, (0, 0)), db.get(k, (0, 0))))
+                      for k in {*da, *db}} for da, db in zip(a, b))
+
+    kube = FakeKube()
+    agents: list = []  # (daemon, its stop event, its thread) of the running agents
+
+    def start_agent(overrides: dict):
+        cfg = load_config(None, overrides=dict(
+            api_server_addr="127.0.0.1:0", kubeconfig=kc, event_source="pcap",
+            pcap_path=str(empty), pcap_loop=False, **overrides), env={})
+        d = Daemon(cfg, apiserver_host="127.0.0.1")
+        check(d.cm.engine.device.type == "cuda", f"kube phase: the agent runs on "
+              f"{d.cm.engine.device}")
+        pushes: list = []  # (time.monotonic(), the IPs) of each filter push, once on the card
+        fm = d.cm.filtermanager
+        inner = fm._apply
+
+        def apply(ips, inner=inner):
+            inner(ips)
+            pushes.append((time.monotonic(), frozenset(ips)))
+
+        fm._apply = apply
+        stop = threading.Event()
+        t = threading.Thread(target=d.start, args=(stop,), name="daemon", daemon=True)
+        t.start()
+        agents.append((d, stop, t))
+        wait(lambda: d.cm._ready.is_set() or not t.is_alive(), "the agent's ready")
+        check(t.is_alive(), "kube phase: the agent died while booting")
+        return d, cfg, pushes
+
+    def stop_agent(d, stop, t) -> None:
+        for part in (d.kubewatch, d.ciliumwatch, d.crd_bridge):
+            if part is not None:
+                part._stop.set()
+        kube.hangup()  # the watch streams end now, not at their timeout
+        stop.set()
+        t.join(120)
+        check(not t.is_alive(), "kube phase: the agent did not stop")
+        agents.remove((d, stop, t))
+
+    def replay_capture(d, cfg) -> None:
+        """The capture once through a second packetparser on the engine's sink."""
+        eng = d.cm.engine
+        src = PacketParserPlugin(dataclasses.replace(cfg, event_source="pcap",
+                                                     pcap_path=str(pcap), pcap_loop=False))
+        src.set_sink(eng.sink)
+        src.generate()
+        src.compile()
+        src.init()
+        ev0 = eng.counts.events
+        src.start(threading.Event())  # one pass, then it returns
+        wait(lambda: eng.counts.events - ev0 == len(rec), "the capture to be stepped")
+
+    try:
+        # The cluster: the capture's addresses, one pod each, then the bench
+        # traffic's pods, their services and the nodes.
+        addrs = sorted({u32_to_ip(int(x))
+                        for x in np.concatenate([rec[:, F.SRC_IP], rec[:, F.DST_IP]])})
+        names = {ip: f"capture-{i}" for i, ip in enumerate(addrs)}
+        pods = [kube_pod_doc(n, ip, "node-0", "capture") for ip, n in names.items()]
+        pods += [kube_pod_doc(f"pod-{i}", u32_to_ip(pod_ip(i)), f"node-{i % KUBE_NODES}",
+                              f"app-{i % KUBE_SERVICES}")
+                 for i in range(1, KUBE_PODS - len(pods) + 1)]
+        for doc in pods:
+            kube.add(pods_res, doc, event=False)
+        for j in range(KUBE_SERVICES):
+            kube.add(svcs_res, {"apiVersion": "v1", "kind": "Service", "metadata": {
+                "name": f"svc-{j}", "namespace": "default"}, "spec": {
+                "clusterIP": f"10.96.{j >> 8}.{(j & 0xFF) + 1}", "selector": {"app": f"app-{j}"}}},
+                event=False)
+        for n in range(KUBE_NODES):
+            kube.add(nodes_res, {"apiVersion": "v1", "kind": "Node", "metadata": {
+                "name": f"node-{n}", "labels": {"topology.kubernetes.io/zone": f"z{n % 2}"}},
+                "status": {"addresses": [{"type": "InternalIP",
+                                          "address": f"192.168.0.{n + 1}"}]}}, event=False)
+        kc = kube.kubeconfig(tmp / "kubeconfig", token="chip-smoke")
+
+        # The plain replay: the port's Cache fed the same documents in order,
+        # and the filter's pod references as the metrics module keeps them
+        # (an IP a pod drops on an update keeps its reference, as in the
+        # reference).
+        plain = Cache()
+        plain_refs: dict[int, set[str]] = {}
+
+        def plain_upsert(doc: dict) -> None:
+            ep = pod_to_endpoint(doc)
+            plain.update_endpoint(ep)
+            for ip in ep.ips:
+                plain_refs.setdefault(ip_to_u32(ip), set()).add(ep.key())
+
+        def plain_delete(key: str) -> None:
+            ep = plain.get_endpoint(key)
+            plain.delete_endpoint(key)
+            for ip in ep.ips:
+                refs = plain_refs[ip_to_u32(ip)]
+                refs.discard(key)
+                if not refs:
+                    del plain_refs[ip_to_u32(ip)]
+
+        def plain_list(items: list[dict]) -> None:
+            for doc in items:
+                plain_upsert(doc)
+            listed = {FakeKube.key(doc) for doc in items}
+            for key in plain.list_endpoint_keys():
+                if key not in listed:
+                    plain_delete(key)
+
+        api = {ip_to_u32("127.0.0.1")}  # the apiserver watcher's own filter reference
+
+        def held(d) -> bool:
+            """The agent's cache, identity map and filter set equal the plain
+            replay's."""
+            c = d.cm.cache
+            keys = c.list_endpoint_keys()
+            return (keys == plain.list_endpoint_keys()
+                    and all(c.get_endpoint(k) == plain.get_endpoint(k)
+                            and c.get_index(k) == plain.get_index(k) for k in keys)
+                    and d.cm.engine._ident_dict == plain.ip_index_map()
+                    and set(d.cm.filtermanager._refs) | api == set(plain_refs) | api)
+
+        plain_list(pods)
+        # Boot: the LIST, its one push, the identity on the card.
+        d, cfg, pushes = start_agent({})
+        eng = d.cm.engine
+        wait(lambda: pods_res in kube.list_at, "the agent's pod LIST")
+        t_list = kube.list_at[pods_res][0]
+
+        seen: dict[str, float] = {}  # first time the LIST's cache, identity map, filter held
+
+        def ready() -> bool:
+            now = time.monotonic()
+            c = d.cm.cache
+            if "cache" not in seen and c.list_endpoint_keys() == plain.list_endpoint_keys():
+                seen["cache"] = now
+            if "identity" not in seen and eng._ident_dict == plain.ip_index_map():
+                seen["identity"] = now
+            if "filter" not in seen and pushes and pushes[-1][1] - api == frozenset(
+                    plain_refs) - api:
+                seen["filter"] = pushes[-1][0]
+            return held(d) and len(seen) == 3 and pushes[-1][1] == frozenset(
+                d.cm.filtermanager._refs)
+
+        wait(ready, "the LIST's identity and filter on the card", step=0.005)
+        ready_s = time.monotonic() - t_list
+        check(sorted(d.cm.cache.list_service_keys()) == sorted(
+            f"default/svc-{j}" for j in range(KUBE_SERVICES))
+            and len(d.cm.cache.list_nodes()) == KUBE_NODES,
+            "kube phase: the services or the nodes did not land")
+        parts = [p - api for _, p in pushes]
+        list_pushes = sum(1 for a, b in zip([frozenset()] + parts, parts) if a != b)
+        check(list_pushes == 1, f"kube phase: the LIST changed the filter's pods in "
+              f"{list_pushes} pushes, not one")
+        kops.reset_launch_counts()
+        port = d.cm.server.port
+        print(f"kube phase: LIST of {KUBE_PODS} pods to identity ready {ready_s:.3f} s "
+              f"(the engine's identity map and the filter table on the card equal the plain "
+              f"replay's; from the LIST: the cache {seen['cache'] - t_list:.3f} s, the "
+              f"identity map {seen['identity'] - t_list:.3f} s, the filter push done "
+              f"{seen['filter'] - t_list:.3f} s; {len(pushes)} filter pushes, one with the "
+              f"LIST's pods); {KUBE_SERVICES} services, {KUBE_NODES} nodes", flush=True)
+
+        # The capture under the listed names.
+        replay_capture(d, cfg)
+        want1 = capture_pod_sums(rec, names)
+        wait(lambda: scraped_pod_sums(get(port, "/metrics")) == want1,
+             f"the scrape to hold the capture's sums {want1}", 30)
+        print(f"kube phase: {DAEMON_PCAP}: {len(rec)} events; the scraped pod series equal "
+              f"the decoded capture's sums under the listed names: {want1}", flush=True)
+
+        # WATCH events, each held against the plain replay.
+        moved_ip, moved_from = addrs[0], names[addrs[0]]
+        new_pod = kube_pod_doc(f"pod-{KUBE_PODS}", u32_to_ip(pod_ip(KUBE_PODS)), "node-1",
+                               "app-0")
+        mover = kube_pod_doc("pod-7", moved_ip, f"node-{7 % KUBE_NODES}",
+                             f"app-{7 % KUBE_SERVICES}")
+        n_push = len(pushes)
+        steps = [
+            ("a pod added", lambda: kube.add(pods_res, new_pod), lambda: plain_upsert(new_pod)),
+            (f"{moved_from} deleted", lambda: kube.delete(pods_res, pods[0]),
+             lambda: plain_delete(f"default/{moved_from}")),
+            (f"pod-7's IP becomes {moved_ip}", lambda: kube.modify(pods_res, mover),
+             lambda: plain_upsert(mover)),
+        ]
+        for what, act, replay in steps:
+            t0 = time.monotonic()
+            act()
+            replay()
+            wait(lambda: held(d), f"the agent after {what}", step=0.005)
+            print(f"kube phase: {what}: held in {time.monotonic() - t0:.3f} s", flush=True)
+        kube.delete(svcs_res, {"metadata": {"name": "svc-0", "namespace": "default"}})
+        wait(lambda: "default/svc-0" not in d.cm.cache.list_service_keys(),
+             "the service's deletion")
+        # A bookmark, then the stream's end: the agent resumes from the
+        # bookmark's resourceVersion with no LIST.
+        n_lists = kube.lists[pods_res]
+        kube.wait(lambda: kube.open.get(pods_res, 0) >= 1, KUBE_WAIT_S, "the pod watch")
+        kube.bookmark(pods_res)
+        rv = kube.rv
+        n_watch = kube.watches[pods_res]
+        kube.end(pods_res)
+        kube.wait(lambda: kube.watches[pods_res] > n_watch, KUBE_WAIT_S, "the re-WATCH")
+        last = [p for m, p, _ in kube.requests if "/pods?watch=true" in p][-1]
+        check(f"resourceVersion={rv}" in last and kube.lists[pods_res] == n_lists,
+              f"kube phase: after the bookmark the agent asked {last}")
+        # A 410: a re-LIST.
+        kube.wait(lambda: kube.open.get(pods_res, 0) >= 1, KUBE_WAIT_S, "the pod watch")
+        kube.expire(pods_res)
+        kube.wait(lambda: kube.lists[pods_res] > n_lists, KUBE_WAIT_S, "the 410's re-LIST")
+        plain_list(kube.items(pods_res))
+        wait(lambda: held(d), "the agent after the 410's re-LIST")
+        # A dropped connection whose re-LIST omits a pod.
+        kube.wait(lambda: kube.open.get(pods_res, 0) >= 1, KUBE_WAIT_S, "the pod watch")
+        kube.forget(pods_res, "default/pod-9")
+        kube.drop(pods_res)
+        kube.wait(lambda: kube.lists[pods_res] > n_lists + 1, KUBE_WAIT_S,
+                  "the dropped connection's re-LIST")
+        plain_list(kube.items(pods_res))
+        wait(lambda: held(d) and d.cm.cache.get_endpoint("default/pod-9") is None,
+             "the agent after the dropped connection's resync")
+        print(f"kube phase: WATCH script held against the plain replay (a pod added, "
+              f"{moved_from} deleted, pod-7 moved to {moved_ip}, svc-0 deleted, a bookmark "
+              f"resumed at rv {rv} with no LIST, a 410 and a dropped connection re-LISTed, "
+              f"pod-9 resynced away); {len(pushes) - n_push} filter pushes, "
+              f"{kube.lists[pods_res]} pod LISTs", flush=True)
+
+        # The capture again: its address now belongs to pod-7.
+        replay_capture(d, cfg)
+        moved_names = dict(names, **{moved_ip: "pod-7"})
+        want2 = add_sums(want1, capture_pod_sums(rec, moved_names))
+        wait(lambda: scraped_pod_sums(get(port, "/metrics")) == want2,
+             f"the scrape to hold the second replay's sums {want2}", 30)
+        print(f"kube phase: the capture again: {moved_from}'s series did not grow, pod-7's "
+              f"hold the capture's sums: {want2}", flush=True)
+
+        # A MetricsConfiguration CR through the agent's KubeBridge.
+        cr = {"apiVersion": "retina.sh/v1alpha1", "kind": "MetricsConfiguration",
+              "metadata": {"name": "forward-drop", "namespace": "default"},
+              "spec": {"contextOptions": [
+                  {"metricName": "forward", "sourceLabels": ["podname", "namespace"]},
+                  {"metricName": "drop", "sourceLabels": ["podname", "namespace"]}]}}
+        families = ("# TYPE networkobservability_adv_tcpflags_count gauge",
+                    "# TYPE networkobservability_adv_dns_request_count gauge")
+        # The registry's reset drops the deleted pod's stale series.
+        want3 = tuple({k: v for k, v in w.items() if k[0] != moved_from} for w in want2)
+        text = [""]
+
+        def scraped(pred) -> bool:
+            text[0] = get(port, "/metrics")
+            return pred(text[0]) and scraped_pod_sums(text[0]) == want3
+
+        kube.add(metrics_res, cr)
+        wait(lambda: d.metrics_module.enabled_metrics() == ["drop", "forward"],
+             "the CR's reconcile")
+        wait(lambda: scraped(lambda t: not any(f in t for f in families)),
+             "a scrape without the families the CR left out", 30)
+        kube.delete(metrics_res, cr)
+        wait(lambda: len(d.metrics_module.enabled_metrics()) == 9, "the defaults' reconcile")
+        wait(lambda: scraped(lambda t: all(f in t for f in families)),
+             "a scrape with the defaults' families", 30)
+        print(f"kube phase: MetricsConfiguration {cr['metadata']['name']} reconciled (forward "
+              f"and drop only, the other families gone, the deleted pod's stale series "
+              f"dropped) and its deletion returned the defaults; pod series {want3}",
+              flush=True)
+        launches = kops.launch_counts()
+        check_sketch_launches(launches, "kube phase")
+        for name in KUBE_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched on the kube phase")
+        check(any(launches[name] for name in KUBE_INGEST), "K7 was not launched on the kube phase")
+        check(not eng.errors and not eng.lost_events.get("dispatch")
+              and not eng.lost_events.get("device"), f"kube phase: errors {dict(eng.errors)}, "
+              f"lost {dict(eng.lost_events)}")
+        print(f"kube phase: launches since ready {launches}", flush=True)
+        stop_agent(*agents[0])
+
+        # CiliumEndpoints of the same pods as the identity source.
+        for doc in pods:
+            kube.add(ceps_res, kube_cep_doc(doc), event=False)
+        first = Cache()
+        for doc in pods:
+            first.update_endpoint(pod_to_endpoint(doc))
+        t0 = time.perf_counter()
+        d2, cfg2, pushes2 = start_agent({"identity_source": "cilium"})
+        check(d2.ciliumwatch is not None and not d2.kubewatch.include_pods,
+              "kube phase: the cilium agent watches core/v1 pods")
+        wait(lambda: d2.cm.engine._ident_dict == first.ip_index_map()
+             and bool(pushes2) and pushes2[-1][1] == frozenset(d2.cm.filtermanager._refs),
+             "the cilium agent's identity")
+        cilium_s = time.perf_counter() - t0
+        replay_capture(d2, cfg2)
+        wait(lambda: scraped_pod_sums(get(d2.cm.server.port, "/metrics")) == want1,
+             f"the cilium agent's scrape to equal the first agent's {want1}", 30)
+        stop_agent(*agents[0])
+        print(f"kube phase: identity_source=cilium: {KUBE_PODS} CiliumEndpoints, boot to "
+              f"identity {cilium_s:.3f} s, {len(pushes2)} filter pushes; one replay's pod "
+              f"series equal the first agent's", flush=True)
+
+        # The agent as users start it.
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            child_port = sk.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+        out_path = tmp / "agent.log"
+        t_child = time.perf_counter()
+        with open(out_path, "w") as out:
+            child = subprocess.Popen(
+                [sys.executable, "-m", "retina_tpu_torch", "agent", "--kubeconfig", kc,
+                 "--set", f"api_server_addr=127.0.0.1:{child_port}"],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            def child_pod_series() -> bool:
+                check(child.poll() is None, "kube phase: the agent child exited: "
+                      + out_path.read_text()[-2000:])
+                try:
+                    return 'podname="pod-' in get(child_port, "/metrics")
+                except OSError:
+                    return False
+
+            wait(child_pod_series, "a listed pod's series on the child's /metrics",
+                 DAEMON_CHILD_S, step=0.5)
+            child_s = time.perf_counter() - t_child
+            child.send_signal(signal.SIGTERM)
+            deadline = time.monotonic() + 120
+            while child.poll() is None and time.monotonic() < deadline:
+                kube.hangup()
+                time.sleep(0.2)
+            rc = child.wait(timeout=10)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait(timeout=30)
+        tail = out_path.read_text()[-2000:]
+        check(rc == 0 and "agent shut down" in tail, f"kube phase: the agent child exited "
+              f"{rc}: {tail}")
+        print(f"kube phase: python3 -m retina_tpu_torch agent --kubeconfig: a listed pod's "
+              f"series on /metrics {child_s:.3f} s after its start; exit {rc} on SIGTERM",
+              flush=True)
+    finally:
+        for a in list(agents):
+            stop_agent(*a)
+        kube.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"kube phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 SRC_PACKETS = 1 << 20  # packets of the synthesized capture

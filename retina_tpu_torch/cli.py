@@ -263,7 +263,8 @@ def build_parser() -> argparse.ArgumentParser:
     a.add_argument("--apiserver", default="", help="apiserver host to watch")
     a.add_argument("--kubeconfig", default="",
                    help="watch core/v1 pods/services/nodes for identity "
-                        "(not ported yet: the agent refuses it)")
+                        "and the module CRs (default: in-cluster when a "
+                        "service account is mounted)")
     a.set_defaults(fn=cmd_agent)
 
     ob = sub.add_parser("observe", help="stream flows from the relay")

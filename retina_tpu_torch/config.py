@@ -24,9 +24,9 @@ card (and raises without one), "cpu" the plain versions on the host.
 The reference's JAX-only fields (``compilation_cache_dir``, the
 ``distributed_num_processes``/``process_id`` pair, the AOT cache) and its
 profiling fields are not copied; ``load_config`` ignores unknown keys as
-the reference does, so an older YAML still loads. The switches of parts
-the port does not have yet (``kubeconfig``, ``distributed_coordinator``)
-are kept so that the daemon can refuse them.
+the reference does, so an older YAML still loads. The switch of a part
+the port does not have yet (``distributed_coordinator``) is kept so that
+the daemon can refuse it.
 """
 
 from __future__ import annotations
@@ -82,9 +82,16 @@ class Config:
     # Static peer list for the peer service: [{"name", "address"}].
     hubble_peers: list = dataclasses.field(default_factory=list)
     node_name: str = ""
-    # Identity from a real cluster (core/v1 list+watch): not ported; the
-    # daemon refuses a kubeconfig and an in-cluster service account.
+    # Identity from a real cluster: core/v1 pods/services/nodes list+watch
+    # feeding the cache (pkg/k8s watcher analog), and the agent's CRD
+    # bridge. "" = in-process only, unless an in-cluster service account
+    # is mounted.
     kubeconfig: str = ""
+    kube_namespace: str = ""  # namespace scope for pod/service watches
+    # Pod identity source when watching a cluster: "pods" (core/v1) or
+    # "cilium" (consume the Cilium CNI's CiliumEndpoints — the
+    # cilium-crds interop mode; services/nodes still come from core/v1).
+    identity_source: str = "pods"
     # A multi-process mesh ("host:port" of process 0): not ported; the
     # daemon refuses it.
     distributed_coordinator: str = ""
@@ -319,6 +326,11 @@ class Config:
 
     def validate(self) -> None:
         """The reference's checks on these fields."""
+        if self.identity_source not in ("pods", "cilium"):
+            raise ValueError(
+                f"identity_source must be 'pods' or 'cilium', "
+                f"got {self.identity_source!r}"
+            )
         if self.data_aggregation_level not in (AGG_LOW, AGG_HIGH):
             raise ValueError(
                 f"dataAggregationLevel must be {AGG_LOW!r} or {AGG_HIGH!r}, "

@@ -8,9 +8,7 @@ publishes object events on pubsub (:17-66 structure, :68-195 getters,
 **stable dense pod index** (index 0 = unknown/world) — the integer the
 device-side IdentityMap maps IPs to, and the row index of the pipeline's
 per-pod counter rectangles. Freed indices are recycled so the index space
-stays ≤ n_pods (the dense tables' static height). The reference's key
-listings for informer resyncs come with the cluster watchers (ROADMAP §1
-item 7).
+stays ≤ n_pods (the dense tables' static height).
 """
 
 from __future__ import annotations
@@ -143,6 +141,11 @@ class Cache:
         with self._lock:
             return list(self._nodes.values())
 
+    def list_endpoint_keys(self) -> list[str]:
+        """All ns/name endpoint keys (informer resync diff support)."""
+        with self._lock:
+            return list(self._eps.keys())
+
     def endpoints_in_namespace(self, ns: str) -> list[RetinaEndpoint]:
         with self._lock:
             return [ep for ep in self._eps.values()
@@ -166,6 +169,10 @@ class Cache:
     def annotated_namespaces(self) -> set[str]:
         with self._lock:
             return set(self._annotated_ns)
+
+    def list_service_keys(self) -> list[str]:
+        with self._lock:
+            return list(self._svcs.keys())
 
     # -- getters (cache.go:68-195) ------------------------------------
     def get_obj_by_ip(self, ip: str):

@@ -1,14 +1,20 @@
-"""API types: MetricsConfiguration and TracesConfiguration (port of the
-metrics and traces parts of retina_tpu/crd/types.py).
+"""API types: MetricsConfiguration, Capture, TracesConfiguration (port of
+retina_tpu/crd/types.py).
 
-Reference analog: MetricsConfiguration (crd/api/v1alpha1/
-metricsconfiguration_types.go:28-95): contextOptions (metricName + src/dst
-label dimensions) and namespace include/exclude, reconciled into the
-running metrics module. Validation mirrors crd/api/v1alpha1/validations/.
-TracesConfiguration is the reference's stub-parity CRD (its module is a
-skeleton upstream too) that ``module/traces.py`` compiles into matchers.
-PyYAML is imported only by ``from_yaml``. The capture types are not ported
-yet.
+Reference analogs:
+- MetricsConfiguration (crd/api/v1alpha1/metricsconfiguration_types.go:
+  28-95): contextOptions (metricName + src/dst label dimensions) and
+  namespace include/exclude — reconciled into the running metrics module.
+- Capture (capture_types.go:53-201): targets (node/pod selectors), packet
+  filters, duration/size limits, output locations; status conditions
+  (:22-52). The agent's CRD bridge decodes them; the operator that runs
+  them is not ported yet (ROADMAP §1 item 7).
+- TracesConfiguration (tracesconfiguration_types.go:59-125), the
+  reference's stub-parity CRD that ``module/traces.py`` compiles into
+  matchers.
+
+Validation mirrors crd/api/v1alpha1/validations/. PyYAML is imported only
+by the ``from_yaml`` constructors.
 """
 
 from __future__ import annotations
@@ -148,6 +154,168 @@ class MetricsConfiguration:
                 ),
             ),
         )
+        obj.validate()
+        return obj
+
+
+# ---------------------------------------------------------------------------
+# Capture
+
+MAX_CAPTURE_DURATION_S = 3600  # capture_types.go duration ceiling
+
+
+@dataclasses.dataclass
+class CaptureTarget:
+    """Node/pod selection (capture_types.go CaptureTarget)."""
+
+    node_selector: dict[str, str] = dataclasses.field(default_factory=dict)
+    node_names: list[str] = dataclasses.field(default_factory=list)
+    pod_selector: dict[str, str] = dataclasses.field(default_factory=dict)
+    namespace_selector: dict[str, str] = dataclasses.field(
+        default_factory=dict
+    )
+
+    def validate(self) -> None:
+        has_node = bool(self.node_selector or self.node_names)
+        has_pod = bool(self.pod_selector or self.namespace_selector)
+        if not has_node and not has_pod:
+            raise ValidationError(
+                "capture target needs a node selector or a pod selector"
+            )
+        if has_node and has_pod:
+            raise ValidationError(
+                "node and pod selectors are mutually exclusive"
+            )
+
+
+@dataclasses.dataclass
+class CaptureOutput:
+    """Output sinks (capture_types.go OutputConfiguration)."""
+
+    host_path: str = ""
+    persistent_volume_claim: str = ""
+    blob_upload_secret: str = ""
+    s3_upload: dict[str, str] = dataclasses.field(default_factory=dict)
+
+    def is_empty(self) -> bool:
+        """No output location configured (the managed-storage gate and
+        the translator's job-time guard share this predicate)."""
+        return not (self.host_path or self.persistent_volume_claim
+                    or self.blob_upload_secret or self.s3_upload)
+
+    def validate(self) -> None:
+        # An EMPTY output is admissible: the reference CRD does not
+        # require one, because the operator's managed-storage path fills
+        # BlobUpload in during reconcile (controller.go:310-350 /
+        # capture/managed.py). Translation enforces that SOME output
+        # exists by job-creation time (translator.py).
+        if self.s3_upload:
+            for req in ("bucket", "region"):
+                if req not in self.s3_upload:
+                    raise ValidationError(f"s3Upload missing {req!r}")
+
+
+@dataclasses.dataclass
+class CaptureSpec:
+    target: CaptureTarget = dataclasses.field(default_factory=CaptureTarget)
+    output: CaptureOutput = dataclasses.field(default_factory=CaptureOutput)
+    duration_s: int = 60
+    max_capture_size_mb: int = 100
+    packet_size_bytes: int = 0  # 0 = full packets
+    tcpdump_filter: str = ""  # raw extra filter
+    include_metadata: bool = True
+
+    def validate(self) -> None:
+        if not (0 < self.duration_s <= MAX_CAPTURE_DURATION_S):
+            raise ValidationError(
+                f"duration must be in (0, {MAX_CAPTURE_DURATION_S}]s"
+            )
+        self.target.validate()
+        self.output.validate()
+
+
+@dataclasses.dataclass
+class CaptureStatus:
+    """Status conditions (capture_types.go:22-52)."""
+
+    phase: str = "Pending"  # Pending | Running | Completed | Failed
+    jobs_active: int = 0
+    jobs_completed: int = 0
+    jobs_failed: int = 0
+    message: str = ""
+    artifacts: list[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class Capture:
+    name: str
+    namespace: str = "default"
+    spec: CaptureSpec = dataclasses.field(default_factory=CaptureSpec)
+    status: CaptureStatus = dataclasses.field(default_factory=CaptureStatus)
+
+    def validate(self) -> None:
+        if not self.name:
+            raise ValidationError("capture needs a name")
+        self.spec.validate()
+
+    @classmethod
+    def from_yaml(cls, text: str) -> "Capture":
+        import yaml  # only here: the agent imports no YAML parser otherwise
+
+        doc = yaml.safe_load(text) or {}
+        meta = doc.get("metadata", {})
+        s = doc.get("spec", {})
+        tgt = s.get("captureConfiguration", s).get("captureTarget",
+                                                   s.get("target", {}))
+        out = s.get("outputConfiguration", s.get("output", {}))
+        obj = cls(
+            name=meta.get("name", ""),
+            namespace=meta.get("namespace", "default"),
+            spec=CaptureSpec(
+                target=CaptureTarget(
+                    node_selector=tgt.get("nodeSelector", {}).get(
+                        "matchLabels", tgt.get("nodeSelector", {})
+                    ) if isinstance(tgt.get("nodeSelector", {}), dict) else {},
+                    node_names=tgt.get("nodeNames", []),
+                    pod_selector=tgt.get("podSelector", {}).get(
+                        "matchLabels", tgt.get("podSelector", {})
+                    ) if isinstance(tgt.get("podSelector", {}), dict) else {},
+                    namespace_selector=tgt.get("namespaceSelector", {}).get(
+                        "matchLabels", tgt.get("namespaceSelector", {})
+                    ) if isinstance(tgt.get("namespaceSelector", {}), dict)
+                    else {},
+                ),
+                output=CaptureOutput(
+                    host_path=out.get("hostPath", ""),
+                    persistent_volume_claim=out.get("persistentVolumeClaim", ""),
+                    blob_upload_secret=out.get("blobUpload", ""),
+                    s3_upload=out.get("s3Upload", {}),
+                ),
+                duration_s=int(s.get("captureConfiguration", s).get(
+                    "captureOption", {}).get("duration", s.get("duration", 60))
+                ) if isinstance(s.get("duration", 60), (int, str)) else 60,
+                tcpdump_filter=s.get("captureConfiguration", s).get(
+                    "filters", {}).get("raw", s.get("tcpdumpFilter", ""))
+                if isinstance(s.get("tcpdumpFilter", ""), str) else "",
+            ),
+        )
+        # Preserve status if the document carries one: objects echoed back
+        # by a backend (apiserver watch after our own status PATCH, or a
+        # re-LIST of already-Completed captures) must NOT reset to Pending,
+        # or the operator would re-run finished captures forever.
+        st = doc.get("status") or {}
+        if st:
+            obj.status = CaptureStatus(
+                phase=st.get("phase", "Pending"),
+                jobs_active=int(st.get("jobs_active",
+                                       st.get("jobsActive", 0)) or 0),
+                jobs_completed=int(st.get("jobs_completed",
+                                          st.get("jobsCompleted", 0)) or 0),
+                jobs_failed=int(st.get("jobs_failed",
+                                       st.get("jobsFailed", 0)) or 0),
+                message=st.get("message", ""),
+                artifacts=list(st.get("artifacts", [])),
+            )
         obj.validate()
         return obj
 

@@ -14,8 +14,15 @@ fleet query plane (``fleetquery_enabled``: ``GET /fleet/query`` over the
 aggregator's ring) → the Hubble control plane (``enable_hubble``: the
 plugins' external channel → MonitorAgent → FlowObserver → HubbleServer's
 Observer, Peer and, with the aggregator role, Fleet services, and the
-hubble metrics mux) → MetricsModule (pod-level) and TracesModule → resume
-from the checkpoint → signal-driven stop event. A node with
+hubble metrics mux) → MetricsModule (pod-level) and TracesModule → the
+agent's CRD bridge (a kubeconfig or an in-cluster service account:
+MetricsConfiguration and TracesConfiguration CRs reconciled into the two
+modules) → resume from the checkpoint → the identity watchers (core/v1
+pods, services, nodes and, with ``enable_annotations``, namespaces; or
+CiliumEndpoints with ``identity_source="cilium"``) feeding the cache →
+signal-driven stop event. A pod LIST pushes the filter table once, where
+the reference pushes it at each listed pod (:meth:`Daemon._pod_list_scope`,
+ROADMAP §3 "Settled"). A node with
 ``fleet_enabled`` ships each window close through its engine's shipper;
 with the aggregator in the same process the in-process bus carries the
 frames to it. The entry point is
@@ -26,44 +33,36 @@ takes a shard a local card, at most ``mesh_devices`` of them (0: every card).
 
 A config that turns on a part the port does not have yet raises a
 ``ValueError`` naming its ROADMAP item (:func:`refuse_unported`), never
-starts without it: identity from a real cluster (a kubeconfig or an
-in-cluster service account) and a multi-process mesh.
+starts without it: a multi-process mesh.
 The reference's ``/debug/trace`` and ``/debug/profile`` routes
 (obs/debug.py) are not on the port's agent mux yet either.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import threading
 from typing import Any, Optional
 
+from retina_tpu_torch.common import TOPIC_PODS
 from retina_tpu_torch.config import Config, load_config
-from retina_tpu_torch.crd.types import MetricsConfiguration
+from retina_tpu_torch.crd.types import MetricsConfiguration, TracesConfiguration
 from retina_tpu_torch.log import logger, setup_logger
 from retina_tpu_torch.managers.controllermanager import ControllerManager
 from retina_tpu_torch.module.metrics_module import MetricsModule
+from retina_tpu_torch.operator.kubeclient import in_cluster_available
 
-# The reference daemon's in-cluster check (operator/kubeclient.py): a
-# service account is mounted and the apiserver's address is in the env.
-_SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
-
-
-def in_cluster_available(sa_dir: str = _SA_DIR) -> bool:
-    return bool(os.environ.get("KUBERNETES_SERVICE_HOST")) and os.path.exists(
-        os.path.join(sa_dir, "token")
-    )
+# The bound on the wait for a pod LIST's events to reach the metrics module
+# before its one filter push (a subscriber that hangs longer is logged).
+POD_LIST_DELIVERY_S = 120.0
 
 
 def refuse_unported(cfg: Config) -> None:
     """Raise a ValueError, naming the ROADMAP item, for each part of the
     reference daemon that ``cfg`` turns on and the port lacks."""
     parts = []
-    if cfg.kubeconfig or in_cluster_available():
-        parts.append("kubeconfig or an in-cluster service account (identity from "
-                     "a real cluster, operator/kubewatch.py and the CRD bridge: "
-                     "ROADMAP §1 item 7)")
     if cfg.distributed_coordinator:
         parts.append("distributed_coordinator (an agent over several processes, whose "
                      "closes and scrapes must call the mesh's collectives in the same "
@@ -85,6 +84,44 @@ class Daemon:
             faults.configure(cfg.fault_spec)
             self.log.warning("fault injection armed: %s", cfg.fault_spec)
         self.cm = ControllerManager(cfg, apiserver_host=apiserver_host)
+        # Identity from a real cluster (pkg/k8s watcher analog): core/v1
+        # pods/services/nodes land in the cache, so enrichment works
+        # without an operator. Selected by an explicit kubeconfig OR
+        # automatically when running in-cluster with a service account
+        # (the daemonset deployment).
+        self.kubewatch = None
+        self.ciliumwatch = None
+        if cfg.kubeconfig or in_cluster_available():
+            from retina_tpu_torch.operator.kubewatch import CoreWatcher
+
+            use_cilium = cfg.identity_source == "cilium"
+            self.kubewatch = CoreWatcher(
+                self.cm.cache, cfg.kubeconfig,
+                namespace=cfg.kube_namespace,
+                include_pods=not use_cilium,
+                include_namespaces=cfg.enable_annotations,
+                pod_list_scope=self._pod_list_scope,
+            )
+            if use_cilium:
+                # Identity from the foreign CNI's objects (cilium-crds
+                # interop): CEPs instead of core/v1 pods.
+                if cfg.enable_annotations:
+                    # CEPs carry identity labels, not pod annotations:
+                    # per-POD retina.sh=observe opt-in cannot work in
+                    # this mode; namespace-level opt-in still does.
+                    self.log.warning(
+                        "identity_source=cilium: per-pod observe "
+                        "annotations are invisible (CiliumEndpoints "
+                        "carry no pod annotations); use the namespace "
+                        "annotation instead"
+                    )
+                from retina_tpu_torch.operator.cilium import CiliumWatcher
+
+                self.ciliumwatch = CiliumWatcher(
+                    self.cm.cache, cfg.kubeconfig,
+                    namespace=cfg.kube_namespace,
+                    list_scope=self._pod_list_scope,
+                )
         self.metrics_module: Optional[MetricsModule] = None
         self._mm_thread: Optional[threading.Thread] = None
         # Fleet rollup tier (fleet/): the aggregator role is explicit
@@ -177,6 +214,66 @@ class Daemon:
 
         self.traces_module = TracesModule()
         self.traces_module.attach(self.cm.engine)
+        # Agent-side CRD reconcile (the reference daemon watches its
+        # module CRDs itself, pkg/controllers/daemon): a list+watch
+        # bridge feeds a local store whose watches drive the metrics +
+        # traces modules — without this, only the OPERATOR process would
+        # see the CRs and the agent's modules would never reconcile.
+        self.crd_bridge = None
+        if cfg.kubeconfig or in_cluster_available():
+            try:
+                from retina_tpu_torch.operator.bridge import KubeBridge
+                from retina_tpu_torch.operator.store import CRDStore
+
+                crd_store = CRDStore()
+                crd_store.watch("MetricsConfiguration", self._on_metrics_crd)
+                crd_store.watch("TracesConfiguration", self._on_traces_crd)
+                self.crd_bridge = KubeBridge(
+                    crd_store, cfg.kubeconfig,
+                    namespace=cfg.kube_namespace,
+                    # Only the module CRs: Captures are the operator's
+                    # business, and N agents each LISTing every Capture
+                    # is pure apiserver load.
+                    kinds=["MetricsConfiguration", "TracesConfiguration"],
+                )
+            except Exception as e:
+                self.log.warning("agent CRD bridge unavailable: %s", e)
+
+    @contextlib.contextmanager
+    def _pod_list_scope(self):
+        """Around a pod LIST's replay (its ADDED events and resync
+        deletes): one filter-table push for the whole LIST, made once
+        every pod event of the LIST has been delivered to the metrics
+        module, where the reference pushes at each event. The metrics
+        module derives each decision from the cache's current state, so
+        the IPs pushed equal the per-event replay's last push. WATCH
+        events outside a LIST push one at a time, as the reference's."""
+        with self.cm.filtermanager.deferred_push():
+            yield
+            if not self.cm.pubsub.wait_delivered(TOPIC_PODS, POD_LIST_DELIVERY_S):
+                self.log.warning("a pod LIST's events were not delivered in %.0f s; "
+                                 "pushing the filter table now", POD_LIST_DELIVERY_S)
+
+    # -- module CRD reconciles (agent side) ---------------------------
+    def _on_metrics_crd(self, event: str, conf: Any) -> None:
+        if self.metrics_module is None:
+            return
+        try:
+            if event == "deleted":
+                self.metrics_module.reconcile(MetricsConfiguration.default())
+            elif event == "applied":
+                self.metrics_module.reconcile(conf)
+        except Exception:
+            self.log.exception("metrics CRD reconcile failed")
+
+    def _on_traces_crd(self, event: str, conf: Any) -> None:
+        try:
+            if event == "deleted":
+                self.traces_module.reconcile(TracesConfiguration())
+            elif event == "applied":
+                self.traces_module.reconcile(conf)
+        except Exception:
+            self.log.exception("traces CRD reconcile failed")
 
     def _init_hubble(self, cfg: Config) -> None:
         """The Hubble CP rides alongside (cmd/hubble cell graph analog):
@@ -286,9 +383,21 @@ class Daemon:
                     self.log.info("resumed sketch state from %s", path)
                 else:
                     self.log.warning("checkpoint at %s unusable; cold-starting", path)
+        if self.kubewatch is not None:
+            self.kubewatch.start()
+        if self.ciliumwatch is not None:
+            self.ciliumwatch.start()
+        if self.crd_bridge is not None:
+            self.crd_bridge.start()
         try:
             self.cm.start(stop)  # blocks until stop fires; runs shutdown
         finally:
+            if self.crd_bridge is not None:
+                self.crd_bridge.stop()
+            if self.ciliumwatch is not None:
+                self.ciliumwatch.stop()
+            if self.kubewatch is not None:
+                self.kubewatch.stop()
             if self.hubble is not None:
                 self.hubble.stop()
                 if self.hubble_metrics_server is not None:

@@ -3,8 +3,9 @@
     python3 -m retina_tpu_torch.lanes_probe proxy --workers N [--label L]
         The lanes (``SketchEngine.start``) at ``Config(feed_workers=N,
         overload_enabled=False)`` (0: the auto pool, 1: the inline feed), fed
-        by two producer threads for 4 s: the proxy's host milliseconds a step,
-        the steps, the events stepped a second and the losses.
+        by two producer threads for 4 s (longer if no step landed by then):
+        the proxy's host milliseconds a step, the steps, the events stepped a
+        second and the losses.
     python3 -m retina_tpu_torch.lanes_probe fleet-child [--root DIR] [--label L]
         ``python3 -m retina_tpu_torch agent``, started from ``DIR`` (default:
         this checkout) in the three fleet roles at the defaults, polled for
@@ -85,8 +86,9 @@ class SignalTally:
 
 def proxy(workers: int, seconds: float = 4.0, device: str | None = None, n_blocks: int = 256,
           block: int = 1 << 13, n_flows: int = 1_000_000, **overrides) -> dict:
-    """The lanes fed by two producers for ``seconds``: the proxy's host ms a
-    step, the steps and the events stepped a second."""
+    """The lanes fed by two producers for ``seconds`` (longer until a step
+    lands): the proxy's host ms a step, the steps and the events stepped a
+    second."""
     from retina_tpu_torch.config import Config
     from retina_tpu_torch.engine import SketchEngine
     from retina_tpu_torch.events.synthetic import TrafficGen, pod_ip
@@ -113,6 +115,11 @@ def proxy(workers: int, seconds: float = 4.0, device: str | None = None, n_block
     for p in prods:
         p.start()
     time.sleep(seconds)
+    # A window without a step measures nothing: on a loaded host it stays
+    # open until the first step lands (at most a minute more).
+    deadline = time.monotonic() + 60
+    while eng.counts.steps == steps0 and time.monotonic() < deadline:
+        time.sleep(0.05)
     done.set()
     busy = eng._proxy.busy_s - busy0
     steps, events = eng.counts.steps - steps0, eng.counts.events - ev0

@@ -8,14 +8,19 @@ and the data plane.
 
 Concurrency: callbacks run on a shared thread pool (goroutine analog);
 callback exceptions are logged, never propagated to the publisher — a
-misbehaving subscriber must not take down the data plane.
+misbehaving subscriber must not take down the data plane. The pool gives
+no ordering; ``wait_delivered`` (the port's addition) waits until every
+callback published on a topic so far has run, which is how the agent's
+identity watcher knows that a LIST's pod events reached the metrics
+module.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import threading
 import uuid
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable
 
 from retina_tpu_torch.log import logger
@@ -33,13 +38,30 @@ class PubSub:
             max_workers=max_workers, thread_name_prefix="pubsub"
         )
         self._log = logger("pubsub")
+        # topic -> callbacks submitted and not yet finished
+        self._pending: dict[str, set[Future]] = {}
 
     def publish(self, topic: str, msg: Any) -> None:
         """Fire-and-forget to every subscriber (pubsub.go:40-59)."""
         with self._lock:
             subs = list(self._topics.get(topic, {}).values())
-        for cb in subs:
-            self._pool.submit(self._safe_call, cb, msg, topic)
+            pending = self._pending.setdefault(topic, set())
+            for cb in subs:
+                fut = self._pool.submit(self._safe_call, cb, msg, topic)
+                pending.add(fut)
+                fut.add_done_callback(lambda f, p=pending: self._done(p, f))
+
+    def _done(self, pending: set[Future], fut: Future) -> None:
+        with self._lock:
+            pending.discard(fut)
+
+    def wait_delivered(self, topic: str, timeout: float | None = None) -> bool:
+        """Wait until every callback published on ``topic`` before this
+        call has run; False if ``timeout`` ran out first."""
+        with self._lock:
+            pending = set(self._pending.get(topic, ()))
+        _, left = concurrent.futures.wait(pending, timeout=timeout)
+        return not left
 
     def publish_sync(self, topic: str, msg: Any) -> None:
         """Synchronous variant: callbacks run inline, still error-isolated.

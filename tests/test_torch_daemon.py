@@ -326,23 +326,17 @@ def test_agent_without_a_card_or_device_platform_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"enable_hubble": True, "kubeconfig": "/etc/kube/config"}, "item 7"),
-    ({"kubeconfig": "/etc/kube/config"}, "item 7"),
     ({"distributed_coordinator": "10.0.0.1:1234"}, "item 5"),
-    ({"in_cluster": True}, "item 7"),
 ])
-def test_agent_refuses_each_unported_part(override, item, monkeypatch):
-    if override.pop("in_cluster", False):
-        monkeypatch.setattr(daemon_mod, "in_cluster_available", lambda: True)
+def test_agent_refuses_each_unported_part(override, item):
     cfg = config(**override)
     with pytest.raises(ValueError, match=f"not ported yet: .*ROADMAP §1 {item}"):
         Daemon(cfg)
 
 
-def test_refuse_unported_no_longer_names_the_fleet_roles(monkeypatch):
-    monkeypatch.setattr(daemon_mod, "in_cluster_available", lambda: False)
+def test_refuse_unported_no_longer_names_the_fleet_roles():
     daemon_mod.refuse_unported(config(fleet_enabled=True, fleet_aggregator=True,
-                                      fleetquery_enabled=True))
+                                      fleetquery_enabled=True, kubeconfig="/etc/kube/config"))
     with pytest.raises(ValueError) as err:
         daemon_mod.refuse_unported(config(
             fleet_aggregator=True, fleetquery_enabled=True, enable_hubble=True,
@@ -350,8 +344,9 @@ def test_refuse_unported_no_longer_names_the_fleet_roles(monkeypatch):
     msg = str(err.value)
     assert "fleet_aggregator" not in msg and "fleetquery" not in msg
     assert "enable_hubble" not in msg
-    for part in ("kubeconfig", "distributed_coordinator"):
-        assert part in msg, part
+    # A kubeconfig and an in-cluster account are ported: only the mesh is named.
+    assert "kubeconfig" not in msg and "in-cluster" not in msg
+    assert "distributed_coordinator" in msg
 
 
 def scraped_value(text: str, name: str) -> float | None:

@@ -102,6 +102,10 @@ MODULES = [
     "retina_tpu_torch.hubble.relay", "retina_tpu_torch.fleet.hostsketch",
     "retina_tpu_torch.fleet.node_agent", "retina_tpu_torch.fleet.churn",
     "retina_tpu_torch.ops.hashing_np", "retina_tpu_torch.utils.hostcopy",
+    "retina_tpu_torch.operator", "retina_tpu_torch.operator.kubeclient",
+    "retina_tpu_torch.operator.kubewatch", "retina_tpu_torch.operator.store",
+    "retina_tpu_torch.operator.bridge", "retina_tpu_torch.operator.cilium",
+    "retina_tpu_torch.operator.crdinstall", "retina_tpu_torch.operator.leaderelection",
 ]
 
 
