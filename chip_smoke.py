@@ -240,8 +240,13 @@ engine's identity map and the filter set equal a plain replay of the LIST,
 pushed to the card once, then of each WATCH event (a pod added, deleted
 and moved, a service deleted, a bookmark, a 410 and a dropped
 connection's re-LIST); the capture's scraped pod series under the listed
-names, a ``MetricsConfiguration`` CR reconciled and deleted, a second
-agent over CiliumEndpoints, and a ``--kubeconfig`` child.
+names, a ``MetricsConfiguration`` CR reconciled and deleted, the operator
+beside the agent (a Capture's local capture of the replay on the card
+exact against the filter, in a host path, a blob container and a bucket,
+a batch/v1 Job a remote node, a Capture with a failed Job, a
+RetinaEndpoint CR, the ``capture`` verb), a second agent over
+CiliumEndpoints, a ``--kubeconfig`` child, and an ``operator`` child
+whose unknown-node Capture fails after the next two phases.
 Then the agent's event sources (``sources_phase``): the three in-repo
 captures and a 2^20-packet capture synthesized from the bench flows'
 keys, in the nanosecond and microsecond formats, through the native and
@@ -1158,9 +1163,14 @@ def main() -> int:
     supervision_phase(dev, quanta, pods, equal_int, close_counts, close_float, equal_any)
     sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
-    kube_phase()
-    sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
-    hubble_phase(dev, smi)
+    finish_kube = kube_phase(smi)
+    try:
+        sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
+        hubble_phase(dev, smi)
+    except BaseException:
+        finish_kube(checked=False)
+        raise
+    finish_kube()  # the kube phase's operator child, its deferrals spent meanwhile
     fleet_transport_phase(dev, pods, smi)
     churn_phase(dev, smi)
 
@@ -4563,6 +4573,108 @@ def _kube_handler():
     return Handler
 
 
+class FakeStorage:
+    """An object store on 127.0.0.1 for the kube phase and the CPU tests,
+    on the standard library, speaking just enough of one dialect: "blob"
+    (Azure Blob under a container path, ``restype=container&comp=list``
+    with ``NextMarker``) or "s3" (keys as paths, ``list-type=2`` with
+    ``NextContinuationToken``). PUT, GET, DELETE of an object; lists page
+    at two names, so a client must follow the markers. Objects are in
+    ``store`` (name -> bytes), every request in ``requests`` as (method,
+    path, headers)."""
+
+    def __init__(self, dialect: str) -> None:
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        self.dialect = dialect
+        self.store: dict[str, bytes] = {}
+        self.requests: list[tuple[str, str, dict]] = []
+        handler = type("StorageHandler", (_storage_handler(),), {"storage": self})
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self._thread = threading.Thread(target=self.httpd.serve_forever, name="fakestorage",
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def _storage_handler():
+    """The request handler class of ``FakeStorage`` (built on first use)."""
+    from http.server import BaseHTTPRequestHandler
+    from urllib.parse import parse_qsl, unquote, urlsplit
+
+    class Handler(BaseHTTPRequestHandler):
+        storage: FakeStorage
+
+        def log_message(self, *args) -> None:
+            pass
+
+        def _name(self) -> str:
+            path = urlsplit(self.path).path.lstrip("/")
+            # /container/name for blob, /name for s3 (the bucket is the host)
+            return unquote(path.split("/", 1)[1] if self.storage.dialect == "blob" else path)
+
+        def _reply(self, code: int, data: bytes = b"") -> None:
+            self.send_response(code)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def do_PUT(self) -> None:
+            st = self.storage
+            body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+            st.requests.append(("PUT", self.path, dict(self.headers)))
+            st.store[self._name()] = body
+            self._reply(201 if st.dialect == "blob" else 200)
+
+        def do_GET(self) -> None:
+            st = self.storage
+            q = dict(parse_qsl(urlsplit(self.path).query))
+            st.requests.append(("GET", self.path, dict(self.headers)))
+            if q.get("comp") != "list" and not q.get("list-type"):
+                name = self._name()
+                if name in st.store:
+                    self._reply(200, st.store[name])
+                else:
+                    self._reply(404)
+                return
+            names = sorted(n for n in st.store if n.startswith(q.get("prefix", "")))
+            after = q.get("marker", q.get("continuation-token", ""))
+            if after:
+                names = [n for n in names if n > after]
+            page, rest = names[:2], names[2:]
+            if st.dialect == "blob":
+                items = "".join(
+                    f"<Blob><Name>{n}</Name><Properties><Content-Length>{len(st.store[n])}"
+                    f"</Content-Length><Last-Modified>now</Last-Modified></Properties></Blob>"
+                    for n in page)
+                nxt = f"<NextMarker>{page[-1]}</NextMarker>" if rest else "<NextMarker/>"
+                body = f"<EnumerationResults><Blobs>{items}</Blobs>{nxt}</EnumerationResults>"
+            else:
+                items = "".join(f"<Contents><Key>{n}</Key><Size>{len(st.store[n])}</Size>"
+                                f"<LastModified>now</LastModified></Contents>" for n in page)
+                nxt = (f"<NextContinuationToken>{page[-1]}</NextContinuationToken>"
+                       if rest else "")
+                body = (f"<ListBucketResult><IsTruncated>{'true' if rest else 'false'}"
+                        f"</IsTruncated>{items}{nxt}</ListBucketResult>")
+            self._reply(200, body.encode())
+
+        def do_DELETE(self) -> None:
+            st = self.storage
+            st.requests.append(("DELETE", self.path, dict(self.headers)))
+            if st.store.pop(self._name(), None) is None:
+                self._reply(404)
+            else:
+                self._reply(202 if st.dialect == "blob" else 204)
+
+    return Handler
+
+
 KUBE_PODS = 2048  # pods the apiserver lists: the capture's addresses, then pod_ip(1..)
 KUBE_SERVICES = 64  # services over them, one an app label
 KUBE_NODES = 8
@@ -4570,11 +4682,20 @@ KUBE_WAIT_S = 120.0  # the bound on each wait of the kube phase
 KUBE_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
                 "latency_update", "window_close", "snapshot_flat")
 KUBE_INGEST = ("ingest_packed", "ingest_new", "ingest_known")  # K7: any of its entries
+OP_FRONT_NODES = ("node-3", "node-5", "node-7")  # the nodes of the pods labelled tier=front
+OP_NODE = "node-7"  # the in-process operator's node: pod-7 there takes the capture's address
+OP_WINDOW_S = 5  # the Capture's duration: the local capture's window
+OP_FILTER = "port 41443"  # the Capture's raw filter: a third of the capture's packets pass
+OP_EXT_IP = "192.0.2.9"  # the address a RetinaEndpoint CR gives a pod: no listed pod has it
+OP_CHILD_NS = "retina-op"  # the operator child's namespace: its Captures and its Lease
+OP_CHILD_WAIT_S = 240.0  # the bound on the child's unknown-node Capture: 24 deferrals of 5 s
+OP_KERNELS = KUBE_KERNELS[:6]  # K1-K5 and K14 over the capture's window
 
 
 def kube_pod_doc(name: str, ip: str, node: str, app: str) -> dict:
+    labels = {"app": app, "tier": "front" if node in OP_FRONT_NODES else "back"}
     return {"apiVersion": "v1", "kind": "Pod",
-            "metadata": {"name": name, "namespace": "default", "labels": {"app": app}},
+            "metadata": {"name": name, "namespace": "default", "labels": labels},
             "spec": {"nodeName": node, "containers": [{"name": "main"}]},
             "status": {"phase": "Running", "podIP": ip, "podIPs": [{"ip": ip}]}}
 
@@ -4592,7 +4713,337 @@ def kube_cep_doc(pod: dict) -> dict:
                        "state": "ready"}}
 
 
-def kube_phase() -> None:
+CAPTURES_RES = "/apis/retina.sh/v1alpha1/captures"
+JOBS_RES = "/apis/batch/v1/jobs"
+LEASES_RES = "/apis/coordination.k8s.io/v1/leases"
+
+
+def capture_cr(name: str, ns: str, target: dict, output: dict, **spec) -> dict:
+    return {"apiVersion": "retina.sh/v1alpha1", "kind": "Capture",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"captureTarget": target, "outputConfiguration": output,
+                     "duration": OP_WINDOW_S, **spec}}
+
+
+def capture_status(kube: FakeKube, ns: str, name: str) -> dict:
+    """The Capture's status on the apiserver ({} before the first PATCH)."""
+    with kube.cond:
+        doc = kube.objects.get(CAPTURES_RES, {}).get(f"{ns}/{name}", {})
+        return dict(doc.get("status") or {})
+
+
+def start_operator_child(kube: FakeKube, kc: str, root, tmp):
+    """``python3 -m retina_tpu_torch operator --kubeconfig ... --leader-elect``
+    in OP_CHILD_NS, and a Capture there for a node the cluster lacks.
+    Returns the child, the Capture's apply time and the child's log."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+    log = tmp / "operator.log"
+    with open(log, "w") as out:
+        child = subprocess.Popen(
+            [sys.executable, "-m", "retina_tpu_torch", "operator", "--kubeconfig", kc,
+             "--leader-elect", "--namespace", OP_CHILD_NS, "--node-name", "node-0"],
+            cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+    t_apply = time.monotonic()
+    kube.add(CAPTURES_RES, capture_cr("ghost", OP_CHILD_NS, {"nodeNames": ["ghost-node"]},
+                                      {"hostPath": str(tmp / "ghost")}))
+    return child, t_apply, log
+
+
+def stop_operator_child(kube: FakeKube, child, t_apply: float, log) -> float:
+    """The child took its Lease, failed the unknown-node Capture on the
+    apiserver and exits 0 on SIGTERM, releasing the Lease. Returns the
+    Capture's apply-to-Failed seconds."""
+    key = f"{OP_CHILD_NS}/retina-tpu-operator"
+
+    def holder() -> str:
+        return ((kube.objects.get(LEASES_RES, {}).get(key) or {}).get("spec") or {}).get(
+            "holderIdentity", "")
+
+    seen: dict = {}
+
+    def failed() -> bool:
+        check(child.poll() is None, "kube phase: the operator child exited: "
+              + log.read_text()[-2000:])
+        st = capture_status(kube, OP_CHILD_NS, "ghost")
+        if st.get("phase") == "Failed":
+            seen.setdefault("t", time.monotonic())
+        return bool(seen)
+
+    kube.wait(lambda: bool(holder()), KUBE_WAIT_S, "the operator child's Lease")
+    deadline = t_apply + OP_CHILD_WAIT_S
+    while not failed():
+        check(time.monotonic() < deadline, "kube phase: the operator child did not fail the "
+              f"unknown-node Capture: {capture_status(kube, OP_CHILD_NS, 'ghost')}")
+        time.sleep(0.2)
+    failed_s = seen["t"] - t_apply
+    st = capture_status(kube, OP_CHILD_NS, "ghost")
+    check("unknown nodes" in st.get("message", "") and "ghost-node" in st["message"],
+          f"kube phase: the operator child failed the Capture with {st}")
+    lessee = holder()
+    child.send_signal(__import__("signal").SIGTERM)
+    deadline = time.monotonic() + 60
+    while child.poll() is None and time.monotonic() < deadline:
+        kube.hangup()
+        time.sleep(0.2)
+    rc = child.wait(timeout=10)
+    text = log.read_text()
+    check(rc == 0 and "operator running" in text, f"kube phase: the operator child exited "
+          f"{rc}: {text[-2000:]}")
+    check(holder() == "", f"kube phase: the operator child left its Lease held by {holder()}")
+    print(f"kube phase: python3 -m retina_tpu_torch operator --kubeconfig --leader-elect: "
+          f"{lessee} took the Lease, failed the Capture for ghost-node {failed_s:.3f} s after "
+          f"its apply ({st['message']!r}), exit {rc} on SIGTERM, the Lease released",
+          flush=True)
+    return failed_s
+
+
+def operator_part(k) -> dict:
+    """The operator and the capture paths beside the kube phase's first agent
+    (``k``: its daemon, config, apiserver, plain replay and helpers), on the
+    card. Returns the expected pod series after it."""
+    import os
+    import re
+
+    from retina_tpu_torch.capture.k8s_jobs import KubeJobRunner
+    from retina_tpu_torch.capture.manager import CaptureManager
+    from retina_tpu_torch.capture.providers import (
+        ReplayProvider,
+        SocketProvider,
+        TcpdumpProvider,
+        best_provider,
+    )
+    from retina_tpu_torch.capture.translator import synthesize_filter
+    from retina_tpu_torch.common import RetinaEndpoint
+    from retina_tpu_torch.controllers.cache import Cache
+    from retina_tpu_torch.events.schema import F, ip_to_u32, u32_to_ip
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.operator import CRDStore, Operator
+    from retina_tpu_torch.operator.bridge import KubeBridge
+    from retina_tpu_torch.operator.kubeclient import KubeClient
+    from retina_tpu_torch.operator.kubewatch import CoreWatcher
+    from retina_tpu_torch.operator.leaderelection import LeaderElector
+    from retina_tpu_torch.sources.pcapdecode import decode_pcap_bytes, synthesize_pcap
+
+    t_part = time.perf_counter()
+    d, kube, eng, rec, wait = k.d, k.kube, k.d.cm.engine, k.rec, k.wait
+    tmp = k.tmp
+    blob, s3 = FakeStorage("blob"), FakeStorage("s3")
+    aws = {"AWS_ACCESS_KEY_ID": "chip-smoke", "AWS_SECRET_ACCESS_KEY": "chip-smoke-key"}
+    saved = {v: os.environ.get(v) for v in aws}
+    os.environ.update(aws)  # the S3 output's credentials, from the standard variables
+    store = CRDStore()
+    bridge = KubeBridge(store, k.kc, namespace="default", kinds=["Capture"], retry_s=0.5)
+    node_cache = Cache()
+    nodewatch = CoreWatcher(node_cache, k.kc, include_pods=False, include_services=False,
+                            include_nodes=True, retry_s=0.5)
+    elector = LeaderElector(KubeClient(k.kc), identity="chip-smoke-operator",
+                            lease_duration_s=15.0, renew_period_s=1.0)
+    manager = CaptureManager(provider=ReplayProvider(engine=eng))
+    local_s: list[float] = []
+    run_local = manager.run_job
+
+    def timed_local(job):
+        t0 = time.perf_counter()
+        try:
+            return run_local(job)
+        finally:
+            local_s.append(time.perf_counter() - t0)
+
+    manager.run_job = timed_local
+    op = Operator(store, cache=d.cm.cache, node_name=OP_NODE, capture_manager=manager,
+                  status_sink=bridge.patch_status, leading=elector.is_leader,
+                  job_runner=KubeJobRunner(KubeClient(k.kc), image="retina-tpu-torch:smoke",
+                                           poll_s=0.1),
+                  cluster_nodes=node_cache.list_nodes)
+    elector.on_started_leading = op.resync
+    try:
+        nodewatch.start()
+        wait(lambda: len(node_cache.list_nodes()) == KUBE_NODES, "the operator's 8 nodes")
+        elector.start()
+        wait(elector.is_leader, "the operator's Lease")
+        op.start()
+        bridge.start()
+
+        # The Capture: the tier=front pods of the LIST, on three nodes, the
+        # operator's among them, into a host path, a blob container and a bucket.
+        front = [ep for ep in k.plain.index_label_map().values()
+                 if ep.namespace == "default" and ep.labels_dict().get("tier") == "front"]
+        targets = sorted({ep.node for ep in front})
+        check(targets == sorted(OP_FRONT_NODES) and OP_NODE in targets and any(
+            "127.0.0.1" in ep.ips for ep in front), f"kube phase: the front pods' nodes {targets}")
+        want_filter = synthesize_filter([ip for ep in front for ip in ep.ips], OP_FILTER)
+        host_dir = tmp / "captures"
+        output = {"hostPath": str(host_dir), "blobUpload": f"{blob.url}/captures?sig=smoke",
+                  "s3Upload": {"bucket": "smoke", "region": "us-east-1", "endpoint": s3.url}}
+        n_obs = len(eng._observers)
+        t_apply = time.monotonic()
+        kube.add(CAPTURES_RES, capture_cr("grab", "default", {"podSelector": {"tier": "front"}},
+                                          output, tcpdumpFilter=OP_FILTER))
+        wait(lambda: capture_status(kube, "default", "grab").get("phase") == "Running",
+             "the Capture's Running", step=0.005)
+        running_s = time.monotonic() - t_apply
+        wait(lambda: len(eng._observers) > n_obs, "the local capture's window")
+        kops.reset_launch_counts()
+        k.replay(d, k.cfg)
+        want = k.add_sums(k.want, capture_pod_sums(rec, k.names))
+        # The kubelet: one Job a remote node, each pinned there, run once.
+        remote = [n for n in targets if n != OP_NODE]
+        kube.wait(lambda: len(kube.items(JOBS_RES, "default")) == len(remote), KUBE_WAIT_S,
+                  "the remote Jobs")
+        jobs = kube.items(JOBS_RES, "default")
+        for job in jobs:
+            pod = job["spec"]["template"]["spec"]
+            args = pod["containers"][0]["args"]
+            check(job["spec"]["backoffLimit"] == 0 and pod["hostNetwork"]
+                  and args[:2] == ["capture", "create"]
+                  and args[args.index("--filter") + 1] == want_filter
+                  and job["metadata"]["labels"]["retina.sh/capture"] == "grab",
+                  f"kube phase: remote Job {job['metadata']['name']}: {args[:12]}")
+        check(sorted(j["spec"]["template"]["spec"]["nodeName"] for j in jobs) == remote,
+              "kube phase: the Jobs' nodes")
+        for job in jobs:
+            kube.modify(JOBS_RES, dict(job, status={"succeeded": 1}))
+        wait(lambda: capture_status(kube, "default", "grab").get("phase") in (
+            "Completed", "Failed"), "the Capture's end")
+        completed_s = time.monotonic() - t_apply
+        launches = kops.launch_counts()
+        st = capture_status(kube, "default", "grab")
+        check(st["phase"] == "Completed" and st["jobs_completed"] == len(targets)
+              and st["jobs_failed"] == 0, f"kube phase: the Capture's status {st}")
+        for name in OP_KERNELS:
+            check(launches[name] > 0, f"{name} was not launched over the capture's window")
+        check(any(launches[name] for name in KUBE_INGEST),
+              "K7 was not launched over the capture's window")
+
+        # The artifact: exactly the replayed packets that pass the filter, in
+        # each of the three outputs.
+        (art,) = os.listdir(host_dir)
+        data = (host_dir / art).read_bytes()
+        check(blob.store.get(art) == data and s3.store.get(f"retina/captures/{art}") == data,
+              f"kube phase: the artifact {art} is not in the blob container and the bucket")
+        with tarfile.open(host_dir / art) as tf:
+            (member,) = [n for n in tf.getnames() if n.endswith(".pcap")]
+            pcap_bytes = tf.extractfile(member).read()
+        # The filter evaluated here on its own: a host of the selected pods
+        # and the port, on either side.
+        hosts = set(re.findall(r"host ([0-9a-f.:]+)", want_filter))
+        port_no = int(OP_FILTER.split()[1])
+        keep = [r for r in rec
+                if {u32_to_ip(int(r[F.SRC_IP])), u32_to_ip(int(r[F.DST_IP]))} & hosts
+                and port_no in (int(r[F.PORTS]) >> 16, int(r[F.PORTS]) & 0xFFFF)]
+        expect = synthesize_pcap([dict(
+            src_ip=int(r[F.SRC_IP]), dst_ip=int(r[F.DST_IP]), sport=int(r[F.PORTS]) >> 16,
+            dport=int(r[F.PORTS]) & 0xFFFF, proto=int(r[F.META]) >> 24,
+            tcp_flags=(int(r[F.META]) >> 16) & 0xFF,
+            ts_ns=(int(r[F.TS_HI]) << 32) | int(r[F.TS_LO]), tsval=int(r[F.TSVAL]),
+            tsecr=int(r[F.TSECR])) for r in keep])
+        got = decode_pcap_bytes(pcap_bytes).records
+        check(pcap_bytes == expect and 0 < len(got) < len(rec),
+              f"kube phase: the artifact holds {len(got)} packets, the replay's {len(keep)} "
+              f"of {len(rec)} pass the filter")
+        wait(lambda: scraped_pod_sums(k.get("/metrics")) == want,
+             f"the scrape to hold the capture's sums {want}", 30)
+        print(f"kube phase: Capture grab (tier=front: {len(front)} pods on {targets}; filter of "
+              f"{len(hosts)} hosts and {OP_FILTER!r}) Running {running_s:.3f} s and Completed "
+              f"{completed_s:.3f} s after its apply; local capture on {OP_NODE} "
+              f"{local_s[0]:.3f} s on the host, its artifact {art} ({len(data)} bytes) holds the "
+              f"{len(got)} of {len(rec)} replayed packets that pass the filter, in the host path, "
+              f"the blob container and the bucket; {len(jobs)} batch/v1 Jobs on {remote}; the "
+              f"pod series hold the replay's sums; launches over the window {launches}",
+              flush=True)
+
+        # A second Capture on the remote nodes, one Job failing.
+        n_jobs = len(kube.items(JOBS_RES, "default"))
+        kube.add(CAPTURES_RES, capture_cr("grab-fail", "default", {"nodeNames": remote},
+                                          {"hostPath": str(tmp / "fail")}))
+        kube.wait(lambda: len(kube.items(JOBS_RES, "default")) == n_jobs + len(remote),
+                  KUBE_WAIT_S, "the second Capture's Jobs")
+        fresh = [j for j in kube.items(JOBS_RES, "default") if not j.get("status")]
+        for job, outcome in zip(fresh, ("failed", "succeeded")):
+            kube.modify(JOBS_RES, dict(job, status={outcome: 1}))
+        wait(lambda: capture_status(kube, "default", "grab-fail").get("phase") in (
+            "Completed", "Failed"), "the second Capture's end")
+        st2 = capture_status(kube, "default", "grab-fail")
+        check(st2["phase"] == "Failed" and st2["jobs_failed"] == 1
+              and st2["jobs_completed"] == len(remote) - 1,
+              f"kube phase: the second Capture's status {st2}")
+
+        # A RetinaEndpoint CR gives an unlisted address a pod; deleting it
+        # takes the next replay's rows away from that pod.
+        ext = tmp / "ext.pcap"
+        ext.write_bytes(synthesize_pcap([dict(
+            src_ip=ip_to_u32(OP_EXT_IP), dst_ip=ip_to_u32(OP_EXT_IP),
+            sport=int(r[F.PORTS]) >> 16, dport=int(r[F.PORTS]) & 0xFFFF,
+            proto=int(r[F.META]) >> 24, tcp_flags=(int(r[F.META]) >> 16) & 0xFF,
+            ts_ns=(int(r[F.TS_HI]) << 32) | int(r[F.TS_LO])) for r in rec]))
+        rec_ext = decode_pcap_bytes(ext.read_bytes()).records
+        check(ip_to_u32(OP_EXT_IP) not in eng._ident_dict, f"kube phase: {OP_EXT_IP} is listed")
+        store.apply("RetinaEndpoint", RetinaEndpoint(
+            name="ext-0", namespace="default", ips=(OP_EXT_IP,), labels=(("app", "ext"),),
+            node=OP_NODE))
+        wait(lambda: ip_to_u32(OP_EXT_IP) in eng._ident_dict, "the endpoint on the card")
+        k.replay(d, k.cfg, ext, len(rec_ext))
+        want = k.add_sums(want, capture_pod_sums(rec_ext, {OP_EXT_IP: "ext-0"}))
+        wait(lambda: scraped_pod_sums(k.get("/metrics")) == want,
+             f"the scrape to hold ext-0's sums {want}", 30)
+        store.delete("RetinaEndpoint", "ext-0", "default")
+        wait(lambda: ip_to_u32(OP_EXT_IP) not in eng._ident_dict, "the endpoint's removal")
+        k.replay(d, k.cfg, ext, len(rec_ext))
+        k.replay(d, k.cfg)  # then the capture, whose rows go to pod-7: the scrape's clock
+        want = k.add_sums(want, capture_pod_sums(rec, k.names))
+        wait(lambda: scraped_pod_sums(k.get("/metrics")) == want,
+             f"the scrape after the endpoint's deletion {want}", 30)
+        print(f"kube phase: RetinaEndpoint ext-0 ({OP_EXT_IP}) through the operator: a replay "
+              f"of {len(rec_ext)} packets went to its series; after its deletion the next "
+              f"replay's did not; the second Capture Failed with {st2['jobs_failed']} of "
+              f"{len(remote)} Jobs failed", flush=True)
+
+        # The capture verb over the blob container.
+        env = {v: x for v, x in os.environ.items() if not v.startswith(("RETINA_", "BLOB_"))}
+        sas = f"{blob.url}/captures?sig=smoke"
+        dl = tmp / "download"
+
+        def verb(*argv: str) -> str:
+            r = subprocess.run([sys.executable, "-m", "retina_tpu_torch", "capture", *argv,
+                                "--blob-url", sas], cwd=k.root, env=env, capture_output=True,
+                               text=True, timeout=120)
+            check(r.returncode == 0, f"kube phase: capture {argv[0]} exited {r.returncode}: "
+                  f"{r.stderr[-2000:]}")
+            return r.stdout
+
+        listed = verb("list")
+        check(listed.split("\t")[:2] == [art, str(len(data))], f"kube phase: capture list "
+              f"printed {listed!r}")
+        verb("download", "--file", "capture-grab", "--output", str(dl))
+        check((dl / art).read_bytes() == data, "kube phase: capture download's bytes")
+        verb("delete", "--file", "capture-grab")
+        check(blob.store == {}, f"kube phase: capture delete left {sorted(blob.store)}")
+        choice = type(best_provider(engine=eng)).__name__
+        print(f"kube phase: capture list, download and delete over the blob container "
+              f"({art}); best_provider here: {choice} (tcpdump "
+              f"{'found' if TcpdumpProvider.available() else 'absent'}, an AF_PACKET socket "
+              f"{'opened' if SocketProvider.available() else 'refused'}); the operator part "
+              f"{time.perf_counter() - t_part:.1f} s ({k.smi})", flush=True)
+        return want
+    finally:
+        elector.stop()  # releases the Lease
+        for part in (bridge, nodewatch):
+            part._stop.set()
+        kube.hangup()
+        for part in (bridge, nodewatch):
+            part.stop()
+        blob.close()
+        s3.close()
+        for v, x in saved.items():
+            if x is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = x
+
+
+def kube_phase(smi: str):
     """The agent with its identity from a cluster, on the card: a fake
     kube-apiserver on 127.0.0.1 (``FakeKube``) lists KUBE_PODS pods (the
     capture's address, one pod, then ``pod_ip(1..)``), KUBE_SERVICES
@@ -4619,7 +5070,14 @@ def kube_phase() -> None:
     CiliumEndpoints of the same pods: its series from one replay equal the
     first agent's. Last, a child ``python3 -m retina_tpu_torch agent
     --kubeconfig`` answers /metrics with a listed pod's series and exits 0
-    on SIGTERM."""
+    on SIGTERM.
+
+    Before the first agent stops, the operator and the capture paths run
+    beside it (``operator_part``). A child ``python3 -m retina_tpu_torch
+    operator --kubeconfig --leader-elect`` starts with the phase and is given
+    a Capture for a node the cluster lacks, which the reference's operator
+    defers 24 times 5 s before it fails it: the phase returns ``finish``,
+    which checks the child after the next phases."""
     import os
     import shutil
     import signal
@@ -4668,6 +5126,15 @@ def kube_phase() -> None:
 
     kube = FakeKube()
     agents: list = []  # (daemon, its stop event, its thread) of the running agents
+    op_child = None  # the operator child
+    handed_over = False  # the child, the apiserver and the files go to ``finish``
+
+    def close() -> None:
+        if op_child is not None and op_child.poll() is None:
+            op_child.kill()
+            op_child.wait(timeout=30)
+        kube.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
     def start_agent(overrides: dict):
         cfg = load_config(None, overrides=dict(
@@ -4703,18 +5170,19 @@ def kube_phase() -> None:
         check(not t.is_alive(), "kube phase: the agent did not stop")
         agents.remove((d, stop, t))
 
-    def replay_capture(d, cfg) -> None:
-        """The capture once through a second packetparser on the engine's sink."""
+    def replay_capture(d, cfg, path=pcap, n: int = len(rec)) -> None:
+        """A capture (``n`` packets) once through a second packetparser on the
+        engine's sink."""
         eng = d.cm.engine
         src = PacketParserPlugin(dataclasses.replace(cfg, event_source="pcap",
-                                                     pcap_path=str(pcap), pcap_loop=False))
+                                                     pcap_path=str(path), pcap_loop=False))
         src.set_sink(eng.sink)
         src.generate()
         src.compile()
         src.init()
         ev0 = eng.counts.events
         src.start(threading.Event())  # one pass, then it returns
-        wait(lambda: eng.counts.events - ev0 == len(rec), "the capture to be stepped")
+        wait(lambda: eng.counts.events - ev0 == n, "the capture to be stepped")
 
     try:
         # The cluster: the capture's addresses, one pod each, then the bench
@@ -4739,6 +5207,11 @@ def kube_phase() -> None:
                 "status": {"addresses": [{"type": "InternalIP",
                                           "address": f"192.168.0.{n + 1}"}]}}, event=False)
         kc = kube.kubeconfig(tmp / "kubeconfig", token="chip-smoke")
+
+        # The operator as users start it, in its own namespace, from the
+        # start of the phase: the Capture it is given names a node the
+        # cluster lacks, which it defers for two minutes before it fails it.
+        op_child, op_child_t, op_child_log = start_operator_child(kube, kc, root, tmp)
 
         # The plain replay: the port's Cache fed the same documents in order,
         # and the filter's pod references as the metrics module keeps them
@@ -4935,6 +5408,14 @@ def kube_phase() -> None:
               and not eng.lost_events.get("device"), f"kube phase: errors {dict(eng.errors)}, "
               f"lost {dict(eng.lost_events)}")
         print(f"kube phase: launches since ready {launches}", flush=True)
+
+        # The operator and the capture paths beside this agent.
+        import types
+
+        operator_part(types.SimpleNamespace(
+            d=d, cfg=cfg, kube=kube, kc=kc, tmp=tmp, root=root, rec=rec, wait=wait,
+            replay=replay_capture, add_sums=add_sums, want=want3, names=moved_names,
+            plain=plain, get=lambda path: get(port, path), smi=smi))
         stop_agent(*agents[0])
 
         # CiliumEndpoints of the same pods as the identity source.
@@ -4999,12 +5480,25 @@ def kube_phase() -> None:
         print(f"kube phase: python3 -m retina_tpu_torch agent --kubeconfig: a listed pod's "
               f"series on /metrics {child_s:.3f} s after its start; exit {rc} on SIGTERM",
               flush=True)
+        handed_over = True
     finally:
         for a in list(agents):
             stop_agent(*a)
-        kube.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    print(f"kube phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+        if not handed_over:
+            close()
+    print(f"kube phase: {time.perf_counter() - t_phase:.1f} s (the operator child's Capture "
+          f"runs on through the next phases)", flush=True)
+
+    def finish(checked: bool = True) -> None:
+        """The operator child's end, once its Capture's deferrals ran out
+        (``checked=False``: only stop it and clean up)."""
+        try:
+            if checked:
+                stop_operator_child(kube, op_child, op_child_t, op_child_log)
+        finally:
+            close()
+
+    return finish
 
 
 SRC_PACKETS = 1 << 20  # packets of the synthesized capture

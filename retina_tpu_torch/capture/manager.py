@@ -1,6 +1,7 @@
 """Node-side capture manager (copy of retina_tpu/capture/manager.py).
 
-The flow of one capture job: capture packets through the provider, collect
+The flow of one capture job: capture packets through the provider (the
+best available one, ``best_provider``, when none is given), collect
 network metadata (best-effort command dumps), tar.gz everything and ship
 it to every enabled output location.
 """
@@ -15,7 +16,7 @@ import tarfile
 import tempfile
 
 from retina_tpu_torch.capture.outputs import outputs_from_spec
-from retina_tpu_torch.capture.providers import CaptureError
+from retina_tpu_torch.capture.providers import best_provider
 from retina_tpu_torch.capture.translator import CaptureJob
 
 _log = logging.getLogger("retina_tpu_torch.capture.manager")
@@ -38,10 +39,7 @@ class CaptureManager:
 
     def capture_network(self, job: CaptureJob, work_dir: str) -> str:
         """Run the packet capture; returns the capture file's path."""
-        provider = self._provider
-        if provider is None:
-            raise CaptureError("no capture provider: the port has only ReplayProvider, "
-                               "pass it to CaptureManager")
+        provider = self._provider or best_provider()
         stamp = datetime.datetime.now().strftime("%Y%m%d%H%M%S")
         suffix = getattr(provider, "suffix", ".pcap")
         pcap = os.path.join(work_dir, f"{job.job_name()}-{stamp}{suffix}")

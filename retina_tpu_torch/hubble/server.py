@@ -432,8 +432,11 @@ class HubbleServer:
         self._log.info("hubble flow relay on port %d", self.port)
 
     def stop(self, grace: float = 1.0) -> None:
+        """Stop serving and wait until the server has stopped: its streams
+        ended or aborted after ``grace`` seconds. A process that exits
+        while grpc's threads still tear a stream down can abort."""
         self._stop.set()
-        self._server.stop(grace)
+        self._server.stop(grace).wait(grace + 10.0)
 
 
 class HubbleClient:

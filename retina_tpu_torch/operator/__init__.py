@@ -1,13 +1,14 @@
 """Operator: cluster-scoped reconcilers and the cluster plumbing the agent
-shares with them (port of retina_tpu/operator/ but for ``operator.py``).
+shares with them (port of retina_tpu/operator/; reference operator/ +
+pkg/controllers/operator).
 
-The kube client, the core/v1 and CiliumEndpoint watchers, the CRD store
-and its bridges, the CRD self-install and the leader election are here.
-The reference's ``Operator`` (``operator.py``, which runs Captures through
-the capture paths) comes with the capture paths in the next slice
-(ROADMAP §1 item 7).
+The ``Operator`` (``operator.py``) runs Captures through the capture
+paths and reconciles the module CRs and RetinaEndpoints; the kube client,
+the core/v1 and CiliumEndpoint watchers, the CRD store and its bridges,
+the CRD self-install and the leader election are its plumbing.
 """
 
 from retina_tpu_torch.operator.store import CRDStore
+from retina_tpu_torch.operator.operator import Operator
 
-__all__ = ["CRDStore"]
+__all__ = ["CRDStore", "Operator"]

@@ -50,7 +50,14 @@ from retina_tpu.timetravel.dryrun import _keys_from_records, _window_arrays
 from retina_tpu.timetravel.query import QueryService as JQueryService
 from retina_tpu.timetravel.ring import SnapshotRing as JSnapshotRing
 from retina_tpu_torch.capture.manager import CaptureManager
-from retina_tpu_torch.capture.providers import CaptureError, ReplayProvider, _apply_filter
+from retina_tpu_torch.capture.providers import (
+    CaptureError,
+    NetshProvider,
+    ReplayProvider,
+    SocketProvider,
+    TcpdumpProvider,
+    _apply_filter,
+)
 from retina_tpu_torch.capture.translator import CaptureJob, synthesize_filter
 from retina_tpu_torch.config import Config
 from retina_tpu_torch.detect import features, programs
@@ -611,7 +618,7 @@ def test_replay_provider_writes_the_references_pcap(tmp_path):
         ReplayProvider().capture(str(tmp_path / "x.pcap"))
 
 
-def test_capture_manager_runs_a_job_into_a_tarball(tmp_path):
+def test_capture_manager_runs_a_job_into_a_tarball(tmp_path, monkeypatch):
     block = TrafficGen(n_flows=200, n_pods=10, seed=16).batch(4096)
     job = CaptureJob(capture_name="t", namespace="retina", node_name="n1",
                      filter_expr=synthesize_filter(["10.0.0.5"]), duration_s=1, max_size_mb=1,
@@ -627,7 +634,12 @@ def test_capture_manager_runs_a_job_into_a_tarball(tmp_path):
     rows = _decode_pcap_numpy(data).records
     assert len(rows) and all(5 in ((s & 0xFF), (d & 0xFF)) for s, d in
                              zip(rows[:, F.SRC_IP], rows[:, F.DST_IP]))
-    with pytest.raises(CaptureError, match="provider"):
+    # With no provider the manager takes the best available one; where no
+    # tcpdump, netsh or raw socket is available that is a ReplayProvider
+    # with nothing to replay.
+    for cls in (TcpdumpProvider, NetshProvider, SocketProvider):
+        monkeypatch.setattr(cls, "available", staticmethod(lambda: False))
+    with pytest.raises(CaptureError, match="no events"):
         CaptureManager().run_job(job)
     with pytest.raises(RuntimeError, match="output"):
         CaptureManager(ReplayProvider(source=lambda: block)).run_job(

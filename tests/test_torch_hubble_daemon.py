@@ -201,6 +201,10 @@ def test_flow_from_agent_a_visible_via_relay_discovered_from_agent_b(agent_a):
         assert wait_until(lambda: a_addr in relay._connected, 30.0, poll_s=0.1)
         assert wait_until(lambda: relay.observer.flows_seen > 0, 60.0), \
             "no flow crossed from agent A to the relay"
+        # The relay takes A's flows one response at a time: the query below
+        # asks for five, so it waits until five have crossed.
+        assert wait_until(lambda: relay.observer.flows_seen >= 5, 60.0), \
+            f"{relay.observer.flows_seen} flows crossed from agent A to the relay"
         with grpc.insecure_channel(f"127.0.0.1:{relay.port}") as chan:
             got = list(_pb_get_flows(chan)(rpb.GetFlowsRequest(number=5), timeout=10))
         assert len(got) == 5

@@ -106,6 +106,9 @@ MODULES = [
     "retina_tpu_torch.operator.kubewatch", "retina_tpu_torch.operator.store",
     "retina_tpu_torch.operator.bridge", "retina_tpu_torch.operator.cilium",
     "retina_tpu_torch.operator.crdinstall", "retina_tpu_torch.operator.leaderelection",
+    "retina_tpu_torch.operator.operator", "retina_tpu_torch.capture",
+    "retina_tpu_torch.capture.remote", "retina_tpu_torch.capture.managed",
+    "retina_tpu_torch.capture.k8s_jobs",
 ]
 
 
