@@ -295,6 +295,7 @@ import json
 import subprocess
 import sys
 import tarfile
+import tempfile
 import time
 
 import numpy as np
@@ -1164,15 +1165,24 @@ def main() -> int:
     sharded_phase(dev, quanta, pods, smi, equal_any)
     daemon_phase(dev, equal_int, close_counts, close_float, equal_any)
     finish_kube = kube_phase(smi)
+    # The endurance soak runs in a child beside the host-bound phases that
+    # follow (its fault layer is process-global); harness_phase collects it.
+    soak = start_soak_child(tempfile.mkdtemp(prefix="chip_smoke_soak_"))
     try:
-        sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
-        hubble_phase(dev, smi)
-    except BaseException:
-        finish_kube(checked=False)
-        raise
-    finish_kube()  # the kube phase's operator child, its deferrals spent meanwhile
-    fleet_transport_phase(dev, pods, smi)
-    churn_phase(dev, smi)
+        try:
+            sources_phase(dev, smi, equal_int, close_counts, close_float, equal_any)
+            hubble_phase(dev, smi)
+        except BaseException:
+            finish_kube(checked=False)
+            raise
+        finish_kube()  # the kube phase's operator child, its deferrals spent meanwhile
+        fleet_transport_phase(dev, pods, smi)
+        churn_phase(dev, smi)
+        harness_phase(smi, soak, results)
+    finally:
+        if soak[0].poll() is None:
+            soak[0].kill()
+            soak[0].wait()
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from its start to the "
           f"kernels line", flush=True)
@@ -6930,6 +6940,514 @@ def sharded_phase(dev, quanta, pods, smi, equal_any) -> None:
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# -- the agent's own harnesses (harness_phase) -------------------------------
+
+HARNESS_WAIT_S = 120.0  # the bound on each wait of the harness phase
+PROFILE_S = 2.0  # POST /debug/profile?seconds=PROFILE_S on the debug agent
+RATE_S = 2.0  # the debug agent's events/s is read over this before and after the session
+# The hand kernels the debug agent's profile must name, by row of PERF.md's
+# table: their __global__ functions in kernels/csrc.
+PROFILE_KERNELS = {"K1": ("step_rows_kernel",), "K2": ("hh_add", "hh_offer", "hh_write"),
+                   "K5": ("ct_rows", "ct_entries"),
+                   "K7": ("packed_kernel", "new_claim_kernel", "new_write_kernel",
+                          "known_kernel")}
+SOAK_TOTAL_S = 40.0  # run_soak(smoke=True): two 20 s phases, the second with one press
+# The soak's RSS-slope bound at SOAK_TOTAL_S, opened as the reference's own
+# in-process soak test opens it (tests/test_soak_harness.py): at this length
+# the warm-up and the regime switch's step dominate a MB/min slope (the
+# reference at the same schedule on the CPU: 35 MB/min against the default
+# 5). The slope is printed beside the default bound.
+SOAK_RSS_SLOPE_MB_PER_MIN = 10_000.0
+SOAK_CHILD_S = 420.0  # the bound on the soak child, its boot included
+# The kernels the soak's and the scenarios' agents run: K1-K5, K14, K16 and
+# K17 (and K7 by any of its entries, HARNESS_INGEST).
+HARNESS_KERNELS = ("step_rows", "hh_update", "hll_update", "entropy_update", "conntrack",
+                   "latency_update", "window_close", "snapshot_flat")
+HARNESS_INGEST = ("ingest_packed", "ingest_new", "ingest_known")
+PERF_S = 5.0  # run_regression(duration_s=PERF_S)
+
+
+def e2e_scenarios(**overrides):
+    """The six scenarios of ``tests/test_e2e_scenarios.py`` on the port's e2e
+    framework (``retina_tpu_torch.e2e``): [(name, job)], each job a fresh
+    ``Job`` of typed steps that boots its own agent at
+    ``small_agent_config(**overrides)`` and asserts through the agent's
+    HTTP scrape. ``job()`` builds it; ``Runner(job()).run()`` runs it and
+    returns its ctx."""
+    from retina_tpu_torch.e2e import (
+        AssertNoCrashes,
+        BootAgent,
+        InjectRecords,
+        Job,
+        RegisterPods,
+        ScrapeAssert,
+        Step,
+        WaitReady,
+        WaitWarm,
+    )
+    from retina_tpu_torch.e2e.steps import small_agent_config
+    from retina_tpu_torch.events import schema as s
+    from retina_tpu_torch.utils import metric_names as mn
+
+    F = s.F
+    pod_a, pod_b = "10.0.0.10", "10.0.0.20"
+    pods = {"pod-a": pod_a, "pod-b": pod_b}
+
+    def base_records(n, src_ip, dst_ip, proto=s.PROTO_TCP, flags=0x10, bytes_=120):
+        rec = np.zeros((n, s.NUM_FIELDS), np.uint32)
+        rec[:, F.SRC_IP] = s.ip_to_u32(src_ip)
+        rec[:, F.DST_IP] = s.ip_to_u32(dst_ip)
+        rec[:, F.PORTS] = (41000 << 16) | 443
+        rec[:, F.META] = ((proto << 24) | (flags << 16) | (s.OP_FROM_NETWORK << 8)
+                          | (s.DIR_INGRESS << 4))
+        rec[:, F.BYTES] = bytes_
+        rec[:, F.PACKETS] = 1
+        rec[:, F.VERDICT] = s.VERDICT_FORWARDED
+        rec[:, F.EVENT_TYPE] = s.EV_FORWARD
+        return rec
+
+    def cfg(**kw):
+        return small_agent_config(**overrides, **kw)
+
+    def drop():
+        def drops():
+            rec = base_records(70, "10.9.9.9", pod_a)
+            rec[:, F.VERDICT] = s.VERDICT_DROPPED
+            rec[:, F.EVENT_TYPE] = s.EV_DROP
+            rec[:, F.DROP_REASON] = 3  # tcp_connect_basic
+            return rec
+
+        return Job("drop-scenario").add(
+            BootAgent(cfg()), WaitReady(), RegisterPods(pods), InjectRecords(drops),
+            ScrapeAssert(mn.ADV_DROP_COUNT, labels={
+                "reason": "tcp_connect_basic", "podname": "pod-a", "namespace": "default"},
+                value=70.0),
+            ScrapeAssert(mn.ADV_DROP_BYTES, labels={
+                "reason": "tcp_connect_basic", "podname": "pod-a"}, value=70.0 * 120),
+            AssertNoCrashes())
+
+    def dns_flags():
+        def dns():
+            rec = base_records(40, pod_b, "10.96.0.10", proto=s.PROTO_UDP, flags=0)
+            rec[:, F.META] = ((s.PROTO_UDP << 24) | (s.OP_FROM_NETWORK << 8)
+                              | (s.DIR_INGRESS << 4))
+            rec[:, F.SRC_IP] = s.ip_to_u32("10.96.0.10")
+            rec[:, F.DST_IP] = s.ip_to_u32(pod_b)
+            rec[:30, F.EVENT_TYPE] = s.EV_DNS_REQ
+            rec[30:, F.EVENT_TYPE] = s.EV_DNS_RESP
+            rec[:, F.DNS] = 1 << 16  # qtype A
+            rec[:, F.DNS_QHASH] = 0xBEEF
+            return rec
+
+        return Job("dns-flags-scenario").add(
+            BootAgent(cfg()), WaitReady(), RegisterPods(pods), InjectRecords(dns),
+            InjectRecords(lambda: base_records(25, "10.8.8.8", pod_a, flags=s.TCP_SYN)),
+            ScrapeAssert(mn.ADV_DNS_REQUEST_COUNT,
+                         labels={"podname": "pod-b", "query_type": "A"}, value=30.0),
+            ScrapeAssert(mn.ADV_DNS_RESPONSE_COUNT,
+                         labels={"podname": "pod-b", "query_type": "A"}, value=10.0),
+            ScrapeAssert(mn.ADV_TCP_FLAG_COUNTERS, labels={"podname": "pod-a", "flag": "SYN"},
+                         value=lambda v: v >= 25.0),
+            AssertNoCrashes())
+
+    def apiserver_latency():
+        api_ip = "10.96.0.1"
+
+        class SetApiserver(Step):
+            name = "set-apiserver"
+
+            def run(self, ctx):
+                ctx["daemon"].cm.engine.set_apiserver_ips([s.ip_to_u32(api_ip)])
+
+        def echo_pair():
+            # TSval 777 to the apiserver, its echo 31 ts-units (ns >> 20)
+            # later: exponential bucket floor(log2(31 + 1)) = 5, le_ms 31.
+            rec = np.zeros((2, s.NUM_FIELDS), np.uint32)
+            for i, (src, dst, t_ns) in enumerate(((pod_a, api_ip, 4000 << 20),
+                                                  (api_ip, pod_a, 4031 << 20))):
+                rec[i, F.SRC_IP] = s.ip_to_u32(src)
+                rec[i, F.DST_IP] = s.ip_to_u32(dst)
+                rec[i, F.TS_LO] = t_ns & 0xFFFFFFFF
+                rec[i, F.TS_HI] = t_ns >> 32
+                rec[i, F.META] = ((s.PROTO_TCP << 24) | (0x10 << 16)
+                                  | (s.OP_FROM_NETWORK << 8) | (s.DIR_INGRESS << 4))
+                rec[i, F.BYTES] = 60
+                rec[i, F.PACKETS] = 1
+                rec[i, F.VERDICT] = s.VERDICT_FORWARDED
+                rec[i, F.EVENT_TYPE] = s.EV_FORWARD
+            rec[0, F.TSVAL] = 777
+            rec[1, F.TSECR] = 777
+            return rec
+
+        class AssertBucket(Step):
+            name = "assert-le-ms-31"
+
+            def run(self, ctx):
+                sample = ctx["samples"][mn.ADV_API_LATENCY]
+                if sample.labels.get("le_ms") != "31":
+                    from retina_tpu_torch.e2e import StepFailed
+
+                    raise StepFailed(f"latency sample in the wrong bucket: {sample}")
+
+        return Job("latency-scenario").add(
+            BootAgent(cfg()), WaitReady(), RegisterPods(pods), SetApiserver(),
+            InjectRecords(echo_pair),
+            ScrapeAssert(mn.ADV_API_LATENCY, value=lambda v: v >= 1.0, timeout_s=30.0),
+            AssertBucket(), AssertNoCrashes())
+
+    def annotation_opt_in():
+        return Job("annotation-scenario").add(
+            BootAgent(cfg(enable_annotations=True, bypass_lookup_ip_of_interest=False)),
+            WaitReady(),
+            RegisterPods(pods, annotations={"pod-a": {"retina.sh": "observe"}}),
+            InjectRecords(lambda: base_records(50, "10.7.7.7", pod_a)),
+            InjectRecords(lambda: base_records(60, "10.7.7.7", pod_b)),
+            ScrapeAssert(mn.ADV_FORWARD_COUNT, labels={"podname": "pod-a",
+                                                       "namespace": "default"},
+                         value=lambda v: v >= 50.0),
+            # pod-b carries no annotation: its traffic never passes the
+            # card's IPs-of-interest filter, so it has no pod-level series.
+            ScrapeAssert(mn.ADV_FORWARD_COUNT, labels={"podname": "pod-b"}, absent=True),
+            AssertNoCrashes())
+
+    def ddos_entropy_anomaly():
+        c = cfg(window_seconds=0.2)
+        rng = np.random.default_rng(3)
+
+        class DriveWindows(Step):
+            def __init__(self, n_windows: int, attack: bool):
+                self.n_windows, self.attack = n_windows, attack
+                self.name = f"drive-windows:{'attack' if attack else 'normal'}"
+
+            def run(self, ctx):
+                sink = ctx["daemon"].cm.engine.sink
+                for _ in range(self.n_windows):
+                    if self.attack:  # one hot source: src entropy collapses
+                        rec = base_records(3000, "10.66.66.66", pod_a)
+                    else:
+                        rec = base_records(300, "10.7.7.7", pod_a)
+                        rec[:, F.SRC_IP] = rng.integers(0x0A000000, 0x0AFFFFFF, size=len(rec),
+                                                        dtype=np.int64).astype(np.uint32)
+                    sink.write_records(rec, "e2e")
+                    time.sleep(c.window_seconds)
+
+        return Job("ddos-anomaly-scenario").add(
+            BootAgent(c), WaitReady(), WaitWarm(), RegisterPods(pods),
+            DriveWindows(13, attack=False),  # the EWMA's warm-up, min_windows and more
+            ScrapeAssert(mn.ANOMALY_WINDOWS, labels={"dimension": "src_ip"}, absent=True),
+            DriveWindows(4, attack=True),
+            ScrapeAssert(mn.ANOMALY_WINDOWS, labels={"dimension": "src_ip"},
+                         value=lambda v: v >= 1.0, timeout_s=20.0),
+            AssertNoCrashes())
+
+    def tcp_retransmissions():
+        def retrans():
+            rec = base_records(40, "10.8.8.8", pod_b)
+            rec[:, F.EVENT_TYPE] = s.EV_TCP_RETRANS
+            return rec
+
+        return Job("tcp-retrans-scenario").add(
+            BootAgent(cfg()), WaitReady(), RegisterPods(pods), InjectRecords(retrans),
+            ScrapeAssert(mn.ADV_TCP_RETRANS_COUNT,
+                         labels={"podname": "pod-b", "namespace": "default"}, value=40.0),
+            ScrapeAssert(mn.ADV_FORWARD_COUNT,
+                         labels={"podname": "pod-b", "direction": "ingress"}, value=40.0),
+            AssertNoCrashes())
+
+    return [("drop", drop), ("dns_and_flags", dns_flags), ("apiserver_latency",
+            apiserver_latency), ("annotation_opt_in", annotation_opt_in),
+            ("ddos_entropy_anomaly", ddos_entropy_anomaly),
+            ("tcp_retransmissions", tcp_retransmissions)]
+
+
+def start_soak_child(tmp: str):
+    """``chip_smoke.py --soak-child`` (``soak_child``), its output to a log
+    in ``tmp``. Returns (child, log path, start time)."""
+    import os
+
+    log = os.path.join(tmp, "soak.log")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RETINA_")}
+    with open(log, "w") as out:
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--soak-child"],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                                 stdout=out, stderr=subprocess.STDOUT)
+    return child, log, time.monotonic()
+
+
+def soak_child() -> int:
+    """(``chip_smoke.py --soak-child``.) ``run_soak(smoke=True)`` on the card at
+    ``soak_config()`` for SOAK_TOTAL_S: the real ``Daemon`` with the
+    synthetic source, a clean zipf phase and a dns_flood phase under a
+    backpressure press, every sentinel at its default bound but the RSS
+    slope's (SOAK_RSS_SLOPE_MB_PER_MIN). The fault layer it arms is
+    process-global, so it runs alone in this process. The launch counts are
+    set to 0 before the agent boots. Its last line is one JSON
+    object: the scorecard, the launch counts, ``build_stats()`` and the
+    seconds from the call to its return."""
+    import tempfile
+
+    from retina_tpu_torch.kernels import build
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.soak.runner import run_soak, soak_config
+
+    out: dict = {}
+    try:
+        cfg = soak_config(soak_artifact_dir=tempfile.mkdtemp(prefix="chip_smoke_soak_"),
+                          soak_rss_slope_mb_per_min=SOAK_RSS_SLOPE_MB_PER_MIN)
+        kops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_soak(total_s=SOAK_TOTAL_S, smoke=True, cfg=cfg,
+                       log=lambda s: print(s, flush=True))
+        out = {"soak": res, "launches": kops.launch_counts(), "build": build.build_stats(),
+               "seconds": round(time.perf_counter() - t0, 3)}
+    except Exception as e:
+        out["error"] = repr(e)[:2000]
+    print(json.dumps({"soak_child": out}, default=str), flush=True)
+    return 0 if "error" not in out else 1
+
+
+def harness_phase(smi: str, soak, results) -> None:
+    """The agent's own harnesses on the card: the debug API, the e2e
+    scenarios and the agent-overhead harness in this process, then the
+    endurance soak's child (started before the sources phase) collected.
+
+    (a) Debug: a ``Config()`` agent (the synthetic source at 1e6 events/s)
+    on the card. ``GET /debug/trace`` must serve Chrome trace JSON holding
+    the engine's spans; ``POST /debug/profile?seconds=PROFILE_S`` must answer
+    200 with ``torch_trace`` true, and its exported trace must hold kernel
+    events of K1, K2, K5 and K7 (PROFILE_KERNELS); a second POST inside the
+    cooldown must answer 503. The agent's events/s over RATE_S before the
+    POST, over the profiler's start, its trace, its stop and export (the
+    session's marks, ``Daemon.debug.last_marks``) and over RATE_S after it
+    are printed.
+    (b) E2E: the six scenarios (``e2e_scenarios``) through the port's
+    ``Runner`` at ``small_agent_config()`` on the card, each from fresh
+    metric registries as the reference's tests have them (their conftest
+    resets them before each test). (c) Perf: ``run_regression(PERF_S)``
+    with ``default_agent_factory()`` (``Config()`` on the card, the live
+    source on lo); its benchmark, result, regression and the live reader
+    are printed. (d) The soak child's scorecard: ok, every sentinel green,
+    the press phase's ``recovery_seconds`` within its deadline, no build
+    after the first phase, and HARNESS_KERNELS and K7 launched. The launch
+    counts are set to 0 before (a), (b) and (c) and read after each; each
+    must show HARNESS_KERNELS and K7. Each kernel's launches over
+    (a)-(d) go into its row of the kernels line as ``harness_launches``."""
+    import os
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from collections import Counter
+
+    from retina_tpu_torch import exporter, metrics
+    from retina_tpu_torch.config import Config
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.e2e import Runner
+    from retina_tpu_torch.e2e.perf import default_agent_factory, run_regression
+    from retina_tpu_torch.kernels import ops as kops
+    from retina_tpu_torch.obs.debug import TRACE_FILE
+    from retina_tpu_torch.utils import metric_names as mn
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_harness_")
+    total: Counter = Counter()
+
+    def launched(what: str) -> None:
+        counts = kops.launch_counts()
+        total.update(counts)
+        print(f"harness phase: {what} launches {({k: v for k, v in counts.items() if v})}",
+              flush=True)
+        for k in HARNESS_KERNELS:
+            check(counts.get(k, 0) > 0, f"harness phase: {k} was not launched by {what}")
+        check(any(counts.get(k, 0) for k in HARNESS_INGEST),
+              f"harness phase: K7 was not launched by {what}")
+
+    def request(port: int, path: str, method: str = "GET", timeout: float = 120.0):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method=method,
+                                     data=b"" if method == "POST" else None)
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    # (a) the debug API on a Config() agent ----------------------------------
+    cfg = Config(api_server_addr="127.0.0.1:0", profile_artifact_dir=os.path.join(tmp, "prof"))
+    kops.reset_launch_counts()
+    d = Daemon(cfg)
+    eng = d.cm.engine
+    check(eng.device.type == "cuda", f"harness phase: the debug agent runs on {eng.device}")
+    stop = threading.Event()
+    t = threading.Thread(target=d.start, args=(stop,), name="harness-agent", daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + HARNESS_WAIT_S
+        port = None
+        while port is None:
+            check(time.monotonic() < deadline and t.is_alive(),
+                  "harness phase: the debug agent did not come up")
+            if d.cm.server is not None and eng.started.is_set() and eng._events_in > 0:
+                with contextlib.suppress(AssertionError):
+                    port = d.cm.server.port
+            time.sleep(0.05)
+
+        def rate(seconds: float) -> float:
+            e0, t0 = eng._events_in, time.perf_counter()
+            time.sleep(seconds)
+            return (eng._events_in - e0) / (time.perf_counter() - t0)
+
+        spans: set = set()
+        while not {mn.STAGE_DEVICE_STEP, mn.STAGE_WINDOW_CLOSE} <= spans:
+            check(time.monotonic() < deadline, "harness phase: /debug/trace holds no step "
+                  f"and window close spans: {sorted(spans)}")
+            time.sleep(0.2)
+            code, body = request(port, "/debug/trace?last=4000")
+            check(code == 200, f"harness phase: GET /debug/trace answered {code}")
+            doc = json.loads(body)
+            spans = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+        print(f"harness phase: GET /debug/trace: {len(doc['traceEvents'])} events, spans "
+              f"{sorted(spans)}", flush=True)
+        before = rate(RATE_S)
+        # The engine's events read every 20 ms over the POST, then split at
+        # the session's marks: the profiler's start, its trace, its stop
+        # and export, and the rest of the POST (the stack dump, the reply).
+        samples, posted = [], threading.Event()
+
+        def sample():
+            while not posted.is_set():
+                samples.append((time.monotonic(), eng._events_in))
+                time.sleep(0.02)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        time.sleep(0.05)
+        t0 = time.monotonic()
+        code, body = request(port, f"/debug/profile?seconds={PROFILE_S}", "POST")
+        t1 = time.monotonic()
+        time.sleep(0.05)
+        posted.set()
+        sampler.join(10)
+        marks = d.debug.last_marks
+
+        def events_at(t: float) -> int:
+            return max(e for ts, e in samples if ts <= t)
+
+        edges = [("the profiler's start", t0, marks["traced"]),
+                 ("the trace", marks["traced"], marks["stopped"]),
+                 ("the stop and export", marks["stopped"], marks["exported"]),
+                 ("the rest of the POST", marks["exported"], t1)]
+        during = [(what, b - a, (events_at(b) - events_at(a)) / max(b - a, 1e-9))
+                  for what, a, b in edges]
+        after = rate(RATE_S)
+        check(code == 200, f"harness phase: POST /debug/profile answered {code}: {body[:500]}")
+        prof = json.loads(body)
+        check(prof["torch_trace"] is True and prof["seconds"] == PROFILE_S,
+              f"harness phase: the profile session's reply {prof}")
+        path = os.path.join(prof["artifact_dir"], TRACE_FILE)
+        with open(path) as f:
+            trace = json.load(f)
+        kernels = Counter(e["name"] for e in trace["traceEvents"]
+                          if e.get("cat") == "kernel")
+        named = {k: sum(n for name, n in kernels.items() if any(s in name for s in syms))
+                 for k, syms in PROFILE_KERNELS.items()}
+        print(f"harness phase: the profile's trace {os.path.getsize(path)} bytes, "
+              f"{len(trace['traceEvents'])} events, {sum(kernels.values())} kernel events "
+              f"of {len(kernels)} kernels; hand kernels by row {named}; threads "
+              f"{len(prof['threads'])}", flush=True)
+        for k, n in named.items():
+            check(n > 0, f"harness phase: the profile's trace names no {k} kernel "
+                  f"({PROFILE_KERNELS[k]}); kernels {sorted(kernels)[:40]}")
+        code, body = request(port, "/debug/profile?seconds=1", "POST")
+        check(code == 503 and json.loads(body)["error"] == "cooldown",
+              f"harness phase: a second POST inside the cooldown answered {code}: {body[:300]}")
+        print(f"harness phase: debug agent events/s {before:.0f} over {RATE_S} s before the "
+              "POST; over " + "; ".join(f"{what} ({secs:.3f} s) {r:.0f}, {1 - r / before:.1%} "
+                                        "fewer" for what, secs, r in during)
+              + f"; {after:.0f} over {RATE_S} s after; card {smi}", flush=True)
+    finally:
+        stop.set()
+        t.join(60)
+    check(not t.is_alive(), "harness phase: the debug agent did not stop")
+    launched("the debug agent")
+
+    # (b) the six e2e scenarios on the card ------------------------------------
+    kops.reset_launch_counts()
+    walls = {}
+    for name, job in e2e_scenarios():
+        exporter.reset_for_tests()
+        metrics.reset_for_tests()
+        t0 = time.perf_counter()
+        ctx = Runner(job()).run()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        check(ctx["daemon"].cm.engine.device.type == "cuda",
+              f"harness phase: the {name} scenario's agent ran on the CPU")
+    print(f"harness phase: the six scenarios passed through the scrape in "
+          f"{sum(walls.values()):.3f} s: {walls}; card {smi}", flush=True)
+    launched("the e2e scenarios")
+
+    # (c) the agent-overhead harness ---------------------------------------------
+    kops.reset_launch_counts()
+    res = run_regression(duration_s=PERF_S, agent_factory=default_agent_factory)
+    reader = res["agent"]["reader"]
+    print("harness phase: run_regression(duration_s=5): " + json.dumps(
+        {k: res[k] for k in ("benchmark", "result", "regression", "agent", "host_cpus")}),
+        flush=True)
+    print(f"harness phase: the live source on lo read by {reader}, "
+          f"{res['agent']['events_observed']} events observed; pps "
+          f"{res['benchmark']['pps']:.0f} without the agent, {res['result']['pps']:.0f} with "
+          f"it (regression {res['regression']['pps_pct']}%); card {smi}", flush=True)
+    check(reader in ("tpacket_v3_ring", "raw_socket"), f"harness phase: live reader {reader}")
+    check(res["agent"]["events_observed"] > 0, "harness phase: the agent observed no packet")
+    launched("the perf harness's agent")
+
+    # (d) the soak child -----------------------------------------------------------
+    child, log, t_soak = soak
+    try:
+        child.wait(timeout=max(1.0, t_soak + SOAK_CHILD_S - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+        raise CheckFailed("harness phase: the soak child did not end within "
+                          f"{SOAK_CHILD_S} s: {open(log).read()[-3000:]}") from None
+    text = open(log).read()
+    lines = [ln for ln in text.splitlines() if ln.startswith('{"soak_child"')]
+    check(child.returncode == 0 and bool(lines),
+          f"harness phase: the soak child exited {child.returncode}: {text[-4000:]}")
+    out = json.loads(lines[-1])["soak_child"]
+    res, counts = out["soak"], out["launches"]
+    total.update(counts)
+    for ln in text.splitlines():
+        if ln.startswith("soak: "):
+            print(f"harness phase: {ln}", flush=True)
+    press = [p for p in res["phases"] if p["fault_spec"]]
+    print(f"harness phase: soak over {res['total_s']} s ({out['seconds']} s with its boot): "
+          f"{res['events_total']} events, {res['events_total'] / res['total_s']:.0f} events/s; "
+          f"phases {[(p['name'], p['events'], p['window_closes']) for p in res['phases']]}; "
+          f"recovery_seconds {[p['recovery_seconds'] for p in press]}; rss MB "
+          f"{res['rss_mb_series']}; span cost {res['recorder_span_cost_us']} us; launches "
+          f"{({k: v for k, v in counts.items() if v})}; builds {out['build']}; card {smi}",
+          flush=True)
+    sent = res["sentinels"]
+    print(f"harness phase: the soak's post-warmup RSS slope {sent['rss_flat']['value']} MB/min "
+          f"(the default bound {Config().soak_rss_slope_mb_per_min}, open at this length)",
+          flush=True)
+    check(res["ok"] and all(v["ok"] for v in sent.values()),
+          f"harness phase: the soak's sentinels {json.dumps(sent)}")
+    check(len(press) == 1 and press[0]["recovery_seconds"] is not None
+          and press[0]["recovery_seconds"] <= press[0]["recovery_deadline_s"],
+          f"harness phase: the soak's recovery {press}")
+    check(sent["aot_cache"]["value"] == {"errors": 0, "late_misses": 0},
+          f"harness phase: a kernel was built after the soak's first phase: {sent['aot_cache']}")
+    for k in HARNESS_KERNELS:
+        check(counts.get(k, 0) > 0, f"harness phase: {k} was not launched by the soak")
+    check(any(counts.get(k, 0) for k in HARNESS_INGEST),
+          "harness phase: K7 was not launched by the soak")
+    for r in results:
+        r["harness_launches"] = total.get(r["name"], 0)
+    print(f"harness phase: ok in {time.perf_counter() - t_phase:.1f} s (the soak child "
+          f"{out['seconds']} s beside the earlier phases)", flush=True)
+
+
 def sticky_child() -> int:
     """(``chip_smoke.py --sticky-child``.) The lanes (``SketchEngine.start``,
     inline feed) on the card, fed one block through the sink; then the
@@ -7002,4 +7520,6 @@ def sticky_child() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--sticky-child"]:
         sys.exit(sticky_child())
+    if sys.argv[1:] == ["--soak-child"]:
+        sys.exit(soak_child())
     sys.exit(main())

@@ -323,6 +323,30 @@ class Config:
     trace_enabled: bool = True
     trace_sample_every: int = 1  # record 1 span in this many per thread
     trace_ring_spans: int = 4096  # per-thread span ring capacity
+    # POST /debug/profile (obs/debug.py): a torch.profiler session and an
+    # all-thread stack dump land under this dir, the newest
+    # profile_max_artifacts session dirs kept.
+    profile_artifact_dir: str = "/tmp/retina-profile"
+    profile_max_seconds: float = 10.0  # per-session trace length cap
+    profile_cooldown_s: float = 30.0  # min spacing between sessions
+    profile_max_artifacts: int = 4
+
+    # --- the endurance soak harness (soak/) ---
+    # Total soak wall clock for the default rotating schedule of
+    # heavy-tail regimes and injected faults.
+    soak_seconds: float = 1800.0
+    # Per-phase duration; 0 = divide soak_seconds evenly over the
+    # default schedule's phases.
+    soak_phase_seconds: float = 0.0
+    # After a phase's fault spec is cleared, the overload controller must
+    # report NOMINAL within this bound (recovery_seconds in the artifact).
+    soak_recovery_deadline_s: float = 30.0
+    # Post-warmup RSS leak gate: the least-squares slope of the sampled
+    # RSS series must stay under this (MB per minute).
+    soak_rss_slope_mb_per_min: float = 5.0
+    # Flow-descriptor dictionary generation bumps tolerated per phase.
+    soak_fd_generations_per_phase: int = 8
+    soak_artifact_dir: str = "/tmp/retina-soak"  # SOAK_*.json scorecards
 
     def validate(self) -> None:
         """The reference's checks on these fields."""
@@ -456,9 +480,26 @@ class Config:
                   "fleetquery_cache_ttl_s"):
             if getattr(self, f) < 0:
                 raise ValueError(f"{f} must be >= 0, got {getattr(self, f)}")
-        for f in ("trace_sample_every", "trace_ring_spans"):
+        for f in ("soak_seconds", "soak_recovery_deadline_s",
+                  "soak_rss_slope_mb_per_min"):
+            if getattr(self, f) <= 0:
+                raise ValueError(f"{f} must be > 0, got {getattr(self, f)}")
+        if self.soak_phase_seconds < 0:
+            raise ValueError(
+                f"soak_phase_seconds must be >= 0, got {self.soak_phase_seconds}")
+        if self.soak_fd_generations_per_phase < 1:
+            raise ValueError(
+                f"soak_fd_generations_per_phase must be >= 1, "
+                f"got {self.soak_fd_generations_per_phase}")
+        for f in ("trace_sample_every", "trace_ring_spans", "profile_max_artifacts"):
             if getattr(self, f) < 1:
                 raise ValueError(f"{f} must be >= 1, got {getattr(self, f)}")
+        if self.profile_max_seconds <= 0:
+            raise ValueError(
+                f"profile_max_seconds must be > 0, got {self.profile_max_seconds}")
+        if self.profile_cooldown_s < 0:
+            raise ValueError(
+                f"profile_cooldown_s must be >= 0, got {self.profile_cooldown_s}")
         # The legal presets are the generator's own table (a local import:
         # the generator pulls numpy, which a bare Config() must not).
         from retina_tpu_torch.events.synthetic import PRESETS as _gen_presets

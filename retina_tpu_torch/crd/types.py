@@ -7,8 +7,8 @@ Reference analogs:
   namespace include/exclude — reconciled into the running metrics module.
 - Capture (capture_types.go:53-201): targets (node/pod selectors), packet
   filters, duration/size limits, output locations; status conditions
-  (:22-52). The agent's CRD bridge decodes them; the operator that runs
-  them is not ported yet (ROADMAP §1 item 7).
+  (:22-52). The agent's CRD bridge decodes them; the operator
+  (``operator/operator.py``) runs them.
 - TracesConfiguration (tracesconfiguration_types.go:59-125), the
   reference's stub-parity CRD that ``module/traces.py`` compiles into
   matchers.

@@ -33,9 +33,9 @@ takes a shard a local card, at most ``mesh_devices`` of them (0: every card).
 
 A config that turns on a part the port does not have yet raises a
 ``ValueError`` naming its ROADMAP item (:func:`refuse_unported`), never
-starts without it: a multi-process mesh.
-The reference's ``/debug/trace`` and ``/debug/profile`` routes
-(obs/debug.py) are not on the port's agent mux yet either.
+starts without it: a multi-process mesh. The flight recorder's
+``/debug/trace`` and ``/debug/profile`` routes (``obs/debug.py``) ride the
+agent mux beside the query services.
 """
 
 from __future__ import annotations
@@ -191,6 +191,8 @@ class Daemon:
             if (self.fleet_aggregator is not None
                     and self.fleet_aggregator.epoch_ring is not None):
                 self.fleetquery.add_ring(self.fleet_aggregator.epoch_ring)
+        # The debug API (obs/debug.py), attached to the agent mux at start.
+        self.debug = None
         self.monitoragent = None
         self.observer = None
         self.hubble = None
@@ -356,6 +358,14 @@ class Daemon:
         if self.fleetquery is not None and self.cm.server is not None:
             # /fleet/query and the fleetquery debug var, the same shape.
             self.fleetquery.attach(self.cm.server)
+        if self.cm.server is not None:
+            # Flight-recorder debug API (obs/debug.py): GET /debug/trace
+            # and POST /debug/profile, the same attach shape as the query
+            # service; SHEDDING-aware via the engine's controller.
+            from retina_tpu_torch.obs.debug import DebugObservability
+
+            self.debug = DebugObservability(self.cfg, overload=self.cm.engine._overload)
+            self.debug.attach(self.cm.server)
         if self.autocapture is not None:
             self.autocapture.start()
         if self.monitoragent is not None:

@@ -7,6 +7,12 @@ The libraries go to ``.torch_kernels/`` beside the package (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads from disk. Importing this
 module needs neither nvcc nor a card.
+
+``build_stats()`` counts what ``build_all`` found, over the process: a
+hit is a kernel whose library was current on disk, a miss one that nvcc
+compiled, an error a failed nvcc run. They are the port's counterpart of
+the reference's AOT disk-cache counters, which the soak's ``aot_cache``
+sentinel reads: a miss after warm-up means a kernel was rebuilt mid-run.
 """
 
 from __future__ import annotations
@@ -33,6 +39,14 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_stats = {"hits": 0, "misses": 0, "errors": 0}
+_stats_lock = threading.Lock()
+
+
+def build_stats() -> dict[str, int]:
+    """{"hits", "misses", "errors"} of every ``build_all`` in this process."""
+    with _stats_lock:
+        return dict(_stats)
 
 
 def nvcc() -> str:
@@ -84,6 +98,10 @@ def build_all() -> dict[str, Path]:
             failed.append(f"{name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+    with _stats_lock:
+        _stats["hits"] += len(KERNELS) - len(todo)
+        _stats["misses"] += len(todo) - len(failed)
+        _stats["errors"] += len(failed)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {n: library_path(n) for n in KERNELS}

@@ -47,6 +47,9 @@ class PacketParserPlugin(Plugin):
         self.dns_names: dict[int, str] = {}
         self._sock = None
         self._regime_switches = 0
+        # The live source's reader once it runs: "tpacket_v3_ring" or
+        # "raw_socket" (the loop where the ring cannot open).
+        self.live_reader = ""
 
     # -- lifecycle ---------------------------------------------------
     def generate(self) -> None:
@@ -280,6 +283,7 @@ class PacketParserPlugin(Plugin):
             self._sock = None
         self.log.info("live capture via TPACKET_V3 ring (iface=%r)",
                       self.cfg.capture_iface or "all")
+        self.live_reader = "tpacket_v3_ring"
         last_drops = 0
         try:
             while not stop.is_set():
@@ -305,6 +309,7 @@ class PacketParserPlugin(Plugin):
         from retina_tpu_torch.sources.pcapdecode import decode_pcap_bytes
 
         assert self._sock is not None
+        self.live_reader = "raw_socket"
         import socket as socket_mod
         import struct as struct_mod
 

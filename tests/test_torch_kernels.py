@@ -108,7 +108,12 @@ MODULES = [
     "retina_tpu_torch.operator.crdinstall", "retina_tpu_torch.operator.leaderelection",
     "retina_tpu_torch.operator.operator", "retina_tpu_torch.capture",
     "retina_tpu_torch.capture.remote", "retina_tpu_torch.capture.managed",
-    "retina_tpu_torch.capture.k8s_jobs",
+    "retina_tpu_torch.capture.k8s_jobs", "retina_tpu_torch.obs.debug",
+    "retina_tpu_torch.soak", "retina_tpu_torch.soak.schedule",
+    "retina_tpu_torch.soak.sentinels", "retina_tpu_torch.soak.runner",
+    "retina_tpu_torch.e2e", "retina_tpu_torch.e2e.framework",
+    "retina_tpu_torch.e2e.prometheus", "retina_tpu_torch.e2e.steps",
+    "retina_tpu_torch.e2e.perf", "retina_tpu_torch.e2e.kind",
 ]
 
 
@@ -2779,3 +2784,60 @@ def test_close_and_snapshot_on_card_launch_k16_and_k17(card):
     for name in ("hll_flows", "hll_src_per_reason", "hll_src_per_pod"):
         torch.testing.assert_close(snap[name].cpu(), ref_snap[name], rtol=1e-5, atol=0)
     assert int(snap["active_conns"]) == int(ref_snap["active_conns"]) > 0
+
+
+@pytest.mark.gpu
+def test_debug_profile_on_the_card_traces_k1(card, tmp_path):
+    """``POST /debug/profile`` on an agent whose engine runs on the card: the
+    session is a torch.profiler session with the CUDA activity, and its
+    exported trace holds K1's kernel (``step_rows_kernel``), launched by the
+    agent's own threads while records go through the sink."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from retina_tpu_torch.e2e.steps import small_agent_config
+    from retina_tpu_torch.daemon import Daemon
+    from retina_tpu_torch.obs.debug import TRACE_FILE
+
+    cfg = small_agent_config(profile_artifact_dir=str(tmp_path / "prof"))
+    d = Daemon(cfg)
+    assert d.cm.engine.device.type == "cuda"
+    stop = threading.Event()
+    t = threading.Thread(target=d.start, args=(stop,), daemon=True)
+    t.start()
+    gen = TrafficGen(n_flows=2000, n_pods=64, seed=5)
+    try:
+        deadline = time.monotonic() + 300
+        port = None
+        while port is None and time.monotonic() < deadline:
+            if d.cm.server is not None and d.cm.engine.started.is_set():
+                with contextlib.suppress(AssertionError):
+                    port = d.cm.server.port
+            time.sleep(0.05)
+        assert port is not None, "the agent did not come up"
+        feeding = threading.Event()
+
+        def feed():
+            while not feeding.is_set():
+                d.cm.engine.sink.write_records(gen.batch(1 << 10), "test")
+                time.sleep(0.02)
+
+        feeder = threading.Thread(target=feed, daemon=True)
+        feeder.start()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/debug/profile?seconds=1",
+                                     method="POST", data=b"")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.status == 200
+            doc = json.loads(r.read())
+        feeding.set()
+        feeder.join(10)
+    finally:
+        stop.set()
+        t.join(60)
+    assert doc["torch_trace"] is True
+    with open(os.path.join(doc["artifact_dir"], TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert any("step_rows_kernel" in k for k in kernels), sorted(set(kernels))[:30]
